@@ -1,0 +1,182 @@
+"""Structured JSONL event log: the run's flight recorder (the subset serving needs).
+
+Counterpart of ``distributed_training_pytorch_tpu/telemetry/events.py``: the same record
+layout, field names and :data:`SCHEMA_VERSION`, so the JAX package's readers
+(``load_run_events``, the run monitor) read a port run directory as they read their own.
+Each record carries ``event``, ``t_wall``, ``t_mono``, ``process``, ``host``, ``pid``,
+``chips`` and ``schema``, then the event's own fields, one JSON object per line.
+
+Conventions kept from the JAX package:
+
+* only process 0 writes (other processes get a disabled no-op writer);
+* ``t_mono`` is nondecreasing within a process: timestamp and write share one lock;
+* the file is appended to, and a torn last line from a hard kill is newline-terminated
+  on reopen so records never merge;
+* a failed write disables the log with one warning, never raises into the caller.
+
+The process index comes from ``torch.distributed`` (0 when no process group is up), and
+``chips`` lists the CUDA device indices this process sees.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import socket
+import threading
+import time
+from typing import Any
+
+__all__ = [
+    "EventLog",
+    "SCHEMA_VERSION",
+    "claim_attempt",
+    "peek_attempt",
+    "resolve_events_path",
+]
+
+# The JAX package's record-schema version (its history is in that module); the port
+# writes the same vocabulary and stamps the same number.
+SCHEMA_VERSION = 8
+
+
+def _process_index() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _local_chips() -> str:
+    import torch
+
+    return ",".join(str(i) for i in range(torch.cuda.device_count()))
+
+
+def _jsonable(value: Any) -> Any:
+    """Best-effort scalar coercion: numpy/torch scalars -> python, everything
+    non-serializable -> repr (an event must never fail to serialize).
+
+    Non-finite floats become their repr strings ("nan"/"inf"/"-inf"), so the
+    line stays strict JSON."""
+    if isinstance(value, float):
+        return value if math.isfinite(value) else repr(value)
+    if value is None or isinstance(value, (bool, int, str)):
+        return value
+    if isinstance(value, dict):
+        return {str(k): _jsonable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_jsonable(v) for v in value]
+    try:
+        value = float(value)  # numpy / torch 0-d scalars
+    except (TypeError, ValueError):
+        return repr(value)
+    return value if math.isfinite(value) else repr(value)
+
+
+class EventLog:
+    """``EventLog(path).emit("serve_start", port=8080)``.
+
+    ``path=None`` (or a non-zero process index) constructs a disabled no-op writer.
+    """
+
+    def __init__(self, path: "str | None", *, process_index: "int | None" = None):
+        self._path = path
+        self._file = None
+        self._dead = False  # a failed write disables the log permanently
+        proc = _process_index() if process_index is None else process_index
+        self.process = proc
+        self.enabled = path is not None and proc == 0
+        self._host = socket.gethostname()
+        self._chips: "str | None" = None  # resolved at the first enabled emit
+        self._emit_lock = threading.Lock()
+
+    def _open(self):
+        if self._file is None:
+            os.makedirs(os.path.dirname(os.path.abspath(self._path)), exist_ok=True)
+            # Torn-last-line repair: terminate a partial record left by a hard kill
+            # before appending, so two records never merge into one line.
+            try:
+                with open(self._path, "rb") as f:
+                    f.seek(-1, os.SEEK_END)
+                    torn = f.read(1) != b"\n"
+            except (OSError, ValueError):  # missing or empty file
+                torn = False
+            self._file = open(self._path, "a", encoding="utf-8")
+            if torn:
+                self._file.write("\n")
+        return self._file
+
+    def emit(self, event: str, **fields) -> "dict | None":
+        """Append one event record; returns the record dict (or None when
+        disabled). Field values are coerced to JSON-safe scalars."""
+        if not self.enabled or self._dead:
+            return None
+        if self._chips is None:
+            self._chips = _local_chips()
+        with self._emit_lock:
+            record = {
+                "event": str(event),
+                "t_wall": time.time(),
+                "t_mono": time.monotonic(),
+                "process": self.process,
+                "host": self._host,
+                "pid": os.getpid(),
+                "chips": self._chips,
+                "schema": SCHEMA_VERSION,
+            }
+            for key, value in fields.items():
+                record[str(key)] = _jsonable(value)
+            try:
+                f = self._open()
+                f.write(json.dumps(record) + "\n")
+                f.flush()
+            except OSError as e:
+                self._dead = True
+                import warnings
+
+                warnings.warn(f"EventLog disabled — write to {self._path!r} failed: {e}")
+                return None
+        return record
+
+    def close(self) -> None:
+        if self._file is not None:
+            try:
+                self._file.close()
+            except OSError:
+                pass
+            self._file = None  # a later emit() lazily reopens (append mode)
+
+
+def resolve_events_path(run_dir: str) -> str:
+    """Map a run directory to its event-log path (``<run_dir>/telemetry/events.jsonl``),
+    or pass a direct ``.jsonl``/existing-file path through."""
+    if run_dir.endswith(".jsonl") or os.path.isfile(run_dir):
+        return run_dir
+    return os.path.join(run_dir, "telemetry", "events.jsonl")
+
+
+def _attempt_path(run_dir: str) -> str:
+    return os.path.join(run_dir, "telemetry", "attempt")
+
+
+def peek_attempt(run_dir: str) -> int:
+    """The last attempt id claimed for ``run_dir`` (0 when none yet)."""
+    try:
+        with open(_attempt_path(run_dir), encoding="utf-8") as f:
+            return int(f.read().strip() or 0)
+    except (OSError, ValueError):
+        return 0
+
+
+def claim_attempt(run_dir: str) -> int:
+    """Claim the next monotonic attempt id for ``run_dir`` (1, 2, 3, ...). The write is
+    tmp + ``os.replace``, so a crash mid-claim never leaves a torn counter."""
+    sidecar = _attempt_path(run_dir)
+    os.makedirs(os.path.dirname(sidecar), exist_ok=True)
+    attempt = peek_attempt(run_dir) + 1
+    tmp = sidecar + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(f"{attempt}\n")
+    os.replace(tmp, sidecar)
+    return attempt
