@@ -11,13 +11,24 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 2. kernel vs plain: flash-attention forward (``csrc/flash_fwd.cu``) against its plain
    PyTorch version on the card, over causal/non-causal, ``valid_len``, ragged T,
    Tq != Tk, D 8/64/128, f32 and bf16, and the served shapes;
-3. the slice: GPT-2-small at full width (bf16, seeded random weights) behind
+3. backward kernels vs plain: the dq and dk/dv kernels (``csrc/flash_bwd.cu``) against
+   ``flash_attention_bwd_plain`` over the same kinds of cases, Tq != Tk with external
+   lse/delta, and the training shape; then ``flash_attention``'s autograd path against
+   autograd through the plain version;
+4. serving: GPT-2-small at full width (bf16, seeded random weights) behind
    ``InferEngine`` + ``InferenceServer``, 16 ``/predict`` requests of 1024 tokens from 4
    concurrent clients; every answer 200, finite, and close to the plain-attention model's;
-   the kernel's launch count over that run is 12 per forward;
-4. times at the served shapes, with CUDA events: the kernel, its plain version,
-   ``scaled_dot_product_attention`` as a yardstick (the port never calls it), the
-   kernel's bound, and the served requests' p50/p99.
+   the forward kernel's launch count over that run is 12 per forward;
+5. training: the port's LM entry (``examples/train_lm.py``) on byte-level GPT-2-small at
+   full width and depth, T=1024, global batch 64, bf16, on the synthetic byte stream: 2
+   epochs, then a resume from ``last`` for a third; every loss finite, the last epoch's
+   train loss below the first's, ``best``/``last`` valid, the resume continuing the step
+   and epoch, and exactly 12 launches of each kernel per step (plus 12 forward launches
+   per validation forward); the step time (median, CUDA events), tokens/s and peak memory;
+6. times, with CUDA events: each kernel, its plain version, its bound, and the PyTorch
+   call that computes the same function as a yardstick (``scaled_dot_product_attention``
+   forward, and its backward as fwd+bwd minus fwd; the port never calls it), at the
+   training shape and at B=8; and the served requests' p50/p99.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -47,8 +58,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 SERVED_SHAPES = [(1, 1024, 12, 64), (8, 1024, 12, 64)]  # B, T, H, D of GPT-2-small
+TRAIN_SHAPE = (64, 1024, 12, 64)  # byte-level GPT-2-small at global batch 64
 VOCAB, SEQ, DEPTH = 50257, 1024, 12
 N_CLIENTS, REQUESTS_PER_CLIENT = 4, 4
+TRAIN_ENV = {"LM_SIZE": "small", "SEQ_LEN": "1024", "BATCH": "64", "DTYPE": "bf16", "BASE_LR": "3e-4"}
+TRAIN_EPOCHS = 2  # then one resumed epoch
 
 
 def log(msg: str) -> None:
@@ -79,16 +93,30 @@ def time_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, tq, tk, h, d, causal, dtype_name, itemsize):
-    """Least time for the forward on this card: the larger of its FLOPs over the peak of
-    its type and its bytes (q, k, v and o once, lse once) over the memory rate. FLOPs
-    count the (query, key) pairs these inputs need: 2*D for QK^T and 2*D for PV."""
+# Products over the (query, key) pairs, and the [B, T, H, D] tensors and the f32 [B, H, Tq]
+# rows read or written once, of each kernel: fwd reads q, k, v, writes o and lse; dq reads
+# q, k, v, dO, lse, delta, writes dq; dk/dv reads the same and writes dk, dv.
+KERNEL_WORK = {
+    "fwd": {"products": 2, "q_side": 2, "k_side": 2, "rows": 1},
+    "dq": {"products": 3, "q_side": 3, "k_side": 2, "rows": 2},
+    "dkv": {"products": 4, "q_side": 2, "k_side": 4, "rows": 2},
+}
+
+
+def attention_bound(b, tq, tk, h, d, causal, dtype_name, itemsize, kind="fwd"):
+    """Least time for one kernel on this card: the larger of its FLOPs over the peak of
+    its type and its bytes (each input read once, each output written once) over the
+    memory rate. FLOPs count the (query, key) pairs these inputs need, 2*D a product:
+    QK^T and PV forward; QK^T, dO V^T and dS K for dq; QK^T, dO V^T, P^T dO and dS^T Q
+    for dk/dv."""
+    work = KERNEL_WORK[kind]
     if causal:
         pairs = sum(min(i + 1, tk) for i in range(tq))
     else:
         pairs = tq * tk
-    flops = 4.0 * b * h * pairs * d
-    nbytes = (2 * b * tq * h * d + 2 * b * tk * h * d) * itemsize + 4 * b * h * tq
+    flops = 2.0 * work["products"] * b * h * pairs * d
+    nbytes = (work["q_side"] * b * tq * h * d + work["k_side"] * b * tk * h * d) * itemsize
+    nbytes += 4 * work["rows"] * b * h * tq
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
@@ -109,14 +137,21 @@ def phase_device():
     log(f"[device] built {_build.LIBRARY} from {[s.name for s in _build.SOURCES]} "
         f"in {time.perf_counter() - t0:.1f} s")
     # -Xptxas -v: each entry function, then its registers, spills and static shared memory.
+    smem = {
+        "flash_fwd_kernel": lib.dtp_flash_fwd_smem_bytes,
+        "flash_bwd_dq_kernel": lib.dtp_flash_bwd_dq_smem_bytes,
+        "flash_bwd_dkv_kernel": lib.dtp_flash_bwd_dkv_smem_bytes,
+    }
     kernel = ""
     for line in _build.build_log.splitlines():
-        entry = re.search(r"Compiling entry function '\S*?(flash_fwd_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+        entry = re.search(
+            r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line
+        )
         if entry:
             dtype = "float32" if entry.group(2) == "f" else "bfloat16"
             d = int(entry.group(3))
             kernel = (f"{entry.group(1)}<{dtype}, D={d}> "
-                      f"(dynamic smem {lib.dtp_flash_fwd_smem_bytes(d)} B/block)")
+                      f"(dynamic smem {smem[entry.group(1)](d)} B/block)")
         elif "registers" in line or "spill stores" in line:
             report = re.sub(r"^ptxas info\s*:\s*", "", line.strip())
             log(f"[device] {kernel}: {report}")
@@ -136,6 +171,7 @@ KERNEL_CASES = [
     (1, 1024, 1024, 12, 64, True, None, "bfloat16"),  # served, B=1
     (8, 1024, 1024, 12, 64, True, None, "bfloat16"),  # served, B=8
     (8, 1024, 1024, 12, 64, True, None, "float32"),
+    (64, 1024, 1024, 12, 64, True, None, "bfloat16"),  # training
 ]
 # f32: kernel and plain both sum in f32, in other orders over up to 1024 keys.
 # bf16: the same f32 arithmetic on the same bf16 inputs, then o rounded to bf16 on each
@@ -152,16 +188,16 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    served_err = 0.0
+    train_err = 0.0
     for b, tq, tk, h, d, causal, valid_len, dtype_name in KERNEL_CASES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, tk, h, d, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, tk, h, d, device="cuda", generator=gen).to(dtype)
-        before = fa.launches
+        before = fa.launches["fwd"]
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, valid_len=valid_len)
         torch.cuda.synchronize()
-        if fa.launches != before + 1:
+        if fa.launches["fwd"] != before + 1:
             raise RuntimeError("the kernel wrapper did not launch its kernel")
         o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
         err = (o.float() - o_ref.float()).abs().max().item()
@@ -175,9 +211,9 @@ def phase_kernels():
             f"max|lse-plain|={lse_err:.3e} -> {'ok' if ok_o and ok_lse and finite else 'FAIL'}")
         if not (ok_o and ok_lse and finite):
             raise RuntimeError("flash kernel disagrees with its plain version")
-        if (b, tq, h, d, causal, dtype_name) == (8, 1024, 12, 64, True, "bfloat16"):
-            served_err = err
-    return served_err
+        if (b, tq, h, d, causal, dtype_name) == (*TRAIN_SHAPE[:2], *TRAIN_SHAPE[2:], True, "bfloat16"):
+            train_err = err
+    return train_err
 
 
 def phase_slice(run_dir: str):
@@ -243,7 +279,7 @@ def phase_slice(run_dir: str):
         raise RuntimeError("inference server did not start")
     try:
         batches_before = server.batcher.batches
-        fa.launches = 0  # count only the main path's launches from here
+        fa.reset_launches()  # count only this path's launches from here
         threads = [threading.Thread(target=client, args=(ci,), daemon=True) for ci in range(N_CLIENTS)]
         t0 = time.perf_counter()
         for t in threads:
@@ -251,7 +287,7 @@ def phase_slice(run_dir: str):
         for t in threads:
             t.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = fa.launches
+        launches = fa.launches["fwd"]
         forwards = server.batcher.batches - batches_before
         if any(t.is_alive() for t in threads):
             raise RuntimeError("a client did not finish")
@@ -302,28 +338,266 @@ def phase_slice(run_dir: str):
     return launches, {"p50_ms": p50, "p99_ms": p99, "n": len(lat), "server": status}
 
 
+# (B, Tq, Tk, H, D, causal, valid_len, dtype, external lse/delta)
+BWD_CASES = [
+    (2, 197, 197, 3, 64, False, None, "float32", False),  # ragged T, non-causal
+    (2, 1000, 1000, 2, 128, True, None, "float32", False),  # ragged T, causal, D=128
+    (2, 1000, 1000, 4, 8, False, None, "float32", False),  # D=8
+    (1, 130, 130, 4, 8, True, None, "bfloat16", False),
+    (2, 197, 197, 2, 64, False, 150, "bfloat16", False),  # valid_len
+    (2, 197, 197, 2, 128, False, 100, "float32", False),  # valid_len, D=128
+    (1, 96, 40, 2, 16, True, None, "float32", True),  # Tq > Tk, external lse/delta
+    (1, 50, 130, 2, 32, False, None, "bfloat16", True),  # Tq < Tk, external lse/delta
+    (8, 1024, 1024, 12, 64, True, None, "float32", False),
+    (8, 1024, 1024, 12, 64, True, None, "bfloat16", False),
+    (*TRAIN_SHAPE[:2], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], True, None, "bfloat16", False),  # training
+]
+# f32: kernel and plain both sum in f32, in other orders, over up to 1000 keys or queries.
+# bf16: the same f32 arithmetic on the same bf16 inputs, but ds and p are rounded to bf16
+# before their products on each side and may round one ulp (2^-7 relative) apart, and each
+# grad is rounded to bf16 at the end: held to 2e-2 of the grad's largest magnitude.
+BWD_ATOL_F32 = 2e-4
+BWD_REL_BF16 = 2e-2
+
+
+def _grad_err(g, ref):
+    """(max |g - ref|, bound, ok) under the dtype's tolerance."""
+    import torch
+
+    err = (g.float() - ref.float()).abs().max().item()
+    bound = BWD_ATOL_F32 if g.dtype == torch.float32 else BWD_REL_BF16 * ref.float().abs().max().item()
+    return err, bound, bool(torch.isfinite(g.float()).all()) and err <= bound
+
+
+def phase_bwd_kernels():
+    """K2/K3 against the plain backward, then the autograd path; returns the training
+    shape's errors ``{"dq": x, "dkv": x}``."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    train_err = {}
+    for b, tq, tk, h, d, causal, valid_len, dtype_name, external in BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, tk, h, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, tk, h, d, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
+        o, lse = fa.flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
+        delta = None
+        if external:  # a q shard's global statistics, as the ring path passes them
+            lse = lse + 0.5
+            delta = 0.1 * torch.randn(b, h, tq, device="cuda", generator=gen)
+        before = dict(fa.launches)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta)
+        torch.cuda.synchronize()
+        if (fa.launches["bwd_dq"], fa.launches["bwd_dkv"]) != (before["bwd_dq"] + 1, before["bwd_dkv"] + 1):
+            raise RuntimeError("the backward wrappers did not launch their kernels")
+        refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta)
+        results = [_grad_err(g, r) for g, r in zip(grads, refs, strict=True)]
+        ok = all(r[2] for r in results)
+        errs = " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", results, strict=True))
+        log(f"[bwd] B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} valid_len={valid_len} "
+            f"external={external} {dtype_name}: max|grad-plain|/bound {errs} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("flash backward kernels disagree with their plain version")
+        if (b, tq, h, d, causal, dtype_name) == (*TRAIN_SHAPE[:2], *TRAIN_SHAPE[2:], True, "bfloat16"):
+            train_err = {"dq": results[0][0], "dkv": max(results[1][0], results[2][0])}
+        del q, k, v, do, o, lse, grads, refs
+    torch.cuda.empty_cache()
+
+    # The autograd path: flash_attention forward + backward through the kernels against
+    # autograd through the plain version, on strided views as the LM makes them.
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        qkv = torch.randn(2, 300, 3, 4, 64, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(2, 300, 4, 64, device="cuda", generator=gen).to(dtype)
+        grads = []
+        for use_kernel in (True, False):
+            leaf = qkv.clone().requires_grad_()
+            q, k, v = leaf[:, :, 0], leaf[:, :, 1], leaf[:, :, 2]
+            o = fa.flash_attention(q, k, v, causal=True) if use_kernel else fa.flash_attention_plain(q, k, v, causal=True)[0]
+            o.backward(do)
+            grads.append(leaf.grad)
+        err, bound, ok = _grad_err(grads[0], grads[1])
+        log(f"[bwd] autograd flash_attention vs autograd through plain, B=2 T=300 H=4 D=64 causal {dtype_name}: "
+            f"max|grad diff| {err:.3e} (bound {bound:.1e}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("flash_attention's autograd path disagrees with autograd through plain attention")
+    return train_err
+
+
+def phase_train(run_dir: str):
+    """The LM entry at full size: 2 epochs, then a resumed epoch; returns the launch counts
+    of the phase and the step-time figures."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    saved_env = {k: os.environ.get(k) for k in (*TRAIN_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "LM_CORPUS")}
+    os.environ.update(TRAIN_ENV, SAVE_DIR=run_dir)
+    os.environ.pop("LM_CORPUS", None)
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+
+    def instrument(trainer):
+        train_step, validate_step = trainer.train_step, trainer.validate_step
+        train_epoch, validate = trainer.train_epoch, trainer.validate
+
+        def timed_step(state, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = train_step(state, batch)
+            end.record()
+            step_ms.append((start, end))
+            counts["steps"] += 1
+            return out
+
+        def counted_validate_step(state, batch):
+            counts["evals"] += 1
+            return validate_step(state, batch)
+
+        def recorded_train_epoch(epoch):
+            epoch_metrics.append(train_epoch(epoch))
+            return epoch_metrics[-1]
+
+        def recorded_validate():
+            val_metrics.append(validate())
+            return val_metrics[-1]
+
+        trainer.train_step, trainer.validate_step = timed_step, counted_validate_step
+        trainer.train_epoch, trainer.validate = recorded_train_epoch, recorded_validate
+        return trainer
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # count only this path's launches from here
+        t0 = time.perf_counter()
+        os.environ.update(EPOCHS=str(TRAIN_EPOCHS))
+        os.environ.pop("SNAPSHOT", None)
+        first = instrument(train_lm.build_trainer("cuda"))
+        first.train()
+        first_steps, first_epoch = first.state.step, first.cur_epoch
+        del first
+        os.environ.update(EPOCHS=str(TRAIN_EPOCHS + 1), SNAPSHOT="last")
+        resumed = instrument(train_lm.build_trainer("cuda"))
+        resumed_at = (resumed.state.step, resumed.cur_epoch)
+        resumed.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        final_step = resumed.state.step
+        steps_per_epoch = len(resumed.train_dataloader)
+        n_val = len(resumed.val_dataloader)
+        del resumed
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    steady = sorted(times[1:])  # the first step pays cuBLAS and allocator warm-up
+    median_ms = steady[len(steady) // 2]
+    b, t = int(TRAIN_ENV["BATCH"]), int(TRAIN_ENV["SEQ_LEN"])
+    log(f"[train] byte-level GPTSmall (12 x 768, vocab 256), T={t}, global batch {b}, bf16 compute, f32 params, "
+        f"AdamW(0.9, 0.95, wd 0.1), warmup-cosine; {steps_per_epoch} steps/epoch, {n_val} val batch(es)")
+    for i, (m, vm) in enumerate(zip(epoch_metrics, val_metrics, strict=True)):
+        log(f"[train] epoch {i}: val (before training) nll {vm['nll']:.4f}; train loss {m['loss']:.4f} "
+            f"ppl {m['ppl']:.3f}")
+    log(f"[train] {counts['steps']} steps, {counts['evals']} validation forwards in {wall:.1f} s (saves included); "
+        f"step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}, first {times[0]:.2f}); "
+        f"{b * t / median_ms * 1e3:.0f} tokens/s; peak memory {peak_gb:.2f} GB")
+    log(f"[train] launches {launches} over {counts['steps']} steps and {counts['evals']} validation forwards")
+
+    losses = [m["loss"] for m in epoch_metrics] + [m["nll"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    if not epoch_metrics[-1]["loss"] < epoch_metrics[0]["loss"]:
+        raise RuntimeError(f"train loss did not fall: {[m['loss'] for m in epoch_metrics]}")
+    expected = {"fwd": DEPTH * (counts["steps"] + counts["evals"]), "bwd_dq": DEPTH * counts["steps"],
+                "bwd_dkv": DEPTH * counts["steps"]}
+    if launches != expected:
+        raise RuntimeError(f"expected launches {expected} (12 per layer pass), got {launches}")
+    if (first_steps, first_epoch) != (TRAIN_EPOCHS * steps_per_epoch, TRAIN_EPOCHS - 1):
+        raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
+    if resumed_at != (TRAIN_EPOCHS * steps_per_epoch, TRAIN_EPOCHS) or final_step != (TRAIN_EPOCHS + 1) * steps_per_epoch:
+        raise RuntimeError(f"resume at (step, epoch) {resumed_at}, ended at step {final_step}")
+    manager = CheckpointManager(os.path.join(run_dir, "weights"))
+    for name in ("best", "last"):
+        manager.validate(name)  # raises on a missing manifest or a hash mismatch
+    meta = manager.read_meta("last")
+    if (meta["epoch"], meta["step"]) != (TRAIN_EPOCHS + 1, final_step):
+        raise RuntimeError(f"last checkpoint meta {meta}")
+    log(f"[train] best and last valid (SHA-256 manifests); resumed at step {resumed_at[0]}, epoch {resumed_at[1]}; "
+        f"last = epoch {meta['epoch']}, step {meta['step']}")
+    return launches, {"step_ms": median_ms, "tokens_per_s": b * t / median_ms * 1e3, "peak_gb": peak_gb}
+
+
 def phase_times(card: str):
+    """Kernel, plain and library times with CUDA events, and each kernel's bound, at the
+    training shape and the served/B=8 shapes; returns the training shape's rows."""
     import torch
     import torch.nn.functional as F
 
     from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(99)
-    rows = []
-    for b, t, h, d in SERVED_SHAPES:
-        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
-        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        bound_ms, bound_by, flops, nbytes = attention_bound(b, t, t, h, d, True, "bfloat16", 2)
-        rows.append({"shape": [b, t, h, d], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"[times] {card} | flash_fwd B={b} T={t} H={h} D={d} bf16 causal: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
-            f"{bound_ms / ms:.4f} of the bound")
-    return rows
+    rows = {}
+    shapes = [TRAIN_SHAPE] + SERVED_SHAPES[::-1]
+    for b, t, h, d in shapes:
+        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        row = {}
+        if b != 1:  # the backward at the training shape and at B=8
+            lq, lk, lv = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+                torch.autograd.grad(out, (lq, lk, lv), dot)
+
+            def sdpa_fwd_grad():
+                F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+            sdpa_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd_grad)
+            plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, delta=delta),
+                                iters=5)
+            row["dq"] = {
+                "ms": time_ms(lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, causal=True, seq_len=t)),
+                "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+            }
+            row["dkv"] = {
+                "ms": time_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, lse, delta, causal=True, seq_len=t)),
+                "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+            }
+        row["fwd"] = {
+            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5),
+            "library_ms": sdpa_fwd,
+        }
+        for kind, r in row.items():
+            bound_ms, bound_by, flops, nbytes = attention_bound(b, t, t, h, d, True, "bfloat16", 2, kind=kind)
+            r.update(bound_ms=bound_ms, bound_by=bound_by, shape=[b, t, h, d])
+            library = "sdpa backward (dq+dk+dv; fwd+bwd minus fwd)" if kind != "fwd" else "sdpa forward"
+            plain = "plain backward (dq+dk+dv)" if kind != "fwd" else "plain forward"
+            log(f"[times] {card} | flash_{kind if kind == 'fwd' else 'bwd_' + kind} B={b} T={t} H={h} D={d} "
+                f"bf16 causal: kernel {r['ms']:.4f} ms, {plain} {r['plain_ms']:.4f} ms, {library} "
+                f"{r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB), {bound_ms / r['ms']:.4f} of the bound")
+        rows[(b, t, h, d)] = row
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows[TRAIN_SHAPE]
 
 
 def main() -> int:
@@ -343,34 +617,49 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        t_start = time.perf_counter()
         card = phase_device()
-        served_err = phase_kernels()
+        fwd_err = phase_kernels()
+        bwd_err = phase_bwd_kernels()
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
-            launches, serve = phase_slice(run_dir)
+            serve_launches, serve = phase_slice(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            train_launches, train = phase_train(run_dir)
         times = phase_times(card)
         log(f"[times] {card} | served requests: p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms "
             f"over {serve['n']} requests (client clock, HTTP included; p99 is the slowest of so few)")
+        log(f"[times] {card} | training step (B=64, T=1024, bf16): median {train['step_ms']:.2f} ms, "
+            f"{train['tokens_per_s']:.0f} tokens/s, peak memory {train['peak_gb']:.2f} GB")
+        log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
-    b8 = times[-1]
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "distributed_training_pytorch_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "distributed_training_pytorch_tpu/ops/pallas.py:81",
-        "launches": launches,
-        "max_abs_err": served_err,
-        "ms": b8["ms"],
-        "plain_ms": b8["plain_ms"],
-        "bound_ms": b8["bound_ms"],
-        "bound_by": b8["bound_by"],
-        "library_ms": b8["library_ms"],
-        "shape": b8["shape"],
-        "dtype": "bfloat16",
-    }]
+    kernels = []
+    for name, kind, launch_key, replaces, err in (
+        ("flash_fwd", "fwd", "fwd", ":81", fwd_err),
+        ("flash_bwd_dq", "dq", "bwd_dq", ":135", bwd_err["dq"]),
+        ("flash_bwd_dkv", "dkv", "bwd_dkv", ":174", bwd_err["dkv"]),
+    ):
+        r = times[kind]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"distributed_training_pytorch_tpu_torch/csrc/{'flash_fwd.cu' if kind == 'fwd' else 'flash_bwd.cu'}",
+            "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
+            "launches": train_launches[launch_key],
+            "launches_by_path": {"train": train_launches[launch_key],
+                                 "serve": serve_launches if kind == "fwd" else 0},
+            "max_abs_err": err,
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": r["shape"],
+            "dtype": "bfloat16",
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,52 +26,17 @@
 // (distributed_training_pytorch_tpu_torch/ops/_build.py). The C entry point returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 #include <cstdint>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per thread block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 128;  // 4 warps x 16 query rows; 8 lanes share a row
-constexpr float NEG_INF = -1e30f;
-static_assert(BQ == BK, "stage_tile stages BK rows for Q too");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace dtp_flash;
 
 // Dynamic shared memory of one block: Q, K and V tiles in f32 with rows of D + 4, and P.
 constexpr int smem_bytes(int D) {
   return (BQ * (D + 4) + 2 * BK * (D + 4) + BQ * (BK + 1)) * static_cast<int>(sizeof(float));
-}
-
-struct Strides {
-  long long b, t, h;  // element strides of [B, T, H, D]; D has stride 1
-};
-
-// Stage rows [row0, row0 + 64) of one (batch, head) into dst[64][D + 4] as f32, zero past
-// `limit`. Neighbouring threads read neighbouring d: coalesced.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src, Strides s,
-                                           int bi, int hi, int row0, int limit) {
-  constexpr int LD = D + 4;
-  const T* base = src + bi * s.b + hi * s.h;
-  for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    const int row = row0 + r;
-    dst[r * LD + c] = row < limit ? to_f32(base[row * s.t + c]) : 0.f;
-  }
 }
 
 template <typename T, int D>
@@ -80,8 +45,7 @@ __global__ void __launch_bounds__(THREADS)
                      T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
                      Strides sv, Strides so, int H, int Tq, int seq_len, int causal,
                      float scale) {
-  // Row stride D + 4 keeps float4 reads 16-byte aligned and puts the 8 K rows a quarter
-  // warp reads on 8 distinct groups of 4 banks; P's stride BK + 1 spreads its rows.
+  // Rows of D + 4 (see stage_tile); P's stride BK + 1 spreads its rows over the banks.
   constexpr int LD = D + 4;
   constexpr int LP = BK + 1;
   constexpr int DJ = D / 8;  // output columns per thread
@@ -122,27 +86,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(row_base + i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(l8 + 8 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
-    }
+    tile_dot<D>(s, Qs, Ks, row_base, l8);
 
     // Mask, then the online softmax; the 8 lanes that share a row reduce by shuffles.
 #pragma unroll

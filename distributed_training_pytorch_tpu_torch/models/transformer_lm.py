@@ -30,7 +30,7 @@ from distributed_training_pytorch_tpu_torch._device import resolve_device
 from distributed_training_pytorch_tpu_torch.ops import dispatch
 from distributed_training_pytorch_tpu_torch.ops.flash_attention import causal_attention_plain
 
-__all__ = ["DecoderBlock", "GPTSmall", "LMTiny", "TransformerLM"]
+__all__ = ["DecoderBlock", "GPTSmall", "LMTiny", "TransformerLM", "make_fused_lm_loss"]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -204,3 +204,25 @@ def LMTiny(vocab_size: int = 256, dtype: torch.dtype = torch.float32, **kw) -> T
     """Small variant for tests (2 x 32, 4 heads, mlp 64, max_len 128)."""
     kw.setdefault("max_len", 128)
     return TransformerLM(vocab_size, hidden_dim=32, depth=2, num_heads=4, mlp_dim=64, dtype=dtype, **kw)
+
+
+def make_fused_lm_loss(model: TransformerLM):
+    """Engine ``LossFn`` for next-token training through the fused tied-embedding CE
+    (``ops.losses.tied_cross_entropy``): the ``[B, T, V]`` f32 logits never materialise.
+    Counterpart of ``transformer_lm.py::make_fused_lm_loss`` for dense models. Batch
+    contract: ``image`` = input tokens, ``label`` = next tokens, optional ``mask`` ``[B]``
+    pad weights. Metrics: ``loss``, ``nll`` (the same value) and ``ppl``.
+
+    The loss function takes the model it is called with, which may be ``model`` wrapped in
+    ``DistributedDataParallel``: the hidden states come through the wrapper, and the tied
+    embedding from the module under it."""
+    from distributed_training_pytorch_tpu_torch.ops.losses import tied_cross_entropy, weighted_mean
+    from distributed_training_pytorch_tpu_torch.train.state import unwrap
+
+    def loss_fn(net, batch, train: bool):
+        hidden = net(batch["image"], return_hidden=True)
+        nll = tied_cross_entropy(hidden, unwrap(net).embed.weight, batch["label"]).mean(dim=-1)
+        loss = weighted_mean(nll, batch.get("mask"))
+        return loss, {"loss": loss, "nll": loss, "ppl": torch.exp(loss)}
+
+    return loss_fn

@@ -1,10 +1,10 @@
 """Build the package's CUDA kernels with ``nvcc`` at first use and load them with ``ctypes``.
 
 Every source under ``csrc/`` compiles to an object of its own (one ``nvcc`` each, all
-started together), and the objects link into one shared library with a plain C interface,
+started together; ``*.cuh`` headers are shared by them), and the objects link into one shared library with a plain C interface,
 ``build/torch_kernels/libdtp_torch_kernels.so`` under the checkout root. The ``build/``
 rule of the repository's ``.gitignore`` covers that directory, so nothing built is ever
-committed. The library is rebuilt when any source is newer than it.
+committed. The library is rebuilt when any source or header is newer than it.
 
 Nothing here runs at import: the CPU tests import every module, and this machine may have
 no ``nvcc`` at all. ``build_log`` keeps the ``-Xptxas -v`` report (registers, shared memory
@@ -25,6 +25,7 @@ __all__ = ["SOURCES", "LIBRARY", "library", "build_log"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 LIBRARY = _PKG.parent / "build" / "torch_kernels" / "libdtp_torch_kernels.so"
 
 NVCC_FLAGS = [
@@ -41,6 +42,19 @@ _FLASH_FWD_ARGTYPES = (
     [_c.c_void_p] * 5  # q, k, v, o, lse
     + [_c.c_int] * 6  # dtype, B, H, Tq, seq_len, D
     + [_c.c_longlong] * 12  # (b, t, h) element strides of q, k, v, o
+    + [_c.c_int, _c.c_float, _c.c_void_p]  # causal, scale, stream
+)
+_BWD_SIZES = [_c.c_int] * 7  # dtype, B, H, Tq, Tk, seq_len, D
+_FLASH_BWD_DQ_ARGTYPES = (
+    [_c.c_void_p] * 7  # q, k, v, dO, lse, delta, dq
+    + _BWD_SIZES
+    + [_c.c_longlong] * 15  # (b, t, h) element strides of q, k, v, dO, dq
+    + [_c.c_int, _c.c_float, _c.c_void_p]  # causal, scale, stream
+)
+_FLASH_BWD_DKV_ARGTYPES = (
+    [_c.c_void_p] * 8  # q, k, v, dO, lse, delta, dk, dv
+    + _BWD_SIZES
+    + [_c.c_longlong] * 18  # (b, t, h) element strides of q, k, v, dO, dk, dv
     + [_c.c_int, _c.c_float, _c.c_void_p]  # causal, scale, stream
 )
 
@@ -60,7 +74,7 @@ def _stale() -> bool:
     if not LIBRARY.exists():
         return True
     built = LIBRARY.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in SOURCES)
+    return any(src.stat().st_mtime > built for src in SOURCES + HEADERS)
 
 
 def _build() -> str:
@@ -106,7 +120,12 @@ def library(*, rebuild: bool = False) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(LIBRARY))
             lib.dtp_flash_fwd.argtypes = _FLASH_FWD_ARGTYPES
             lib.dtp_flash_fwd.restype = ctypes.c_int
-            lib.dtp_flash_fwd_smem_bytes.argtypes = [ctypes.c_int]
-            lib.dtp_flash_fwd_smem_bytes.restype = ctypes.c_int
+            lib.dtp_flash_bwd_dq.argtypes = _FLASH_BWD_DQ_ARGTYPES
+            lib.dtp_flash_bwd_dq.restype = ctypes.c_int
+            lib.dtp_flash_bwd_dkv.argtypes = _FLASH_BWD_DKV_ARGTYPES
+            lib.dtp_flash_bwd_dkv.restype = ctypes.c_int
+            for fn in ("dtp_flash_fwd_smem_bytes", "dtp_flash_bwd_dq_smem_bytes", "dtp_flash_bwd_dkv_smem_bytes"):
+                getattr(lib, fn).argtypes = [ctypes.c_int]
+                getattr(lib, fn).restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 __all__ = [
     "attention_fn",
     "lm_attention_impl",
+    "pallas_from_env",
     "record",
     "records",
     "reset",
@@ -107,6 +108,21 @@ def attention_fn(model: str, use_flash: Optional[bool], *, causal: bool = False)
         return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
 
     return dispatching_attention
+
+
+def pallas_from_env(env: Optional[dict] = None, *, default: Optional[bool] = None):
+    """The entries' ``PALLAS`` knob: ``"1"`` -> True (the flash path for every call),
+    ``"0"`` -> False (plain attention), unset or empty -> ``default`` (auto)."""
+    if env is None:
+        import os
+
+        env = os.environ
+    raw = env.get("PALLAS", "")
+    if raw == "":
+        return default
+    if raw not in ("0", "1"):
+        raise ValueError(f"PALLAS must be '0' or '1' (got {raw!r})")
+    return raw == "1"
 
 
 def lm_attention_impl(attention_impl: str, pallas: Optional[bool]) -> str:

@@ -1,21 +1,30 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain PyTorch version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels and their plain
+PyTorch versions.
 
 Counterpart of ``distributed_training_pytorch_tpu/ops/pallas.py`` (``flash_attention``,
-``flash_block_fwd``, ``_fwd_kernel`` and ``_causal_plain``). Tensors are ``[B, T, H, D]``
-at every public function, as in the JAX package.
+the custom VJP ``_flash``/``_flash_fwd``/``_flash_bwd``, ``flash_block_fwd``/
+``flash_block_bwd``, the kernels ``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``,
+and ``_causal_plain``). Tensors are ``[B, T, H, D]`` at every public function, as in the
+JAX package; ``lse`` and ``delta`` are ``[B, H, Tq]`` f32.
 
 * :func:`flash_attention` — ``o`` only, square ``q``/``k``/``v``, with the JAX package's
-  guards.
-* :func:`flash_attention_fwd` — the lower function: ``(o, lse)`` with ``lse`` ``[B, H, Tq]``
-  f32 (what a backward pass and a blockwise merge need), and ``Tq`` and ``Tk`` apart.
-* :func:`flash_attention_plain` — the same function in plain PyTorch; the CPU path, and the
-  reference the kernel is held against on the card.
+  guards; differentiable (a ``torch.autograd.Function`` whose backward is the two
+  backward kernels).
+* :func:`flash_attention_fwd` — the lower forward: ``(o, lse)``, ``Tq`` and ``Tk`` apart
+  (what a backward pass and a blockwise merge need). Not differentiable.
+* :func:`flash_attention_bwd` — the lower backward: ``(dq, dk, dv)`` from ``q, k, v, o,
+  lse, do``, ``Tq`` and ``Tk`` apart, with ``delta = rowsum(dO * O)`` computed here or
+  passed in (the ring path passes the global ``lse``/``delta`` of its q shard).
+* :func:`flash_attention_plain` / :func:`flash_attention_bwd_plain` — the same functions
+  in plain PyTorch; the CPU path, and the references the kernels are held against on the
+  card.
 * :func:`causal_attention_plain` — counterpart of ``_causal_plain``: the LM's plain path.
 
-A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel
-(``csrc/flash_fwd.cu``), which is built at the first launch; if the kernel cannot take the
-input or does not launch, the call raises: there is no fallback. ``launches`` counts the
-kernel's launches in this process.
+A CPU tensor goes to the plain version. A CUDA tensor goes to the kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), built at the first launch; if a kernel
+cannot take the input or does not launch, the call raises: there is no fallback.
+``launches`` counts each kernel's launches in this process (``fwd``, ``bwd_dq``,
+``bwd_dkv``); :func:`reset_launches` sets them to 0.
 """
 
 from __future__ import annotations
@@ -28,9 +37,14 @@ __all__ = [
     "NEG_INF",
     "causal_attention_plain",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_plain",
+    "launch_bwd_dkv",
+    "launch_bwd_dq",
     "launches",
+    "reset_launches",
 ]
 
 NEG_INF = -1e30  # the masked logit of the JAX kernel (f32-safe, unlike -inf: no NaN rows)
@@ -38,8 +52,20 @@ NEG_INF = -1e30  # the masked logit of the JAX kernel (f32-safe, unlike -inf: no
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 
-launches = 0
+launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 _launch_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        launches[name] += 1
 
 
 def _check_shapes(q, k, v, valid_len):
@@ -87,22 +113,32 @@ def causal_attention_plain(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def _launch_kernel(q, k, v, causal: bool, seq_len: int):
-    global launches
-    from distributed_training_pytorch_tpu_torch.ops import _build
-
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q, k, v on different devices: {q.device}/{k.device}/{v.device}")
-    if q.dtype not in KERNEL_DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    b, tq, h, d = q.shape
+def _check_kernel_inputs(tensors):
+    """What every kernel wrapper checks before a launch: one CUDA device, one dtype the
+    kernels take, a head dim they are built for, a grid that fits, and a unit D stride
+    (every other stride is read as given)."""
+    dev, dtype = tensors[0][1].device, tensors[0][1].dtype
+    if any(x.device != dev for _, x in tensors):
+        raise ValueError(f"flash kernel inputs on different devices: {[str(x.device) for _, x in tensors]}")
+    if dtype not in KERNEL_DTYPES or any(x.dtype != dtype for _, x in tensors):
+        raise TypeError(
+            f"flash kernel takes float32 or bfloat16 tensors of one dtype, got {[x.dtype for _, x in tensors]}"
+        )
+    b, _, h, d = tensors[0][1].shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
     if b > 65535 or h > 65535:
         raise ValueError(f"flash kernel grid takes B, H <= 65535, got B={b}, H={h}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in tensors:
         if x.stride(3) != 1:
             raise ValueError(f"flash kernel reads {name} with a unit D stride, got strides {x.stride()}")
+
+
+def _launch_kernel(q, k, v, causal: bool, seq_len: int):
+    from distributed_training_pytorch_tpu_torch.ops import _build
+
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v)))
+    b, tq, h, d = q.shape
     o = torch.empty((b, tq, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, tq), device=q.device, dtype=torch.float32)
     if tq == 0:
@@ -118,8 +154,7 @@ def _launch_kernel(q, k, v, causal: bool, seq_len: int):
         )
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
-    with _launch_lock:
-        launches += 1
+    _count("fwd")
     return o, lse
 
 
@@ -138,9 +173,158 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, valid_len: "int | None
     return _launch_kernel(q, k, v, causal, seq_len)
 
 
+def _attention_delta(o, do):
+    """``delta = rowsum(dO * O)`` in f32, ``[B, H, Tq]``: the JAX package computes it in
+    plain XLA outside its kernels (``pallas.py:357``), and so does the port."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len):
+    _check_shapes(q, k, v, valid_len)
+    b, tq, h, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x is not None and (tuple(x.shape) != (b, h, tq) or x.dtype != torch.float32):
+            raise ValueError(f"{name} must be f32 [B, H, Tq] = {(b, h, tq)}, got {x.dtype} {tuple(x.shape)}")
+
+
+def flash_attention_bwd_plain(
+    q, k, v, o, lse, do, *, causal: bool = False, valid_len: "int | None" = None, delta=None
+):
+    """``(dq, dk, dv)`` in plain PyTorch, as ``_bwd_dq_kernel``/``_bwd_dkv_kernel``
+    compute them: ``p = exp(s - lse)`` recomputed from f32 scores under the forward's
+    ``-1e30`` masks, ``dp = dO V^T`` and ``ds = p (dp - delta)`` in f32, then ``ds`` and
+    ``p`` rounded to the input dtype before the ``dq``/``dk`` and ``dv`` products (f32
+    accumulation); ``dq`` and ``dk`` carry the ``D**-0.5`` scale. Grads come back in the
+    input dtype."""
+    _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len)
+    tq, tk, d = q.shape[1], k.shape[1], q.shape[3]
+    t_k = tk if valid_len is None else valid_len
+    scale = d**-0.5
+    if delta is None:
+        delta = _attention_delta(o, do)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    q_idx = torch.arange(tq, device=q.device)[:, None]
+    k_idx = torch.arange(tk, device=q.device)[None, :]
+    mask = k_idx < t_k
+    if causal:
+        mask = mask & (q_idx >= k_idx)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])  # [B, H, Tq, Tk]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_launch_args(q, k, v, do, lse, delta, seq_len: int):
+    """Checks shared by the two backward kernels, and their common C arguments (the f32
+    ``lse``/``delta`` made contiguous, then sizes and strides)."""
+    from distributed_training_pytorch_tpu_torch.ops import _build
+
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)))
+    if lse.device != q.device or delta.device != q.device:
+        raise ValueError(f"lse/delta on {lse.device}/{delta.device}, q on {q.device}")
+    b, tq, h, d = q.shape
+    args = (
+        lse.contiguous(), delta.contiguous(), KERNEL_DTYPES[q.dtype], b, h, tq, k.shape[1], seq_len, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+    )
+    return _build.library(), torch.cuda.current_stream(q.device).cuda_stream, args
+
+
+def launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
+    """K2 on CUDA tensors: ``dq`` from q, k, v, dO and the f32 ``lse``/``delta``
+    ``[B, H, Tq]``; keys at or past ``seq_len`` are masked."""
+    lib, stream, (lse, delta, *sizes_strides) = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    if q.shape[1] == 0:
+        return dq
+    with torch.cuda.device(q.device):
+        err = lib.dtp_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *sizes_strides, *dq.stride()[:3], int(causal), float(q.shape[3] ** -0.5), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash dq kernel launch failed: CUDA error {err}")
+    _count("bwd_dq")
+    return dq
+
+
+def launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
+    """K3 on CUDA tensors: ``(dk, dv)``, the same inputs as :func:`launch_bwd_dq`."""
+    lib, stream, (lse, delta, *sizes_strides) = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
+    dk = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    dv = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    if k.shape[1] == 0:
+        return dk, dv
+    with torch.cuda.device(q.device):
+        err = lib.dtp_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *sizes_strides, *dk.stride()[:3], *dv.stride()[:3],
+            int(causal), float(q.shape[3] ** -0.5), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash dk/dv kernel launch failed: CUDA error {err}")
+    _count("bwd_dkv")
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q, k, v, o, lse, do, *, causal: bool = False, valid_len: "int | None" = None, delta=None
+):
+    """``(dq, dk, dv)`` for the forward ``(o, lse) = flash_attention_fwd(q, k, v, ...)``
+    and the output gradient ``do``; ``Tq`` and ``Tk`` may differ. ``lse`` (and ``delta``,
+    when given) are ``[B, H, Tq]`` f32 and may come from outside, as the ring path's global
+    statistics do; ``delta`` defaults to ``rowsum(do * o)``. CPU tensors take the plain
+    version; CUDA tensors launch the dq kernel and the dk/dv kernel."""
+    _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
+    if delta is None:
+        delta = _attention_delta(o, do)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    seq_len = k.shape[1] if valid_len is None else int(valid_len)
+    dq = launch_bwd_dq(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
+    dk, dv = launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``o = attention(q, k, v)`` whose backward is the flash backward: the counterpart of
+    ``pallas.py::_flash`` with its custom VJP (``_flash_fwd`` saves ``q, k, v, o, lse``;
+    ``_flash_bwd`` computes ``delta`` and runs the dq and dk/dv kernels)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, valid_len):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, valid_len=valid_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.valid_len = valid_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do, causal=ctx.causal, valid_len=ctx.valid_len
+        )
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, valid_len: "int | None" = None):
     """Fused attention on ``[B, T, H, D]`` tensors (scale ``D**-0.5``); ``valid_len`` masks
-    key positions at or past it, for caller-padded sequences (non-causal only)."""
+    key positions at or past it, for caller-padded sequences (non-causal only).
+    Differentiable: the backward runs the flash backward kernels on CUDA tensors and
+    their plain version on CPU tensors."""
     if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected matching [B,T,H,D] q/k/v, got {q.shape}/{k.shape}/{v.shape}")
     if valid_len is not None:
@@ -148,4 +332,4 @@ def flash_attention(q, k, v, *, causal: bool = False, valid_len: "int | None" = 
             raise ValueError("valid_len composes with non-causal attention only")
         if not 0 < valid_len <= q.shape[1]:
             raise ValueError(f"valid_len {valid_len} out of range for T={q.shape[1]}")
-    return flash_attention_fwd(q, k, v, causal=causal, valid_len=valid_len)[0]
+    return _FlashAttention.apply(q, k, v, causal, valid_len)

@@ -41,10 +41,10 @@ def test_kernel_matches_plain(cuda_device, b, tq, tk, h, d, causal, valid_len, d
     q = torch.randn(b, tq, h, d, device=cuda_device, generator=gen).to(dtype)
     k = torch.randn(b, tk, h, d, device=cuda_device, generator=gen).to(dtype)
     v = torch.randn(b, tk, h, d, device=cuda_device, generator=gen).to(dtype)
-    before = fa.launches
+    before = fa.launches["fwd"]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, valid_len=valid_len)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches["fwd"] == before + 1
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
     # f32: both sum in f32, in other orders. bf16: the same f32 arithmetic, then one
     # rounding of o to bf16 each side, which may land one bf16 ulp apart (2^-7 relative).

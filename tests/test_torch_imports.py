@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch/CUDA port: it imports neither JAX nor any module of the
 JAX package ``distributed_training_pytorch_tpu`` (whose name is a prefix of the port's,
 so module names are matched exactly or by ``name + "."``), and importing it initialises
-no CUDA context and builds nothing. ``chip_smoke.py`` and
-``scripts/torch_serve_profile.py`` run where the card is, beside the port, and are held to
-the same rule."""
+no CUDA context and builds nothing. ``chip_smoke.py``, ``scripts/torch_serve_profile.py``
+and ``scripts/torch_train_profile.py`` run where the card is, beside the port, and are
+held to the same rule."""
 
 import ast
 import os
@@ -13,6 +13,17 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "distributed_training_pytorch_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distributed_training_pytorch_tpu")
+# Every module of the port, by slice; each must import in the probe below.
+PORT_MODULES = [
+    # LM serving
+    "models.convert", "models.transformer_lm", "ops.dispatch", "ops.flash_attention", "ops._build",
+    "serving.batcher", "serving.client", "serving.engine", "serving.server", "telemetry.events",
+    "telemetry.exporter",
+    # LM training
+    "ops.losses", "ops.schedules", "precision.policy", "train.state", "train.engine", "data.dataset",
+    "data.loader", "data.transforms", "parallel.mesh", "checkpoint.manager", "utils.logger",
+    "trainer.trainer", "examples.train_lm",
+]
 
 _PROBE = f"""
 import importlib, json, pkgutil, sys
@@ -45,7 +56,7 @@ def test_importing_the_port_pulls_no_jax():
 
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in probe["modules"] if _forbidden(m)] == []
-    assert f"{PORT}.serving.server" in probe["modules"]
+    assert [m for m in PORT_MODULES if f"{PORT}.{m}" not in probe["modules"]] == []
     assert probe["cuda_initialized"] is False
     assert probe["kernels_loaded"] is False
 
@@ -57,6 +68,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "scripts", "torch_serve_profile.py")
+    yield os.path.join(REPO, "scripts", "torch_train_profile.py")
 
 
 def test_no_source_of_the_port_imports_jax():
