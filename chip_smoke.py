@@ -28,7 +28,23 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 6. times, with CUDA events: each kernel, its plain version, its bound, and the PyTorch
    call that computes the same function as a yardstick (``scaled_dot_product_attention``
    forward, and its backward as fwd+bwd minus fwd; the port never calls it), at the
-   training shape and at B=8; and the served requests' p50/p99.
+   training shape and at B=8; and the served requests' p50/p99;
+7. (A) the fused 1x1-conv kernel (``csrc/conv1x1_bn_act.cu``) against its plain version
+   on the card: f32 (TF32 off) and bf16, identity/relu/gelu epilogues, random scale and
+   bias with zero scales, row counts off the tile, Cin -> Cout from 24 -> 16 to
+   768 -> 3072, ResNet-50's nine shapes at batch 256, a strided channels-last view, and
+   the autograd backward against autograd through the plain version;
+8. (B) ResNet-50 training: the port's ImageNet entry (``examples/train_imagenet.py``) at
+   224x224, 1000 classes, global batch 256, bf16 model with f32 params, ``PALLAS=1``, on a
+   synthetic set capped to 3 steps an epoch: 2 epochs, then a resume from ``last`` for a
+   third; every loss finite, the running statistics moved, the resume continuing the step
+   and epoch, exactly 9 kernel launches per train step and per val forward, and the
+   trained model's logits finite and close to the same weights through cuDNN's 1x1
+   convolutions; the step time (median, CUDA events), images/s, peak memory and the
+   device's busy share of the resumed epoch; then the same steps timed with ``PALLAS=1``
+   and ``PALLAS=0`` in turns;
+9. times of the 1x1 kernel at ResNet-50's nine shapes: kernel, plain, bound, and the
+   faster of ``torch.matmul`` and a channels-last 1x1 ``F.conv2d`` as the yardstick.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -102,6 +118,36 @@ KERNEL_WORK = {
     "dkv": {"products": 4, "q_side": 2, "k_side": 4, "rows": 2},
 }
 
+# ResNet-50's 1x1 convolutions that the kernel takes at 224x224 (input at least 56 high),
+# at global batch 256: (name, Cin, Cout, stride) on a [256, Cin, 56, 56] input.
+RESNET_BATCH = 256
+RESNET_K4_SHAPES = [
+    ("s1b0_reduce", 64, 64, 1),
+    ("s1b0_expand", 64, 256, 1),
+    ("s1b0_shortcut", 64, 256, 1),
+    ("s1b1_reduce", 256, 64, 1),
+    ("s1b1_expand", 64, 256, 1),
+    ("s1b2_reduce", 256, 64, 1),
+    ("s1b2_expand", 64, 256, 1),
+    ("s2b0_reduce", 256, 128, 1),
+    ("s2b0_shortcut", 256, 512, 2),
+]
+RESNET_ENV = {"MODEL": "resnet50", "IMAGE_SIZE": "224", "BATCH": str(RESNET_BATCH), "PALLAS": "1",
+              "STEPS_PER_EPOCH": "3", "SHIP_UINT8": "1"}
+RESNET_RECORDS, RESNET_VAL_RECORDS = 3 * RESNET_BATCH, RESNET_BATCH  # 3 steps, 1 val batch
+RESNET_EPOCHS = 2  # then one resumed epoch
+
+
+def conv1x1_bound(rows, cin, cout, dtype_name="bfloat16", itemsize=2):
+    """Least time for one 1x1 launch: the larger of its FLOPs (2 N Cin Cout) over the peak
+    of its type and its bytes (x read once, the output written once, w, scale and bias)
+    over the memory rate."""
+    flops = 2.0 * rows * cin * cout
+    nbytes = (rows * cin + rows * cout + cin * cout) * itemsize + 2 * cout * 4
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
+
 
 def attention_bound(b, tq, tk, h, d, causal, dtype_name, itemsize, kind="fwd"):
     """Least time for one kernel on this card: the larger of its FLOPs over the peak of
@@ -147,7 +193,15 @@ def phase_device():
         entry = re.search(
             r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line
         )
-        if entry:
+        conv = re.search(
+            r"Compiling entry function '\S*?conv1x1_bn_act_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Lb([01])E", line
+        )
+        if conv:
+            names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+            out_type = names.get(conv.group(2), names[conv.group(1)])  # S<n>_: the input type again
+            kernel = (f"conv1x1_bn_act_kernel<{names[conv.group(1)]} -> {out_type}, "
+                      f"16-byte loads={conv.group(3) == '1'}>")
+        elif entry:
             dtype = "float32" if entry.group(2) == "f" else "bfloat16"
             d = int(entry.group(3))
             kernel = (f"{entry.group(1)}<{dtype}, D={d}> "
@@ -430,6 +484,41 @@ def phase_bwd_kernels():
     return train_err
 
 
+def _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics):
+    """Wrap a trainer's hooks: CUDA events around each train step (into ``step_ms``),
+    counts of train steps and validation forwards, and each epoch's train and val
+    metrics."""
+    import torch
+
+    train_step, validate_step = trainer.train_step, trainer.validate_step
+    train_epoch, validate = trainer.train_epoch, trainer.validate
+
+    def timed_step(state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(state, batch)
+        end.record()
+        step_ms.append((start, end))
+        counts["steps"] += 1
+        return out
+
+    def counted_validate_step(state, batch):
+        counts["evals"] += 1
+        return validate_step(state, batch)
+
+    def recorded_train_epoch(epoch):
+        epoch_metrics.append(train_epoch(epoch))
+        return epoch_metrics[-1]
+
+    def recorded_validate():
+        val_metrics.append(validate())
+        return val_metrics[-1]
+
+    trainer.train_step, trainer.validate_step = timed_step, counted_validate_step
+    trainer.train_epoch, trainer.validate = recorded_train_epoch, recorded_validate
+    return trainer
+
+
 def phase_train(run_dir: str):
     """The LM entry at full size: 2 epochs, then a resumed epoch; returns the launch counts
     of the phase and the step-time figures."""
@@ -447,33 +536,7 @@ def phase_train(run_dir: str):
     counts = {"steps": 0, "evals": 0}
 
     def instrument(trainer):
-        train_step, validate_step = trainer.train_step, trainer.validate_step
-        train_epoch, validate = trainer.train_epoch, trainer.validate
-
-        def timed_step(state, batch):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = train_step(state, batch)
-            end.record()
-            step_ms.append((start, end))
-            counts["steps"] += 1
-            return out
-
-        def counted_validate_step(state, batch):
-            counts["evals"] += 1
-            return validate_step(state, batch)
-
-        def recorded_train_epoch(epoch):
-            epoch_metrics.append(train_epoch(epoch))
-            return epoch_metrics[-1]
-
-        def recorded_validate():
-            val_metrics.append(validate())
-            return val_metrics[-1]
-
-        trainer.train_step, trainer.validate_step = timed_step, counted_validate_step
-        trainer.train_epoch, trainer.validate = recorded_train_epoch, recorded_validate
-        return trainer
+        return _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics)
 
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -600,6 +663,366 @@ def phase_times(card: str):
     return rows[TRAIN_SHAPE]
 
 
+# (rows, Cin, Cout, act, dtype): rows off the 128-row tile (70, 6,275), Cin and Cout off
+# the 32/64 tiles and the 16-byte loads (24 -> 16, 20 -> 10), ResNet's and ConvNeXt-L's
+# expand (768 -> 3072, gelu) channel counts.
+CONV1X1_CASES = [
+    (70, 24, 16, "relu", "float32"),
+    (6275, 64, 256, None, "float32"),
+    (6275, 256, 64, "gelu", "float32"),
+    (6275, 256, 128, "relu", "float32"),
+    (6275, 768, 3072, "gelu", "float32"),
+    (70, 24, 16, None, "bfloat16"),
+    (1001, 20, 10, "relu", "bfloat16"),
+    (6275, 64, 256, "gelu", "bfloat16"),
+    (6275, 256, 128, "relu", "bfloat16"),
+    (6275, 768, 3072, "gelu", "bfloat16"),
+]
+# f32: both sides sum at most 768 products of O(1) terms in f32 (the plain version on
+# cuBLAS with TF32 off), in other orders: 1e-5, the JAX package's bound
+# (tests/test_pallas.py). bf16: the same f32 sums of the same bf16 products, then one
+# rounding to bf16 on each side, which may land one bf16 ulp (2^-7 relative) apart: 2e-2
+# of the output's largest magnitude. Gradients: f32 2e-4 (tests/test_pallas.py), bf16 2e-2
+# of the largest magnitude (dx and dw are bf16 GEMM outputs on both sides).
+CONV1X1_ATOL_F32 = 1e-5
+CONV1X1_GRAD_ATOL_F32 = 2e-4
+CONV1X1_REL_BF16 = 2e-2
+
+
+def _conv1x1_inputs(gen, rows, cin, cout, dtype, zero_scale=True):
+    """x ~ N(0, 1), w ~ N(0, 1/Cin) (so the products sum to O(1)), scale in [0.5, 1.5) with
+    every third channel 0 (a zero-init BN gamma folds to a zero scale), bias ~ N(0, 1)."""
+    import torch
+
+    x = torch.randn(rows, cin, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(dtype)
+    scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+    if zero_scale:
+        scale[::3] = 0.0
+    bias = torch.randn(cout, device="cuda", generator=gen)
+    return x, w, scale, bias
+
+
+def _err_bound(got, ref, atol_f32):
+    """(max |got - ref|, its bound): ``atol_f32`` for f32, else a share of ref's largest
+    magnitude."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    bound = atol_f32 if got.dtype == torch.float32 else CONV1X1_REL_BF16 * ref.float().abs().max().item()
+    return err, bound
+
+
+def phase_conv1x1():
+    """Phase A: K4 against its plain version on the card; returns the largest error over
+    ResNet-50's nine bf16 shapes at batch 256."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+
+    def check(label, x, w, scale, bias, act):
+        before = k4.launches["conv1x1_bn_act"]
+        y = k4.conv1x1_bn_act(x, w, scale, bias, act=act)
+        torch.cuda.synchronize()
+        if k4.launches["conv1x1_bn_act"] != before + 1:
+            raise RuntimeError("the conv1x1 wrapper did not launch its kernel")
+        ref = k4.conv1x1_bn_act_plain(x, w, scale, bias, act=act)
+        err, bound = _err_bound(y, ref, CONV1X1_ATOL_F32)
+        ok = err <= bound and bool(torch.isfinite(y.float()).all()) and y.shape == ref.shape and y.dtype == ref.dtype
+        log(f"[conv1x1] {label}: max|y-plain|={err:.3e} (bound {bound:.1e}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("conv1x1 kernel disagrees with its plain version")
+        return err
+
+    for rows, cin, cout, act, dtype_name in CONV1X1_CASES:
+        x, w, scale, bias = _conv1x1_inputs(gen, rows, cin, cout, getattr(torch, dtype_name))
+        check(f"N={rows} {cin}->{cout} act={act} {dtype_name}", x, w, scale, bias, act)
+
+    # ResNet-50's nine shapes at batch 256, identity epilogue, on channels-last NHWC views:
+    # the stride-2 shortcut reads x[:, :, ::2, ::2] of its input in place.
+    worst = 0.0
+    for name, cin, cout, stride in RESNET_K4_SHAPES:
+        full = torch.randn(RESNET_BATCH, cin, 56, 56, device="cuda", generator=gen).to(torch.bfloat16)
+        full = full.contiguous(memory_format=torch.channels_last)
+        x = full[:, :, ::stride, ::stride].permute(0, 2, 3, 1)
+        w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(torch.bfloat16)
+        ones, zeros = torch.ones(cout, device="cuda"), torch.zeros(cout, device="cuda")
+        label = f"resnet50 {name} [{RESNET_BATCH}, {56 // stride}, {56 // stride}, {cin}] -> {cout} bf16"
+        worst = max(worst, check(label + (" (strided view)" if stride > 1 else ""), x, w, ones, zeros, None))
+        del full, x
+        torch.cuda.empty_cache()
+
+    # The autograd path: conv1x1_bn_act_diff through the kernel against autograd through
+    # the plain version, on a strided channels-last view, every epilogue, both affine modes.
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for act in (None, "relu", "gelu"):
+            for affine_grads in (False, True):
+                full = torch.randn(4, 64, 30, 30, device="cuda", generator=gen).to(dtype)
+                full = full.contiguous(memory_format=torch.channels_last)
+                _, w, scale, bias = _conv1x1_inputs(gen, 1, 64, 96, dtype)
+                g = torch.randn(4, 15, 15, 96, device="cuda", generator=gen).to(dtype)
+                grads = []
+                for use_kernel in (True, False):
+                    leaves = [t.clone().requires_grad_() for t in (full, w, scale, bias)]
+                    x = leaves[0][:, :, ::2, ::2].permute(0, 2, 3, 1)
+                    if use_kernel:
+                        y = k4.conv1x1_bn_act_diff(x, *leaves[1:], act=act, affine_grads=affine_grads)
+                    else:
+                        y = k4.conv1x1_bn_act_plain(x, *leaves[1:], act=act)
+                    y.backward(g)
+                    grads.append([t.grad for t in leaves])
+                results = []
+                for name, got, ref in zip(("x", "w", "scale", "bias"), *grads, strict=True):
+                    if name in ("scale", "bias") and not affine_grads:
+                        results.append((name, float(got.abs().max()), 0.0))  # declared constant: zeros
+                        continue
+                    results.append((name, *_err_bound(got, ref, CONV1X1_GRAD_ATOL_F32)))
+                ok = all(e <= b for _, e, b in results)
+                errs = " ".join(f"d{n}={e:.2e}/{b:.1e}" for n, e, b in results)
+                log(f"[conv1x1] autograd vs plain, [4, 15, 15, 64] strided -> 96 act={act} affine_grads={affine_grads} "
+                    f"{dtype_name}: {errs} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError("conv1x1_bn_act_diff's backward disagrees with autograd through the plain version")
+    return worst
+
+
+def _images_per_s(batch, ms):
+    return batch / ms * 1e3
+
+
+def phase_resnet(run_dir: str):
+    """Phase B: ResNet-50 through the port's ImageNet entry with PALLAS=1: 2 epochs, then a
+    resumed epoch under the profiler; returns the kernel's launches and the figures."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.examples import train_imagenet
+    from distributed_training_pytorch_tpu_torch.models import ResNet50
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+
+    torch.backends.cudnn.allow_tf32 = True  # the entry's own settings: bf16 convolutions
+    torch.cuda.empty_cache()
+    keys = (*RESNET_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "DTYPE", "NUM_CLASSES", "IMAGENET_RECORDS", "VAL_RECORDS")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RESNET_ENV, SAVE_DIR=run_dir)
+    for k in ("DTYPE", "NUM_CLASSES", "IMAGENET_RECORDS", "VAL_RECORDS"):
+        os.environ.pop(k, None)
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+
+    def build():
+        trainer = train_imagenet.build_trainer(
+            "cuda", synthetic_records=RESNET_RECORDS, synthetic_val_records=RESNET_VAL_RECORDS
+        )
+        return _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics)
+
+    try:
+        os.environ.update(EPOCHS=str(RESNET_EPOCHS))
+        os.environ.pop("SNAPSHOT", None)
+        first = build()
+        stats_before = {k: v.clone() for k, v in first.model.state_dict().items() if "running_" in k}
+        torch.cuda.reset_peak_memory_stats()
+        k4.reset_launches()  # count only this path's launches from here
+        t0 = time.perf_counter()
+        first.train()
+        first_steps, first_epoch = first.state.step, first.cur_epoch
+        stats_moved = sum(
+            int(not torch.equal(v, stats_before[k])) for k, v in first.model.state_dict().items() if k in stats_before
+        )
+        del first
+        os.environ.update(EPOCHS=str(RESNET_EPOCHS + 1), SNAPSHOT="last")
+        resumed = build()
+        resumed_at = (resumed.state.step, resumed.cur_epoch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_epoch = time.perf_counter()
+            resumed.train()
+            torch.cuda.synchronize()
+            epoch_wall_us = (time.perf_counter() - t_epoch) * 1e6
+        wall = time.perf_counter() - t0
+        launches = k4.launches["conv1x1_bn_act"]
+        final_step = resumed.state.step
+        steps_per_epoch = len(resumed.train_dataloader)
+        n_val = len(resumed.val_dataloader)
+        model = resumed.model
+        val_batch = next(iter(resumed.val_dataloader))
+        images = resumed.to_device(val_batch)["image"].permute(0, 3, 1, 2)[:32]
+        del resumed
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy = kernel_us / epoch_wall_us if kernel_us else None
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    # The first step of each epoch follows validation and a save: cold caches and allocator.
+    steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)
+    median_ms = steady[len(steady) // 2]
+    log(f"[resnet] ResNet-50 (25.6 M params), 224x224, 1000 classes, global batch {RESNET_BATCH}, bf16 compute, "
+        f"f32 params, SGD(0.9, wd 1e-4), warmup-cosine, PALLAS=1; {steps_per_epoch} steps/epoch, {n_val} val batch(es)")
+    for i, (m, vm) in enumerate(zip(epoch_metrics, val_metrics, strict=True)):
+        log(f"[resnet] epoch {i}: val (before training) ce {vm['ce_loss']:.4f} acc {vm['accuracy']:.4f}; "
+            f"train ce {m['ce_loss']:.4f} acc {m['accuracy']:.4f}")
+    log(f"[resnet] {counts['steps']} steps, {counts['evals']} validation forwards in {wall:.1f} s (data and saves "
+        f"included); step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}; all "
+        f"{[round(t, 2) for t in times]}); {_images_per_s(RESNET_BATCH, median_ms):.0f} images/s; peak memory "
+        f"{peak_gb:.2f} GB")
+    log(f"[resnet] resumed epoch ({steps_per_epoch} steps, 1 val forward, host data and the save included): wall "
+        f"{epoch_wall_us / 1e3:.1f} ms, kernel time {kernel_us / 1e3:.1f} ms, device busy share "
+        f"{'not measured' if busy is None else f'{busy:.4f}'}")
+    log(f"[resnet] conv1x1 launches {launches} over {counts['steps']} steps and {counts['evals']} validation forwards")
+
+    losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    if stats_moved == 0:
+        raise RuntimeError("no BatchNorm running statistic moved in training")
+    if launches != len(RESNET_K4_SHAPES) * (counts["steps"] + counts["evals"]):
+        raise RuntimeError(f"expected {len(RESNET_K4_SHAPES)} conv1x1 launches per train step and val forward, "
+                           f"got {launches} over {counts['steps']} + {counts['evals']}")
+    if (first_steps, first_epoch) != (RESNET_EPOCHS * steps_per_epoch, RESNET_EPOCHS - 1):
+        raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
+    if resumed_at != (RESNET_EPOCHS * steps_per_epoch, RESNET_EPOCHS) or final_step != (RESNET_EPOCHS + 1) * steps_per_epoch:
+        raise RuntimeError(f"resume at (step, epoch) {resumed_at}, ended at step {final_step}")
+    manager = CheckpointManager(os.path.join(run_dir, "weights"))
+    for name in ("best", "last"):
+        manager.validate(name)
+    meta = manager.read_meta("last")
+    if (meta["epoch"], meta["step"]) != (RESNET_EPOCHS + 1, final_step):
+        raise RuntimeError(f"last checkpoint meta {meta}")
+    log(f"[resnet] {stats_moved} running statistics moved; best and last valid; resumed at step {resumed_at[0]}, "
+        f"epoch {resumed_at[1]}; last = epoch {meta['epoch']}, step {meta['step']}")
+
+    # The trained weights through cuDNN's 1x1 convolutions (PALLAS=0) as the reference.
+    model.eval()
+    plain = ResNet50(1000, dtype=torch.bfloat16, pallas=False, device="cuda").eval()
+    plain.load_state_dict(model.inner.state_dict())
+    with torch.no_grad():
+        got, ref = model(images), plain(images)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    # Both run the same bf16 network and round each layer's output to bf16; the 1x1s sum
+    # in other orders (the kernel, cuDNN), so a layer's output may differ by a bf16 ulp,
+    # which ~50 layers carry to the logits: held to 5e-2 of their largest magnitude.
+    bound = 5e-2 * scale
+    ok = got.shape == (images.shape[0], 1000) and bool(torch.isfinite(got).all()) and err <= bound
+    log(f"[resnet] trained model, {images.shape[0]} val images, PALLAS=1 vs the same weights through cuDNN: max|diff| {err:.4f} "
+        f"(bound {bound:.4f}; max|logit| {scale:.3f}), argmax agreement {agree:.3f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the kernel path's logits disagree with the cuDNN path's")
+    del model, plain
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": median_ms, "images_per_s": _images_per_s(RESNET_BATCH, median_ms),
+                      "peak_gb": peak_gb, "busy": busy}
+
+
+def phase_resnet_pallas_ab(run_dir: str, n_steps: int = 5):
+    """The same ResNet-50 train steps with PALLAS=1 (the kernel) and PALLAS=0 (cuDNN), on
+    batches already on the card, in turns (on, off, off, on): median step ms of each."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_imagenet
+
+    keys = (*RESNET_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "DTYPE")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    trainers = {}
+    try:
+        os.environ.update(RESNET_ENV, SAVE_DIR=run_dir, EPOCHS="1")
+        for k in ("SNAPSHOT", "DTYPE"):
+            os.environ.pop(k, None)
+        for knob in ("1", "0"):
+            os.environ["PALLAS"] = knob
+            trainers[knob] = train_imagenet.build_trainer(
+                "cuda", synthetic_records=2 * RESNET_BATCH, synthetic_val_records=RESNET_BATCH
+            )
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    trainers["0"].model.load_state_dict(trainers["1"].model.state_dict())
+    batches = [trainers["1"].to_device(b) for b in trainers["1"].train_dataloader]
+    times = {"1": [], "0": []}
+
+    def run(knob, record):
+        tr = trainers[knob]
+        for i in range(n_steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.state, _ = tr.train_step(tr.state, batches[i % len(batches)])
+            end.record()
+            end.synchronize()
+            if record:
+                times[knob].append(start.elapsed_time(end))
+
+    for knob in ("1", "0"):
+        run(knob, record=False)  # warm-up: cuDNN's algorithm choice, the allocator
+    for knob in ("1", "0", "0", "1"):
+        run(knob, record=True)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"[resnet-ab] train step (batch {RESNET_BATCH}, 224x224, bf16), {2 * n_steps} steps each, in turns: "
+        f"PALLAS=1 median {med['1']:.2f} ms ({_images_per_s(RESNET_BATCH, med['1']):.0f} images/s), "
+        f"PALLAS=0 median {med['0']:.2f} ms ({_images_per_s(RESNET_BATCH, med['0']):.0f} images/s); "
+        f"all {{'1': {[round(t, 2) for t in times['1']]}, '0': {[round(t, 2) for t in times['0']]}}}")
+    del trainers, batches
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_conv1x1_times(card: str):
+    """K4 at ResNet-50's nine shapes (batch 256, bf16, identity epilogue): kernel, plain,
+    bound and the faster of torch.matmul and a channels-last 1x1 F.conv2d; returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    rows = []
+    for name, cin, cout, stride in RESNET_K4_SHAPES:
+        full = torch.randn(RESNET_BATCH, cin, 56, 56, device="cuda", generator=gen).to(torch.bfloat16)
+        full = full.contiguous(memory_format=torch.channels_last)
+        x = full[:, :, ::stride, ::stride].permute(0, 2, 3, 1)
+        w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(torch.bfloat16)
+        w4 = w.view(cout, cin, 1, 1).contiguous(memory_format=torch.channels_last)
+        ones, zeros = torch.ones(cout, device="cuda"), torch.zeros(cout, device="cuda")
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        before = k4.launches["conv1x1_bn_act"]
+        ms = time_ms(lambda: k4.conv1x1_bn_act(x, w, ones, zeros))
+        k4.launches["conv1x1_bn_act"] = before  # timing launches are not the main path's
+        plain_ms = time_ms(lambda: k4.conv1x1_bn_act_plain(x, w, ones, zeros), iters=5)
+        wt = w.T
+        matmul_ms = time_ms(lambda: torch.matmul(x.reshape(n, cin), wt))
+        conv_ms = time_ms(lambda: F.conv2d(full, w4, stride=stride))
+        bound_ms, bound_by, flops, nbytes = conv1x1_bound(n, cin, cout)
+        library_ms = min(matmul_ms, conv_ms)
+        log(f"[times] {card} | conv1x1 {name} N={n} {cin}->{cout} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.matmul {matmul_ms:.4f} ms, F.conv2d 1x1 {conv_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {bound_ms / ms:.4f} of the bound")
+        rows.append({"name": name, "shape": [n, cin, cout], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "matmul_ms": matmul_ms, "conv2d_ms": conv_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        del full, x
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"[times] {card} | conv1x1, the nine launches of one ResNet-50 forward at batch {RESNET_BATCH}: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms")
+    return rows, total
+
+
 def main() -> int:
     try:
         import torch
@@ -621,17 +1044,28 @@ def main() -> int:
         card = phase_device()
         fwd_err = phase_kernels()
         bwd_err = phase_bwd_kernels()
+        conv_err = phase_conv1x1()
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             serve_launches, serve = phase_slice(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             train_launches, train = phase_train(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            resnet_launches, resnet = phase_resnet(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            resnet_ab = phase_resnet_pallas_ab(run_dir)
         times = phase_times(card)
+        conv_times, conv_total = phase_conv1x1_times(card)
         log(f"[times] {card} | served requests: p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms "
             f"over {serve['n']} requests (client clock, HTTP included; p99 is the slowest of so few)")
         log(f"[times] {card} | training step (B=64, T=1024, bf16): median {train['step_ms']:.2f} ms, "
             f"{train['tokens_per_s']:.0f} tokens/s, peak memory {train['peak_gb']:.2f} GB")
+        busy = "not measured" if resnet["busy"] is None else f"{resnet['busy']:.4f}"
+        log(f"[times] {card} | ResNet-50 training step (B=256, 224x224, bf16, PALLAS=1, through the entry): median "
+            f"{resnet['step_ms']:.2f} ms, {resnet['images_per_s']:.0f} images/s, peak memory {resnet['peak_gb']:.2f} GB, "
+            f"device busy share of the resumed epoch {busy}; on batches already on the card: PALLAS=1 "
+            f"{resnet_ab['1']:.2f} ms, PALLAS=0 {resnet_ab['0']:.2f} ms")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -649,7 +1083,7 @@ def main() -> int:
             "source": f"distributed_training_pytorch_tpu_torch/csrc/{'flash_fwd.cu' if kind == 'fwd' else 'flash_bwd.cu'}",
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": train_launches[launch_key],
-            "launches_by_path": {"train": train_launches[launch_key],
+            "launches_by_path": {"train": train_launches[launch_key], "train_resnet50": 0,
                                  "serve": serve_launches if kind == "fwd" else 0},
             "max_abs_err": err,
             "ms": r["ms"],
@@ -660,6 +1094,23 @@ def main() -> int:
             "shape": r["shape"],
             "dtype": "bfloat16",
         })
+    kernels.append({
+        "name": "conv1x1_bn_act",
+        "route": "cuda",
+        "source": "distributed_training_pytorch_tpu_torch/csrc/conv1x1_bn_act.cu",
+        "replaces": "distributed_training_pytorch_tpu/ops/pallas.py:550",
+        "launches": resnet_launches,
+        "launches_by_path": {"train_resnet50": resnet_launches, "train": 0, "serve": 0},
+        "max_abs_err": conv_err,
+        # The nine launches of one ResNet-50 forward at batch 256, summed; per shape below.
+        "ms": conv_total["ms"],
+        "plain_ms": conv_total["plain_ms"],
+        "bound_ms": conv_total["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in conv_times) else "operations",
+        "library_ms": conv_total["library_ms"],
+        "shapes": conv_times,
+        "dtype": "bfloat16",
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

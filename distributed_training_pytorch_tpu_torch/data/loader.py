@@ -11,11 +11,17 @@ its semantics kept exactly, so both loaders give the same batches:
   last real row repeated) and emits a ``mask`` column, with ``global_real_count`` as the
   weight for aggregating padded batches.
 
+* the source's ``transform`` attribute, when it has one, is applied to each record's
+  ``image`` as ``transform(image, epoch=, index=)``, keyed by the record's index in the
+  source (``loader.py:153-157``); a source's ``arrays`` are sliced whole only when there is
+  no transform.
+
 Rank and world size come from ``torch.distributed`` when it is initialised, and are 0 and
 1 otherwise. Batches are numpy arrays, made on the calling thread. What the JAX loader
-also has comes with the image-training slice, whose records need decoding: per-record
-transforms keyed by ``(epoch, index)``, a ``collate_fn``, thread workers with a prefetch
-window, corrupt-record skipping, and the mid-epoch resume entry ``iter_batches``.
+also has comes with later slices: the whole-batch fast paths (``load_batch``,
+``batch_apply``) of the record and native sources, a ``collate_fn``, thread workers with a
+prefetch window, corrupt-record skipping, and the mid-epoch resume entry
+``iter_batches``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ class ShardedLoader:
         if drop_last and pad_final:
             raise ValueError("drop_last and pad_final are mutually exclusive")
         self.source = source
+        # Sources carry their transform as an attribute; the loader applies it, so the
+        # augmentation keys on (epoch, index).
+        self.transform = getattr(source, "transform", None)
         self.global_batch_size = int(global_batch_size)
         self.shuffle = shuffle
         self.seed = seed
@@ -84,11 +93,17 @@ class ShardedLoader:
         n = len(self.source)
         return max(0, min(self.global_batch_size, n - batch_index * self.global_batch_size))
 
+    def _load_one(self, index: int) -> dict:
+        record = dict(self.source[index])
+        if self.transform is not None and "image" in record:
+            record["image"] = self.transform(record["image"], epoch=self._epoch, index=index)
+        return record
+
     def _produce(self, rows: np.ndarray) -> dict:
         arrays = getattr(self.source, "arrays", None)
-        if arrays is not None:
+        if arrays is not None and self.transform is None:
             return {k: v[rows] for k, v in arrays.items()}
-        records = [self.source[int(i)] for i in rows]
+        records = [self._load_one(int(i)) for i in rows]
         return {k: np.stack([r[k] for r in records]) for k in records[0]}
 
     def __iter__(self) -> Iterator[dict]:

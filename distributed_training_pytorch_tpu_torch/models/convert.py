@@ -1,10 +1,16 @@
-"""Carry a flax ``TransformerLM`` parameter tree over to the port's ``state_dict``.
+"""Carry flax parameter trees over to the port's ``state_dict``.
 
-The input is the tree of ``TransformerLM.init(...)["params"]`` with every leaf already a
-numpy array (``jax.tree.map(np.asarray, params)``), so this module imports no JAX. The
-layouts it maps are those ``models/transformer_lm.py`` lists: flax ``Dense`` kernels are
-``[in, out]`` where ``nn.Linear`` holds ``[out, in]``; ``qkv/kernel`` is ``[d, 3, H, Dh]``
-with bias ``[3, H, Dh]``; ``attn_out/kernel`` is ``[H, Dh, d]``.
+The input is a tree of ``Model.init(...)`` variables with every leaf already a numpy
+array (``jax.tree.map(np.asarray, variables)``), so this module imports no JAX.
+
+* :func:`params_from_jax` — ``TransformerLM``. The layouts it maps are those
+  ``models/transformer_lm.py`` lists: flax ``Dense`` kernels are ``[in, out]`` where
+  ``nn.Linear`` holds ``[out, in]``; ``qkv/kernel`` is ``[d, 3, H, Dh]`` with bias
+  ``[3, H, Dh]``; ``attn_out/kernel`` is ``[H, Dh, d]``.
+* :func:`resnet_params_from_jax` — ``ResNet`` (optionally under ``InputNormalizer``), from
+  ``params`` and ``batch_stats``: conv kernels HWIO -> OIHW, the head's ``[in, out]`` ->
+  ``[out, in]``, BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+  ``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "resnet_params_from_jax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -54,3 +60,69 @@ def params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
         out.update(_dense(blk["mlp_in"], f"{prefix}.mlp_in"))
         out.update(_dense(blk["mlp_out"], f"{prefix}.mlp_out"))
     return out
+
+
+def _bn(p: Mapping, stats: Mapping, prefix: str) -> dict:
+    return {
+        f"{prefix}.weight": _t(p["scale"]),
+        f"{prefix}.bias": _t(p["bias"]),
+        f"{prefix}.running_mean": _t(stats["mean"]),
+        f"{prefix}.running_var": _t(stats["var"]),
+        f"{prefix}.num_batches_tracked": torch.tensor(0, dtype=torch.long),
+    }
+
+
+def _conv(p: Mapping) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))  # HWIO -> OIHW
+
+
+def _numbered(tree: Mapping, kind: str) -> list:
+    return sorted((k for k in tree if k.startswith(kind + "_")), key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def _block(params: Mapping, stats: Mapping, prefix: str) -> dict:
+    """One ``BottleneckBlock``. flax numbers its convolutions in creation order, reduce,
+    3x3, expand, projection, and counts ``PallasConv1x1_n`` (the 1x1s the kernel gate
+    took) apart from ``Conv_n``. The gate takes a 1x1 by its input's height: the reduce
+    and the projection see the block's input, the expand the 3x3's output, so a block's
+    kernel 1x1s are none, reduce + projection, or all of them."""
+    has_proj = "BatchNorm_3" in params
+    slots = ["conv1", "conv2", "conv3"] + (["proj"] if has_proj else [])
+    n_kernel = len(_numbered(params, "PallasConv1x1"))
+    n_1x1 = len(slots) - 1
+    if n_kernel == 0:
+        kernel_slots = set()
+    elif n_kernel == n_1x1:
+        kernel_slots = {"conv1", "conv3", "proj"}
+    elif n_kernel == n_1x1 - 1:
+        kernel_slots = {"conv1", "proj"}
+    else:
+        raise ValueError(f"{prefix}: {n_kernel} PallasConv1x1 modules in a block of {n_1x1} 1x1 convolutions")
+    names = {"Conv": iter(_numbered(params, "Conv")), "PallasConv1x1": iter(_numbered(params, "PallasConv1x1"))}
+    out = {}
+    for slot in slots:
+        name = next(names["PallasConv1x1" if slot in kernel_slots else "Conv"])
+        out[f"{prefix}.{slot}.weight"] = _conv(params[name])
+    for i, bn in enumerate(("bn1", "bn2", "bn3", "proj_bn")[: len(slots)]):
+        out.update(_bn(params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"], f"{prefix}.{bn}"))
+    return out
+
+
+def resnet_params_from_jax(variables: Mapping) -> "dict[str, torch.Tensor]":
+    """``state_dict`` for the port's ``ResNet`` from flax ``{"params", "batch_stats"}`` as
+    numpy, with the knob on (``PallasConv1x1_n`` names) or off. Under ``InputNormalizer``
+    (an ``inner`` scope) the keys get the port wrapper's ``inner.`` prefix."""
+    params, stats = variables["params"], variables["batch_stats"]
+    prefix = ""
+    if "inner" in params:
+        params, stats, prefix = params["inner"], stats["inner"], "inner."
+    dense = params["Dense_0"]
+    out = {
+        "stem.weight": _conv(params["Conv_0"]),
+        **_bn(params["BatchNorm_0"], stats["BatchNorm_0"], "bn_stem"),
+        "head.weight": _t(np.asarray(dense["kernel"]).T),
+        "head.bias": _t(dense["bias"]),
+    }
+    for i, name in enumerate(_numbered(params, "BottleneckBlock")):
+        out.update(_block(params[name], stats[name], f"blocks.{i}"))
+    return {prefix + k: v for k, v in out.items()}

@@ -57,6 +57,12 @@ _FLASH_BWD_DKV_ARGTYPES = (
     + [_c.c_longlong] * 18  # (b, t, h) element strides of q, k, v, dO, dk, dv
     + [_c.c_int, _c.c_float, _c.c_void_p]  # causal, scale, stream
 )
+_CONV1X1_ARGTYPES = (
+    [_c.c_void_p] * 5  # x, w, scale, bias, out
+    + [_c.c_int] * 7  # in dtype, out dtype, N, H, W, Cin, Cout
+    + [_c.c_longlong] * 3  # (b, h, w) element strides of x
+    + [_c.c_int, _c.c_void_p]  # act, stream
+)
 
 
 def _nvcc() -> str:
@@ -124,6 +130,8 @@ def library(*, rebuild: bool = False) -> ctypes.CDLL:
             lib.dtp_flash_bwd_dq.restype = ctypes.c_int
             lib.dtp_flash_bwd_dkv.argtypes = _FLASH_BWD_DKV_ARGTYPES
             lib.dtp_flash_bwd_dkv.restype = ctypes.c_int
+            lib.dtp_conv1x1_bn_act.argtypes = _CONV1X1_ARGTYPES
+            lib.dtp_conv1x1_bn_act.restype = ctypes.c_int
             for fn in ("dtp_flash_fwd_smem_bytes", "dtp_flash_bwd_dq_smem_bytes", "dtp_flash_bwd_dkv_smem_bytes"):
                 getattr(lib, fn).argtypes = [ctypes.c_int]
                 getattr(lib, fn).restype = ctypes.c_int

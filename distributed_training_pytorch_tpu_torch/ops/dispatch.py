@@ -1,7 +1,7 @@
 """Kernel dispatch policy: the one place that decides kernel or plain path, and records it.
 
-Counterpart of ``distributed_training_pytorch_tpu/ops/dispatch.py`` (its recording half
-and the attention policy). Each resolution is recorded once per process as a
+Counterpart of ``distributed_training_pytorch_tpu/ops/dispatch.py`` (its recording half,
+the attention policy and the fused 1x1-conv policy). Each resolution is recorded once per process as a
 ``kernel_dispatch`` decision ``(model, op, path, reason)`` and handed to an installed event
 sink (normally ``EventLog.emit``); decisions made before a sink exists are buffered and
 flushed on install.
@@ -12,6 +12,11 @@ blocks, all tuned on a TPU. Here "auto" resolves per call from the tensors' devi
 CUDA kernel for CUDA tensors at every ``T``, and the kernel's plain version for CPU
 tensors. Nothing TPU-tuned carries over; a crossover, if the card shows one, comes from
 measurements on the card.
+
+The fused 1x1-conv policy (:func:`conv1x1_policy`, ResNet) is the JAX package's: auto is
+off, and ``pallas=True`` / ``PALLAS=1`` turns it on. The TPU's verdict behind that default
+does not carry over; the card's own evidence is the ResNet-50 step with and without the
+kernel (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -21,11 +26,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "attention_fn",
+    "conv1x1_policy",
     "lm_attention_impl",
     "pallas_from_env",
     "record",
     "records",
     "reset",
+    "resolve",
     "set_event_sink",
 ]
 
@@ -133,3 +140,21 @@ def lm_attention_impl(attention_impl: str, pallas: Optional[bool]) -> str:
     if pallas is False:
         return "plain"
     return attention_impl
+
+
+def resolve(knob: Optional[bool], fallback):
+    """Three-state resolution: an explicit ``pallas=`` knob wins; ``None`` defers to the
+    model's own control (``fallback``)."""
+    return fallback if knob is None else knob
+
+
+def conv1x1_policy(model: str, pallas: Optional[bool], *, op: str = "conv1x1_bn_act") -> bool:
+    """Resolve and record the fused GEMM-epilogue policy for ``model``: ``pallas`` wins, and
+    auto (``None``) stays off."""
+    on = resolve(pallas, False)
+    if on:
+        record(model, op, "pallas", reason="pallas=True")
+    else:
+        reason = "pallas=False" if pallas is False else "auto: off, the JAX package's default; opt in with pallas=True"
+        record(model, op, "plain", reason=reason)
+    return bool(on)

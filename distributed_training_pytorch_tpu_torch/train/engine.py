@@ -13,10 +13,12 @@ optimizer's update. What carries over exactly:
   split into ``accum_steps`` equal slices, each slice's loss is scaled by
   ``1 / accum_steps`` before its backward, and metrics are the slices' mean
   (``engine.py:340-387``);
-* the ``nan_guard``: a step whose loss or gradients are not finite leaves params and
-  optimizer state untouched, still advances ``step``, and reports ``metrics["nonfinite"]
-  = 1`` (``engine.py:411-433``). Unlike the compiled guard it reads one flag back to the
-  host per step;
+* the ``nan_guard``: a step whose loss or gradients are not finite leaves params,
+  optimizer state and the model's buffers (BatchNorm's running statistics, which the
+  forward has already updated; the JAX engine keeps ``model_state``, ``engine.py:418-424``)
+  as they were, still advances ``step``, and reports ``metrics["nonfinite"] = 1``
+  (``engine.py:411-433``). Unlike the compiled guard it reads one flag back to the host
+  per step;
 * ``metrics["lr"]`` is the schedule at the pre-update step (``engine.py:440-441``), and
   that is the learning rate set on the optimizer for the update.
 
@@ -131,6 +133,8 @@ class TrainEngine:
             for group in opt.param_groups:
                 group["lr"] = lr
         opt.zero_grad(set_to_none=True)
+        buffers = list(unwrap(model).buffers()) if self.nan_guard else []
+        saved = [b.detach().clone() for b in buffers]  # the forward updates BN statistics
         loss, metrics = self._grads_and_metrics(model, batch)
         metrics.setdefault("loss", loss)
         metrics = self._reduce({**metrics, "_objective": loss}, batch)
@@ -142,6 +146,10 @@ class TrainEngine:
                     ok = ok & torch.isfinite(p.grad).all()
             if bool(ok):  # the guard's one host read per step
                 opt.step()
+            else:
+                with torch.no_grad():
+                    for b, before in zip(buffers, saved, strict=True):
+                        b.copy_(before)
             metrics["nonfinite"] = (~ok).float()
         else:
             opt.step()

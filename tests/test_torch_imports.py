@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch/CUDA port: it imports neither JAX nor any module of the
 JAX package ``distributed_training_pytorch_tpu`` (whose name is a prefix of the port's,
 so module names are matched exactly or by ``name + "."``), and importing it initialises
-no CUDA context and builds nothing. ``chip_smoke.py``, ``scripts/torch_serve_profile.py``
-and ``scripts/torch_train_profile.py`` run where the card is, beside the port, and are
-held to the same rule."""
+no CUDA context and builds nothing. ``chip_smoke.py``, ``scripts/torch_serve_profile.py``,
+``scripts/torch_train_profile.py`` and ``scripts/torch_resnet_profile.py`` run where the
+card is, beside the port, and are held to the same rule."""
 
 import ast
 import os
@@ -23,6 +23,8 @@ PORT_MODULES = [
     "ops.losses", "ops.schedules", "precision.policy", "train.state", "train.engine", "data.dataset",
     "data.loader", "data.transforms", "parallel.mesh", "checkpoint.manager", "utils.logger",
     "trainer.trainer", "examples.train_lm",
+    # ResNet-50 training
+    "ops.conv1x1", "ops.metrics", "models.resnet", "models.wrappers", "examples.train_imagenet",
 ]
 
 _PROBE = f"""
@@ -69,6 +71,7 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "scripts", "torch_serve_profile.py")
     yield os.path.join(REPO, "scripts", "torch_train_profile.py")
+    yield os.path.join(REPO, "scripts", "torch_resnet_profile.py")
 
 
 def test_no_source_of_the_port_imports_jax():
