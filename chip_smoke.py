@@ -44,7 +44,23 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
    device's busy share of the resumed epoch; then the same steps timed with ``PALLAS=1``
    and ``PALLAS=0`` in turns;
 9. times of the 1x1 kernel at ResNet-50's nine shapes: kernel, plain, bound, and the
-   faster of ``torch.matmul`` and a channels-last 1x1 ``F.conv2d`` as the yardstick.
+   faster of ``torch.matmul`` and a channels-last 1x1 ``F.conv2d`` as the yardstick;
+10. (K5) the ring's block entry points ``flash_block_fwd``/``flash_block_bwd`` (wrappers
+    over the three attention kernels) against their plain versions at the ring's block
+    shape (B=16, Tq=Tk=1024, H=12, D=64), bf16 and f32, on a diagonal (causal) and a
+    visible block, the backward given the q shard's merged global lse and delta;
+11. (ring) one attention layer of the ring configuration (16 x 4096, 12 heads, bf16) with
+    all 4 sequence shards on the card: the ring against ``flash_attention`` over the whole
+    T, forward and gradients (elementwise and as a share of the norm), exactly 10
+    launches of each kernel for the ring and 1 for the dense; times of the ring, of ``flash_attention``, of SDPA, and of K5's 10 blocks
+    each way beside their plain versions and their bound;
+12. (ring training) byte-level GPT-2-small at T=4096, global batch 16, ``MESH=sp4``,
+    through the LM entry's trainer with a ring ``build_model`` (``RingLMTrainer``): the
+    first batch's loss and first layer's attention output against the same weights
+    through flash attention, then 2 epochs
+    and a resume from ``last``; every loss finite, the train loss falling, the padded val
+    batch run once a validation, exactly 120 launches of each kernel (12 layers x 10
+    blocks) per train step and per val forward; step time, tokens/s, peak memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -110,12 +126,15 @@ def time_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
 
 
 # Products over the (query, key) pairs, and the [B, T, H, D] tensors and the f32 [B, H, Tq]
-# rows read or written once, of each kernel: fwd reads q, k, v, writes o and lse; dq reads
-# q, k, v, dO, lse, delta, writes dq; dk/dv reads the same and writes dk, dv.
+# rows read or written once, of each function: fwd reads q, k, v, writes o and lse; dq reads
+# q, k, v, dO, lse, delta, writes dq; dk/dv reads the same and writes dk, dv. bwd is the
+# whole backward as one function (K5's flash_block_bwd, returning dq, dk and dv): it needs
+# QK^T, dO V^T, P^T dO, dS K and dS^T Q once each, not the two that dq and dk/dv each redo.
 KERNEL_WORK = {
     "fwd": {"products": 2, "q_side": 2, "k_side": 2, "rows": 1},
     "dq": {"products": 3, "q_side": 3, "k_side": 2, "rows": 2},
     "dkv": {"products": 4, "q_side": 2, "k_side": 4, "rows": 2},
+    "bwd": {"products": 5, "q_side": 3, "k_side": 4, "rows": 2},
 }
 
 # ResNet-50's 1x1 convolutions that the kernel takes at 224x224 (input at least 56 high),
@@ -154,7 +173,7 @@ def attention_bound(b, tq, tk, h, d, causal, dtype_name, itemsize, kind="fwd"):
     its type and its bytes (each input read once, each output written once) over the
     memory rate. FLOPs count the (query, key) pairs these inputs need, 2*D a product:
     QK^T and PV forward; QK^T, dO V^T and dS K for dq; QK^T, dO V^T, P^T dO and dS^T Q
-    for dk/dv."""
+    for dk/dv; the five distinct ones for the whole backward (``kind="bwd"``)."""
     work = KERNEL_WORK[kind]
     if causal:
         pairs = sum(min(i + 1, tk) for i in range(tq))
@@ -421,6 +440,16 @@ def _grad_err(g, ref):
     err = (g.float() - ref.float()).abs().max().item()
     bound = BWD_ATOL_F32 if g.dtype == torch.float32 else BWD_REL_BF16 * ref.float().abs().max().item()
     return err, bound, bool(torch.isfinite(g.float()).all()) and err <= bound
+
+
+def _rel_err(g, ref):
+    """||g - ref|| / ||ref||, in f32; inf when g is not finite."""
+    import torch
+
+    g, ref = g.float(), ref.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return ((g - ref).norm() / ref.norm()).item()
 
 
 def phase_bwd_kernels():
@@ -1023,6 +1052,361 @@ def phase_conv1x1_times(card: str):
     return rows, total
 
 
+# The ring-training configuration: byte-level GPT-2-small at T=4096, global batch 16 (the
+# 65,536 tokens of the T=1024 configuration's step), over a seq axis of 4 held by this
+# process on the one card: each ring block is the Tq = Tk = 1024 shape of K1–K3 above.
+RING_SHARDS = 4
+RING_SHAPE = (16, 4096, 12, 64)  # B, T, H, D of one attention layer
+RING_BLOCKS = RING_SHARDS * (RING_SHARDS + 1) // 2  # causal: 10 blocks a layer, each way
+RING_ENV = {"LM_SIZE": "small", "SEQ_LEN": "4096", "BATCH": "16", "DTYPE": "bf16", "BASE_LR": "3e-4",
+            "MESH": f"sp{RING_SHARDS}"}
+RING_EPOCHS = 2  # then one resumed epoch
+# Ring against flash attention on the same weights, the first batch's loss (about 5.5):
+# both compute in bf16 with f32 softmax statistics; the ring merges its blocks in f32 and
+# rounds o once, as the kernel does, so each layer's attention may land one bf16 ulp away,
+# which 12 layers carry to a mean over 65,536 tokens' losses.
+# 2.0e-5 measured on an H100; 1e-3 leaves room for the order of the bf16 sums and no more.
+RING_LOSS_ATOL = 1e-3
+# Ring against flash attention over the whole sequence, bf16, as ||got - ref|| / ||ref||:
+# both round each output once from f32 sums of the same products, so they part by an ulp
+# (2^-8 relative) at some elements, a few 1e-3 of the norm. A block dropped or merged
+# with the wrong weight moves a quarter of the rows or more by O(1) of their size, a
+# tenth of the norm or more; the elementwise bound (2% of the largest |ref|) alone would
+# let that through, |o| being small at T=4096.
+RING_REL = 1e-2
+
+
+def _ring_blocks(t_local):
+    """The (q shard, k/v shard, causal) blocks a causal ring of RING_SHARDS visits, as row
+    slices: the diagonal ones causal, the earlier ones fully visible, the later ones
+    skipped."""
+    rows = [slice(j * t_local, (j + 1) * t_local) for j in range(RING_SHARDS)]
+    return [(rows[i], rows[j], i == j) for i in range(RING_SHARDS) for j in range(i + 1)]
+
+
+def phase_k5():
+    """K5 (``flash_block_fwd``/``flash_block_bwd``) against its plain version at the ring's
+    block shape, bf16 and f32, on a diagonal (causal) and a visible block, the backward
+    given the q shard's merged global lse and delta; returns the bf16 errors."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5150)
+    b, t, h, d = RING_SHAPE
+    tl = t // RING_SHARDS
+    errs = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        q, k_own, v_own, k_vis, v_vis, do = (
+            torch.randn(b, tl, h, d, device="cuda", generator=gen).to(dtype) for _ in range(6)
+        )
+        # The q shard's global statistics: its two blocks merged as the ring merges them.
+        o_d, lse_d = fa.flash_attention_plain(q, k_own, v_own, causal=True)
+        o_v, lse_v = fa.flash_attention_plain(q, k_vis, v_vis, causal=False)
+        lse = torch.logaddexp(lse_d, lse_v)
+        o = (o_d.float() * torch.exp(lse_d - lse).transpose(1, 2)[..., None]
+             + o_v.float() * torch.exp(lse_v - lse).transpose(1, 2)[..., None]).to(dtype)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        fwd_err = bwd_err = 0.0
+        for kind, k, v, causal, o_ref, lse_ref in (("diagonal", k_own, v_own, True, o_d, lse_d),
+                                                  ("visible", k_vis, v_vis, False, o_v, lse_v)):
+            before = dict(fa.launches)
+            o_b, lse_b = fa.flash_block_fwd(q, k, v, causal=causal)
+            grads = fa.flash_block_bwd(q, k, v, do, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            if dict(fa.launches) != {k: n + 1 for k, n in before.items()}:  # K5 counts under K1-K3's names
+                raise RuntimeError("the K5 wrappers did not launch their kernels")
+            err = (o_b.float() - o_ref.float()).abs().max().item()
+            lse_err = (lse_b - lse_ref).abs().max().item()
+            atol, rtol = TOL[dtype_name]
+            ok = (torch.allclose(o_b.float(), o_ref.float(), atol=atol, rtol=rtol)
+                  and torch.allclose(lse_b, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1])
+                  and bool(torch.isfinite(o_b.float()).all()))
+            refs = fa.flash_attention_bwd_plain(q, k, v, None, lse, do, causal=causal, delta=delta)
+            results = [_grad_err(g, r) for g, r in zip(grads, refs, strict=True)]
+            ok = ok and all(r[2] for r in results)
+            errs_txt = " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", results, strict=True))
+            log(f"[k5] {kind} block B={b} Tq=Tk={tl} H={h} D={d} causal={causal} {dtype_name}, global lse/delta: "
+                f"max|o-plain|={err:.3e} (atol {atol}, rtol {rtol}) max|lse-plain|={lse_err:.3e}; "
+                f"max|grad-plain|/bound {errs_txt} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("K5 disagrees with its plain version")
+            fwd_err, bwd_err = max(fwd_err, err), max([bwd_err] + [r[0] for r in results])
+            del grads, refs
+        errs[dtype_name] = {"fwd": fwd_err, "bwd": bwd_err}
+        del q, k_own, v_own, k_vis, v_vis, do, o_d, o_v, o
+        torch.cuda.empty_cache()
+    return errs["bfloat16"]
+
+
+def phase_ring(card: str):
+    """One attention layer of the ring-training configuration, all shards on the card:
+    the ring (auto: K5 on the kernels) against flash_attention over the whole sequence,
+    forward and gradients, with exact launch counts; then times of the ring, of K5's
+    blocks alone, of their plain versions and of SDPA, and K5's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.parallel import MeshConfig, ring_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(6061)
+    b, t, h, d = RING_SHAPE
+    mesh = MeshConfig(seq=RING_SHARDS).build()
+    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+
+    def ring(q, k, v):
+        return ring_attention(q, k, v, mesh, causal=True)
+
+    def flash(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def run(attention):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa.reset_launches()
+        o = attention(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        return [o.detach()] + [x.grad for x in leaves], dict(fa.launches)
+
+    got, ring_launches = run(ring)
+    want, flash_launches = run(flash)
+    n = RING_BLOCKS
+    if ring_launches != {"fwd": n, "bwd_dq": n, "bwd_dkv": n}:
+        raise RuntimeError(f"expected {n} K5 launches each way for a causal ring of {RING_SHARDS}, got {ring_launches}")
+    if flash_launches != {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}:
+        raise RuntimeError(f"expected K1-K3 once each for flash attention, got {flash_launches}")
+    results = [_grad_err(g, r) for g, r in zip(got, want, strict=True)]
+    rels = [_rel_err(g, r) for g, r in zip(got, want, strict=True)]
+    names = ("o", "dq", "dk", "dv")
+    errs = " ".join(f"{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip(names, results, strict=True))
+    rel_txt = " ".join(f"{n}={x:.3e}" for n, x in zip(names, rels, strict=True))
+    ok = all(r[2] for r in results) and all(x <= RING_REL for x in rels)
+    log(f"[ring] one layer B={b} T={t} H={h} D={d} bf16 causal, {RING_SHARDS} shards on one card: ring vs "
+        f"flash_attention max|diff|/bound {errs}; ||diff||/||ref|| {rel_txt} (bound {RING_REL}); launches ring "
+        f"{ring_launches}, flash {flash_launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the ring disagrees with flash attention over the whole sequence")
+    del got, want
+
+    # Times. The ring and flash attention: forward alone, and forward + backward.
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(attention):
+        def step():
+            torch.autograd.grad(attention(*leaves), leaves, do)
+        return step
+
+    def fwd_only(attention):
+        return lambda: attention(*leaves)
+
+    times = {}
+    for name, attention in (("ring", ring), ("flash", flash)):
+        fwd = time_ms(fwd_only(attention), iters=10)
+        times[name] = {"fwd": fwd, "bwd": time_ms(fwd_bwd(attention), iters=10) - fwd}
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lq, lk, lv = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), iters=10)
+    sdpa_fwd_bwd = time_ms(
+        lambda: torch.autograd.grad(F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), (lq, lk, lv), dot),
+        iters=10,
+    )
+    times["sdpa"] = {"fwd": sdpa_fwd, "bwd": sdpa_fwd_bwd - sdpa_fwd}
+    del qt, kt, vt, dot, lq, lk, lv
+
+    # K5 alone: the 10 block launches of one layer each way, the backward given the q
+    # shards' global lse/delta (from the whole sequence's forward); their plain versions;
+    # their bound, summed over the blocks.
+    tl = t // RING_SHARDS
+    blocks = _ring_blocks(tl)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    shards = {r.start: (q[:, r], do[:, r], lse[:, :, r].contiguous(), delta[:, :, r].contiguous())
+              for r, _, _ in blocks}
+    kv = {r.start: (k[:, r], v[:, r]) for _, r, _ in blocks}
+
+    def k5_fwd(block_fwd):
+        return lambda: [block_fwd(shards[qr.start][0], *kv[kr.start], causal=c) for qr, kr, c in blocks]
+
+    def k5_bwd(block_bwd):
+        return lambda: [block_bwd(shards[qr.start][0], *kv[kr.start], shards[qr.start][1], shards[qr.start][2],
+                                  shards[qr.start][3], causal=c) for qr, kr, c in blocks]
+
+    def plain_bwd(qq, kk, vv, dd, ll, de, *, causal):
+        return fa.flash_attention_bwd_plain(qq, kk, vv, None, ll, dd, causal=causal, delta=de)
+
+    def plain_fwd(qq, kk, vv, *, causal):
+        return fa.flash_attention_plain(qq, kk, vv, causal=causal)
+
+    k5 = {
+        "fwd": {"ms": time_ms(k5_fwd(fa.flash_block_fwd), iters=10),
+                "plain_ms": time_ms(k5_fwd(plain_fwd), iters=3, warmup=1),
+                "library_ms": times["sdpa"]["fwd"]},
+        "bwd": {"ms": time_ms(k5_bwd(fa.flash_block_bwd), iters=10),
+                "plain_ms": time_ms(k5_bwd(plain_bwd), iters=3, warmup=1),
+                "library_ms": times["sdpa"]["bwd"]},
+    }
+    for kind in ("fwd", "bwd"):
+        bounds = [attention_bound(b, tl, tl, h, d, c, "bfloat16", 2, kind=kind) for _, _, c in blocks]
+        t_ops = sum(x[2] for x in bounds) / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = sum(x[3] for x in bounds) / PEAK_BYTES_PER_S * 1e3
+        k5[kind].update(bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        gflop=sum(x[2] for x in bounds) / 1e9, mb=sum(x[3] for x in bounds) / 1e6,
+                        shape=[b, tl, h, d], blocks=len(blocks))
+        r = k5[kind]
+        log(f"[times] {card} | K5 flash_block_{kind}, the {len(blocks)} blocks of one causal ring layer "
+            f"(B={b}, Tq=Tk={tl}, H={h}, D={d}, bf16): kernels {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"SDPA at T={t} {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['gflop']:.2f} GFLOP, {r['mb']:.2f} MB), {r['bound_ms'] / r['ms']:.4f} of the bound")
+    log(f"[times] {card} | one attention layer B={b} T={t} H={h} D={d} bf16 causal: ring of {RING_SHARDS} "
+        f"fwd {times['ring']['fwd']:.4f} ms, bwd {times['ring']['bwd']:.4f} ms; flash_attention (K1-K3 over T) "
+        f"fwd {times['flash']['fwd']:.4f} ms, bwd {times['flash']['bwd']:.4f} ms; SDPA fwd {times['sdpa']['fwd']:.4f} "
+        f"ms, bwd (fwd+bwd minus fwd) {times['sdpa']['bwd']:.4f} ms")
+    fa.reset_launches()  # the timing launches are not a path's
+    del q, k, v, do, o, lse, delta, shards, kv, leaves
+    torch.cuda.empty_cache()
+    return {"err": max(r[0] for r in results), "times": times, "k5": k5}
+
+
+def phase_ring_train(run_dir: str):
+    """The ring-training configuration through the port's Trainer (the LM entry's trainer
+    with a ring ``build_model``): 2 epochs, then a resumed epoch; returns the launch counts
+    of the phase and the step-time figures."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    saved_env = {k: os.environ.get(k) for k in (*RING_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "LM_CORPUS", "PALLAS")}
+    os.environ.update(RING_ENV, SAVE_DIR=run_dir)
+    for k in ("LM_CORPUS", "PALLAS"):
+        os.environ.pop(k, None)
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+    cls = train_lm.RingLMTrainer
+
+    def build():
+        return _instrument(train_lm.build_trainer("cuda", trainer_cls=cls), step_ms, counts, epoch_metrics, val_metrics)
+
+    try:
+        os.environ.update(EPOCHS=str(RING_EPOCHS))
+        os.environ.pop("SNAPSHOT", None)
+        first = build()
+        if first.mesh.shape != {"data": 1, "seq": RING_SHARDS} or not first.mesh.seq_local:
+            raise RuntimeError(f"expected all {RING_SHARDS} seq shards in this process, got {first.mesh}")
+        # The first batch through the ring and through flash attention, same weights: the
+        # loss, and the first layer's attention output (its q, k, v are the same in both).
+        batch = first.to_device(next(iter(first.train_dataloader)))
+        flash_model = GPTSmall(vocab_size=256, dtype=torch.bfloat16, max_len=first.seq_len, attention_impl="flash",
+                               device="cuda")
+        flash_model.load_state_dict(first.model.state_dict())
+        first_attn = {}
+
+        def capture(model, name):
+            attn = model.blocks[0].attn
+
+            def wrapped(q, k, v):
+                first_attn[name] = y = attn(q, k, v)
+                return y
+
+            model.blocks[0].attn = wrapped
+            return attn
+
+        ring_attn, _ = capture(first.model, "ring"), capture(flash_model, "flash")
+        try:
+            with torch.no_grad():
+                ring_loss = float(first.engine.loss_fn(first.model, batch, False)[0])
+                flash_loss = float(first.engine.loss_fn(flash_model, batch, False)[0])
+        finally:
+            first.model.blocks[0].attn = ring_attn
+        attn_rel = _rel_err(first_attn["ring"], first_attn["flash"])
+        del flash_model, batch, first_attn
+        log(f"[ring-train] first batch, same weights: loss ring {ring_loss:.6f}, flash attention {flash_loss:.6f}, "
+            f"|diff| {abs(ring_loss - flash_loss):.3e} (atol {RING_LOSS_ATOL}); first layer's attention output "
+            f"||ring - flash||/||flash|| {attn_rel:.3e} (bound {RING_REL})")
+        if not (np.isfinite(ring_loss) and abs(ring_loss - flash_loss) <= RING_LOSS_ATOL and attn_rel <= RING_REL):
+            raise RuntimeError("the ring model disagrees with the flash-attention model")
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # count only this path's launches from here
+        t0 = time.perf_counter()
+        first.train()
+        first_steps, first_epoch = first.state.step, first.cur_epoch
+        del first
+        os.environ.update(EPOCHS=str(RING_EPOCHS + 1), SNAPSHOT="last")
+        resumed = build()
+        resumed_at = (resumed.state.step, resumed.cur_epoch)
+        resumed.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        final_step = resumed.state.step
+        steps_per_epoch = len(resumed.train_dataloader)
+        n_val = len(resumed.val_dataloader)
+        val_real = resumed.val_dataloader.global_real_count(0)
+        del resumed
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    steady = sorted(x for i, x in enumerate(times) if i % steps_per_epoch)  # each epoch's first follows val + save
+    median_ms = steady[len(steady) // 2]
+    b, t = int(RING_ENV["BATCH"]), int(RING_ENV["SEQ_LEN"])
+    log(f"[ring-train] byte-level GPTSmall (12 x 768, vocab 256), T={t}, global batch {b}, ring attention over "
+        f"seq={RING_SHARDS} (all shards on this card), bf16 compute, f32 params, AdamW(0.9, 0.95, wd 0.1), "
+        f"warmup-cosine; {steps_per_epoch} steps/epoch, {n_val} val batch(es) of which {val_real} rows real")
+    for i, (m, vm) in enumerate(zip(epoch_metrics, val_metrics, strict=True)):
+        log(f"[ring-train] epoch {i}: val (before training) nll {vm['nll']:.4f}; train loss {m['loss']:.4f} "
+            f"ppl {m['ppl']:.3f}")
+    log(f"[ring-train] {counts['steps']} steps, {counts['evals']} validation forwards in {wall:.1f} s (saves "
+        f"included); step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}; all "
+        f"{[round(x, 2) for x in times]}); {b * t / median_ms * 1e3:.0f} tokens/s; peak memory {peak_gb:.2f} GB")
+    log(f"[ring-train] launches {launches} over {counts['steps']} steps and {counts['evals']} validation forwards")
+
+    losses = [m["loss"] for m in epoch_metrics] + [m["nll"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    if not epoch_metrics[-1]["loss"] < epoch_metrics[0]["loss"]:
+        raise RuntimeError(f"train loss did not fall: {[m['loss'] for m in epoch_metrics]}")
+    # The val split (7 windows of 4097 bytes) is one batch padded to 16 rows with a mask:
+    # one val forward per validation, 3 validations.
+    if (n_val, counts["evals"], len(val_metrics)) != (1, RING_EPOCHS + 1, RING_EPOCHS + 1) or not 0 < val_real < b:
+        raise RuntimeError(f"expected one padded val batch per validation: {n_val} batches, {val_real} real rows, "
+                           f"{counts['evals']} val forwards over {len(val_metrics)} validations")
+    per_pass = DEPTH * RING_BLOCKS  # 120: 12 layers x 10 blocks
+    fwd = per_pass * (counts["steps"] + counts["evals"])
+    bwd = per_pass * counts["steps"]
+    # K5's launches count under K1-K3's names; the ring is the model's only attention path,
+    # so every one of them is a block's.
+    expected = {"fwd": fwd, "bwd_dq": bwd, "bwd_dkv": bwd}
+    if launches != expected:
+        raise RuntimeError(f"expected launches {expected} ({per_pass} per layer pass), got {launches}")
+    if (first_steps, first_epoch) != (RING_EPOCHS * steps_per_epoch, RING_EPOCHS - 1):
+        raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
+    if resumed_at != (RING_EPOCHS * steps_per_epoch, RING_EPOCHS) or final_step != (RING_EPOCHS + 1) * steps_per_epoch:
+        raise RuntimeError(f"resume at (step, epoch) {resumed_at}, ended at step {final_step}")
+    manager = CheckpointManager(os.path.join(run_dir, "weights"))
+    for name in ("best", "last"):
+        manager.validate(name)
+    meta = manager.read_meta("last")
+    if (meta["epoch"], meta["step"]) != (RING_EPOCHS + 1, final_step):
+        raise RuntimeError(f"last checkpoint meta {meta}")
+    log(f"[ring-train] best and last valid; resumed at step {resumed_at[0]}, epoch {resumed_at[1]}; last = epoch "
+        f"{meta['epoch']}, step {meta['step']}")
+    return launches, {"step_ms": median_ms, "tokens_per_s": b * t / median_ms * 1e3, "peak_gb": peak_gb,
+                      "losses": [m["loss"] for m in epoch_metrics], "ring_loss": ring_loss, "flash_loss": flash_loss}
+
+
 def main() -> int:
     try:
         import torch
@@ -1044,6 +1428,8 @@ def main() -> int:
         card = phase_device()
         fwd_err = phase_kernels()
         bwd_err = phase_bwd_kernels()
+        k5_err = phase_k5()
+        ring = phase_ring(card)
         conv_err = phase_conv1x1()
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
@@ -1051,6 +1437,8 @@ def main() -> int:
             serve_launches, serve = phase_slice(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             train_launches, train = phase_train(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            ring_launches, ring_train = phase_ring_train(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resnet_launches, resnet = phase_resnet(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
@@ -1061,6 +1449,9 @@ def main() -> int:
             f"over {serve['n']} requests (client clock, HTTP included; p99 is the slowest of so few)")
         log(f"[times] {card} | training step (B=64, T=1024, bf16): median {train['step_ms']:.2f} ms, "
             f"{train['tokens_per_s']:.0f} tokens/s, peak memory {train['peak_gb']:.2f} GB")
+        log(f"[times] {card} | ring training step (B={RING_SHAPE[0]}, T={RING_SHAPE[1]}, bf16, seq={RING_SHARDS} on "
+            f"one card): median {ring_train['step_ms']:.2f} ms, {ring_train['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{ring_train['peak_gb']:.2f} GB")
         busy = "not measured" if resnet["busy"] is None else f"{resnet['busy']:.4f}"
         log(f"[times] {card} | ResNet-50 training step (B=256, 224x224, bf16, PALLAS=1, through the entry): median "
             f"{resnet['step_ms']:.2f} ms, {resnet['images_per_s']:.0f} images/s, peak memory {resnet['peak_gb']:.2f} GB, "
@@ -1083,8 +1474,8 @@ def main() -> int:
             "source": f"distributed_training_pytorch_tpu_torch/csrc/{'flash_fwd.cu' if kind == 'fwd' else 'flash_bwd.cu'}",
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": train_launches[launch_key],
-            "launches_by_path": {"train": train_launches[launch_key], "train_resnet50": 0,
-                                 "serve": serve_launches if kind == "fwd" else 0},
+            "launches_by_path": {"train": train_launches[launch_key], "train_ring": ring_launches[launch_key],
+                                 "train_resnet50": 0, "serve": serve_launches if kind == "fwd" else 0},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -1100,7 +1491,7 @@ def main() -> int:
         "source": "distributed_training_pytorch_tpu_torch/csrc/conv1x1_bn_act.cu",
         "replaces": "distributed_training_pytorch_tpu/ops/pallas.py:550",
         "launches": resnet_launches,
-        "launches_by_path": {"train_resnet50": resnet_launches, "train": 0, "serve": 0},
+        "launches_by_path": {"train_resnet50": resnet_launches, "train": 0, "train_ring": 0, "serve": 0},
         "max_abs_err": conv_err,
         # The nine launches of one ResNet-50 forward at batch 256, summed; per shape below.
         "ms": conv_total["ms"],
@@ -1111,6 +1502,29 @@ def main() -> int:
         "shapes": conv_times,
         "dtype": "bfloat16",
     })
+    for kind, launch_key, replaces, source in (("fwd", "fwd", ":399", "flash_fwd.cu"),
+                                               ("bwd", "bwd_dq", ":415", "flash_bwd.cu")):
+        r = ring["k5"][kind]
+        kernels.append({
+            "name": f"flash_block_{kind}",
+            "route": "cuda",
+            # K5 is a wrapper (ops/flash_attention.py) over the hand-written K1 or K2 + K3.
+            "source": f"distributed_training_pytorch_tpu_torch/csrc/{source}",
+            "wrapper": f"distributed_training_pytorch_tpu_torch/ops/flash_attention.py::flash_block_{kind}",
+            "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
+            "launches": ring_launches[launch_key],
+            "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0, "serve": 0},
+            "max_abs_err": k5_err[kind],
+            # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],  # SDPA, causal, over the whole T=4096
+            "shape": r["shape"],
+            "blocks": r["blocks"],
+            "dtype": "bfloat16",
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ its semantics kept exactly, so both loaders give the same batches:
   source (``loader.py:153-157``); a source's ``arrays`` are sliced whole only when there is
   no transform.
 
-Rank and world size come from ``torch.distributed`` when it is initialised, and are 0 and
-1 otherwise. Batches are numpy arrays, made on the calling thread. What the JAX loader
+The shard index and count (``process_index``/``process_count``) default to the rank and
+world size of ``torch.distributed`` (0 and 1 outside a process group); the trainer passes
+its mesh's data index and data extent instead, so the seq ranks of one data shard read the
+same rows. Batches are numpy arrays, made on the calling thread. What the JAX loader
 also has comes with later slices: the whole-batch fast paths (``load_batch``,
 ``batch_apply``) of the record and native sources, a ``collate_fn``, thread workers with a
 prefetch window, corrupt-record skipping, and the mid-epoch resume entry

@@ -18,8 +18,9 @@ slices), ``EPOCHS`` (90), ``BATCH`` (1024, global), ``ACCUM`` (1), ``BASE_LR`` (
 ``SNAPSHOT``, ``STEPS_PER_EPOCH``, ``SHIP_UINT8`` (1), ``DTYPE`` (``fp32`` | ``bf16``; unset
 keeps a bf16 model under the f32 policy), ``PALLAS`` (1: the fused 1x1 kernel for
 ResNet's stage-1 1x1s; 0 or unset: cuDNN convolutions), ``CHAIN_STEPS`` (1), ``MESH``
-(``dpN``). ``IMAGENET_RECORDS``/``VAL_RECORDS`` (record files), ``TELEMETRY`` and
-``PROFILE_DIR`` raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
+(the grammar of ``parallel/mesh.py``; ``dpN`` for this model).
+``IMAGENET_RECORDS``/``VAL_RECORDS`` (record files), ``TELEMETRY`` and ``PROFILE_DIR``
+raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
 ``cpu``). Under ``torchrun`` each process is one data-parallel rank.
 """
 

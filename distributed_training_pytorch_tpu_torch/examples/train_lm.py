@@ -13,9 +13,14 @@ the expert-parallel slice), ``SAVE_DIR`` (``./runs/lm``), ``SNAPSHOT``, ``LM_SIZ
 (``tiny`` | ``small`` = GPT-2-small), ``SAVE_PERIOD`` / ``LAST_SAVE_PERIOD`` (1),
 ``DTYPE`` (``fp32`` | ``bf16``; unset keeps bf16 model compute under the f32 policy),
 ``PALLAS`` (1 | 0 | unset = auto), ``FUSED_CE`` (1; 0 = the plain logits criterion),
-``CHAIN_STEPS`` (1), ``MESH`` (``dpN``) and ``TELEMETRY``/``PROFILE_DIR`` (unset; both
-raise until their slices). The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``).
-Under ``torchrun`` each process is one data-parallel rank.
+``CHAIN_STEPS`` (1), ``MESH`` (the mesh grammar of ``parallel/mesh.py``: ``dpN``,
+``spN``, ``dpNspM``, ``spNxM``; ``fsdp``/``tp``/``pp``/``ep`` raise until their slices)
+and ``TELEMETRY``/``PROFILE_DIR`` (unset; both raise until their slices). The port adds
+``DEVICE`` (``cuda`` unless set to ``cpu``). Under ``torchrun`` each process is one rank
+of the mesh. As in the JAX entry, the model's attention does not switch to ring with a
+seq axis: a subclass's ``build_model`` asks for ``attention_impl="ring"``,
+``mesh=self.mesh``, as :class:`RingLMTrainer` does (``build_trainer(trainer_cls=
+RingLMTrainer)`` with ``MESH=spN``; no knob selects it).
 """
 
 from __future__ import annotations
@@ -131,8 +136,29 @@ class LMTrainer(Trainer):
         )
 
 
-def build_trainer(device: "str | None" = None) -> LMTrainer:
-    """The entry's trainer, configured from the env knobs."""
+class RingLMTrainer(LMTrainer):
+    """The entry's trainer with causal ring attention over the mesh's seq axis: how a
+    user's subclass reaches the ring. ``PALLAS`` is not read, since its precedence would
+    turn the ring into flash or plain attention."""
+
+    def build_model(self):
+        factory = {"tiny": LMTiny, "small": GPTSmall}[self.size]
+        explicit = self.dtype_env is not None or self.precision_requested
+        return factory(
+            vocab_size=256,
+            dtype=model_dtype_for_entry(self.precision, explicit, torch.bfloat16),
+            moe_every=self.moe_every,
+            max_len=max(self.seq_len, 128),
+            attention_impl="ring",
+            mesh=self.mesh,
+            device=self.device,
+        )
+
+
+def build_trainer(device: "str | None" = None, trainer_cls: type = LMTrainer) -> LMTrainer:
+    """The entry's trainer, configured from the env knobs; ``trainer_cls`` is
+    :class:`LMTrainer` or a subclass with other hooks (for example a ``build_model`` with
+    ring attention over the mesh's seq axis)."""
     for knob in ("TELEMETRY", "PROFILE_DIR"):
         if os.environ.get(knob):
             raise NotImplementedError(f"{knob} comes with the observability slice of the port")
@@ -155,7 +181,7 @@ def build_trainer(device: "str | None" = None) -> LMTrainer:
         logger=Logger("lm", os.path.join(save_dir, "logfile.log")),
         device=device or os.environ.get("DEVICE", "cuda"),
     )
-    return LMTrainer(**kw)
+    return trainer_cls(**kw)
 
 
 def main(device: "str | None" = None) -> LMTrainer:

@@ -2,9 +2,10 @@
 
 Counterpart of ``distributed_training_pytorch_tpu/models/transformer_lm.py``: pre-LN
 blocks, learned positions, causal attention through the kernel dispatch policy
-(``ops/dispatch.py``), and logits tied to the token embedding, in f32. This slice ports the
-dense, full-sequence forward. MoE blocks, ring attention and the KV-cache decode step raise
-``NotImplementedError``: they come with the LM training and decode slices.
+(``ops/dispatch.py``) or, with ``attention_impl="ring"`` and a ``mesh`` with a ``seq``
+axis, ring attention over that axis (``parallel/ring_attention.py``), and logits tied to
+the token embedding, in f32. MoE blocks and the KV-cache decode step raise
+``NotImplementedError``: they come with the expert-parallel and decode slices.
 
 Parity with the flax model, where it is not the PyTorch default:
 
@@ -35,14 +36,17 @@ __all__ = ["DecoderBlock", "GPTSmall", "LMTiny", "TransformerLM", "make_fused_lm
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
-def _causal_attention_fn(attention_impl: str):
+def _causal_attention_fn(attention_impl: str, mesh=None):
     """Resolve ``attention_impl`` to a ``(q, k, v) -> o`` callable through the dispatch
-    policy, which records the resolution as a ``kernel_dispatch`` decision."""
+    policy, which records the resolution as a ``kernel_dispatch`` decision; ``"ring"`` is
+    causal ring attention over ``mesh``'s seq axis."""
     if attention_impl == "ring":
-        raise NotImplementedError(
-            'attention_impl="ring" (sequence-parallel ring attention) comes with the '
-            "ring-attention slice of the port"
-        )
+        if mesh is None:
+            raise ValueError('attention_impl="ring" needs mesh=')
+        from distributed_training_pytorch_tpu_torch.parallel.ring_attention import ring_attention
+
+        dispatch.record("transformer_lm", "attention", "ring", reason="attention_impl=ring")
+        return lambda q, k, v: ring_attention(q, k, v, mesh, causal=True)
     if attention_impl not in ("auto", "flash", "plain"):
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
     use_flash = {"auto": None, "flash": True, "plain": False}[attention_impl]
@@ -84,6 +88,7 @@ class DecoderBlock(nn.Module):
         *,
         dtype: torch.dtype = torch.float32,
         attention_impl: str = "auto",
+        mesh=None,
         device="cuda",
     ):
         super().__init__()
@@ -97,7 +102,7 @@ class DecoderBlock(nn.Module):
         self.ln2 = _LayerNorm(hidden_dim, dtype, device)
         self.mlp_in = _Dense(hidden_dim, mlp_dim, dtype, device)
         self.mlp_out = _Dense(mlp_dim, hidden_dim, dtype, device)
-        self.attn = _causal_attention_fn(attention_impl)
+        self.attn = _causal_attention_fn(attention_impl, mesh)
 
     def forward(self, x):
         b, t, d = x.shape
@@ -115,6 +120,9 @@ class DecoderBlock(nn.Module):
 class TransformerLM(nn.Module):
     """Token-in, next-token-logits-out causal LM (dense; tied f32 logits).
 
+    ``attention_impl``: ``"auto"``, ``"flash"``, ``"plain"`` or ``"ring"`` (over the seq
+    axis of ``mesh``, a ``parallel.mesh.Mesh``); ``pallas=True`` / ``False`` takes
+    precedence and turns any of them into ``"flash"`` / ``"plain"``, as in the JAX package.
     ``device`` defaults to the card and raises when there is none; pass ``device="cpu"``
     to build on the CPU. ``generator`` (on ``device``) seeds the initial weights.
     """
@@ -131,6 +139,7 @@ class TransformerLM(nn.Module):
         dtype: torch.dtype = torch.float32,
         attention_impl: str = "auto",
         pallas: "bool | None" = None,
+        mesh=None,
         moe_every: int = 0,
         device="cuda",
         generator: "torch.Generator | None" = None,
@@ -149,7 +158,7 @@ class TransformerLM(nn.Module):
         self.embed = nn.Embedding(vocab_size, hidden_dim, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, max_len, hidden_dim, device=device))
         self.blocks = nn.ModuleList(
-            DecoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype, attention_impl=impl, device=device)
+            DecoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype, attention_impl=impl, mesh=mesh, device=device)
             for _ in range(depth)
         )
         self.ln_f = _LayerNorm(hidden_dim, dtype, device)

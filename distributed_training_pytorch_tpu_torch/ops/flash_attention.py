@@ -1,5 +1,5 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels and their plain
-PyTorch versions.
+PyTorch versions, and the ring path's block entry points over them.
 
 Counterpart of ``distributed_training_pytorch_tpu/ops/pallas.py`` (``flash_attention``,
 the custom VJP ``_flash``/``_flash_fwd``/``_flash_bwd``, ``flash_block_fwd``/
@@ -14,7 +14,13 @@ JAX package; ``lse`` and ``delta`` are ``[B, H, Tq]`` f32.
   (what a backward pass and a blockwise merge need). Not differentiable.
 * :func:`flash_attention_bwd` — the lower backward: ``(dq, dk, dv)`` from ``q, k, v, o,
   lse, do``, ``Tq`` and ``Tk`` apart, with ``delta = rowsum(dO * O)`` computed here or
-  passed in (the ring path passes the global ``lse``/``delta`` of its q shard).
+  passed in.
+* :func:`flash_block_fwd` / :func:`flash_block_bwd` — K5, the block entry points that ring
+  attention (``parallel/ring_attention.py``) runs once per (q shard x visiting k/v block):
+  the forward's block-normalised ``o`` and block ``lse``, and the block's ``(dq, dk, dv)``
+  given the *global* ``lse``/``delta`` of the resident q shard. Not differentiable: the
+  ring owns the gradient. They launch K1 and K2 + K3 on CUDA tensors and run the plain
+  versions on CPU tensors.
 * :func:`flash_attention_plain` / :func:`flash_attention_bwd_plain` — the same functions
   in plain PyTorch; the CPU path, and the references the kernels are held against on the
   card.
@@ -24,7 +30,8 @@ A CPU tensor goes to the plain version. A CUDA tensor goes to the kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), built at the first launch; if a kernel
 cannot take the input or does not launch, the call raises: there is no fallback.
 ``launches`` counts each kernel's launches in this process (``fwd``, ``bwd_dq``,
-``bwd_dkv``); :func:`reset_launches` sets them to 0.
+``bwd_dkv``); K5's launches count under those names, since each K5 call launches K1, or K2
+and K3, once; :func:`reset_launches` sets them to 0.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ __all__ = [
     "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_plain",
+    "flash_block_bwd",
+    "flash_block_fwd",
     "launch_bwd_dkv",
     "launch_bwd_dq",
     "launches",
@@ -182,8 +191,11 @@ def _attention_delta(o, do):
 def _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len):
     _check_shapes(q, k, v, valid_len)
     b, tq, h, _ = q.shape
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q {tuple(q.shape)}")
+    if o is None and delta is None:
+        raise ValueError("the backward needs o, or delta = rowsum(do * o)")
+    if (o is not None and o.shape != q.shape) or do.shape != q.shape:
+        shapes = f"o {None if o is None else tuple(o.shape)} and do {tuple(do.shape)}"
+        raise ValueError(f"{shapes} must match q {tuple(q.shape)}")
     for name, x in (("lse", lse), ("delta", delta)):
         if x is not None and (tuple(x.shape) != (b, h, tq) or x.dtype != torch.float32):
             raise ValueError(f"{name} must be f32 [B, H, Tq] = {(b, h, tq)}, got {x.dtype} {tuple(x.shape)}")
@@ -279,8 +291,9 @@ def flash_attention_bwd(
     """``(dq, dk, dv)`` for the forward ``(o, lse) = flash_attention_fwd(q, k, v, ...)``
     and the output gradient ``do``; ``Tq`` and ``Tk`` may differ. ``lse`` (and ``delta``,
     when given) are ``[B, H, Tq]`` f32 and may come from outside, as the ring path's global
-    statistics do; ``delta`` defaults to ``rowsum(do * o)``. CPU tensors take the plain
-    version; CUDA tensors launch the dq kernel and the dk/dv kernel."""
+    statistics do; ``delta`` defaults to ``rowsum(do * o)``, and ``o`` may be None when
+    ``delta`` is given. CPU tensors take the plain version; CUDA tensors launch the dq
+    kernel and the dk/dv kernel."""
     _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
@@ -296,6 +309,29 @@ def flash_attention_bwd(
     dq = launch_bwd_dq(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
     dk, dv = launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
     return dq, dk, dv
+
+
+# K5: the block entry points of ring attention (``pallas.py:399-436``). The JAX versions
+# pad q and k/v to block multiples (``_ring_pad``) because its kernels are correct only on
+# padded blocks; the port's kernels mask by index instead (keys at or past ``seq_len``, q
+# rows past ``Tq``), so nothing is padded here and no output is sliced back: keep it so.
+
+
+def flash_block_fwd(q, k, v, *, causal: bool = False):
+    """One (q shard x k/v block) forward -> ``(o, lse)``: ``o`` normalised within the
+    block (``[B, Tq, H, D]``, the input dtype), ``lse`` the log-sum-exp of the block's
+    logits per q row (``[B, H, Tq]`` f32), what the ring's cross-block merge takes.
+    ``causal`` masks keys after the query by index within the block (the ring's diagonal
+    block). K1 on CUDA tensors, its plain version on CPU tensors."""
+    return flash_attention_fwd(q, k, v, causal=causal)
+
+
+def flash_block_bwd(q, k, v, do, lse, delta, *, causal: bool = False):
+    """One block's ``(dq, dk, dv)`` given the global ``lse`` and ``delta`` (``[B, H, Tq]``
+    f32) of the resident q shard: the flash decomposition of the whole row's gradient,
+    restricted to this block's keys. K2 and K3 on CUDA tensors, their plain version on
+    CPU tensors."""
+    return flash_attention_bwd(q, k, v, None, lse, do, causal=causal, delta=delta)
 
 
 class _FlashAttention(torch.autograd.Function):

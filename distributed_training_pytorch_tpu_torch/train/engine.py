@@ -22,10 +22,13 @@ optimizer's update. What carries over exactly:
 * ``metrics["lr"]`` is the schedule at the pre-update step (``engine.py:440-441``), and
   that is the learning rate set on the optimizer for the update.
 
-Metrics stay on the device as 0-d tensors; with more than one rank they are averaged
-across ranks, weighted by each rank's real rows. The JAX engine's ``train_steps_chained``
-(several steps as one compiled program; a CUDA graph in the port) comes with a later
-slice.
+Metrics stay on the device as 0-d tensors; with more than one data shard they are averaged
+over the mesh's data group, weighted by each shard's real rows (the seq ranks of one data
+shard hold the same metrics, and take no part). With one sequence shard per rank, the
+gradients and the loss are broadcast from the first rank of the seq group before the
+update (``parallel.mesh.broadcast_over_seq``), so every seq rank takes the same step. The
+JAX engine's ``train_steps_chained`` (several steps as one compiled program; a CUDA graph
+in the port) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Callable, Mapping
 import torch
 import torch.distributed as dist
 
-from distributed_training_pytorch_tpu_torch.parallel.mesh import process_count
+from distributed_training_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, broadcast_over_seq, process_count
 from distributed_training_pytorch_tpu_torch.precision import get_policy
 from distributed_training_pytorch_tpu_torch.train.state import TrainState, unwrap
 
@@ -51,7 +54,9 @@ class NonFiniteLossError(FloatingPointError):
 
 class TrainEngine:
     """Owns the train/eval step of one model: a ``LossFn``, a torch optimizer over the
-    model's parameters and an optional ``schedule(step) -> lr``."""
+    model's parameters and an optional ``schedule(step) -> lr``. ``mesh`` (a
+    ``parallel.mesh.Mesh``) names the data group metrics are averaged over; without one,
+    every rank is a data shard."""
 
     def __init__(
         self,
@@ -61,6 +66,7 @@ class TrainEngine:
         schedule: "Callable[[int], float] | None" = None,
         nan_guard: bool = False,
         precision=None,
+        mesh=None,
     ):
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -69,6 +75,7 @@ class TrainEngine:
         self.schedule = schedule
         self.nan_guard = bool(nan_guard)
         self.precision = get_policy(precision)
+        self.mesh = mesh
 
     # -- metrics ----------------------------------------------------------
 
@@ -81,14 +88,15 @@ class TrainEngine:
         return torch.tensor(float(first.shape[0]), device=first.device)
 
     def _reduce(self, metrics: dict, batch) -> dict:
-        """Across ranks: each metric's mean weighted by the ranks' real rows (a no-op in a
-        one-rank world)."""
-        if process_count() == 1:
+        """Across data shards: each metric's mean weighted by the shards' real rows (a no-op
+        with one data shard)."""
+        shards = process_count() if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        if shards == 1:
             return metrics
         keys = sorted(metrics)
         rows = self._rows(batch)
         packed = torch.stack([metrics[k].detach().float() * rows for k in keys] + [rows])
-        dist.all_reduce(packed)
+        dist.all_reduce(packed, group=None if self.mesh is None else self.mesh.data_group)
         total = torch.clamp(packed[-1], min=1.0)
         return {k: packed[i] / total for i, k in enumerate(keys)}
 
@@ -136,6 +144,9 @@ class TrainEngine:
         buffers = list(unwrap(model).buffers()) if self.nan_guard else []
         saved = [b.detach().clone() for b in buffers]  # the forward updates BN statistics
         loss, metrics = self._grads_and_metrics(model, batch)
+        # The seq ranks of a data shard step with the gradients (and the guard with the
+        # loss) of the first of them, so their model copies stay bit-equal.
+        broadcast_over_seq([p.grad for p in unwrap(model).parameters()] + [loss], self.mesh)
         metrics.setdefault("loss", loss)
         metrics = self._reduce({**metrics, "_objective": loss}, batch)
         loss = metrics.pop("_objective")  # the differentiated loss, as the guard reads it

@@ -18,8 +18,17 @@ contract for the arguments the entries pass, and the same epoch loop:
   (the engine's guard), ``"raise"`` stops at the next sync point.
 
 In the port the model runs on ``device`` (the card unless the caller passes
-``device="cpu"``), and a world of more than one rank wraps it in
-``DistributedDataParallel``; each rank feeds its rows of the global batch.
+``device="cpu"``). ``mesh`` is the world's layout: ``None`` (every rank a data shard), an
+integer (the same, checked against the world size), or a built ``parallel.mesh.Mesh`` with
+``data`` and ``seq`` axes, as the JAX ``Trainer(mesh=MeshConfig(...).build())`` takes it.
+The global batch divides by the data extent; each data shard feeds its rows of it (the
+ranks of one data shard, its seq shards, see the same rows), and a data axis of more than
+one rank wraps the model in ``DistributedDataParallel`` over the data group. With one
+sequence shard per rank, every seq rank holds the whole model: its copies are broadcast
+from the seq group's first rank at build, and the engine broadcasts the gradients each
+step, so they stay bit-equal (``parallel.mesh.broadcast_over_seq``). A model
+reaches the seq axis through ``self.mesh`` in ``build_model``, for example
+``GPTSmall(..., attention_impl="ring", mesh=self.mesh)``. Rank 0 saves.
 
 What the JAX Trainer has and this one does not yet (each raises when asked for): chained
 steps, telemetry, the profiler, the memory preflight, the hung-step watchdog, the
@@ -73,7 +82,7 @@ class Trainer:
         snapshot_path: "str | None" = None,
         logger=None,
         *,
-        mesh: "int | None" = None,
+        mesh: "mesh_lib.Mesh | int | None" = None,
         seed: int = 0,
         accum_steps: int = 1,
         log_every: int = 50,
@@ -120,10 +129,16 @@ class Trainer:
 
         self.rank = mesh_lib.process_index()
         self.world_size = mesh_lib.process_count()
-        if mesh is not None and int(mesh) != self.world_size:
+        if mesh is not None and not isinstance(mesh, mesh_lib.Mesh) and int(mesh) != self.world_size:
             raise ValueError(f"mesh asks for {mesh} data-parallel ranks, the process group has {self.world_size}")
-        if batch_size % self.world_size:
-            raise ValueError(f"global batch_size {batch_size} is not divisible by {self.world_size} ranks")
+        self.mesh = mesh if isinstance(mesh, mesh_lib.Mesh) else mesh_lib.MeshConfig().build()
+        # The batch divisor is the data extent (the JAX Trainer's batch_shard_extent), not
+        # the world: the seq ranks of one data shard share its rows.
+        self.batch_replicas = self.mesh.shape[mesh_lib.DATA_AXIS]
+        if batch_size % self.batch_replicas:
+            raise ValueError(
+                f"global batch_size {batch_size} is not divisible by the mesh's {self.batch_replicas} data shards"
+            )
         self.precision_requested = precision is not None
         self.precision = get_policy(precision)
 
@@ -135,6 +150,8 @@ class Trainer:
 
         torch.manual_seed(seed)
         self.model = self.build_model().to(self.device)
+        # One sequence shard per rank: the seq ranks' copies start from the first one's.
+        mesh_lib.broadcast_over_seq([*self.model.parameters(), *self.model.buffers()], self.mesh)
         self.criterion = self.build_criterion()
         self.train_dataset = self.build_train_dataset()
         self.train_dataloader = self.build_dataloader(self.train_dataset, phase="train")
@@ -147,11 +164,13 @@ class Trainer:
         if schedule is None:
             schedule = 0.0
         self.schedule = schedule if callable(schedule) else (lambda step, lr=float(schedule): lr)
-        if self.world_size > 1:
+        if self.batch_replicas > 1:
             device_ids = None
             if self.device.type == "cuda":
                 device_ids = [self.device.index if self.device.index is not None else torch.cuda.current_device()]
-            self.model = torch.nn.parallel.DistributedDataParallel(self.model, device_ids=device_ids)
+            self.model = torch.nn.parallel.DistributedDataParallel(
+                self.model, device_ids=device_ids, process_group=self.mesh.data_group
+            )
         self.optimizer = self.build_optimizer(self.schedule)
         self.engine = TrainEngine(
             self.build_loss_fn(),
@@ -159,6 +178,7 @@ class Trainer:
             schedule=self.schedule,
             nan_guard=nan_policy == "skip",
             precision=self.precision,
+            mesh=self.mesh,
         )
         self.state = TrainState(model=self.model, optimizer=self.optimizer)
 
@@ -175,10 +195,12 @@ class Trainer:
 
     def build_dataloader(self, dataset, phase: str = "train") -> ShardedLoader:
         """Deterministic global shuffle for train (trailing partial batch dropped);
-        padded final batch with a ``mask`` for val."""
+        padded final batch with a ``mask`` for val. Rows are keyed by this process's data
+        shard, so the seq ranks of one data shard see the same rows."""
         train = phase == "train"
         return ShardedLoader(
-            dataset, self.batch_size, shuffle=train, seed=self.seed, drop_last=train, pad_final=not train
+            dataset, self.batch_size, shuffle=train, seed=self.seed, drop_last=train, pad_final=not train,
+            process_index=self.mesh.data_index, process_count=self.batch_replicas,
         )
 
     def to_device(self, batch: Mapping) -> dict:

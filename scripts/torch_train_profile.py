@@ -2,11 +2,14 @@
 """Where one training step of the PyTorch/CUDA port's byte-level GPT-2-small spends its
 time on the card.
 
-    python3 scripts/torch_train_profile.py [--batch 64] [--seq 1024] [--steps 3]
+    python3 scripts/torch_train_profile.py [--batch 64] [--seq 1024] [--steps 3] [--seq-shards 1]
 
 Builds the port's LM entry (``distributed_training_pytorch_tpu_torch/examples/
 train_lm.py``: GPT-2-small, vocab 256, bf16 compute, f32 params, fused tied CE, AdamW)
-on the card, as ``chip_smoke.py`` trains it, takes 2 warm-up steps through the trainer's
+on the card, as ``chip_smoke.py`` trains it; with ``--seq-shards S`` above 1, its ring
+configuration: ``MESH=spS`` with all S shards on the card and the entry's
+``RingLMTrainer`` (ring attention, K5 on the flash kernels; for example
+``--batch 16 --seq 4096 --seq-shards 4``). It takes 2 warm-up steps through the trainer's
 ``train_step`` hook, then:
 
 * ``step_ms``: the median of 5 steps, with CUDA events;
@@ -58,6 +61,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seq-shards", type=int, default=1)
     args = ap.parse_args()
 
     import torch
@@ -79,7 +83,11 @@ def main() -> int:
         os.environ.update(LM_SIZE="small", SEQ_LEN=str(args.seq), BATCH=str(args.batch), DTYPE="bf16",
                           EPOCHS="1", SAVE_DIR=run_dir)
         os.environ.pop("LM_CORPUS", None)
-        trainer = train_lm.build_trainer("cuda")
+        trainer_cls = train_lm.LMTrainer
+        if args.seq_shards > 1:
+            os.environ["MESH"] = f"sp{args.seq_shards}"
+            trainer_cls = train_lm.RingLMTrainer
+        trainer = train_lm.build_trainer("cuda", trainer_cls=trainer_cls)
         loaded = [trainer.to_device(b) for b in trainer.train_dataloader]
         batches = [loaded[i % len(loaded)] for i in range(2 + 5 + args.steps)]
         state = trainer.state
@@ -114,6 +122,7 @@ def main() -> int:
         "card": card,
         "batch": args.batch,
         "seq": args.seq,
+        "seq_shards": args.seq_shards,
         "step_ms_p50": statistics.median(times),
         "step_ms_all": times,
         "tokens_per_s": args.batch * args.seq / statistics.median(times) * 1e3,

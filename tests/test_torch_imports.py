@@ -25,6 +25,8 @@ PORT_MODULES = [
     "trainer.trainer", "examples.train_lm",
     # ResNet-50 training
     "ops.conv1x1", "ops.metrics", "models.resnet", "models.wrappers", "examples.train_imagenet",
+    # GPT-2-small training over a seq axis with ring attention
+    "parallel.ring_attention",
 ]
 
 _PROBE = f"""

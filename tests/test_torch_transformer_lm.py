@@ -78,8 +78,8 @@ def test_pallas_knob_maps_onto_attention_impl(jax_params):
 def test_unported_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="expert-parallel"):
         LMTiny(moe_every=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        LMTiny(attention_impl="ring", device="cpu")
+    with pytest.raises(ValueError, match='attention_impl="ring" needs mesh='):
+        LMTiny(attention_impl="ring", device="cpu")  # the ring runs over a mesh's seq axis
     with pytest.raises(NotImplementedError, match="decode"):
         LMTiny(device="cpu")(torch.zeros(1, 1, dtype=torch.long), decode=True)
     with pytest.raises(ValueError, match="max_len"):
