@@ -7,14 +7,17 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 
 1. device: a CUDA card, its name and power limit (``nvidia-smi``), ``torch.version.cuda``,
    and a build of every kernel from the sources in this checkout, with ``-Xptxas -v``'s
-   register and shared-memory report;
+   register, spill and shared-memory report; ``cuobjdump --dump-sass`` of the library must
+   show ``HGMMA`` (wgmma) instructions in each of the tensor-core backward kernels;
 2. kernel vs plain: flash-attention forward (``csrc/flash_fwd.cu``) against its plain
    PyTorch version on the card, over causal/non-causal, ``valid_len``, ragged T,
    Tq != Tk, D 8/64/128, f32 and bf16, and the served shapes;
-3. backward kernels vs plain: the dq and dk/dv kernels (``csrc/flash_bwd.cu``) against
+3. backward kernels vs plain: the dq and dk/dv kernels against
    ``flash_attention_bwd_plain`` over the same kinds of cases, Tq != Tk with external
-   lse/delta, and the training shape; then ``flash_attention``'s autograd path against
-   autograd through the plain version;
+   lse/delta, and the training shape, each on the variant that ``bwd_variant`` names
+   (``csrc/flash_bwd_wgmma.cu`` for bf16 at D 64/128, ``csrc/flash_bwd.cu`` otherwise); the
+   wgmma pair on the q, k, v views of a fused qkv projection, read in place; then
+   ``flash_attention``'s autograd path against autograd through the plain version;
 4. serving: GPT-2-small at full width (bf16, seeded random weights) behind
    ``InferEngine`` + ``InferenceServer``, 16 ``/predict`` requests of 1024 tokens from 4
    concurrent clients; every answer 200, finite, and close to the plain-attention model's;
@@ -24,7 +27,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
    epochs, then a resume from ``last`` for a third; every loss finite, the last epoch's
    train loss below the first's, ``best``/``last`` valid, the resume continuing the step
    and epoch, and exactly 12 launches of each kernel per step (plus 12 forward launches
-   per validation forward); the step time (median, CUDA events), tokens/s and peak memory;
+   per validation forward), every backward launch on the wgmma variant; the step time
+   (median, CUDA events), tokens/s and peak memory;
 6. times, with CUDA events: each kernel, its plain version, its bound, and the PyTorch
    call that computes the same function as a yardstick (``scaled_dot_product_attention``
    forward, and its backward as fwd+bwd minus fwd; the port never calls it), at the
@@ -60,7 +64,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     through flash attention, then 2 epochs
     and a resume from ``last``; every loss finite, the train loss falling, the padded val
     batch run once a validation, exactly 120 launches of each kernel (12 layers x 10
-    blocks) per train step and per val forward; step time, tokens/s, peak memory.
+    blocks) per train step and per val forward, every backward launch on the wgmma variant;
+    step time, tokens/s, peak memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -72,6 +77,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -206,12 +212,15 @@ def phase_device():
         "flash_fwd_kernel": lib.dtp_flash_fwd_smem_bytes,
         "flash_bwd_dq_kernel": lib.dtp_flash_bwd_dq_smem_bytes,
         "flash_bwd_dkv_kernel": lib.dtp_flash_bwd_dkv_smem_bytes,
+        "flash_bwd_dq_wgmma_kernel": lib.dtp_flash_bwd_dq_wgmma_smem_bytes,
+        "flash_bwd_dkv_wgmma_kernel": lib.dtp_flash_bwd_dkv_wgmma_smem_bytes,
     }
     kernel = ""
     for line in _build.build_log.splitlines():
         entry = re.search(
             r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line
         )
+        wgmma = re.search(r"Compiling entry function '\S*?(flash_bwd_(?:dq|dkv)_wgmma_kernel)ILi(\d+)E", line)
         conv = re.search(
             r"Compiling entry function '\S*?conv1x1_bn_act_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Lb([01])E", line
         )
@@ -225,10 +234,41 @@ def phase_device():
             d = int(entry.group(3))
             kernel = (f"{entry.group(1)}<{dtype}, D={d}> "
                       f"(dynamic smem {smem[entry.group(1)](d)} B/block)")
+        elif wgmma:
+            d = int(wgmma.group(2))
+            kernel = f"{wgmma.group(1)}<bfloat16, D={d}> (dynamic smem {smem[wgmma.group(1)](d)} B/block)"
         elif "registers" in line or "spill stores" in line:
             report = re.sub(r"^ptxas info\s*:\s*", "", line.strip())
             log(f"[device] {kernel}: {report}")
+        elif "warning" in line.lower():  # e.g. ptxas serialising wgmma
+            log(f"[device] {line.strip()}")
+    for name, n in sass_hgmma_counts(_build.LIBRARY).items():
+        log(f"[device] SASS of {name}: {n} HGMMA instructions")
     return card
+
+
+WGMMA_KERNELS = [f"flash_bwd_{k}_wgmma_kernel<D={d}>" for k in ("dq", "dkv") for d in (64, 128)]
+
+
+def sass_hgmma_counts(library) -> dict:
+    """The number of ``HGMMA`` (wgmma) instructions in the SASS of each tensor-core
+    backward kernel of the built library, from ``cuobjdump --dump-sass``; raises when the
+    tool is missing or a kernel has none, since then nothing shows that the products run on
+    the tensor cores."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found: the HGMMA check of the wgmma kernels cannot run")
+    sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        found = re.search(r"(flash_bwd_(?:dq|dkv)_wgmma_kernel)ILi(\d+)E", chunk.split("\n", 1)[0])
+        if found:
+            counts[f"{found.group(1)}<D={found.group(2)}>"] = chunk.count("HGMMA")
+    missing = [name for name in WGMMA_KERNELS if not counts.get(name)]
+    if missing:
+        raise RuntimeError(f"no HGMMA instruction in the SASS of {missing} (found {counts})")
+    return counts
 
 
 # (B, Tq, Tk, H, D, causal, valid_len, dtype)
@@ -423,6 +463,16 @@ BWD_CASES = [
     (1, 50, 130, 2, 32, False, None, "bfloat16", True),  # Tq < Tk, external lse/delta
     (8, 1024, 1024, 12, 64, True, None, "float32", False),
     (8, 1024, 1024, 12, 64, True, None, "bfloat16", False),
+    # The wgmma variant (bf16, D 64 and 128): ragged causal T, valid_len, Tq != Tk with
+    # external lse/delta.
+    (2, 1000, 1000, 2, 64, True, None, "bfloat16", False),
+    (2, 1000, 1000, 2, 128, True, None, "bfloat16", False),
+    (2, 197, 197, 2, 128, False, 100, "bfloat16", False),  # valid_len, D=128
+    (1, 300, 130, 2, 64, True, None, "bfloat16", True),  # Tq > Tk
+    (1, 130, 300, 2, 128, False, None, "bfloat16", True),  # Tq < Tk
+    (1, 96, 1000, 2, 64, True, None, "bfloat16", True),  # Tq < Tk, causal
+    (3, 40, 40, 2, 64, True, None, "bfloat16", False),  # T below one 64-row TMA box
+    (1, 17, 50, 1, 128, False, None, "bfloat16", True),  # both below a box, B = H = 1
     (*TRAIN_SHAPE[:2], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], True, None, "bfloat16", False),  # training
 ]
 # f32: kernel and plain both sum in f32, in other orders, over up to 1000 keys or queries.
@@ -431,6 +481,14 @@ BWD_CASES = [
 # grad is rounded to bf16 at the end: held to 2e-2 of the grad's largest magnitude.
 BWD_ATOL_F32 = 2e-4
 BWD_REL_BF16 = 2e-2
+# What the main path's K2 and K3 are (bf16, D=64: the wgmma variant); the f32 and small-D
+# variant is csrc/flash_bwd.cu on the CUDA cores.
+BWD_DESIGN = {
+    "dq": "wgmma m64n64k16 (S, dP from shared memory; dS K with dS from registers), TMA 128B-swizzled "
+          "K/V tiles in a 2-stage mbarrier ring, Q/dO resident; one warpgroup per 64 query rows",
+    "dkv": "wgmma m64n64k16 (S^T, dP^T from shared memory; P^T dO and dS^T Q from registers), TMA "
+           "128B-swizzled Q/dO tiles in a 2-stage mbarrier ring, K/V resident; one warpgroup per 64 key rows",
+}
 
 
 def _grad_err(g, ref):
@@ -474,23 +532,49 @@ def phase_bwd_kernels():
         if external:  # a q shard's global statistics, as the ring path passes them
             lse = lse + 0.5
             delta = 0.1 * torch.randn(b, h, tq, device="cuda", generator=gen)
-        before = dict(fa.launches)
+        before, before_variant = dict(fa.launches), dict(fa.launches_by_variant)
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta)
         torch.cuda.synchronize()
         if (fa.launches["bwd_dq"], fa.launches["bwd_dkv"]) != (before["bwd_dq"] + 1, before["bwd_dkv"] + 1):
             raise RuntimeError("the backward wrappers did not launch their kernels")
+        variant = fa.bwd_variant(dtype, d)
+        if any(fa.launches_by_variant[(name, variant)] != before_variant[(name, variant)] + 1
+               for name in ("bwd_dq", "bwd_dkv")):
+            raise RuntimeError(f"the backward did not run on the {variant} variant")
         refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta)
         results = [_grad_err(g, r) for g, r in zip(grads, refs, strict=True)]
         ok = all(r[2] for r in results)
         errs = " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", results, strict=True))
         log(f"[bwd] B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} valid_len={valid_len} "
-            f"external={external} {dtype_name}: max|grad-plain|/bound {errs} -> {'ok' if ok else 'FAIL'}")
+            f"external={external} {dtype_name} ({variant}): max|grad-plain|/bound {errs} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("flash backward kernels disagree with their plain version")
         if (b, tq, h, d, causal, dtype_name) == (*TRAIN_SHAPE[:2], *TRAIN_SHAPE[2:], True, "bfloat16"):
             train_err = {"dq": results[0][0], "dkv": max(results[1][0], results[2][0])}
         del q, k, v, do, o, lse, grads, refs
     torch.cuda.empty_cache()
+
+    # The wgmma pair on q, k, v views of a fused [B, T, 3, H, D] projection, as the LM makes
+    # them: TMA reads them in place (t stride 3 H D), no copy.
+    for d in (64, 128):
+        qkv = torch.randn(2, 1000, 3, 4, d, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(2, 1000, 4, d, device="cuda", generator=gen).to(torch.bfloat16)
+        o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+        before = dict(fa.launches_by_variant)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        in_place = all(fa.tma_operand(x) is x for x in (q, k, v))
+        ran = all(fa.launches_by_variant[(n, "wgmma")] == before[(n, "wgmma")] + 1 for n in ("bwd_dq", "bwd_dkv"))
+        refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+        results = [_grad_err(g, r) for g, r in zip(grads, refs, strict=True)]
+        ok = in_place and ran and all(r[2] for r in results)
+        errs = " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", results, strict=True))
+        log(f"[bwd] qkv views B=2 T=1000 H=4 D={d} causal bfloat16 (wgmma, read in place: {in_place}): "
+            f"max|grad-plain|/bound {errs} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the wgmma backward disagrees on strided qkv views, or copied or skipped them")
+        del qkv, q, k, v, do, o, lse, grads, refs
 
     # The autograd path: flash_attention forward + backward through the kernels against
     # autograd through the plain version, on strided views as the LM makes them.
@@ -548,6 +632,14 @@ def _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics):
     return trainer
 
 
+def _check_wgmma_launches(launches, by_variant, tag):
+    """Every backward launch of a training phase ran the wgmma variant (bf16, D=64)."""
+    log(f"{tag} backward launches by variant {({f'{n}/{v}': c for (n, v), c in by_variant.items()})}")
+    for name in ("bwd_dq", "bwd_dkv"):
+        if by_variant[(name, "wgmma")] != launches[name] or by_variant[(name, "cuda_core")] != 0:
+            raise RuntimeError(f"expected all {launches[name]} {name} launches on the wgmma variant, got {by_variant}")
+
+
 def phase_train(run_dir: str):
     """The LM entry at full size: 2 epochs, then a resumed epoch; returns the launch counts
     of the phase and the step-time figures."""
@@ -583,7 +675,7 @@ def phase_train(run_dir: str):
         resumed.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(fa.launches)
+        launches, by_variant = dict(fa.launches), dict(fa.launches_by_variant)
         final_step = resumed.state.step
         steps_per_epoch = len(resumed.train_dataloader)
         n_val = len(resumed.val_dataloader)
@@ -618,6 +710,7 @@ def phase_train(run_dir: str):
                 "bwd_dkv": DEPTH * counts["steps"]}
     if launches != expected:
         raise RuntimeError(f"expected launches {expected} (12 per layer pass), got {launches}")
+    _check_wgmma_launches(launches, by_variant, "[train]")
     if (first_steps, first_epoch) != (TRAIN_EPOCHS * steps_per_epoch, TRAIN_EPOCHS - 1):
         raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
     if resumed_at != (TRAIN_EPOCHS * steps_per_epoch, TRAIN_EPOCHS) or final_step != (TRAIN_EPOCHS + 1) * steps_per_epoch:
@@ -1345,7 +1438,7 @@ def phase_ring_train(run_dir: str):
         resumed.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(fa.launches)
+        launches, by_variant = dict(fa.launches), dict(fa.launches_by_variant)
         final_step = resumed.state.step
         steps_per_epoch = len(resumed.train_dataloader)
         n_val = len(resumed.val_dataloader)
@@ -1391,6 +1484,7 @@ def phase_ring_train(run_dir: str):
     expected = {"fwd": fwd, "bwd_dq": bwd, "bwd_dkv": bwd}
     if launches != expected:
         raise RuntimeError(f"expected launches {expected} ({per_pass} per layer pass), got {launches}")
+    _check_wgmma_launches(launches, by_variant, "[ring-train]")
     if (first_steps, first_epoch) != (RING_EPOCHS * steps_per_epoch, RING_EPOCHS - 1):
         raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
     if resumed_at != (RING_EPOCHS * steps_per_epoch, RING_EPOCHS) or final_step != (RING_EPOCHS + 1) * steps_per_epoch:
@@ -1462,16 +1556,16 @@ def main() -> int:
         traceback.print_exc()
         return 1
     kernels = []
-    for name, kind, launch_key, replaces, err in (
-        ("flash_fwd", "fwd", "fwd", ":81", fwd_err),
-        ("flash_bwd_dq", "dq", "bwd_dq", ":135", bwd_err["dq"]),
-        ("flash_bwd_dkv", "dkv", "bwd_dkv", ":174", bwd_err["dkv"]),
+    for name, kind, launch_key, replaces, err, source in (
+        ("flash_fwd", "fwd", "fwd", ":81", fwd_err, "flash_fwd.cu"),
+        ("flash_bwd_dq", "dq", "bwd_dq", ":135", bwd_err["dq"], "flash_bwd_wgmma.cu"),
+        ("flash_bwd_dkv", "dkv", "bwd_dkv", ":174", bwd_err["dkv"], "flash_bwd_wgmma.cu"),
     ):
         r = times[kind]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"distributed_training_pytorch_tpu_torch/csrc/{'flash_fwd.cu' if kind == 'fwd' else 'flash_bwd.cu'}",
+            "source": f"distributed_training_pytorch_tpu_torch/csrc/{source}",
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": train_launches[launch_key],
             "launches_by_path": {"train": train_launches[launch_key], "train_ring": ring_launches[launch_key],
@@ -1484,6 +1578,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             "dtype": "bfloat16",
+            **({"design": BWD_DESIGN[kind]} if kind in BWD_DESIGN else {}),
         })
     kernels.append({
         "name": "conv1x1_bn_act",
@@ -1503,7 +1598,7 @@ def main() -> int:
         "dtype": "bfloat16",
     })
     for kind, launch_key, replaces, source in (("fwd", "fwd", ":399", "flash_fwd.cu"),
-                                               ("bwd", "bwd_dq", ":415", "flash_bwd.cu")):
+                                               ("bwd", "bwd_dq", ":415", "flash_bwd_wgmma.cu")):
         r = ring["k5"][kind]
         kernels.append({
             "name": f"flash_block_{kind}",

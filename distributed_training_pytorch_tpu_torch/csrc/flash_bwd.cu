@@ -1,11 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a): dq, and dk with dv, of
-// O = softmax(D^-0.5 * Q K^T, masked) V, on [B, T, H, D] tensors read through strides.
+// Flash-attention backward on the CUDA cores (sm_90a): dq, and dk with dv, of
+// O = softmax(D^-0.5 * Q K^T, masked) V, on [B, T, H, D] tensors read through strides, for
+// f32 inputs (D = 8 to 128) and bf16 inputs with D = 8, 16 or 32. bf16 at D = 64 and 128,
+// the shapes of the models' training paths, run the tensor-core kernels of
+// flash_bwd_wgmma.cu; ops/flash_attention.py::bwd_variant picks the file by dtype and D.
 //
 // Replaces distributed_training_pytorch_tpu/ops/pallas.py::_bwd_dq_kernel (launched by
-// _dq_call) and ::_bwd_dkv_kernel (launched by _dkv_call). Both recompute the attention
-// weights from the forward's per-row log-sum-exp, p = exp(s - lse), under the forward's
-// masks (logit -1e30 for keys at or past seq_len and, when causal, keys after the query by
-// absolute index), and take delta = rowsum(dO * O) from the caller:
+// _dq_call) and ::_bwd_dkv_kernel (launched by _dkv_call) for those inputs. Both recompute
+// the attention weights from the forward's per-row log-sum-exp, p = exp(s - lse), under the
+// forward's masks (logit -1e30 for keys at or past seq_len and, when causal, keys after the
+// query by absolute index), and take delta = rowsum(dO * O) from the caller:
 //
 //   dq_i = scale * sum_j ds_ij k_j               (flash_bwd_dq_kernel)
 //   dk_j = scale * sum_i ds_ij q_i,  dv_j = sum_i p_ij dO_i   (flash_bwd_dkv_kernel)
@@ -25,15 +28,11 @@
 //
 // Key rows at or past seq_len get p = 0 in both kernels, so they receive dk = dv = 0.
 //
-// Bound at the training shape (GPT-2-small, B=64, T=1024, H=12, D=64, bf16, causal, 524,800
-// (query, key) pairs per (batch, head)): dq does 3 products (s, dp, ds.K) = 155 GFLOP, or
-// 0.157 ms at 989 TFLOP/s, against 510 MB of q, k, v, dO, lse, delta and dq (0.152 ms at
-// 3.35 TB/s); dk/dv does 4 products (s, dp, p^T.dO, ds^T.Q) = 206 GFLOP, 0.209 ms, against
-// 610 MB (0.182 ms): both are bound by operations. This first version does its products on
-// the CUDA cores in f32 (inputs widened as they are staged), so it runs far above that
-// bound; moving the products onto wgmma with TMA-fed tiles is the later step. What the
-// design keeps out of device memory: the [T, T] scores, p and ds never leave the SM, and
-// the ragged edges are masked in place with no pad or transpose copies.
+// The products run on the CUDA cores in f32 (inputs widened as they are staged): f32 needs
+// that, since the tensor cores read f32 only as TF32, which misses the f32 parity bound.
+// What bounds it is those FMAs (67 TFLOP/s at most) and the shared-memory reads that feed
+// them. What the design keeps out of device memory: the [T, T] scores, p and ds never
+// leave the SM, and the ragged edges are masked in place with no pad or transpose copies.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // (distributed_training_pytorch_tpu_torch/ops/_build.py). Each C entry point returns
@@ -323,9 +322,7 @@ cudaError_t dispatch(int dtype, int D, const BwdArgs& a) {
       DTP_BWD_CASE(__nv_bfloat16, 8)
       DTP_BWD_CASE(__nv_bfloat16, 16)
       DTP_BWD_CASE(__nv_bfloat16, 32)
-      DTP_BWD_CASE(__nv_bfloat16, 64)
-      DTP_BWD_CASE(__nv_bfloat16, 128)
-      default: return cudaErrorInvalidValue;
+      default: return cudaErrorInvalidValue;  // D = 64, 128: flash_bwd_wgmma.cu
     }
   }
 #undef DTP_BWD_CASE
@@ -338,7 +335,8 @@ bool known_head_dim(int D) { return D == 8 || D == 16 || D == 32 || D == 64 || D
 
 // Strides are in elements, for [B, T, H, D] tensors with the D stride 1 (q, dq: Tq rows;
 // k, v, dk, dv: Tk rows). lse and delta are contiguous f32 [B, H, Tq]. Keys at or past
-// seq_len are masked. dtype: 0 = float32, 1 = bfloat16.
+// seq_len are masked. dtype: 0 = float32 (D = 8 to 128), 1 = bfloat16 (D = 8, 16, 32);
+// anything else returns cudaErrorInvalidValue without a launch.
 extern "C" int dtp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                 const void* lse, const void* delta, void* dq, int dtype,
                                 int B, int H, int Tq, int Tk, int seq_len, int D,

@@ -1,7 +1,8 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu): the tile
-// sizes, the thread layout, f32 <-> storage-type conversion and the strided tile stage.
+// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu; the masked
+// logit and the stride triple also by flash_bwd_wgmma.cu): the tile sizes, the thread
+// layout of the CUDA-core kernels, f32 <-> storage-type conversion and the strided stage.
 //
-// Thread layout of every kernel here: 128 threads = 4 warps x 16 rows of a 64-row tile;
+// Thread layout of the CUDA-core kernels: 128 threads = 4 warps x 16 rows of a 64-row tile;
 // within a warp, lane / 8 picks 4 consecutive rows (row_base .. row_base + 3) and the 8
 // lanes that share them (l8 = lane % 8) take columns l8, l8 + 8, ... of the other
 // operand's 64-row tile. So a row's partial results are reduced by shuffles over 8 lanes,

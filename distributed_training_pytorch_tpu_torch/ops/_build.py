@@ -21,7 +21,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "LIBRARY", "library", "build_log"]
+__all__ = ["ARGTYPES", "SOURCES", "LIBRARY", "library", "build_log"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -63,6 +63,22 @@ _CONV1X1_ARGTYPES = (
     + [_c.c_longlong] * 3  # (b, h, w) element strides of x
     + [_c.c_int, _c.c_void_p]  # act, stream
 )
+# The argument types of every ``extern "C"`` function of ``csrc/*.cu``; all return int.
+# ctypes converts by these alone, so a count or type that differs from the C signature is
+# a silent fault on the card: ``tests/test_torch_flash_backward.py`` holds them against
+# the sources.
+ARGTYPES = {
+    "dtp_flash_fwd": _FLASH_FWD_ARGTYPES,
+    "dtp_flash_bwd_dq": _FLASH_BWD_DQ_ARGTYPES,
+    "dtp_flash_bwd_dkv": _FLASH_BWD_DKV_ARGTYPES,
+    "dtp_flash_bwd_dq_wgmma": _FLASH_BWD_DQ_ARGTYPES,
+    "dtp_flash_bwd_dkv_wgmma": _FLASH_BWD_DKV_ARGTYPES,
+    "dtp_conv1x1_bn_act": _CONV1X1_ARGTYPES,
+    **{
+        f"dtp_flash_{kernel}_smem_bytes": [_c.c_int]  # head dim D
+        for kernel in ("fwd", "bwd_dq", "bwd_dkv", "bwd_dq_wgmma", "bwd_dkv_wgmma")
+    },
+}
 
 
 def _nvcc() -> str:
@@ -124,16 +140,8 @@ def library(*, rebuild: bool = False) -> ctypes.CDLL:
             if rebuild or _stale():
                 build_log = _build()
             lib = ctypes.CDLL(str(LIBRARY))
-            lib.dtp_flash_fwd.argtypes = _FLASH_FWD_ARGTYPES
-            lib.dtp_flash_fwd.restype = ctypes.c_int
-            lib.dtp_flash_bwd_dq.argtypes = _FLASH_BWD_DQ_ARGTYPES
-            lib.dtp_flash_bwd_dq.restype = ctypes.c_int
-            lib.dtp_flash_bwd_dkv.argtypes = _FLASH_BWD_DKV_ARGTYPES
-            lib.dtp_flash_bwd_dkv.restype = ctypes.c_int
-            lib.dtp_conv1x1_bn_act.argtypes = _CONV1X1_ARGTYPES
-            lib.dtp_conv1x1_bn_act.restype = ctypes.c_int
-            for fn in ("dtp_flash_fwd_smem_bytes", "dtp_flash_bwd_dq_smem_bytes", "dtp_flash_bwd_dkv_smem_bytes"):
-                getattr(lib, fn).argtypes = [ctypes.c_int]
-                getattr(lib, fn).restype = ctypes.c_int
+            for name, argtypes in ARGTYPES.items():
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -27,11 +27,13 @@ JAX package; ``lse`` and ``delta`` are ``[B, H, Tq]`` f32.
 * :func:`causal_attention_plain` — counterpart of ``_causal_plain``: the LM's plain path.
 
 A CPU tensor goes to the plain version. A CUDA tensor goes to the kernels
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), built at the first launch; if a kernel
+(``csrc/flash_fwd.cu``; the backward in ``csrc/flash_bwd_wgmma.cu`` or
+``csrc/flash_bwd.cu``, see :func:`bwd_variant`), built at the first launch; if a kernel
 cannot take the input or does not launch, the call raises: there is no fallback.
 ``launches`` counts each kernel's launches in this process (``fwd``, ``bwd_dq``,
 ``bwd_dkv``); K5's launches count under those names, since each K5 call launches K1, or K2
-and K3, once; :func:`reset_launches` sets them to 0.
+and K3, once. ``launches_by_variant`` counts the backward's launches again by the path
+they took, ``("bwd_dq", "wgmma")`` and so on. :func:`reset_launches` sets all to 0.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 
 __all__ = [
     "NEG_INF",
+    "bwd_variant",
     "causal_attention_plain",
     "flash_attention",
     "flash_attention_bwd",
@@ -53,28 +56,57 @@ __all__ = [
     "launch_bwd_dkv",
     "launch_bwd_dq",
     "launches",
+    "launches_by_variant",
     "reset_launches",
+    "tma_operand",
 ]
 
 NEG_INF = -1e30  # the masked logit of the JAX kernel (f32-safe, unlike -inf: no NaN rows)
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+BWD_VARIANTS = ("wgmma", "cuda_core")
 
 launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+launches_by_variant = {(name, variant): 0 for name in ("bwd_dq", "bwd_dkv") for variant in BWD_VARIANTS}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and every count by variant, to 0."""
     with _launch_lock:
         for name in launches:
             launches[name] = 0
+        for key in launches_by_variant:
+            launches_by_variant[key] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, variant: "str | None" = None) -> None:
     with _launch_lock:
         launches[name] += 1
+        if variant is not None:
+            launches_by_variant[(name, variant)] += 1
+
+
+def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which backward kernels K2/K3 run for inputs of this dtype and head dim, by rule:
+    ``"wgmma"`` (``csrc/flash_bwd_wgmma.cu``: tensor-core products fed by TMA) for bf16 at
+    D = 64 or 128, else ``"cuda_core"`` (``csrc/flash_bwd.cu``: f32 products on the CUDA
+    cores) for f32, whose parity bound the tensor cores' TF32 would miss, and for bf16 at
+    D = 8, 16, 32, below the wgmma tiles' 64-column rows."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "cuda_core"
+
+
+def tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ``x`` itself when TMA can read it in place, else a contiguous copy. TMA
+    needs a 16-byte-aligned base and byte strides that are multiples of 16: here, b, t and
+    h element strides that are positive multiples of 8 (a size-1 dimension's stride is
+    never used). The LM's q, k, v views of its fused ``[B, T, 3, H, D]`` projection qualify."""
+    aligned = x.data_ptr() % 16 == 0 and all(
+        size == 1 or (stride > 0 and stride % 8 == 0) for size, stride in zip(x.shape[:3], x.stride()[:3])
+    )
+    return x if aligned else x.contiguous()
 
 
 def _check_shapes(q, k, v, valid_len):
@@ -233,55 +265,67 @@ def flash_attention_bwd_plain(
 
 
 def _bwd_launch_args(q, k, v, do, lse, delta, seq_len: int):
-    """Checks shared by the two backward kernels, and their common C arguments (the f32
-    ``lse``/``delta`` made contiguous, then sizes and strides)."""
+    """Checks shared by the two backward kernels; their variant (:func:`bwd_variant`), the
+    inputs as that variant reads them (made contiguous where TMA could not read them in
+    place, see :func:`tma_operand`), and their common C arguments (the f32 ``lse``/``delta``
+    made contiguous, then sizes and strides)."""
     from distributed_training_pytorch_tpu_torch.ops import _build
 
     _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)))
     if lse.device != q.device or delta.device != q.device:
         raise ValueError(f"lse/delta on {lse.device}/{delta.device}, q on {q.device}")
     b, tq, h, d = q.shape
-    args = (
-        lse.contiguous(), delta.contiguous(), KERNEL_DTYPES[q.dtype], b, h, tq, k.shape[1], seq_len, d,
+    variant = bwd_variant(q.dtype, d)
+    if variant == "wgmma":
+        q, k, v, do = (tma_operand(x) for x in (q, k, v, do))
+    sizes_strides = (
+        KERNEL_DTYPES[q.dtype], b, h, tq, k.shape[1], seq_len, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
     )
-    return _build.library(), torch.cuda.current_stream(q.device).cuda_stream, args
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return _build.library(), stream, variant, (q, k, v, do, lse.contiguous(), delta.contiguous()), sizes_strides
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
     """K2 on CUDA tensors: ``dq`` from q, k, v, dO and the f32 ``lse``/``delta``
-    ``[B, H, Tq]``; keys at or past ``seq_len`` are masked."""
-    lib, stream, (lse, delta, *sizes_strides) = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
+    ``[B, H, Tq]``; keys at or past ``seq_len`` are masked. The kernel is the one
+    :func:`bwd_variant` names; the wgmma variant reads q, k, v and dO by TMA, so an input
+    that TMA cannot read in place is copied to a contiguous tensor first
+    (:func:`tma_operand`)."""
+    # ``inputs`` holds any contiguous copies alive until the launch is queued.
+    lib, stream, variant, inputs, sizes_strides = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     if q.shape[1] == 0:
         return dq
+    fn = lib.dtp_flash_bwd_dq_wgmma if variant == "wgmma" else lib.dtp_flash_bwd_dq
     with torch.cuda.device(q.device):
-        err = lib.dtp_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), *sizes_strides, *dq.stride()[:3], int(causal), float(q.shape[3] ** -0.5), stream,
+        err = fn(
+            *(x.data_ptr() for x in inputs), dq.data_ptr(), *sizes_strides, *dq.stride()[:3],
+            int(causal), float(q.shape[3] ** -0.5), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash dq kernel launch failed: CUDA error {err}")
-    _count("bwd_dq")
+        raise RuntimeError(f"flash dq kernel ({variant}) launch failed: CUDA error {err}")
+    _count("bwd_dq", variant)
     return dq
 
 
 def launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
-    """K3 on CUDA tensors: ``(dk, dv)``, the same inputs as :func:`launch_bwd_dq`."""
-    lib, stream, (lse, delta, *sizes_strides) = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
+    """K3 on CUDA tensors: ``(dk, dv)``, the same inputs and the same choice of kernel as
+    :func:`launch_bwd_dq`."""
+    lib, stream, variant, inputs, sizes_strides = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
     dk = torch.empty(k.shape, device=q.device, dtype=q.dtype)
     dv = torch.empty(k.shape, device=q.device, dtype=q.dtype)
     if k.shape[1] == 0:
         return dk, dv
+    fn = lib.dtp_flash_bwd_dkv_wgmma if variant == "wgmma" else lib.dtp_flash_bwd_dkv
     with torch.cuda.device(q.device):
-        err = lib.dtp_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *sizes_strides, *dk.stride()[:3], *dv.stride()[:3],
-            int(causal), float(q.shape[3] ** -0.5), stream,
+        err = fn(
+            *(x.data_ptr() for x in inputs), dk.data_ptr(), dv.data_ptr(), *sizes_strides,
+            *dk.stride()[:3], *dv.stride()[:3], int(causal), float(q.shape[3] ** -0.5), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash dk/dv kernel launch failed: CUDA error {err}")
-    _count("bwd_dkv")
+        raise RuntimeError(f"flash dk/dv kernel ({variant}) launch failed: CUDA error {err}")
+    _count("bwd_dkv", variant)
     return dk, dv
 
 

@@ -15,7 +15,8 @@ configuration: ``MESH=spS`` with all S shards on the card and the entry's
 * ``step_ms``: the median of 5 steps, with CUDA events;
 * ``--steps`` steps under ``torch.profiler``: device time per step summed over the
   kernels of each family (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``: the port's
-  kernels; ``matmul``: cuBLAS/CUTLASS GEMMs; ``layernorm``; ``elementwise``: casts, GELU,
+  kernels, each backward family holding both its wgmma and CUDA-core variants;
+  ``matmul``: cuBLAS/CUTLASS GEMMs; ``layernorm``; ``elementwise``: casts, GELU,
   residual adds and the like; ``reduce``: reductions such as the backward's delta and the
   loss; ``optimizer``: AdamW's multi-tensor kernels; ``other``), the top kernels, and the
   device's busy share of the profiled wall time.
@@ -29,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -40,9 +42,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _group(name: str) -> str:
     low = name.lower()
-    for family in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if family + "_kernel" in low:
-            return family
+    flash = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(?:_wgmma)?_kernel", low)  # either backward variant
+    if flash:
+        return flash.group(1)
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
         return "matmul"
     if "multi_tensor" in low or "adam" in low:

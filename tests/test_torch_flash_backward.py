@@ -9,6 +9,9 @@ gradients to (the two sum in other orders, over up to 256 keys). The CUDA kernel
 against the plain version on the card by ``tests/test_torch_flash_backward_kernel.py``.
 """
 
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from distributed_training_pytorch_tpu.ops import pallas as jax_pallas
+from distributed_training_pytorch_tpu_torch.ops import _build
 from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
 
 ATOL = 2e-4
@@ -147,3 +151,95 @@ def test_cpu_backward_never_launches_a_kernel():
     fa.flash_attention(*leaves, causal=True).backward(torch.from_numpy(do))
     assert fa.launches == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
     assert all(leaf.grad is not None for leaf in leaves)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,variant",
+    [
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 8, "cuda_core"),
+        (torch.bfloat16, 16, "cuda_core"),
+        (torch.bfloat16, 32, "cuda_core"),
+        (torch.float32, 8, "cuda_core"),
+        (torch.float32, 64, "cuda_core"),
+        (torch.float32, 128, "cuda_core"),
+    ],
+)
+def test_bwd_variant_is_chosen_by_dtype_and_head_dim(dtype, d, variant):
+    """bf16 at D 64/128 takes the wgmma kernels; f32 (TF32 would miss its parity bound)
+    and bf16 at D 8/16/32 take the CUDA-core kernels."""
+    assert fa.bwd_variant(dtype, d) == variant
+
+
+def _unaligned_base():
+    return torch.zeros(2, 10, 4, 72, dtype=torch.bfloat16)[..., 1:65]  # base 2 bytes off 16
+
+
+def _h_stride_68():
+    return torch.zeros(2, 10, 3, 68, dtype=torch.bfloat16)[..., :64]  # h stride 68 elements
+
+
+def _broadcast_t():
+    return torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16).expand(2, 10, 4, 64)  # t stride 0
+
+
+def _qkv_view():
+    return torch.zeros(2, 10, 3, 4, 64, dtype=torch.bfloat16)[:, :, 1]  # t stride 3 H D, 768 bytes in
+
+
+def _odd_stride_on_size_one():
+    return torch.zeros(1, 10, 1, 64, dtype=torch.bfloat16).as_strided((1, 10, 1, 64), (3, 64, 5, 1))
+
+
+@pytest.mark.parametrize(
+    "make,in_place",
+    [
+        (lambda: torch.zeros(2, 10, 4, 64, dtype=torch.bfloat16), True),
+        (_qkv_view, True),
+        (_odd_stride_on_size_one, True),
+        (_unaligned_base, False),
+        (_h_stride_68, False),
+        (_broadcast_t, False),
+    ],
+)
+def test_tma_operand_reads_aligned_views_in_place_and_copies_the_rest(make, in_place):
+    """TMA needs a 16-byte-aligned base and b, t, h strides that are positive multiples of
+    8 elements (a size-1 dimension's stride is never used): such a view goes to the wgmma
+    kernels as it is, any other as a contiguous copy of the same values."""
+    x = make()
+    got = fa.tma_operand(x)
+    assert (got is x) == in_place
+    if not in_place:
+        assert got.is_contiguous() and torch.equal(got, x)
+
+
+_C_TYPES = {
+    "const void*": ctypes.c_void_p,
+    "void*": ctypes.c_void_p,
+    "int": ctypes.c_int,
+    "long long": ctypes.c_longlong,
+    "float": ctypes.c_float,
+}
+
+
+def _c_entry_points():
+    """Each ``extern "C" int`` function of ``csrc/*.cu`` with its parameter types, parsed
+    from the sources (a parameter is its type and then its name)."""
+    found = {}
+    for src in _build.SOURCES:
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            types = [" ".join(p.split()[:-1]).replace(" *", "*") for p in params.split(",")]
+            found[name] = [_C_TYPES[t] for t in types]
+    return found
+
+
+def test_every_c_entry_point_has_ctypes_argtypes():
+    assert sorted(_c_entry_points()) == sorted(_build.ARGTYPES)
+
+
+@pytest.mark.parametrize("name", sorted(_build.ARGTYPES))
+def test_ctypes_argtypes_match_the_c_signature(name):
+    """ctypes converts each argument by these types alone: a count or type that differs
+    from the C signature would pass wrong values to the card without an error."""
+    assert list(_build.ARGTYPES[name]) == _c_entry_points()[name]

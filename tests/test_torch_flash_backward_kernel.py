@@ -1,6 +1,7 @@
-"""The CUDA flash-attention backward kernels (``distributed_training_pytorch_tpu_torch/csrc/
-flash_bwd.cu``: dq, and dk/dv) against their plain PyTorch version, and the autograd path
-of the port's LM through them, on the card.
+"""The CUDA flash-attention backward kernels (dq, and dk/dv: the tensor-core variant in
+``distributed_training_pytorch_tpu_torch/csrc/flash_bwd_wgmma.cu`` for bf16 at D 64/128,
+the CUDA-core variant in ``csrc/flash_bwd.cu`` otherwise) against their plain PyTorch
+version, and the autograd path of the port's LM through them, on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card: the kernels have no
 CPU mode. This file imports neither JAX nor the JAX package, so it runs where only the
@@ -34,6 +35,11 @@ CASES = [
     (1, 96, 40, 2, 16, True, None, torch.float32),
     (1, 50, 130, 2, 64, False, None, torch.float32),
     (1, 1024, 1024, 12, 64, True, None, torch.bfloat16),
+    # the wgmma variant: ragged causal T at D 64 and 128, valid_len at D 128
+    (2, 1000, 1000, 2, 64, True, None, torch.bfloat16),
+    (2, 1000, 1000, 2, 128, True, None, torch.bfloat16),
+    (2, 197, 197, 2, 128, False, 100, torch.bfloat16),
+    (3, 40, 40, 2, 64, True, None, torch.bfloat16),  # T below one 64-row TMA box
 ]
 
 
@@ -120,3 +126,54 @@ def test_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     h = torch.zeros(1, 8, 2, 8, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_bwd(h, h, h, h, lse, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "tq,tk,d,causal", [(300, 130, 64, True), (130, 300, 128, False), (96, 1000, 64, True), (17, 50, 128, False)]
+)
+def test_wgmma_bwd_with_unequal_tq_tk_and_external_stats(cuda_device, tq, tk, d, causal):
+    """Tq != Tk with a q shard's global lse and delta, as ring attention's blocks pass them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    q, do = (torch.randn(1, tq, 2, d, device=cuda_device, generator=gen).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, tk, 2, d, device=cuda_device, generator=gen).to(torch.bfloat16) for _ in range(2))
+    _, lse = fa.flash_attention_plain(q, k, v, causal=causal)
+    lse = lse + 0.5
+    delta = 0.1 * torch.randn(1, 2, tq, device=cuda_device, generator=gen)
+    grads = fa.flash_attention_bwd(q, k, v, None, lse, do, causal=causal, delta=delta)
+    refs = fa.flash_attention_bwd_plain(q, k, v, None, lse, do, causal=causal, delta=delta)
+    for g, r in zip(grads, refs, strict=True):
+        assert torch.isfinite(g.float()).all()
+        _close(g, r, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_bwd_reads_qkv_views_in_place(cuda_device, d):
+    """bf16 q/k/v views into one [B, T, 3, H, D] projection: TMA reads them as they are."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    qkv = torch.randn(2, 1000, 3, 4, d, device=cuda_device, generator=gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert all(fa.tma_operand(x) is x for x in (q, k, v))
+    do = torch.randn(2, 1000, 4, d, device=cuda_device, generator=gen).to(torch.bfloat16)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    for g, r in zip(grads, refs, strict=True):
+        _close(g, r, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"), (torch.float32, "cuda_core")])
+def test_variant_counter_shows_the_path_taken(cuda_device, dtype, variant):
+    """bf16 at D=64 runs the wgmma kernels, f32 the CUDA-core kernels; each launch counts
+    once under its kernel's name and once under (name, variant)."""
+    q = torch.randn(1, 128, 2, 64, device=cuda_device).to(dtype)
+    _, lse = fa.flash_attention_plain(q, q, q, causal=True)
+    fa.reset_launches()
+    fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+    torch.cuda.synchronize()
+    other = "cuda_core" if variant == "wgmma" else "wgmma"
+    assert fa.launches == {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 1}
+    assert fa.launches_by_variant[("bwd_dq", variant)] == fa.launches_by_variant[("bwd_dkv", variant)] == 1
+    assert fa.launches_by_variant[("bwd_dq", other)] == fa.launches_by_variant[("bwd_dkv", other)] == 0
