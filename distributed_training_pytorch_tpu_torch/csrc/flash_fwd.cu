@@ -118,8 +118,10 @@ __global__ void __launch_bounds__(THREADS)
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      // P V takes p rounded to the input type, as _fwd_kernel's p.astype(v.dtype); l
+      // summed the unrounded p above.
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Ps[(row_base + i) * LP + l8 + 8 * j] = s[i][j];
+      for (int j = 0; j < 8; ++j) Ps[(row_base + i) * LP + l8 + 8 * j] = round_to<T>(s[i][j]);
     }
     __syncwarp();  // a row's P is written and read by the 8 lanes of one warp
 

@@ -122,7 +122,9 @@ def _check_shapes(q, k, v, valid_len):
 def flash_attention_plain(q, k, v, *, causal: bool = False, valid_len: "int | None" = None):
     """``(o, lse)`` in plain PyTorch: scores in f32, the kernel's ``-1e30`` mask (keys at
     or past ``valid_len``/``Tk``; when ``causal``, keys after the query by absolute index),
-    the ``l = 0`` guard, ``o`` in the input dtype and ``lse`` ``[B, H, Tq]`` f32."""
+    ``p`` rounded to the input dtype before the ``P V`` product while ``l`` sums the f32
+    ``p`` (``_fwd_kernel``'s ``p.astype(v.dtype)``), the ``l = 0`` guard, ``o`` in the
+    input dtype and ``lse`` ``[B, H, Tq]`` f32."""
     _check_shapes(q, k, v, valid_len)
     tq, tk, d = q.shape[1], k.shape[1], q.shape[3]
     t_k = tk if valid_len is None else valid_len
@@ -137,7 +139,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, valid_len: "int | No
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = torch.matmul(p, v.float().transpose(1, 2)) / l_safe  # [B, H, Tq, D]
+    o = torch.matmul(p.to(q.dtype).float(), v.float().transpose(1, 2)) / l_safe  # [B, H, Tq, D]
     lse = (m + torch.log(l_safe)).squeeze(-1)
     return o.transpose(1, 2).to(q.dtype), lse
 

@@ -76,6 +76,35 @@ def test_unequal_tq_tk_matches_jax_block_fwd(tq, tk, d, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax), atol=ATOL)
 
 
+BF16_CASES = [
+    # b, tq, tk, h, d, causal, block: flash_attention's square T, or one ring block (Tq != Tk)
+    (2, 197, 197, 2, 64, False, False),
+    (1, 256, 256, 2, 64, True, False),
+    (2, 96, 160, 2, 64, True, True),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,block", BF16_CASES)
+def test_bf16_rounds_p_like_the_jax_kernel(b, tq, tk, h, d, causal, block):
+    """On bf16 inputs the JAX kernel rounds p to bf16 before P V (``p.astype(v.dtype)``)
+    while l sums the f32 p; the port does the same. Both sides then round o to bf16 once,
+    so they may land one bf16 ulp apart on a few elements, never more. Keeping p in f32
+    instead moves a third of o's elements."""
+    q, k, v = _qkv(b, tq, tk, h, d, seed=7)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    if block:
+        o_jax, _ = jax_pallas.flash_block_fwd(jq, jk, jv, causal=causal, interpret=True)
+    else:
+        o_jax = jax_pallas.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    o, _ = fa.flash_attention_fwd(*(x.to(torch.bfloat16) for x in _torch(q, k, v)), causal=causal)
+    assert o.dtype == torch.bfloat16
+    got = o.float().numpy()
+    ref = np.asarray(o_jax.astype(jnp.float32))
+    diff = np.abs(got - ref)
+    assert (diff > 0).mean() <= 0.01
+    assert diff.max() <= 2.0**-7 * np.abs(ref).max()
+
+
 def test_causal_plain_matches_jax():
     q, k, v = _qkv(2, 45, 45, 3, 16, seed=5)
     ref = jax_pallas._causal_plain(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
