@@ -8,26 +8,30 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 1. device: a CUDA card, its name and power limit (``nvidia-smi``), ``torch.version.cuda``,
    and a build of every kernel from the sources in this checkout, with ``-Xptxas -v``'s
    register, spill and shared-memory report; ``cuobjdump --dump-sass`` of the library must
-   show ``HGMMA`` (wgmma) instructions in each of the tensor-core backward kernels;
-2. kernel vs plain: flash-attention forward (``csrc/flash_fwd.cu``) against its plain
-   PyTorch version on the card, over causal/non-causal, ``valid_len``, ragged T,
-   Tq != Tk, D 8/64/128, f32 and bf16, and the served shapes;
+   show ``HGMMA`` (wgmma) instructions in each of the tensor-core kernels (forward, dq,
+   dk/dv, at D 64 and 128);
+2. kernel vs plain: flash-attention forward against its plain PyTorch version on the
+   card, each case on the variant that ``kernel_variant`` names (``csrc/flash_fwd_wgmma.cu``
+   for bf16 at D 64/128, ``csrc/flash_fwd.cu`` otherwise), over causal/non-causal,
+   ``valid_len``, ragged T, Tq != Tk, T below one 64-row TMA box, D 8/64/128, f32 and bf16,
+   and the served and training shapes;
 3. backward kernels vs plain: the dq and dk/dv kernels against
    ``flash_attention_bwd_plain`` over the same kinds of cases, Tq != Tk with external
-   lse/delta, and the training shape, each on the variant that ``bwd_variant`` names
+   lse/delta, and the training shape, each on the variant that ``kernel_variant`` names
    (``csrc/flash_bwd_wgmma.cu`` for bf16 at D 64/128, ``csrc/flash_bwd.cu`` otherwise); the
    wgmma pair on the q, k, v views of a fused qkv projection, read in place; then
    ``flash_attention``'s autograd path against autograd through the plain version;
 4. serving: GPT-2-small at full width (bf16, seeded random weights) behind
    ``InferEngine`` + ``InferenceServer``, 16 ``/predict`` requests of 1024 tokens from 4
    concurrent clients; every answer 200, finite, and close to the plain-attention model's;
-   the forward kernel's launch count over that run is 12 per forward;
+   the forward kernel's launch count over that run is 12 per forward, all on the wgmma
+   variant;
 5. training: the port's LM entry (``examples/train_lm.py``) on byte-level GPT-2-small at
    full width and depth, T=1024, global batch 64, bf16, on the synthetic byte stream: 2
    epochs, then a resume from ``last`` for a third; every loss finite, the last epoch's
    train loss below the first's, ``best``/``last`` valid, the resume continuing the step
    and epoch, and exactly 12 launches of each kernel per step (plus 12 forward launches
-   per validation forward), every backward launch on the wgmma variant; the step time
+   per validation forward), every launch on the wgmma variant; the step time
    (median, CUDA events), tokens/s and peak memory;
 6. times, with CUDA events: each kernel, its plain version, its bound, and the PyTorch
    call that computes the same function as a yardstick (``scaled_dot_product_attention``
@@ -64,7 +68,7 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     through flash attention, then 2 epochs
     and a resume from ``last``; every loss finite, the train loss falling, the padded val
     batch run once a validation, exactly 120 launches of each kernel (12 layers x 10
-    blocks) per train step and per val forward, every backward launch on the wgmma variant;
+    blocks) per train step and per val forward, every launch on the wgmma variant;
     step time, tokens/s, peak memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -210,6 +214,7 @@ def phase_device():
     # -Xptxas -v: each entry function, then its registers, spills and static shared memory.
     smem = {
         "flash_fwd_kernel": lib.dtp_flash_fwd_smem_bytes,
+        "flash_fwd_wgmma_kernel": lib.dtp_flash_fwd_wgmma_smem_bytes,
         "flash_bwd_dq_kernel": lib.dtp_flash_bwd_dq_smem_bytes,
         "flash_bwd_dkv_kernel": lib.dtp_flash_bwd_dkv_smem_bytes,
         "flash_bwd_dq_wgmma_kernel": lib.dtp_flash_bwd_dq_wgmma_smem_bytes,
@@ -220,7 +225,7 @@ def phase_device():
         entry = re.search(
             r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line
         )
-        wgmma = re.search(r"Compiling entry function '\S*?(flash_bwd_(?:dq|dkv)_wgmma_kernel)ILi(\d+)E", line)
+        wgmma = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E", line)
         conv = re.search(
             r"Compiling entry function '\S*?conv1x1_bn_act_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Lb([01])E", line
         )
@@ -247,12 +252,12 @@ def phase_device():
     return card
 
 
-WGMMA_KERNELS = [f"flash_bwd_{k}_wgmma_kernel<D={d}>" for k in ("dq", "dkv") for d in (64, 128)]
+WGMMA_KERNELS = [f"flash_{k}_wgmma_kernel<D={d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)]
 
 
 def sass_hgmma_counts(library) -> dict:
     """The number of ``HGMMA`` (wgmma) instructions in the SASS of each tensor-core
-    backward kernel of the built library, from ``cuobjdump --dump-sass``; raises when the
+    kernel of the built library, from ``cuobjdump --dump-sass``; raises when the
     tool is missing or a kernel has none, since then nothing shows that the products run on
     the tensor cores."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -262,7 +267,7 @@ def sass_hgmma_counts(library) -> dict:
                           timeout=300).stdout
     counts = {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        found = re.search(r"(flash_bwd_(?:dq|dkv)_wgmma_kernel)ILi(\d+)E", chunk.split("\n", 1)[0])
+        found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E", chunk.split("\n", 1)[0])
         if found:
             counts[f"{found.group(1)}<D={found.group(2)}>"] = chunk.count("HGMMA")
     missing = [name for name in WGMMA_KERNELS if not counts.get(name)]
@@ -285,10 +290,23 @@ KERNEL_CASES = [
     (8, 1024, 1024, 12, 64, True, None, "bfloat16"),  # served, B=8
     (8, 1024, 1024, 12, 64, True, None, "float32"),
     (64, 1024, 1024, 12, 64, True, None, "bfloat16"),  # training
+    # The wgmma variant (bf16, D 64 and 128): ragged causal T, valid_len, Tq != Tk causal
+    # and not, T below one 64-row TMA box, both below a box with B = H = 1.
+    (2, 1000, 1000, 2, 64, True, None, "bfloat16"),
+    (2, 1000, 1000, 2, 128, True, None, "bfloat16"),
+    (2, 197, 197, 2, 128, False, 100, "bfloat16"),  # valid_len, D=128
+    (1, 300, 130, 2, 64, True, None, "bfloat16"),  # Tq > Tk
+    (1, 300, 130, 2, 128, False, None, "bfloat16"),
+    (1, 130, 300, 2, 128, True, None, "bfloat16"),  # Tq < Tk
+    (1, 96, 1000, 2, 64, False, None, "bfloat16"),
+    (3, 40, 40, 2, 64, True, None, "bfloat16"),  # T below one box
+    (1, 17, 50, 1, 128, False, None, "bfloat16"),  # both below a box, B = H = 1
 ]
 # f32: kernel and plain both sum in f32, in other orders over up to 1024 keys.
-# bf16: the same f32 arithmetic on the same bf16 inputs, then o rounded to bf16 on each
-# side, which may land one bf16 ulp (2^-7 relative) apart. lse is f32 on both sides.
+# bf16: the same f32 softmax statistics on the same bf16 inputs, p rounded to bf16 before
+# P V on each side (against the running max in the kernels, the final one in the plain
+# version, so it may round one ulp apart), then o rounded to bf16 on each side, which may
+# land one bf16 ulp (2^-7 relative) apart. lse is f32 on both sides.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 LSE_TOL = (1e-4, 1e-5)
 
@@ -307,11 +325,12 @@ def phase_kernels():
         q = torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, tk, h, d, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, tk, h, d, device="cuda", generator=gen).to(dtype)
-        before = fa.launches["fwd"]
+        variant = fa.kernel_variant(dtype, d)
+        before, before_variant = fa.launches["fwd"], fa.launches_by_variant[("fwd", variant)]
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, valid_len=valid_len)
         torch.cuda.synchronize()
-        if fa.launches["fwd"] != before + 1:
-            raise RuntimeError("the kernel wrapper did not launch its kernel")
+        if (fa.launches["fwd"], fa.launches_by_variant[("fwd", variant)]) != (before + 1, before_variant + 1):
+            raise RuntimeError(f"the kernel wrapper did not launch its {variant} kernel")
         o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
         err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
@@ -320,12 +339,37 @@ def phase_kernels():
         ok_lse = torch.allclose(lse, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1])
         finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
         log(f"[kernel] B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} valid_len={valid_len} "
-            f"{dtype_name}: max|o-plain|={err:.3e} (atol {atol}, rtol {rtol}) "
+            f"{dtype_name} ({variant}): max|o-plain|={err:.3e} (atol {atol}, rtol {rtol}) "
             f"max|lse-plain|={lse_err:.3e} -> {'ok' if ok_o and ok_lse and finite else 'FAIL'}")
         if not (ok_o and ok_lse and finite):
             raise RuntimeError("flash kernel disagrees with its plain version")
         if (b, tq, h, d, causal, dtype_name) == (*TRAIN_SHAPE[:2], *TRAIN_SHAPE[2:], True, "bfloat16"):
             train_err = err
+        del q, k, v, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
+
+    # The wgmma forward on q, k, v views of a fused [B, T, 3, H, D] projection, as the LM
+    # makes them: TMA reads them in place (t stride 3 H D), and o equals contiguous copies'.
+    for d in (64, 128):
+        qkv = torch.randn(2, 1000, 3, 4, d, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        before = fa.launches_by_variant[("fwd", "wgmma")]
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        o_copy, lse_copy = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        torch.cuda.synchronize()
+        in_place = all(fa.tma_operand(x) is x for x in (q, k, v))
+        ran = fa.launches_by_variant[("fwd", "wgmma")] == before + 2
+        same = torch.equal(o, o_copy) and torch.equal(lse, lse_copy)
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=True)
+        atol, rtol = TOL["bfloat16"]
+        ok = (in_place and ran and same and torch.allclose(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+              and torch.allclose(lse, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1]))
+        log(f"[kernel] qkv views B=2 T=1000 H=4 D={d} causal bfloat16 (wgmma, read in place: {in_place}, equal to "
+            f"contiguous copies: {same}): max|o-plain|={(o.float() - o_ref.float()).abs().max().item():.3e} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the wgmma forward disagrees on strided qkv views, or copied or skipped them")
+        del qkv, q, k, v, o, lse, o_copy, lse_copy, o_ref, lse_ref
     return train_err
 
 
@@ -400,7 +444,7 @@ def phase_slice(run_dir: str):
         for t in threads:
             t.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = fa.launches["fwd"]
+        launches, wgmma_launches = fa.launches["fwd"], fa.launches_by_variant[("fwd", "wgmma")]
         forwards = server.batcher.batches - batches_before
         if any(t.is_alive() for t in threads):
             raise RuntimeError("a client did not finish")
@@ -415,9 +459,11 @@ def phase_slice(run_dir: str):
     if len(results) != len(rows):
         raise RuntimeError(f"{len(results)} of {len(rows)} requests answered")
     log(f"[slice] {len(rows)} requests, all HTTP 200, in {wall:.2f} s over {forwards} forwards; "
-        f"kernel launches {launches} (12 per forward: {12 * forwards})")
+        f"kernel launches {launches} (12 per forward: {12 * forwards}), {wgmma_launches} on the wgmma variant")
     if forwards < 1 or launches != DEPTH * forwards:
         raise RuntimeError(f"expected {DEPTH} kernel launches per forward, got {launches} over {forwards}")
+    if wgmma_launches != launches:
+        raise RuntimeError(f"expected all {launches} forward launches on the wgmma variant, got {wgmma_launches}")
     if status.get("requests_total") != len(rows) or "tpu_serve_up 1" not in metrics:
         raise RuntimeError(f"/status or /metrics wrong: {status}")
     log(f"[slice] /status: requests_total={status['requests_total']} batches={status['batches']} "
@@ -437,8 +483,9 @@ def phase_slice(run_dir: str):
     err = float(np.abs(served - ref).max())
     agree = float((served.argmax(-1) == ref.argmax(-1)).mean())
     scale = float(np.abs(ref).max())
-    # Both models compute in bf16 but round at other places: the kernel keeps the
-    # attention weights and P.V in f32, the plain path rounds logits and weights to bf16;
+    # Both models compute in bf16 but round at other places: the kernel keeps the logits
+    # and the softmax statistics in f32 and rounds p once, the plain path rounds logits and
+    # weights to bf16;
     # 12 residual layers carry that difference to the logits (here of magnitude ~1).
     atol = 0.1
     log(f"[slice] served vs plain-attention model: max|diff|={err:.4f} (atol {atol}; max|logit|={scale:.3f}), "
@@ -481,9 +528,12 @@ BWD_CASES = [
 # grad is rounded to bf16 at the end: held to 2e-2 of the grad's largest magnitude.
 BWD_ATOL_F32 = 2e-4
 BWD_REL_BF16 = 2e-2
-# What the main path's K2 and K3 are (bf16, D=64: the wgmma variant); the f32 and small-D
-# variant is csrc/flash_bwd.cu on the CUDA cores.
-BWD_DESIGN = {
+# What the main path's K1, K2 and K3 are (bf16, D=64: the wgmma variant); the f32 and
+# small-D variant is csrc/flash_fwd.cu / csrc/flash_bwd.cu on the CUDA cores.
+DESIGN = {
+    "fwd": "wgmma m64n64k16 (S from shared memory; P V with P from registers, bf16), TMA 128B-swizzled "
+           "K/V tiles in a 2-stage mbarrier ring, Q resident, online softmax on the accumulator fragment; "
+           "one warpgroup per 64 query rows",
     "dq": "wgmma m64n64k16 (S, dP from shared memory; dS K with dS from registers), TMA 128B-swizzled "
           "K/V tiles in a 2-stage mbarrier ring, Q/dO resident; one warpgroup per 64 query rows",
     "dkv": "wgmma m64n64k16 (S^T, dP^T from shared memory; P^T dO and dS^T Q from registers), TMA "
@@ -537,7 +587,7 @@ def phase_bwd_kernels():
         torch.cuda.synchronize()
         if (fa.launches["bwd_dq"], fa.launches["bwd_dkv"]) != (before["bwd_dq"] + 1, before["bwd_dkv"] + 1):
             raise RuntimeError("the backward wrappers did not launch their kernels")
-        variant = fa.bwd_variant(dtype, d)
+        variant = fa.kernel_variant(dtype, d)
         if any(fa.launches_by_variant[(name, variant)] != before_variant[(name, variant)] + 1
                for name in ("bwd_dq", "bwd_dkv")):
             raise RuntimeError(f"the backward did not run on the {variant} variant")
@@ -633,9 +683,10 @@ def _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics):
 
 
 def _check_wgmma_launches(launches, by_variant, tag):
-    """Every backward launch of a training phase ran the wgmma variant (bf16, D=64)."""
-    log(f"{tag} backward launches by variant {({f'{n}/{v}': c for (n, v), c in by_variant.items()})}")
-    for name in ("bwd_dq", "bwd_dkv"):
+    """Every forward and backward launch of a training phase ran the wgmma variant (bf16,
+    D=64)."""
+    log(f"{tag} launches by variant {({f'{n}/{v}': c for (n, v), c in by_variant.items()})}")
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
         if by_variant[(name, "wgmma")] != launches[name] or by_variant[(name, "cuda_core")] != 0:
             raise RuntimeError(f"expected all {launches[name]} {name} launches on the wgmma variant, got {by_variant}")
 
@@ -1557,7 +1608,7 @@ def main() -> int:
         return 1
     kernels = []
     for name, kind, launch_key, replaces, err, source in (
-        ("flash_fwd", "fwd", "fwd", ":81", fwd_err, "flash_fwd.cu"),
+        ("flash_fwd", "fwd", "fwd", ":81", fwd_err, "flash_fwd_wgmma.cu"),
         ("flash_bwd_dq", "dq", "bwd_dq", ":135", bwd_err["dq"], "flash_bwd_wgmma.cu"),
         ("flash_bwd_dkv", "dkv", "bwd_dkv", ":174", bwd_err["dkv"], "flash_bwd_wgmma.cu"),
     ):
@@ -1578,7 +1629,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             "dtype": "bfloat16",
-            **({"design": BWD_DESIGN[kind]} if kind in BWD_DESIGN else {}),
+            "design": DESIGN[kind],
         })
     kernels.append({
         "name": "conv1x1_bn_act",
@@ -1597,7 +1648,7 @@ def main() -> int:
         "shapes": conv_times,
         "dtype": "bfloat16",
     })
-    for kind, launch_key, replaces, source in (("fwd", "fwd", ":399", "flash_fwd.cu"),
+    for kind, launch_key, replaces, source in (("fwd", "fwd", ":399", "flash_fwd_wgmma.cu"),
                                                ("bwd", "bwd_dq", ":415", "flash_bwd_wgmma.cu")):
         r = ring["k5"][kind]
         kernels.append({

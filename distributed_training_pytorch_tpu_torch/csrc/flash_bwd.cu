@@ -2,7 +2,7 @@
 // O = softmax(D^-0.5 * Q K^T, masked) V, on [B, T, H, D] tensors read through strides, for
 // f32 inputs (D = 8 to 128) and bf16 inputs with D = 8, 16 or 32. bf16 at D = 64 and 128,
 // the shapes of the models' training paths, run the tensor-core kernels of
-// flash_bwd_wgmma.cu; ops/flash_attention.py::bwd_variant picks the file by dtype and D.
+// flash_bwd_wgmma.cu; ops/flash_attention.py::kernel_variant picks the file by dtype and D.
 //
 // Replaces distributed_training_pytorch_tpu/ops/pallas.py::_bwd_dq_kernel (launched by
 // _dq_call) and ::_bwd_dkv_kernel (launched by _dkv_call) for those inputs. Both recompute

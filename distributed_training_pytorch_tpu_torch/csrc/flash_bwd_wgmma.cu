@@ -51,67 +51,17 @@
 
 namespace {
 
+using dtp_flash::LOG2E;
 using dtp_flash::NEG_INF;
 using dtp_flash::Strides;
 using namespace dtp_hopper;
 using bf16 = __nv_bfloat16;
-
-constexpr int WG = 128;  // one warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Dynamic shared memory: 1024 bytes of alignment slack, six 64-row tiles of D/64 regions
 // each (dq: Q, dO, then K and V in each of 2 stages; dk/dv: K, V, then Q and dO in each
 // stage), the dk/dv kernel's staged lse and delta (2 stages x 2 x 64 f32), three mbarriers.
 constexpr int dq_wgmma_smem_bytes(int D) { return 1024 + 6 * (D / 64) * REGION_BYTES + 64; }
 constexpr int dkv_wgmma_smem_bytes(int D) { return 1024 + 6 * (D / 64) * REGION_BYTES + 2 * 2 * 64 * 4 + 64; }
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// The TMA loads of one 64-row tile (all D) of one (batch, head) into `dst`, on `bar`.
-template <int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int row0, int hi,
-                                          int bi) {
-#pragma unroll
-  for (int r = 0; r < D / 64; ++r) tma_load_box(dst + r * REGION_BYTES, map, bar, 64 * r, row0, hi, bi);
-}
-
-// Descriptor offsets (in the descriptor's 16-byte units) of k16 step kk: along D of a
-// K-major tile, and along the 64 rows of region r of an MN-major tile.
-__device__ __forceinline__ uint64_t kmajor_step(int kk) {
-  return uint64_t((kk / 4) * REGION_BYTES + (kk % 4) * 32) >> 4;
-}
-__device__ __forceinline__ uint64_t mnmajor_step(int r, int kk) {
-  return uint64_t(r * REGION_BYTES + kk * 2048) >> 4;
-}
-
-// acc (=) A B^T over D for two 64-row K-major tiles: S = Q K^T and the like.
-template <int D>
-__device__ __forceinline__ void tile_product(float (&acc)[32], uint64_t a_desc, uint64_t b_desc) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(acc, a_desc + kmajor_step(kk), b_desc + kmajor_step(kk), kk > 0);
-}
-
-// acc[r] += A B for A in registers (64 x 64, four k16 fragments) and B a 64-row MN-major
-// tile, region r giving d columns 64 r .. 64 r + 63.
-template <int NR>
-__device__ __forceinline__ void register_product(float (&acc)[NR][32], const uint32_t (&a)[4][4], uint64_t b_desc) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < NR; ++r) wgmma_rs_tb(acc[r], a[kk], b_desc + mnmajor_step(r, kk));
-}
-
-template <int NR>
-__device__ __forceinline__ void fence_acc(float (&acc)[NR][32]) {
-#pragma unroll
-  for (int r = 0; r < NR; ++r) fence_regs(acc[r]);
-}
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
-}
 
 // p and ds on the accumulator fragments of S and dP of the dq kernel (rows: queries,
 // columns: keys), packed in bf16 as the A fragments of dS K. lse2 is lse * log2(e).

@@ -19,6 +19,7 @@ constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key rows per tile
 constexpr int THREADS = 128;  // 4 warps x 16 rows; 8 lanes share a row
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked logit (f32-safe, unlike -inf)
+constexpr float LOG2E = 1.4426950408889634f;  // the wgmma kernels' exponentials are exp2
 static_assert(BQ == BK, "stage_tile stages 64 rows of either operand");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

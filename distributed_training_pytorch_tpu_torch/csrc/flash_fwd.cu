@@ -1,26 +1,28 @@
-// Flash-attention forward for Hopper (sm_90a): O = softmax(D^-0.5 * Q K^T, masked) V
-// plus the per-row log-sum-exp, on [B, T, H, D] tensors read through strides.
+// Flash-attention forward on the CUDA cores (sm_90a): O = softmax(D^-0.5 * Q K^T, masked) V
+// plus the per-row log-sum-exp, on [B, T, H, D] tensors read through strides, for f32
+// inputs (D = 8 to 128) and bf16 inputs with D = 8, 16 or 32. bf16 at D = 64 and 128, the
+// shapes of the models' paths, run the tensor-core kernel of flash_fwd_wgmma.cu;
+// ops/flash_attention.py::kernel_variant picks the file by dtype and D.
 //
 // Replaces distributed_training_pytorch_tpu/ops/pallas.py::_fwd_kernel (launched by
-// _fwd_call). It computes that kernel's function, not its blocks: the TPU kernel holds a
-// whole [T, D] K/V slab in VMEM and runs one 1024-row q-block per grid step; here one
-// thread block owns a 64-row query tile of one (batch, head) and streams 64-row K/V tiles
-// through shared memory, carrying the running max, sum and output accumulator in f32
-// registers (the online softmax). Masking follows the TPU kernel exactly: keys at or past
-// seq_len (the caller's valid_len, or Tk) and, when causal, keys after the query get the
-// logit -1e30; a row whose sum l is 0 divides by 1. Key tiles wholly above the diagonal
-// are skipped, which changes no real row: each of them sees key 0 in the first tile.
+// _fwd_call) for those inputs. It computes that kernel's function, not its blocks: the TPU
+// kernel holds a whole [T, D] K/V slab in VMEM and runs one 1024-row q-block per grid step;
+// here one thread block owns a 64-row query tile of one (batch, head) and streams 64-row
+// K/V tiles through shared memory, carrying the running max, sum and output accumulator in
+// f32 registers (the online softmax). Masking follows the TPU kernel exactly: keys at or
+// past seq_len (the caller's valid_len, or Tk) and, when causal, keys after the query get
+// the logit -1e30; a row whose sum l is 0 divides by 1. p is rounded to the input type
+// before P V, l sums the unrounded p. Key tiles wholly above the diagonal are skipped,
+// which changes no real row: each of them sees key 0 in the first tile.
 //
-// Bound at the served shape (GPT-2-small, B=8, T=1024, H=12, D=64, bf16, causal): about
-// 12.9 GFLOP, or 13 us at the tensor cores' 989 TFLOP/s, and about 50.7 MB of q, k, v, O
-// and lse, or 15 us at 3.35 TB/s: memory-bound. This first version does its products on
-// the CUDA cores in f32 (one FMA per multiply-add; q, k and v are widened to f32 as they
-// are staged), so it is bound by those FMAs and shared-memory reads, far above the
-// bound. What the design does about the bytes: every input element is read from device
-// memory once per query tile that needs it (K/V tiles come from L2 for the other tiles),
-// the [T, T] scores never leave the SM, and the ragged edge is masked in place, with no
-// transpose or pad copies. Moving the two products onto wgmma with TMA-fed tiles is the
-// later step that brings the kernel toward the bound.
+// Its products run on the CUDA cores in f32 (one FMA per multiply-add; q, k and v are
+// widened to f32 as they are staged), so it is bound by those FMAs and shared-memory
+// reads, far above the inputs' bound (bytes, for attention at these widths): the f32
+// inputs' parity bound leaves no cheaper product, and the small head dims are below the
+// wgmma tiles' 64-column rows. Every input element is read from device memory once per
+// query tile that needs it (K/V tiles come from L2 for the other tiles), the [T, T] scores
+// never leave the SM, and the ragged edge is masked in place, with no transpose or pad
+// copies.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // (distributed_training_pytorch_tpu_torch/ops/_build.py). The C entry point returns

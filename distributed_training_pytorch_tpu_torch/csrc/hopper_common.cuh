@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels here, in raw PTX: shared-memory
 // matrix descriptors for wgmma over 128-byte-swizzled tiles, the two wgmma forms the
-// attention backward uses (both operands in shared memory; A from registers with B read
-// transposed), the warpgroup fences, mbarriers, TMA tile loads, and the host-side encoding
-// of a [B, T, H, D] bf16 view as a TMA tensor map.
+// attention kernels use (both operands in shared memory; A from registers with B read
+// transposed), the warpgroup fences, mbarriers, TMA tile loads, the products over whole
+// 64-row tiles built from them, and the host-side encoding of a [B, T, H, D] bf16 view as
+// a TMA tensor map.
 //
 // Tile layout shared by TMA and wgmma: a "region" is 64 rows x 64 bf16 (128 bytes a row,
 // 8 KiB), 1024-byte aligned, written by one TMA box with CU_TENSOR_MAP_SWIZZLE_128B, so
@@ -162,6 +163,58 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, 
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d), "r"(t), "r"(h), "r"(b)
       : "memory");
+}
+
+// ---- 64-row tiles -----------------------------------------------------------------------
+
+constexpr int WG = 128;  // one warpgroup: the threads of every wgmma kernel's block
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// The TMA loads of one 64-row tile (all D) of one (batch, head) into `dst`, on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int row0, int hi,
+                                          int bi) {
+#pragma unroll
+  for (int r = 0; r < D / 64; ++r) tma_load_box(dst + r * REGION_BYTES, map, bar, 64 * r, row0, hi, bi);
+}
+
+// Descriptor offsets (in the descriptor's 16-byte units) of k16 step kk: along D of a
+// K-major tile, and along the 64 rows of region r of an MN-major tile.
+__device__ __forceinline__ uint64_t kmajor_step(int kk) {
+  return uint64_t((kk / 4) * REGION_BYTES + (kk % 4) * 32) >> 4;
+}
+__device__ __forceinline__ uint64_t mnmajor_step(int r, int kk) {
+  return uint64_t(r * REGION_BYTES + kk * 2048) >> 4;
+}
+
+// acc (=) A B^T over D for two 64-row K-major tiles: S = Q K^T and the like.
+template <int D>
+__device__ __forceinline__ void tile_product(float (&acc)[32], uint64_t a_desc, uint64_t b_desc) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(acc, a_desc + kmajor_step(kk), b_desc + kmajor_step(kk), kk > 0);
+}
+
+// acc[r] += A B for A in registers (64 x 64, four k16 fragments) and B a 64-row MN-major
+// tile, region r giving d columns 64 r .. 64 r + 63.
+template <int NR>
+__device__ __forceinline__ void register_product(float (&acc)[NR][32], const uint32_t (&a)[4][4], uint64_t b_desc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < NR; ++r) wgmma_rs_tb(acc[r], a[kk], b_desc + mnmajor_step(r, kk));
+}
+
+template <int NR>
+__device__ __forceinline__ void fence_acc(float (&acc)[NR][32]) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) fence_regs(acc[r]);
+}
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
 }
 
 // ---- host: tensor maps ------------------------------------------------------------------

@@ -69,6 +69,7 @@ _CONV1X1_ARGTYPES = (
 # the sources.
 ARGTYPES = {
     "dtp_flash_fwd": _FLASH_FWD_ARGTYPES,
+    "dtp_flash_fwd_wgmma": _FLASH_FWD_ARGTYPES,
     "dtp_flash_bwd_dq": _FLASH_BWD_DQ_ARGTYPES,
     "dtp_flash_bwd_dkv": _FLASH_BWD_DKV_ARGTYPES,
     "dtp_flash_bwd_dq_wgmma": _FLASH_BWD_DQ_ARGTYPES,
@@ -76,7 +77,7 @@ ARGTYPES = {
     "dtp_conv1x1_bn_act": _CONV1X1_ARGTYPES,
     **{
         f"dtp_flash_{kernel}_smem_bytes": [_c.c_int]  # head dim D
-        for kernel in ("fwd", "bwd_dq", "bwd_dkv", "bwd_dq_wgmma", "bwd_dkv_wgmma")
+        for kernel in ("fwd", "bwd_dq", "bwd_dkv", "fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma")
     },
 }
 

@@ -26,14 +26,15 @@ JAX package; ``lse`` and ``delta`` are ``[B, H, Tq]`` f32.
   card.
 * :func:`causal_attention_plain` — counterpart of ``_causal_plain``: the LM's plain path.
 
-A CPU tensor goes to the plain version. A CUDA tensor goes to the kernels
-(``csrc/flash_fwd.cu``; the backward in ``csrc/flash_bwd_wgmma.cu`` or
-``csrc/flash_bwd.cu``, see :func:`bwd_variant`), built at the first launch; if a kernel
-cannot take the input or does not launch, the call raises: there is no fallback.
-``launches`` counts each kernel's launches in this process (``fwd``, ``bwd_dq``,
-``bwd_dkv``); K5's launches count under those names, since each K5 call launches K1, or K2
-and K3, once. ``launches_by_variant`` counts the backward's launches again by the path
-they took, ``("bwd_dq", "wgmma")`` and so on. :func:`reset_launches` sets all to 0.
+A CPU tensor goes to the plain version. A CUDA tensor goes to the kernels, built at the
+first launch, in one of two variants that :func:`kernel_variant` picks by one rule for the
+forward and the backward alike: ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``,
+``csrc/flash_bwd_wgmma.cu``) or ``"cuda_core"`` (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``). If a kernel cannot take the input or does not launch, the call
+raises: there is no fallback. ``launches`` counts each kernel's launches in this process
+(``fwd``, ``bwd_dq``, ``bwd_dkv``); K5's launches count under those names, since each K5
+call launches K1, or K2 and K3, once. ``launches_by_variant`` counts them again by the
+path they took, ``("fwd", "wgmma")`` and so on. :func:`reset_launches` sets all to 0.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ import torch
 
 __all__ = [
     "NEG_INF",
-    "bwd_variant",
     "causal_attention_plain",
     "flash_attention",
     "flash_attention_bwd",
@@ -53,6 +53,7 @@ __all__ = [
     "flash_attention_plain",
     "flash_block_bwd",
     "flash_block_fwd",
+    "kernel_variant",
     "launch_bwd_dkv",
     "launch_bwd_dq",
     "launches",
@@ -66,10 +67,10 @@ NEG_INF = -1e30  # the masked logit of the JAX kernel (f32-safe, unlike -inf: no
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
-BWD_VARIANTS = ("wgmma", "cuda_core")
+VARIANTS = ("wgmma", "cuda_core")
 
 launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
-launches_by_variant = {(name, variant): 0 for name in ("bwd_dq", "bwd_dkv") for variant in BWD_VARIANTS}
+launches_by_variant = {(name, variant): 0 for name in launches for variant in VARIANTS}
 _launch_lock = threading.Lock()
 
 
@@ -82,19 +83,19 @@ def reset_launches() -> None:
             launches_by_variant[key] = 0
 
 
-def _count(name: str, variant: "str | None" = None) -> None:
+def _count(name: str, variant: str) -> None:
     with _launch_lock:
         launches[name] += 1
-        if variant is not None:
-            launches_by_variant[(name, variant)] += 1
+        launches_by_variant[(name, variant)] += 1
 
 
-def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which backward kernels K2/K3 run for inputs of this dtype and head dim, by rule:
-    ``"wgmma"`` (``csrc/flash_bwd_wgmma.cu``: tensor-core products fed by TMA) for bf16 at
-    D = 64 or 128, else ``"cuda_core"`` (``csrc/flash_bwd.cu``: f32 products on the CUDA
-    cores) for f32, whose parity bound the tensor cores' TF32 would miss, and for bf16 at
-    D = 8, 16, 32, below the wgmma tiles' 64-column rows."""
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels (K1, and K2/K3) run for inputs of this dtype and head dim, by one rule
+    for the forward and the backward: ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``,
+    ``csrc/flash_bwd_wgmma.cu``: tensor-core products fed by TMA) for bf16 at D = 64 or
+    128, else ``"cuda_core"`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: f32 products on
+    the CUDA cores) for f32, whose parity bound the tensor cores' TF32 would miss, and for
+    bf16 at D = 8, 16, 32, below the wgmma tiles' 64-column rows."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "cuda_core"
 
 
@@ -178,6 +179,9 @@ def _check_kernel_inputs(tensors):
 
 
 def _launch_kernel(q, k, v, causal: bool, seq_len: int):
+    """K1 on CUDA tensors, the kernel that :func:`kernel_variant` names; the wgmma variant
+    reads q, k and v by TMA, so an input that TMA cannot read in place is copied to a
+    contiguous tensor first (:func:`tma_operand`)."""
     from distributed_training_pytorch_tpu_torch.ops import _build
 
     _check_kernel_inputs((("q", q), ("k", k), ("v", v)))
@@ -186,18 +190,22 @@ def _launch_kernel(q, k, v, causal: bool, seq_len: int):
     lse = torch.empty((b, h, tq), device=q.device, dtype=torch.float32)
     if tq == 0:
         return o, lse
+    variant = kernel_variant(q.dtype, d)
+    if variant == "wgmma":
+        q, k, v = (tma_operand(x) for x in (q, k, v))
     lib = _build.library()
+    fn = lib.dtp_flash_fwd_wgmma if variant == "wgmma" else lib.dtp_flash_fwd
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.dtp_flash_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             KERNEL_DTYPES[q.dtype], b, h, tq, seq_len, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             int(causal), float(d**-0.5), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
-    _count("fwd")
+        raise RuntimeError(f"flash kernel ({variant}) launch failed: CUDA error {err}")
+    _count("fwd", variant)
     return o, lse
 
 
@@ -267,7 +275,7 @@ def flash_attention_bwd_plain(
 
 
 def _bwd_launch_args(q, k, v, do, lse, delta, seq_len: int):
-    """Checks shared by the two backward kernels; their variant (:func:`bwd_variant`), the
+    """Checks shared by the two backward kernels; their variant (:func:`kernel_variant`), the
     inputs as that variant reads them (made contiguous where TMA could not read them in
     place, see :func:`tma_operand`), and their common C arguments (the f32 ``lse``/``delta``
     made contiguous, then sizes and strides)."""
@@ -277,7 +285,7 @@ def _bwd_launch_args(q, k, v, do, lse, delta, seq_len: int):
     if lse.device != q.device or delta.device != q.device:
         raise ValueError(f"lse/delta on {lse.device}/{delta.device}, q on {q.device}")
     b, tq, h, d = q.shape
-    variant = bwd_variant(q.dtype, d)
+    variant = kernel_variant(q.dtype, d)
     if variant == "wgmma":
         q, k, v, do = (tma_operand(x) for x in (q, k, v, do))
     sizes_strides = (
@@ -291,7 +299,7 @@ def _bwd_launch_args(q, k, v, do, lse, delta, seq_len: int):
 def launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
     """K2 on CUDA tensors: ``dq`` from q, k, v, dO and the f32 ``lse``/``delta``
     ``[B, H, Tq]``; keys at or past ``seq_len`` are masked. The kernel is the one
-    :func:`bwd_variant` names; the wgmma variant reads q, k, v and dO by TMA, so an input
+    :func:`kernel_variant` names; the wgmma variant reads q, k, v and dO by TMA, so an input
     that TMA cannot read in place is copied to a contiguous tensor first
     (:func:`tma_operand`)."""
     # ``inputs`` holds any contiguous copies alive until the launch is queued.

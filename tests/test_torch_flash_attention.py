@@ -9,13 +9,16 @@ orders; nothing else differs). The kernel itself is held against the plain versi
 the card by ``tests/test_torch_flash_kernel.py``.
 """
 
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from distributed_training_pytorch_tpu.ops import pallas as jax_pallas
-from distributed_training_pytorch_tpu_torch.ops import dispatch
+from distributed_training_pytorch_tpu_torch.ops import _build, dispatch
 from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
 
 ATOL = 2e-5
@@ -143,6 +146,52 @@ def test_cpu_never_launches_the_kernel():
     fa.flash_attention(*_torch(q, k, v), causal=True)
     fa.flash_attention_fwd(*_torch(q, k, v))
     assert fa.launches == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: records each C entry point called, and returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.mark.parametrize(
+    "dtype,d,entry,variant",
+    [
+        (torch.bfloat16, 64, "dtp_flash_fwd_wgmma", "wgmma"),
+        (torch.bfloat16, 128, "dtp_flash_fwd_wgmma", "wgmma"),
+        (torch.bfloat16, 32, "dtp_flash_fwd", "cuda_core"),
+        (torch.float32, 64, "dtp_flash_fwd", "cuda_core"),
+    ],
+)
+def test_fwd_launch_takes_the_entry_point_of_its_variant(monkeypatch, dtype, d, entry, variant):
+    """K1's launch goes to the C entry point that ``kernel_variant`` names, with the LM's
+    q, k, v views of its fused qkv projection passed in place (their own pointers and
+    strides), and counts under ``("fwd", variant)``. The library and the stream are
+    stand-ins: nothing is launched."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    qkv = torch.zeros(2, 100, 3, 4, d, dtype=dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    fa.reset_launches()
+    o, lse = fa._launch_kernel(q, k, v, True, 100)
+    assert [name for name, _ in lib.calls] == [entry]
+    args = lib.calls[0][1]
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[11:20] == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    assert len(args) == len(_build.ARGTYPES[entry])
+    assert o.shape == q.shape and lse.shape == (2, 4, 100)
+    assert fa.launches["fwd"] == fa.launches_by_variant[("fwd", variant)] == 1
+    fa.reset_launches()
 
 
 def test_auto_dispatch_records_plain_on_cpu():

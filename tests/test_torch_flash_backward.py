@@ -167,9 +167,11 @@ def test_cpu_backward_never_launches_a_kernel():
     ],
 )
 def test_bwd_variant_is_chosen_by_dtype_and_head_dim(dtype, d, variant):
-    """bf16 at D 64/128 takes the wgmma kernels; f32 (TF32 would miss its parity bound)
-    and bf16 at D 8/16/32 take the CUDA-core kernels."""
-    assert fa.bwd_variant(dtype, d) == variant
+    """One rule for the backward (K2/K3) and the forward (K1): bf16 at D 64/128 takes the
+    wgmma kernels; f32 (TF32 would miss its parity bound) and bf16 at D 8/16/32 take the
+    CUDA-core kernels. Each kernel's launches are counted under that variant."""
+    assert fa.kernel_variant(dtype, d) == variant
+    assert all((name, variant) in fa.launches_by_variant for name in ("fwd", "bwd_dq", "bwd_dkv"))
 
 
 def _unaligned_base():

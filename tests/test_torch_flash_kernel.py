@@ -1,11 +1,13 @@
-"""The CUDA flash-attention kernel (``distributed_training_pytorch_tpu_torch/csrc/
-flash_fwd.cu``) against its plain PyTorch version, on the card.
+"""The CUDA flash-attention forward kernels (the tensor-core variant in
+``distributed_training_pytorch_tpu_torch/csrc/flash_fwd_wgmma.cu`` for bf16 at D 64/128,
+the CUDA-core variant in ``csrc/flash_fwd.cu`` otherwise) against their plain PyTorch
+version, on the card.
 
-Every test here carries the ``cuda`` marker and skips without a card: the kernel has no
+Every test here carries the ``cuda`` marker and skips without a card: the kernels have no
 CPU mode. This file imports neither JAX nor the JAX package, so it runs where only the
 port is installed:
 
-    python -m pytest tests/test_torch_flash_kernel.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_flash_kernel.py -m cuda -q
 """
 
 import pytest
@@ -31,7 +33,32 @@ CASES = [
     (2, 197, 197, 2, 32, False, 150, torch.bfloat16),
     (1, 96, 40, 2, 16, True, None, torch.float32),
     (1, 1024, 1024, 12, 64, True, None, torch.bfloat16),
+    # the wgmma variant: ragged causal T at D 64 and 128, valid_len at D 128, Tq != Tk
+    # causal and not, T below one 64-row TMA box, both below a box with B = H = 1, and the
+    # served (B=8) and training (B=64) shapes
+    (2, 1000, 1000, 2, 64, True, None, torch.bfloat16),
+    (2, 1000, 1000, 2, 128, True, None, torch.bfloat16),
+    (2, 197, 197, 2, 128, False, 100, torch.bfloat16),
+    (1, 300, 130, 2, 64, True, None, torch.bfloat16),
+    (1, 300, 130, 2, 128, False, None, torch.bfloat16),
+    (1, 130, 300, 2, 128, True, None, torch.bfloat16),
+    (1, 96, 1000, 2, 64, False, None, torch.bfloat16),
+    (3, 40, 40, 2, 64, True, None, torch.bfloat16),
+    (1, 17, 50, 1, 128, False, None, torch.bfloat16),
+    (8, 1024, 1024, 12, 64, True, None, torch.bfloat16),
+    (64, 1024, 1024, 12, 64, True, None, torch.bfloat16),
 ]
+
+
+def _close(o, lse, o_ref, lse_ref):
+    # f32: both sum in f32, in other orders. bf16: the same f32 softmax statistics on the
+    # same bf16 inputs, p rounded to bf16 before P V on each side (against the running max
+    # in the kernels, the final one in the plain version, so it may round one ulp apart),
+    # then one rounding of o to bf16 each side (2^-7 relative). lse is f32 on both sides.
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    tol = 1e-4 if o.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -41,16 +68,13 @@ def test_kernel_matches_plain(cuda_device, b, tq, tk, h, d, causal, valid_len, d
     q = torch.randn(b, tq, h, d, device=cuda_device, generator=gen).to(dtype)
     k = torch.randn(b, tk, h, d, device=cuda_device, generator=gen).to(dtype)
     v = torch.randn(b, tk, h, d, device=cuda_device, generator=gen).to(dtype)
-    before = fa.launches["fwd"]
+    variant = fa.kernel_variant(dtype, d)
+    before = fa.launches_by_variant[("fwd", variant)]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, valid_len=valid_len)
     torch.cuda.synchronize()
-    assert fa.launches["fwd"] == before + 1
+    assert fa.launches_by_variant[("fwd", variant)] == before + 1
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
-    # f32: both sum in f32, in other orders. bf16: the same f32 arithmetic, then one
-    # rounding of o to bf16 each side, which may land one bf16 ulp apart (2^-7 relative).
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    _close(o, lse, o_ref, lse_ref)
 
 
 @pytest.mark.cuda
@@ -61,3 +85,34 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     h = torch.zeros(1, 8, 2, 8, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_fwd(h, h, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_fwd_reads_qkv_views_in_place(cuda_device, d):
+    """bf16 q/k/v views into one [B, T, 3, H, D] projection, as the LM makes them: TMA
+    reads them as they are, and o equals that of contiguous copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    qkv = torch.randn(2, 1000, 3, 4, d, device=cuda_device, generator=gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert all(fa.tma_operand(x) is x for x in (q, k, v))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_copy, lse_copy = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_copy) and torch.equal(lse, lse_copy)
+    _close(o, lse, *fa.flash_attention_plain(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"), (torch.float32, "cuda_core")])
+def test_fwd_variant_counter_shows_the_path_taken(cuda_device, dtype, variant):
+    """bf16 at D=64 runs the wgmma forward, f32 the CUDA-core forward; each launch counts
+    once under ``fwd`` and once under ``("fwd", variant)``."""
+    q = torch.randn(1, 128, 2, 64, device=cuda_device).to(dtype)
+    fa.reset_launches()
+    fa.flash_attention_fwd(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    other = "cuda_core" if variant == "wgmma" else "wgmma"
+    assert fa.launches == {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}
+    assert fa.launches_by_variant[("fwd", variant)] == 1
+    assert fa.launches_by_variant[("fwd", other)] == 0

@@ -2,8 +2,9 @@
 JAX package ``distributed_training_pytorch_tpu`` (whose name is a prefix of the port's,
 so module names are matched exactly or by ``name + "."``), and importing it initialises
 no CUDA context and builds nothing. ``chip_smoke.py``, ``scripts/torch_serve_profile.py``,
-``scripts/torch_train_profile.py`` and ``scripts/torch_resnet_profile.py`` run where the
-card is, beside the port, and are held to the same rule."""
+``scripts/torch_train_profile.py``, ``scripts/torch_resnet_profile.py`` and
+``scripts/torch_flash_fwd_times.py`` run where the card is, beside the port, and are held
+to the same rule."""
 
 import ast
 import os
@@ -74,6 +75,7 @@ def _sources():
     yield os.path.join(REPO, "scripts", "torch_serve_profile.py")
     yield os.path.join(REPO, "scripts", "torch_train_profile.py")
     yield os.path.join(REPO, "scripts", "torch_resnet_profile.py")
+    yield os.path.join(REPO, "scripts", "torch_flash_fwd_times.py")
 
 
 def test_no_source_of_the_port_imports_jax():
