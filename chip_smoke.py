@@ -7,9 +7,10 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 
 1. device: a CUDA card, its name and power limit (``nvidia-smi``), ``torch.version.cuda``,
    and a build of every kernel from the sources in this checkout, with ``-Xptxas -v``'s
-   register, spill and shared-memory report; ``cuobjdump --dump-sass`` of the library must
-   show ``HGMMA`` (wgmma) instructions in each of the tensor-core kernels (forward, dq,
-   dk/dv, at D 64 and 128);
+   register, spill and shared-memory report (a spill in a 1x1-conv kernel fails the run);
+   ``cuobjdump --dump-sass`` of the library must show ``HGMMA`` (wgmma) instructions in
+   each of the tensor-core kernels (forward, dq, dk/dv, at D 64 and 128, and the fused
+   1x1 conv's four column-tile widths);
 2. kernel vs plain: flash-attention forward against its plain PyTorch version on the
    card, each case on the variant that ``kernel_variant`` names (``csrc/flash_fwd_wgmma.cu``
    for bf16 at D 64/128, ``csrc/flash_fwd.cu`` otherwise), over causal/non-causal,
@@ -37,22 +38,32 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
    call that computes the same function as a yardstick (``scaled_dot_product_attention``
    forward, and its backward as fwd+bwd minus fwd; the port never calls it), at the
    training shape and at B=8; and the served requests' p50/p99;
-7. (A) the fused 1x1-conv kernel (``csrc/conv1x1_bn_act.cu``) against its plain version
-   on the card: f32 (TF32 off) and bf16, identity/relu/gelu epilogues, random scale and
-   bias with zero scales, row counts off the tile, Cin -> Cout from 24 -> 16 to
-   768 -> 3072, ResNet-50's nine shapes at batch 256, a strided channels-last view, and
-   the autograd backward against autograd through the plain version;
+7. (A) the fused 1x1-conv kernel against its plain version on the card, each case on the
+   variant that ``conv1x1_variant`` names (``csrc/conv1x1_wgmma.cu`` for bf16 with Cin and
+   Cout multiples of 64, ``csrc/conv1x1_bn_act.cu`` otherwise): f32 (TF32 off) and bf16,
+   bf16 -> f32, identity/relu/gelu epilogues, random scale and bias with zero scales, row
+   counts off the tile (a prime near 1000, and below 64), Cin -> Cout from 24 -> 16 to
+   768 -> 3072 (wgmma: Cin 64/128/256 by Cout 64/192/256/512), ResNet-50's nine shapes at
+   batch 256 on the wgmma variant, stride-2 channels-last views read in place or copied;
+   the backward's dz pass (``csrc/conv1x1_bwd_dz.cu``) bit-equal to its plain version;
+   the weight gradient over ResNet-50's pixels against the f32 sums rounded once (F5);
+   and the autograd backward against autograd through the plain version, the dz kernel
+   launched on ResNet's route only;
 8. (B) ResNet-50 training: the port's ImageNet entry (``examples/train_imagenet.py``) at
    224x224, 1000 classes, global batch 256, bf16 model with f32 params, ``PALLAS=1``, on a
    synthetic set capped to 3 steps an epoch: 2 epochs, then a resume from ``last`` for a
    third; every loss finite, the running statistics moved, the resume continuing the step
-   and epoch, exactly 9 kernel launches per train step and per val forward, and the
+   and epoch, exactly 9 kernel launches per train step and per val forward, all on the
+   wgmma variant, and 9 launches of the backward's dz pass per train step, and the
    trained model's logits finite and close to the same weights through cuDNN's 1x1
    convolutions; the step time (median, CUDA events), images/s, peak memory and the
    device's busy share of the resumed epoch; then the same steps timed with ``PALLAS=1``
    and ``PALLAS=0`` in turns;
 9. times of the 1x1 kernel at ResNet-50's nine shapes: kernel, plain, bound, and the
-   faster of ``torch.matmul`` and a channels-last 1x1 ``F.conv2d`` as the yardstick;
+   faster of ``torch.matmul`` and a channels-last 1x1 ``F.conv2d`` as the yardstick (the
+   stride-2 shortcut also through a contiguous copy of its view); and of the backward's
+   dz pass at the nine gradients: kernel, the three plain passes, bound, and one
+   ``torch.mul`` into a bf16 ``out`` as the yardstick;
 10. (K5) the ring's block entry points ``flash_block_fwd``/``flash_block_bwd`` (wrappers
     over the three attention kernels) against their plain versions at the ring's block
     shape (B=16, Tq=Tk=1024, H=12, D=64), bf16 and f32, on a diagonal (causal) and a
@@ -221,19 +232,24 @@ def phase_device():
         "flash_bwd_dkv_wgmma_kernel": lib.dtp_flash_bwd_dkv_wgmma_smem_bytes,
     }
     kernel = ""
+    injected = {}
     for line in _build.build_log.splitlines():
         entry = re.search(
             r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line
         )
         wgmma = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E", line)
         conv = re.search(
-            r"Compiling entry function '\S*?conv1x1_bn_act_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Lb([01])E", line
+            r"Compiling entry function '\S*?(conv1x1_bn_act|conv1x1_bwd_dz)_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)"
+            r"Lb([01])E", line
         )
+        conv_wgmma = re.search(r"Compiling entry function '\S*?conv1x1_bn_act_wgmma_kernelILi(\d+)E", line)
         if conv:
             names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
-            out_type = names.get(conv.group(2), names[conv.group(1)])  # S<n>_: the input type again
-            kernel = (f"conv1x1_bn_act_kernel<{names[conv.group(1)]} -> {out_type}, "
-                      f"16-byte loads={conv.group(3) == '1'}>")
+            out_type = names.get(conv.group(3), names[conv.group(2)])  # S<n>_: the input type again
+            kernel = (f"{conv.group(1)}_kernel<{names[conv.group(2)]} -> {out_type}, "
+                      f"16-byte {'loads' if conv.group(1) == 'conv1x1_bn_act' else 'vectors'}={conv.group(4) == '1'}>")
+        elif conv_wgmma:
+            kernel = f"conv1x1_bn_act_wgmma_kernel<NR={conv_wgmma.group(1)}> ({64 * int(conv_wgmma.group(1))} output channels a block)"
         elif entry:
             dtype = "float32" if entry.group(2) == "f" else "bfloat16"
             d = int(entry.group(3))
@@ -242,17 +258,31 @@ def phase_device():
         elif wgmma:
             d = int(wgmma.group(2))
             kernel = f"{wgmma.group(1)}<bfloat16, D={d}> (dynamic smem {smem[wgmma.group(1)](d)} B/block)"
-        elif "registers" in line or "spill stores" in line:
+        elif "C7519" in line:  # ptxas placing a warpgroup.arrive before a wgmma: counted by kernel below
+            named = re.search(r"((?:conv1x1_bn_act|flash_(?:fwd|bwd_dq|bwd_dkv))_wgmma_kernel)I", line)
+            key = named.group(1) if named else "other"
+            injected[key] = injected.get(key, 0) + 1
+        elif "Used" in line and "registers" in line or "spill stores" in line:
             report = re.sub(r"^ptxas info\s*:\s*", "", line.strip())
             log(f"[device] {kernel}: {report}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if kernel.startswith("conv1x1_") and spills and spills.groups() != ("0", "0"):
+                raise RuntimeError(f"{kernel} spills registers: {report}")
         elif "warning" in line.lower():  # e.g. ptxas serialising wgmma
             log(f"[device] {line.strip()}")
+    if injected:
+        log(f"[device] ptxas notes C7519 (a warpgroup.arrive it inserted before a wgmma), by kernel: {injected}")
     for name, n in sass_hgmma_counts(_build.LIBRARY).items():
         log(f"[device] SASS of {name}: {n} HGMMA instructions")
+    for name, cin, cout, _ in RESNET_K4_SHAPES:
+        log(f"[device] conv1x1_bn_act_wgmma_kernel at {name} ({cin} -> {cout}): dynamic smem "
+            f"{lib.dtp_conv1x1_bn_act_wgmma_smem_bytes(cin, cout)} B/block")
     return card
 
 
-WGMMA_KERNELS = [f"flash_{k}_wgmma_kernel<D={d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)]
+WGMMA_KERNELS = [f"flash_{k}_wgmma_kernel<D={d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)] + [
+    f"conv1x1_bn_act_wgmma_kernel<NR={nr}>" for nr in (1, 2, 3, 4)
+]
 
 
 def sass_hgmma_counts(library) -> dict:
@@ -267,9 +297,13 @@ def sass_hgmma_counts(library) -> dict:
                           timeout=300).stdout
     counts = {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E", chunk.split("\n", 1)[0])
+        head = chunk.split("\n", 1)[0]
+        found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E", head)
+        conv = re.search(r"conv1x1_bn_act_wgmma_kernelILi(\d+)E", head)
         if found:
             counts[f"{found.group(1)}<D={found.group(2)}>"] = chunk.count("HGMMA")
+        elif conv:
+            counts[f"conv1x1_bn_act_wgmma_kernel<NR={conv.group(1)}>"] = chunk.count("HGMMA")
     missing = [name for name in WGMMA_KERNELS if not counts.get(name)]
     if missing:
         raise RuntimeError(f"no HGMMA instruction in the SASS of {missing} (found {counts})")
@@ -531,6 +565,13 @@ BWD_REL_BF16 = 2e-2
 # What the main path's K1, K2 and K3 are (bf16, D=64: the wgmma variant); the f32 and
 # small-D variant is csrc/flash_fwd.cu / csrc/flash_bwd.cu on the CUDA cores.
 DESIGN = {
+    "conv1x1_bn_act": "wgmma m64n64k16 (both operands in shared memory), one commit group per 64-channel chunk so "
+                      "a chunk's epilogue overlaps the next chunks' products, the weight's column tile of up to "
+                      "256 channels resident, x row tiles by TMA (128B swizzle) through a 2-4 stage mbarrier ring, "
+                      "a persistent grid, the affine and act on the accumulator fragment, 16-byte stores from a "
+                      "swizzled staging tile; the stride-2 shortcut read in place as whole image rows",
+    "conv1x1_bwd_dz": "one elementwise pass: g (and y for relu) read once in 16-byte vectors, dz written once; "
+                      "the elementwise part of _conv1x1_bwd (pallas.py:629), whose dots stay torch.matmul",
     "fwd": "wgmma m64n64k16 (S from shared memory; P V with P from registers, bf16), TMA 128B-swizzled "
            "K/V tiles in a 2-stage mbarrier ring, Q resident, online softmax on the accumulator fragment; "
            "one warpgroup per 64 query rows",
@@ -860,6 +901,24 @@ CONV1X1_CASES = [
 CONV1X1_ATOL_F32 = 1e-5
 CONV1X1_GRAD_ATOL_F32 = 2e-4
 CONV1X1_REL_BF16 = 2e-2
+# The wgmma variant (bf16, 64-channel multiples): ragged N (a prime near 1000, and below one
+# 64-row tile), Cin 64/128/256 by Cout 64/192/256/512, every epilogue, scales with zeros.
+CONV1X1_WGMMA_CASES = [
+    (997 if i % 2 else 37, cin, cout, (None, "relu", "gelu")[i % 3], "bfloat16")
+    for i, (cin, cout) in enumerate((cin, cout) for cin in (64, 128, 256) for cout in (64, 192, 256, 512))
+]
+# The backward's dz pass against its plain version, bit for bit: (rows, Cout, g dtype, dz
+# dtype, act); Cout 10 takes the element-at-a-time path.
+CONV1X1_DZ_CASES = [
+    (802816, 256, "bfloat16", "bfloat16", None),
+    (802816, 64, "bfloat16", "bfloat16", "relu"),
+    (997, 10, "bfloat16", "bfloat16", "relu"),
+    (6275, 64, "float32", "bfloat16", "relu"),
+    (6275, 96, "float32", "float32", None),
+]
+# F5: dw and dx over ResNet-50's 802,816 pixels (256 -> 64) against the f32 sums rounded
+# once; f32 sums in other orders may round an element one ulp apart.
+CONV1X1_DW_DIFFER_MAX = 0.05
 
 
 def _conv1x1_inputs(gen, rows, cin, cout, dtype, zero_scale=True):
@@ -887,8 +946,9 @@ def _err_bound(got, ref, atol_f32):
 
 
 def phase_conv1x1():
-    """Phase A: K4 against its plain version on the card; returns the largest error over
-    ResNet-50's nine bf16 shapes at batch 256."""
+    """Phase A: K4 and the backward's dz pass against their plain versions on the card;
+    returns K4's largest error over ResNet-50's nine bf16 shapes at batch 256, and the dz
+    pass's largest error over its cases (0 when bit-equal)."""
     import torch
 
     from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
@@ -897,26 +957,39 @@ def phase_conv1x1():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2468)
 
-    def check(label, x, w, scale, bias, act):
-        before = k4.launches["conv1x1_bn_act"]
-        y = k4.conv1x1_bn_act(x, w, scale, bias, act=act)
+    def check(label, x, w, scale, bias, act, out_dtype=None):
+        variant = k4.conv1x1_variant(x, w.shape[0], out_dtype)
+        before = (k4.launches["conv1x1_bn_act"], k4.launches_by_variant[("conv1x1_bn_act", variant)])
+        y = k4.conv1x1_bn_act(x, w, scale, bias, act=act, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        if k4.launches["conv1x1_bn_act"] != before + 1:
-            raise RuntimeError("the conv1x1 wrapper did not launch its kernel")
-        ref = k4.conv1x1_bn_act_plain(x, w, scale, bias, act=act)
+        if (k4.launches["conv1x1_bn_act"], k4.launches_by_variant[("conv1x1_bn_act", variant)]) != (
+                before[0] + 1, before[1] + 1):
+            raise RuntimeError(f"the conv1x1 wrapper did not launch its {variant} kernel")
+        ref = k4.conv1x1_bn_act_plain(x, w, scale, bias, act=act, out_dtype=out_dtype)
         err, bound = _err_bound(y, ref, CONV1X1_ATOL_F32)
         ok = err <= bound and bool(torch.isfinite(y.float()).all()) and y.shape == ref.shape and y.dtype == ref.dtype
-        log(f"[conv1x1] {label}: max|y-plain|={err:.3e} (bound {bound:.1e}) -> {'ok' if ok else 'FAIL'}")
+        log(f"[conv1x1] {label} [{variant}]: max|y-plain|={err:.3e} (bound {bound:.1e}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("conv1x1 kernel disagrees with its plain version")
         return err
 
-    for rows, cin, cout, act, dtype_name in CONV1X1_CASES:
+    for rows, cin, cout, act, dtype_name in CONV1X1_CASES + CONV1X1_WGMMA_CASES:
         x, w, scale, bias = _conv1x1_inputs(gen, rows, cin, cout, getattr(torch, dtype_name))
         check(f"N={rows} {cin}->{cout} act={act} {dtype_name}", x, w, scale, bias, act)
+    x, w, scale, bias = _conv1x1_inputs(gen, 997, 64, 256, torch.bfloat16)
+    check("N=997 64->256 act=gelu bfloat16 -> float32", x, w, scale, bias, "gelu", torch.float32)
+    # Stride-2 views of channels-last activations: read in place where (b, h) flatten (an
+    # even H), copied first where they do not, or where an image row is wider than a box.
+    for batch, size in ((3, 56), (3, 57), (2, 140)):
+        full = torch.randn(batch, 64, size, size, device="cuda", generator=gen).to(torch.bfloat16)
+        x = full.contiguous(memory_format=torch.channels_last)[:, :, ::2, ::2].permute(0, 2, 3, 1)
+        _, w, scale, bias = _conv1x1_inputs(gen, 1, 64, 256, torch.bfloat16)
+        how = "in place" if k4.tma_rows(x) is not None else "copied"
+        check(f"stride-2 view [{batch}, {x.shape[1]}, {x.shape[2]}, 64] ({how}) -> 256 act=relu", x, w, scale, bias, "relu")
 
-    # ResNet-50's nine shapes at batch 256, identity epilogue, on channels-last NHWC views:
-    # the stride-2 shortcut reads x[:, :, ::2, ::2] of its input in place.
+    # ResNet-50's nine shapes at batch 256, identity epilogue, on channels-last NHWC views,
+    # each on the wgmma variant: the stride-2 shortcut reads x[:, :, ::2, ::2] of its input in
+    # place, as whole image rows.
     worst = 0.0
     for name, cin, cout, stride in RESNET_K4_SHAPES:
         full = torch.randn(RESNET_BATCH, cin, 56, 56, device="cuda", generator=gen).to(torch.bfloat16)
@@ -924,22 +997,68 @@ def phase_conv1x1():
         x = full[:, :, ::stride, ::stride].permute(0, 2, 3, 1)
         w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(torch.bfloat16)
         ones, zeros = torch.ones(cout, device="cuda"), torch.zeros(cout, device="cuda")
+        geometry = k4.tma_rows(x)
+        if k4.conv1x1_variant(x, cout) != "wgmma" or geometry is None:
+            raise RuntimeError(f"resnet50 {name} would not be read in place by the wgmma variant")
         label = f"resnet50 {name} [{RESNET_BATCH}, {56 // stride}, {56 // stride}, {cin}] -> {cout} bf16"
-        worst = max(worst, check(label + (" (strided view)" if stride > 1 else ""), x, w, ones, zeros, None))
+        label += f" (TMA rows {geometry})" if stride > 1 else ""
+        worst = max(worst, check(label, x, w, ones, zeros, None))
         del full, x
         torch.cuda.empty_cache()
 
+    # The backward's dz pass: bit-equal to its plain version.
+    dz_worst = 0.0
+    for rows, cout, g_name, dz_name, act in CONV1X1_DZ_CASES:
+        g_dtype, dz_dtype = getattr(torch, g_name), getattr(torch, dz_name)
+        g = torch.randn(rows, cout, device="cuda", generator=gen).to(g_dtype)
+        y = torch.randn(rows, cout, device="cuda", generator=gen).to(g_dtype)
+        scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+        scale[::3] = 0.0
+        before = k4.launches["conv1x1_bwd_dz"]
+        dz = k4.conv1x1_bwd_dz(g, y, scale, act=act, out_dtype=dz_dtype)
+        torch.cuda.synchronize()
+        ref = k4.conv1x1_bwd_dz_plain(g, y, scale, act=act, out_dtype=dz_dtype)
+        bits = torch.int16 if dz_dtype == torch.bfloat16 else torch.int32
+        ok = k4.launches["conv1x1_bwd_dz"] == before + 1 and torch.equal(dz.view(bits), ref.view(bits))
+        dz_worst = max(dz_worst, (dz.float() - ref.float()).abs().max().item())
+        log(f"[conv1x1] bwd dz [{rows}, {cout}] {g_name} -> {dz_name} act={act}: bit-equal to plain -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("conv1x1_bwd_dz disagrees with its plain version")
+        del g, y, dz, ref
+
+    # F5: the weight gradient over ResNet-50's pixels is the f32 sums rounded once; dx too.
+    x = torch.randn(RESNET_BATCH * 56 * 56, 256, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn(64, 256, device="cuda", generator=gen) / 16).to(torch.bfloat16).requires_grad_()
+    g = (torch.randn(x.shape[0], 64, device="cuda", generator=gen) * 0.01).to(torch.bfloat16)
+    k4.conv1x1_bn_act_diff(x, w, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"),
+                           act=None, affine_grads=False).backward(g)
+    with torch.no_grad():  # dz = g * 1 on this route
+        differ = {"dw": (w.grad != (g.T.float() @ x.float()).to(torch.bfloat16)).float().mean().item(),
+                  "dx": (x.grad != (g.float() @ w.float()).to(torch.bfloat16)).float().mean().item()}
+    ok = max(differ.values()) <= CONV1X1_DW_DIFFER_MAX
+    log(f"[conv1x1] gradients over [{x.shape[0]}, 256] -> 64 bf16: " + ", ".join(
+        f"{k} {v:.4%}" for k, v in differ.items()) + f" of elements differ from the f32 sums rounded once (bound "
+        f"{CONV1X1_DW_DIFFER_MAX:.0%}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("a weight or input gradient is not the f32 sums rounded once (F5)")
+    del x, w, g
+    torch.cuda.empty_cache()
+
     # The autograd path: conv1x1_bn_act_diff through the kernel against autograd through
-    # the plain version, on a strided channels-last view, every epilogue, both affine modes.
-    for dtype_name in ("float32", "bfloat16"):
+    # the plain version, on a strided channels-last view, every epilogue, both affine modes;
+    # bf16 at Cout 96 (the CUDA-core forward) and 128 (the wgmma forward and, on ResNet's
+    # route, the dz pass).
+    for dtype_name, cout in (("float32", 96), ("bfloat16", 96), ("bfloat16", 128)):
         dtype = getattr(torch, dtype_name)
         for act in (None, "relu", "gelu"):
             for affine_grads in (False, True):
                 full = torch.randn(4, 64, 30, 30, device="cuda", generator=gen).to(dtype)
                 full = full.contiguous(memory_format=torch.channels_last)
-                _, w, scale, bias = _conv1x1_inputs(gen, 1, 64, 96, dtype)
-                g = torch.randn(4, 15, 15, 96, device="cuda", generator=gen).to(dtype)
+                _, w, scale, bias = _conv1x1_inputs(gen, 1, 64, cout, dtype)
+                g = torch.randn(4, 15, 15, cout, device="cuda", generator=gen).to(dtype)
                 grads = []
+                dz_before = k4.launches["conv1x1_bwd_dz"]
                 for use_kernel in (True, False):
                     leaves = [t.clone().requires_grad_() for t in (full, w, scale, bias)]
                     x = leaves[0][:, :, ::2, ::2].permute(0, 2, 3, 1)
@@ -949,6 +1068,10 @@ def phase_conv1x1():
                         y = k4.conv1x1_bn_act_plain(x, *leaves[1:], act=act)
                     y.backward(g)
                     grads.append([t.grad for t in leaves])
+                one_pass = act != "gelu" and not affine_grads  # ResNet's route: the dz kernel
+                if k4.launches["conv1x1_bwd_dz"] - dz_before != int(one_pass):
+                    raise RuntimeError(f"the backward launched the dz kernel {k4.launches['conv1x1_bwd_dz'] - dz_before} "
+                                       f"times (act={act}, affine_grads={affine_grads})")
                 results = []
                 for name, got, ref in zip(("x", "w", "scale", "bias"), *grads, strict=True):
                     if name in ("scale", "bias") and not affine_grads:
@@ -957,11 +1080,11 @@ def phase_conv1x1():
                     results.append((name, *_err_bound(got, ref, CONV1X1_GRAD_ATOL_F32)))
                 ok = all(e <= b for _, e, b in results)
                 errs = " ".join(f"d{n}={e:.2e}/{b:.1e}" for n, e, b in results)
-                log(f"[conv1x1] autograd vs plain, [4, 15, 15, 64] strided -> 96 act={act} affine_grads={affine_grads} "
-                    f"{dtype_name}: {errs} -> {'ok' if ok else 'FAIL'}")
+                log(f"[conv1x1] autograd vs plain, [4, 15, 15, 64] strided -> {cout} act={act} "
+                    f"affine_grads={affine_grads} {dtype_name}: {errs} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise RuntimeError("conv1x1_bn_act_diff's backward disagrees with autograd through the plain version")
-    return worst
+    return worst, dz_worst
 
 
 def _images_per_s(batch, ms):
@@ -1021,6 +1144,8 @@ def phase_resnet(run_dir: str):
             epoch_wall_us = (time.perf_counter() - t_epoch) * 1e6
         wall = time.perf_counter() - t0
         launches = k4.launches["conv1x1_bn_act"]
+        wgmma_launches = k4.launches_by_variant[("conv1x1_bn_act", "wgmma")]
+        dz_launches = k4.launches["conv1x1_bwd_dz"]
         final_step = resumed.state.step
         steps_per_epoch = len(resumed.train_dataloader)
         n_val = len(resumed.val_dataloader)
@@ -1053,16 +1178,21 @@ def phase_resnet(run_dir: str):
     log(f"[resnet] resumed epoch ({steps_per_epoch} steps, 1 val forward, host data and the save included): wall "
         f"{epoch_wall_us / 1e3:.1f} ms, kernel time {kernel_us / 1e3:.1f} ms, device busy share "
         f"{'not measured' if busy is None else f'{busy:.4f}'}")
-    log(f"[resnet] conv1x1 launches {launches} over {counts['steps']} steps and {counts['evals']} validation forwards")
+    log(f"[resnet] conv1x1 launches {launches} ({wgmma_launches} on the wgmma variant), backward dz launches "
+        f"{dz_launches}, over {counts['steps']} steps and {counts['evals']} validation forwards")
 
     losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite losses: {losses}")
     if stats_moved == 0:
         raise RuntimeError("no BatchNorm running statistic moved in training")
-    if launches != len(RESNET_K4_SHAPES) * (counts["steps"] + counts["evals"]):
-        raise RuntimeError(f"expected {len(RESNET_K4_SHAPES)} conv1x1 launches per train step and val forward, "
-                           f"got {launches} over {counts['steps']} + {counts['evals']}")
+    if launches != len(RESNET_K4_SHAPES) * (counts["steps"] + counts["evals"]) or wgmma_launches != launches:
+        raise RuntimeError(f"expected {len(RESNET_K4_SHAPES)} conv1x1 launches per train step and val forward, all on "
+                           f"the wgmma variant, got {launches} ({wgmma_launches} wgmma) over {counts['steps']} + "
+                           f"{counts['evals']}")
+    if dz_launches != len(RESNET_K4_SHAPES) * counts["steps"]:
+        raise RuntimeError(f"expected {len(RESNET_K4_SHAPES)} conv1x1_bwd_dz launches per train step, got {dz_launches} "
+                           f"over {counts['steps']} steps")
     if (first_steps, first_epoch) != (RESNET_EPOCHS * steps_per_epoch, RESNET_EPOCHS - 1):
         raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
     if resumed_at != (RESNET_EPOCHS * steps_per_epoch, RESNET_EPOCHS) or final_step != (RESNET_EPOCHS + 1) * steps_per_epoch:
@@ -1096,8 +1226,8 @@ def phase_resnet(run_dir: str):
         raise RuntimeError("the kernel path's logits disagree with the cuDNN path's")
     del model, plain
     torch.cuda.empty_cache()
-    return launches, {"step_ms": median_ms, "images_per_s": _images_per_s(RESNET_BATCH, median_ms),
-                      "peak_gb": peak_gb, "busy": busy}
+    return {"conv1x1_bn_act": launches, "conv1x1_bwd_dz": dz_launches}, {
+        "step_ms": median_ms, "images_per_s": _images_per_s(RESNET_BATCH, median_ms), "peak_gb": peak_gb, "busy": busy}
 
 
 def phase_resnet_pallas_ab(run_dir: str, n_steps: int = 5):
@@ -1154,9 +1284,22 @@ def phase_resnet_pallas_ab(run_dir: str, n_steps: int = 5):
     return med
 
 
+def conv1x1_dz_bound(rows, cout, itemsize=2):
+    """Least time for the backward's dz pass on ResNet's route (identity): g read once, dz
+    written once (4 bytes an element in bf16) and scale, against one f32 multiply an
+    element."""
+    nbytes = 2 * rows * cout * itemsize + 4 * cout
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = rows * cout / PEAK_FLOPS["float32"]
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
 def phase_conv1x1_times(card: str):
     """K4 at ResNet-50's nine shapes (batch 256, bf16, identity epilogue): kernel, plain,
-    bound and the faster of torch.matmul and a channels-last 1x1 F.conv2d; returns the rows."""
+    bound and the faster of torch.matmul and a channels-last 1x1 F.conv2d; the shortcut's
+    view also through a contiguous copy; then the backward's dz pass at the nine [N, Cout]
+    gradients: kernel, the three plain passes, bound and one ``torch.mul`` with a bf16
+    ``out``. Returns the rows and totals of each."""
     import torch
     import torch.nn.functional as F
 
@@ -1164,7 +1307,8 @@ def phase_conv1x1_times(card: str):
 
     torch.backends.cudnn.allow_tf32 = True
     gen = torch.Generator(device="cuda").manual_seed(1357)
-    rows = []
+    counts = (dict(k4.launches), dict(k4.launches_by_variant))  # timing launches are not the main path's
+    rows, dz_rows = [], []
     for name, cin, cout, stride in RESNET_K4_SHAPES:
         full = torch.randn(RESNET_BATCH, cin, 56, 56, device="cuda", generator=gen).to(torch.bfloat16)
         full = full.contiguous(memory_format=torch.channels_last)
@@ -1173,27 +1317,50 @@ def phase_conv1x1_times(card: str):
         w4 = w.view(cout, cin, 1, 1).contiguous(memory_format=torch.channels_last)
         ones, zeros = torch.ones(cout, device="cuda"), torch.zeros(cout, device="cuda")
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        before = k4.launches["conv1x1_bn_act"]
         ms = time_ms(lambda: k4.conv1x1_bn_act(x, w, ones, zeros))
-        k4.launches["conv1x1_bn_act"] = before  # timing launches are not the main path's
         plain_ms = time_ms(lambda: k4.conv1x1_bn_act_plain(x, w, ones, zeros), iters=5)
         wt = w.T
         matmul_ms = time_ms(lambda: torch.matmul(x.reshape(n, cin), wt))
         conv_ms = time_ms(lambda: F.conv2d(full, w4, stride=stride))
         bound_ms, bound_by, flops, nbytes = conv1x1_bound(n, cin, cout)
         library_ms = min(matmul_ms, conv_ms)
+        extra = ""
+        if not x.is_contiguous():
+            copy_ms = time_ms(lambda: k4.conv1x1_bn_act(x.contiguous(), w, ones, zeros))
+            extra = f"; through a contiguous copy of the view {copy_ms:.4f} ms"
         log(f"[times] {card} | conv1x1 {name} N={n} {cin}->{cout} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.matmul {matmul_ms:.4f} ms, F.conv2d 1x1 {conv_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {bound_ms / ms:.4f} of the bound")
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {bound_ms / ms:.4f} of the bound{extra}")
         rows.append({"name": name, "shape": [n, cin, cout], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "matmul_ms": matmul_ms, "conv2d_ms": conv_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         del full, x
+
+        g = torch.randn(n, cout, device="cuda", generator=gen).to(torch.bfloat16)
+        scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+        out = torch.empty_like(g)
+        dz_ms = time_ms(lambda: k4.conv1x1_bwd_dz(g, None, scale, out_dtype=torch.bfloat16))
+        dz_plain_ms = time_ms(lambda: k4.conv1x1_bwd_dz_plain(g, None, scale, out_dtype=torch.bfloat16), iters=5)
+        dz_library_ms = time_ms(lambda: torch.mul(g, scale, out=out))
+        same = torch.equal(out, k4.conv1x1_bwd_dz_plain(g, None, scale, out_dtype=torch.bfloat16))
+        dz_bound_ms, dz_bound_by, dz_bytes = conv1x1_dz_bound(n, cout)
+        log(f"[times] {card} | conv1x1_bwd_dz {name} [{n}, {cout}] bf16: kernel {dz_ms:.4f} ms, the three plain passes "
+            f"{dz_plain_ms:.4f} ms, torch.mul(out=bf16) {dz_library_ms:.4f} ms (same values: {same}), bound "
+            f"{dz_bound_ms:.4f} ms ({dz_bound_by}; {dz_bytes / 1e6:.2f} MB), {dz_bound_ms / dz_ms:.4f} of the bound")
+        dz_rows.append({"name": name, "shape": [n, cout], "ms": dz_ms, "plain_ms": dz_plain_ms,
+                        "library_ms": dz_library_ms, "bound_ms": dz_bound_ms, "bound_by": dz_bound_by})
+        del g, out
         torch.cuda.empty_cache()
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"[times] {card} | conv1x1, the nine launches of one ResNet-50 forward at batch {RESNET_BATCH}: kernel "
-        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
-        f"{total['bound_ms']:.4f} ms")
-    return rows, total
+    k4.launches.update(counts[0])
+    k4.launches_by_variant.update(counts[1])
+    totals = []
+    for label, table in (("conv1x1", rows), ("conv1x1_bwd_dz", dz_rows)):
+        total = {k: sum(r[k] for r in table) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        total["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in table) else "operations"
+        log(f"[times] {card} | {label}, the nine launches of one ResNet-50 step at batch {RESNET_BATCH}: kernel "
+            f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+            f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / total['ms']:.4f} of it)")
+        totals.append(total)
+    return rows, totals[0], dz_rows, totals[1]
 
 
 # The ring-training configuration: byte-level GPT-2-small at T=4096, global batch 16 (the
@@ -1575,7 +1742,7 @@ def main() -> int:
         bwd_err = phase_bwd_kernels()
         k5_err = phase_k5()
         ring = phase_ring(card)
-        conv_err = phase_conv1x1()
+        conv_err, dz_err = phase_conv1x1()
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
@@ -1589,7 +1756,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resnet_ab = phase_resnet_pallas_ab(run_dir)
         times = phase_times(card)
-        conv_times, conv_total = phase_conv1x1_times(card)
+        conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         log(f"[times] {card} | served requests: p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms "
             f"over {serve['n']} requests (client clock, HTTP included; p99 is the slowest of so few)")
         log(f"[times] {card} | training step (B=64, T=1024, bf16): median {train['step_ms']:.2f} ms, "
@@ -1631,23 +1798,30 @@ def main() -> int:
             "dtype": "bfloat16",
             "design": DESIGN[kind],
         })
-    kernels.append({
-        "name": "conv1x1_bn_act",
-        "route": "cuda",
-        "source": "distributed_training_pytorch_tpu_torch/csrc/conv1x1_bn_act.cu",
-        "replaces": "distributed_training_pytorch_tpu/ops/pallas.py:550",
-        "launches": resnet_launches,
-        "launches_by_path": {"train_resnet50": resnet_launches, "train": 0, "train_ring": 0, "serve": 0},
-        "max_abs_err": conv_err,
-        # The nine launches of one ResNet-50 forward at batch 256, summed; per shape below.
-        "ms": conv_total["ms"],
-        "plain_ms": conv_total["plain_ms"],
-        "bound_ms": conv_total["bound_ms"],
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in conv_times) else "operations",
-        "library_ms": conv_total["library_ms"],
-        "shapes": conv_times,
-        "dtype": "bfloat16",
-    })
+    for name, source, replaces, err, total, shapes in (
+        ("conv1x1_bn_act", "conv1x1_wgmma.cu", ":550", conv_err, conv_total, conv_times),
+        ("conv1x1_bwd_dz", "conv1x1_bwd_dz.cu", ":629", dz_err, dz_total, dz_times),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"distributed_training_pytorch_tpu_torch/csrc/{source}",
+            "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
+            "launches": resnet_launches[name],
+            "launches_by_path": {"train_resnet50": resnet_launches[name], "train": 0, "train_ring": 0, "serve": 0},
+            # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
+            # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
+            "max_abs_err": err,
+            # The nine launches of one ResNet-50 step at batch 256, summed; per shape below.
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": total["bound_by"],
+            "library_ms": total["library_ms"],
+            "shapes": shapes,
+            "dtype": "bfloat16",
+            "design": DESIGN[name],
+        })
     for kind, launch_key, replaces, source in (("fwd", "fwd", ":399", "flash_fwd_wgmma.cu"),
                                                ("bwd", "bwd_dq", ":415", "flash_bwd_wgmma.cu")):
         r = ring["k5"][kind]

@@ -2,8 +2,8 @@
 // matrix descriptors for wgmma over 128-byte-swizzled tiles, the two wgmma forms the
 // attention kernels use (both operands in shared memory; A from registers with B read
 // transposed), the warpgroup fences, mbarriers, TMA tile loads, the products over whole
-// 64-row tiles built from them, and the host-side encoding of a [B, T, H, D] bf16 view as
-// a TMA tensor map.
+// 64-row tiles built from them, and the host-side encoding of a bf16 view (a [B, T, H, D]
+// one, or any 4-D one) as a TMA tensor map.
 //
 // Tile layout shared by TMA and wgmma: a "region" is 64 rows x 64 bf16 (128 bytes a row,
 // 8 KiB), 1024-byte aligned, written by one TMA box with CU_TENSOR_MAP_SWIZZLE_128B, so
@@ -50,6 +50,16 @@ __device__ __forceinline__ void wgmma_commit() {
 // Wait until every committed wgmma group of this warpgroup has completed.
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most `pending` (0 to 3) of this warpgroup's committed wgmma groups are still
+// running; the count is an immediate of the instruction, hence the switch.
+__device__ __forceinline__ void wgmma_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); break;
+    case 1: asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); break;
+    case 2: asm volatile("wgmma.wait_group.sync.aligned 2;\n" ::: "memory"); break;
+    default: asm volatile("wgmma.wait_group.sync.aligned 3;\n" ::: "memory"); break;
+  }
 }
 
 // Keep the compiler from moving reads or writes of wgmma operands across the asynchronous
@@ -241,29 +251,39 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The tensor map of a bf16 [B, T, H, D] view with element strides (sb, st, sh) and a unit
-// D stride, read in boxes of 64 d x 64 rows x 1 head x 1 batch with the 128-byte swizzle.
-// TMA needs a 16-byte-aligned base and strides that are multiples of 16 bytes; a size-1
-// dimension's stride is never used, so it is replaced by one that is valid.
-inline cudaError_t make_bf16_bthd_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D,
-                                      long long sb, long long st, long long sh) {
+// The tensor map of a 4-D bf16 view with the sizes `dims` (innermost first; dims[0] has unit
+// stride), the element strides of dims 1 to 3, and the box `box` (box[0] at most 64), with
+// the 128-byte swizzle: a box's rows of 64 elements land as the rows of a region. TMA needs a
+// 16-byte-aligned base and strides that are positive multiples of 16 bytes.
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, const long long (&dims)[4],
+                                 const long long (&strides)[3], const int (&box)[4]) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] <= 0 || strides[i] % 8 != 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (dims[i] < 1 || box[i] < 1 || box[i] > 256) return cudaErrorInvalidValue;
+  if (box[0] > 64) return cudaErrorInvalidValue;
+  const cuuint64_t gdims[4] = {cuuint64_t(dims[0]), cuuint64_t(dims[1]), cuuint64_t(dims[2]), cuuint64_t(dims[3])};
+  const cuuint64_t gstrides[3] = {cuuint64_t(strides[0]) * 2, cuuint64_t(strides[1]) * 2, cuuint64_t(strides[2]) * 2};
+  const cuuint32_t gbox[4] = {cuuint32_t(box[0]), cuuint32_t(box[1]), cuuint32_t(box[2]), cuuint32_t(box[3])};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdims, gstrides,
+                              gbox, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a bf16 [B, T, H, D] view with element strides (sb, st, sh) and a unit
+// D stride, read in boxes of 64 d x 64 rows x 1 head x 1 batch. A size-1 dimension's stride
+// is never used, so it is replaced by one that is valid.
+inline cudaError_t make_bf16_bthd_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D,
+                                      long long sb, long long st, long long sh) {
   if (B == 1) sb = D;
   if (H == 1) sh = D;
   if (T == 1) st = D;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || sb <= 0 || st <= 0 || sh <= 0 || sb % 8 != 0 ||
-      st % 8 != 0 || sh % 8 != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(T), cuuint64_t(H), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(st) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_bf16_map(map, ptr, {D, T, H, B}, {st, sh, sb}, {64, 64, 1, 1});
 }
 
 }  // namespace dtp_hopper

@@ -63,6 +63,18 @@ _CONV1X1_ARGTYPES = (
     + [_c.c_longlong] * 3  # (b, h, w) element strides of x
     + [_c.c_int, _c.c_void_p]  # act, stream
 )
+_CONV1X1_WGMMA_ARGTYPES = (
+    [_c.c_void_p] * 5  # x, w, scale, bias, out
+    + [_c.c_int] * 4  # Cin, Cout, rows_w, rows_bh
+    + [_c.c_longlong] * 2  # stride_w, stride_bh (elements)
+    + [_c.c_int] * 3  # box_w, box_bh, act
+    + [_c.c_void_p]  # stream
+)
+_CONV1X1_BWD_DZ_ARGTYPES = (
+    [_c.c_void_p] * 4  # g, y, scale, dz
+    + [_c.c_int] * 2  # g dtype, dz dtype
+    + [_c.c_longlong, _c.c_int, _c.c_int, _c.c_void_p]  # rows, Cout, act, stream
+)
 # The argument types of every ``extern "C"`` function of ``csrc/*.cu``; all return int.
 # ctypes converts by these alone, so a count or type that differs from the C signature is
 # a silent fault on the card: ``tests/test_torch_flash_backward.py`` holds them against
@@ -75,6 +87,9 @@ ARGTYPES = {
     "dtp_flash_bwd_dq_wgmma": _FLASH_BWD_DQ_ARGTYPES,
     "dtp_flash_bwd_dkv_wgmma": _FLASH_BWD_DKV_ARGTYPES,
     "dtp_conv1x1_bn_act": _CONV1X1_ARGTYPES,
+    "dtp_conv1x1_bn_act_wgmma": _CONV1X1_WGMMA_ARGTYPES,
+    "dtp_conv1x1_bn_act_wgmma_smem_bytes": [_c.c_int, _c.c_int],  # Cin, Cout
+    "dtp_conv1x1_bwd_dz": _CONV1X1_BWD_DZ_ARGTYPES,
     **{
         f"dtp_flash_{kernel}_smem_bytes": [_c.c_int]  # head dim D
         for kernel in ("fwd", "bwd_dq", "bwd_dkv", "fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma")

@@ -12,12 +12,14 @@ the trainer's ``train_step`` hook, then:
 
 * ``step_ms``: the median of 5 steps, with CUDA events;
 * ``--steps`` steps under ``torch.profiler``: device time per step summed over the
-  kernels of each family (``conv1x1_bn_act``: the port's kernel; ``convolution``: cuDNN's
+  kernels of each family (``conv1x1_bn_act``: the port's forward kernel, either variant;
+  ``conv1x1_bwd_dz``: its backward's one-pass dz; ``convolution``: cuDNN's
   forward, data-gradient and weight-gradient kernels; ``matmul``: cuBLAS/CUTLASS GEMMs,
   the kernel's backward products and the head; ``batchnorm``; ``pooling``;
   ``elementwise``: casts, ReLU, residual adds and the like; ``reduce``; ``optimizer``:
-  SGD's multi-tensor kernels; ``other``), the top kernels, and the device's busy share of
-  the profiled wall time.
+  SGD's multi-tensor kernels; ``other``), the top kernels, the top kernels of the
+  elementwise family alone, the operators and kernels with the most device time of their
+  own (with their calls a step), and the device's busy share of the profiled wall time.
 
 The host's data path (random-resized-crop on the CPU) is outside these steps;
 ``chip_smoke.py`` phase B measures the entry's whole loop. Prints one JSON line a
@@ -41,8 +43,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "conv1x1_bn_act_kernel" in low:
+    if "conv1x1_bn_act" in low:
         return "conv1x1_bn_act"
+    if "conv1x1_bwd_dz" in low:
+        return "conv1x1_bwd_dz"
     if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "implicit")):
         return "convolution"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
@@ -58,6 +62,20 @@ def _group(name: str) -> str:
     if "elementwise" in low or "vectorized" in low or "unrolled" in low or "copy" in low:
         return "elementwise"
     return "other"
+
+
+def _top_ops(prof, steps: int, n: int = 20) -> list:
+    """The entries of the profile (operators such as ``aten::copy_``, and kernels) with the
+    most device time of their own per step, with their calls a step: which calls the kernel
+    families come from."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            rows.append([e.key, us / 1e3 / steps, e.count // steps])
+    return sorted(rows, key=lambda r: -r[1])[:n]
 
 
 def _profile(trainer, batches, steps: int) -> dict:
@@ -92,6 +110,7 @@ def _profile(trainer, batches, steps: int) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_us = sum(groups.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    elementwise = sorted(((n, us) for n, us in by_name.items() if _group(n) == "elementwise"), key=lambda kv: -kv[1])
     return {
         "step_ms_p50": statistics.median(times),
         "step_ms_all": times,
@@ -101,6 +120,8 @@ def _profile(trainer, batches, steps: int) -> dict:
         "device_busy_share": busy_us / wall_us if kernels else "not measured",
         "kernels_per_step": len(kernels) / steps,
         "top_kernels_ms_per_step": [[name[:90], us / 1e3 / steps] for name, us in top],
+        "top_elementwise_ms_per_step": [[name[:200], us / 1e3 / steps] for name, us in elementwise[:12]],
+        "top_ops_self_device_ms_per_step": _top_ops(prof, steps),
     }
 
 
