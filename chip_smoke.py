@@ -80,7 +80,20 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     and a resume from ``last``; every loss finite, the train loss falling, the padded val
     batch run once a validation, exactly 120 launches of each kernel (12 layers x 10
     blocks) per train step and per val forward, every launch on the wgmma variant;
-    step time, tokens/s, peak memory.
+    step time, tokens/s, peak memory;
+13. (vgg) VGG16 on CIFAR-10 through the port's default entry (``examples/train_cifar10.py``)
+    at its defaults but the lr (``VGG_ENV``): global batch 1024, a bf16 model with f32
+    params (134,301,514), the synthetic set (no pickles are in the repository), the
+    native crop/flip built with g++ (``data/native.py``; the phase fails unless it built)
+    on 8 loader workers with uint8 batches normalised on the device, and ``device_prefetch``'s pinned side-stream copies:
+    2 epochs, then a resume from ``last`` for a third; every loss finite, the train loss
+    falling, the resume continuing the step and epoch, the train batches reaching the
+    model as uint8, and no launch of any hand kernel in the phase (VGG16 runs none); the
+    step time (median, CUDA events), images/s, peak memory, and the device's busy share
+    of the resumed train epoch beside the parent's host path (no workers, a ``to_device``
+    copy before each step): its first steps with the per-record Python transform, and the
+    whole epoch in turns with the new path on one warm trainer, both with the native
+    crop/flip. The ResNet phase (8) runs the same in-turns comparison.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -89,6 +102,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -689,9 +703,9 @@ def phase_bwd_kernels():
 
 
 def _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics):
-    """Wrap a trainer's hooks: CUDA events around each train step (into ``step_ms``),
-    counts of train steps and validation forwards, and each epoch's train and val
-    metrics."""
+    """Wrap a trainer's hooks: CUDA events around each train step (into ``step_ms``), the
+    host's time to issue each step (into ``counts["host_ms"]``), counts of train steps and
+    validation forwards, and each epoch's train and val metrics."""
     import torch
 
     train_step, validate_step = trainer.train_step, trainer.validate_step
@@ -699,9 +713,11 @@ def _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics):
 
     def timed_step(state, batch):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         out = train_step(state, batch)
         end.record()
+        counts.setdefault("host_ms", []).append((time.perf_counter() - t0) * 1e3)
         step_ms.append((start, end))
         counts["steps"] += 1
         return out
@@ -1095,7 +1111,6 @@ def phase_resnet(run_dir: str):
     """Phase B: ResNet-50 through the port's ImageNet entry with PALLAS=1: 2 epochs, then a
     resumed epoch under the profiler; returns the kernel's launches and the figures."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
@@ -1152,6 +1167,7 @@ def phase_resnet(run_dir: str):
         model = resumed.model
         val_batch = next(iter(resumed.val_dataloader))
         images = resumed.to_device(val_batch)["image"].permute(0, 3, 1, 2)[:32]
+        turns = _host_paths_in_turns(resumed, RESNET_EPOCHS)
         del resumed
     finally:
         for k, v in saved_env.items():
@@ -1160,8 +1176,7 @@ def phase_resnet(run_dir: str):
             else:
                 os.environ[k] = v
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy = kernel_us / epoch_wall_us if kernel_us else None
+    busy_us, busy = _busy_share(prof, epoch_wall_us)
     times = [s.elapsed_time(e) for s, e in step_ms]
     # The first step of each epoch follows validation and a save: cold caches and allocator.
     steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)
@@ -1176,8 +1191,9 @@ def phase_resnet(run_dir: str):
         f"{[round(t, 2) for t in times]}); {_images_per_s(RESNET_BATCH, median_ms):.0f} images/s; peak memory "
         f"{peak_gb:.2f} GB")
     log(f"[resnet] resumed epoch ({steps_per_epoch} steps, 1 val forward, host data and the save included): wall "
-        f"{epoch_wall_us / 1e3:.1f} ms, kernel time {kernel_us / 1e3:.1f} ms, device busy share "
+        f"{epoch_wall_us / 1e3:.1f} ms, device busy time {busy_us / 1e3:.1f} ms, busy share "
         f"{'not measured' if busy is None else f'{busy:.4f}'}")
+    log(f"[resnet] the resumed train epoch again on the warm trainer, in turns: {_turns_line(turns)}")
     log(f"[resnet] conv1x1 launches {launches} ({wgmma_launches} on the wgmma variant), backward dz launches "
         f"{dz_launches}, over {counts['steps']} steps and {counts['evals']} validation forwards")
 
@@ -1227,7 +1243,263 @@ def phase_resnet(run_dir: str):
     del model, plain
     torch.cuda.empty_cache()
     return {"conv1x1_bn_act": launches, "conv1x1_bwd_dz": dz_launches}, {
-        "step_ms": median_ms, "images_per_s": _images_per_s(RESNET_BATCH, median_ms), "peak_gb": peak_gb, "busy": busy}
+        "step_ms": median_ms, "images_per_s": _images_per_s(RESNET_BATCH, median_ms), "peak_gb": peak_gb, "busy": busy,
+        "turns": turns}
+
+
+VGG_BATCH = 1024
+# The entry's defaults but BASE_LR: its 0.1 (lr 0.4 at batch 1024, the JAX entry's recipe)
+# takes VGG16, which has no BatchNorm, to a non-finite loss within its first 2 epochs on
+# the synthetic set, in bf16 and in f32 (PERF.md, section 6). The JAX entry does the same at
+# that lr: tests/test_torch_trainer_cifar10.py holds both entries at lr 0.4 on the CPU, where
+# a VGG16 of a quarter of the widths turns non-finite on both sides in the same epoch. At
+# 0.005 (lr 0.02 at the end of these 3 warmup epochs) the train loss falls.
+VGG_ENV = {"BATCH": str(VGG_BATCH), "BASE_LR": "0.005"}
+VGG_EPOCHS = 2  # then one resumed epoch
+VGG_PARENT_PYTHON_STEPS = 8  # the per-record Python path takes about 0.3 s a step
+# VGG16 on 32x32: 433 M multiply-adds per image forward (313 M in the convolutions, 120 M
+# in the classifier), three times that for forward and backward.
+VGG_FLOP_PER_IMAGE = 3 * 2 * 433e6
+
+
+def _busy_share(prof, wall_us):
+    """The device's busy time in a profiled window (the union of its kernels', copies'
+    and sets' intervals, so a copy on the side stream under a kernel counts once) and
+    that time over the window's wall time (the device's busy share)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, covered = 0, None
+    for start, end in spans:
+        if covered is None or start > covered:
+            busy_us += end - start
+            covered = end
+        elif end > covered:
+            busy_us += end - covered
+            covered = end
+    return busy_us, (busy_us / wall_us if busy_us else None)
+
+
+def _profiled_epoch(trainer, epoch):
+    """One train epoch of ``trainer`` under the profiler: its wall (ms), the device's busy
+    time (ms) and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.train_dataloader.set_epoch(epoch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = trainer.train_epoch(epoch)  # ends in one read-back of the epoch's metrics
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, busy = _busy_share(prof, wall_us)
+    return metrics, {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "busy": busy}
+
+
+def _fmt_busy(busy):
+    return "not measured" if busy is None else f"{busy:.4f}"
+
+
+def _host_paths_in_turns(trainer, epoch, order=("parent", "new", "new", "parent")):
+    """The same train epoch of one warm trainer through the parent's host path (no loader
+    workers, each batch copied by ``to_device`` on the step's thread) and the new one
+    (the trainer's own: workers and ``device_prefetch``), in turns; returns each path's
+    figures per run. The trainer's instrumented hooks are dropped first, so these steps
+    are not counted as the phase's."""
+    for hook in ("train_step", "validate_step", "train_epoch", "validate"):
+        trainer.__dict__.pop(hook, None)
+    workers = trainer.train_dataloader.num_workers
+    runs = {"parent": [], "new": []}
+    for path in order:
+        if path == "parent":
+            trainer.train_dataloader.num_workers = 0
+            trainer.device_batches = lambda loader: (trainer.to_device(trainer.preprocess_batch(b)) for b in loader)
+        else:
+            trainer.train_dataloader.num_workers = workers
+            trainer.__dict__.pop("device_batches", None)
+        runs[path].append(_profiled_epoch(trainer, epoch)[1])
+    trainer.train_dataloader.num_workers = workers
+    trainer.__dict__.pop("device_batches", None)
+    return runs
+
+
+def _turns_line(runs):
+    parts = []
+    for path, rs in runs.items():
+        busy = ", ".join(_fmt_busy(r["busy"]) for r in rs)
+        walls = ", ".join(f"{r['wall_ms']:.1f}" for r in rs)
+        parts.append(f"{path} host path: busy {busy} (wall {walls} ms)")
+    return "; ".join(parts)
+
+
+def phase_vgg(run_dir: str):
+    """VGG16 on CIFAR-10 through the port's default entry (``examples/train_cifar10.py``)
+    at its defaults (batch 1024, a bf16 model with f32 params, the synthetic set, the
+    native crop/flip with uint8 batches normalised on the device, 8 loader workers and
+    device prefetch): 2 epochs, then a resumed third whose train epoch is profiled; then
+    its first steps from the same checkpoint through the parent's host path (the
+    per-record Python transform, no workers, each batch copied on the step's thread), and
+    the epoch on the warm trainer through the new and the parent host path in turns (both
+    with the native crop/flip). Returns the figures; raises unless the losses are finite,
+    the train loss falls, the resume continues the step and epoch, the native path ran
+    with uint8 batches, and no hand kernel launched."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.data import native
+    from distributed_training_pytorch_tpu_torch.examples import train_cifar10
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    if not native.available():
+        raise RuntimeError(f"the native data runtime did not build: {native.build_error()}")
+    log(f"[vgg] native data runtime built (codecs: {native.codecs_available()}) at {native.LIBRARY}")
+    torch.cuda.empty_cache()
+    keys = ("BATCH", "EPOCHS", "SAVE_DIR", "SNAPSHOT", "DTYPE", "CIFAR10_DIR", "PALLAS", "BASE_LR", "MESH",
+            "CHAIN_STEPS", "TUNED", "TELEMETRY")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    # No CIFAR pickles are in the repository: the entry's synthetic set, drawn once here
+    # and handed to each trainer of the phase (the draw is set-up, not the host path).
+    os.environ.update(VGG_ENV, SAVE_DIR=run_dir, CIFAR10_DIR=os.path.join(run_dir, "no-pickles"))
+    real_load = train_cifar10.load_cifar10
+    data = real_load(os.environ["CIFAR10_DIR"])
+    train_cifar10.load_cifar10 = lambda data_dir: data
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+    image_dtypes = set()
+
+    def build():
+        trainer = _instrument(train_cifar10.build_trainer("cuda"), step_ms, counts, epoch_metrics, val_metrics)
+        timed_step = trainer.train_step
+
+        def dtype_recorded_step(state, batch):
+            image_dtypes.add(batch["image"].dtype)
+            return timed_step(state, batch)
+
+        trainer.train_step = dtype_recorded_step
+        return trainer
+
+    fa_before, k4_before = dict(fa.launches), dict(k4.launches)
+    try:
+        os.environ.update(EPOCHS=str(VGG_EPOCHS))
+        first = build()
+        n_params = sum(p.numel() for p in first.model.parameters())
+        param_dtypes = {p.dtype for p in first.model.parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first.train()
+        first_steps, first_epoch = first.state.step, first.cur_epoch
+        del first
+        torch.cuda.empty_cache()
+
+        # The parent's host path over the epoch the resume will train, from the same
+        # checkpoint, for its first VGG_PARENT_PYTHON_STEPS steps: the per-record Python
+        # transform (the parent port had no native library) on the step's thread, each
+        # batch copied by ``to_device`` just before its step. The native crop/flip without
+        # workers is the in-turns comparison's parent path, on the warm trainer below.
+        last = os.path.join(run_dir, "weights", "last")
+        os.environ.update(EPOCHS=str(VGG_EPOCHS + 1), SAVE_DIR=os.path.join(run_dir, "parent"), SNAPSHOT=last)
+        tr = train_cifar10.build_trainer("cuda")
+        tr.train_dataloader.num_workers = 0
+        tr.device_batches = lambda loader: (
+            tr.to_device(tr.preprocess_batch(b)) for b in itertools.islice(loader, VGG_PARENT_PYTHON_STEPS))
+        # InputNormalizer passes the host-normalised floats through.
+        tr.train_dataloader.transform = train_cifar10.Cifar10Transform(seed=tr.seed, train=True)
+        if tr.train_dataloader._batch_fast_path() is not None:
+            raise RuntimeError("the parent path is not on the loader's per-record path")
+        parent = _profiled_epoch(tr, VGG_EPOCHS)[1]
+        parent["steps"] = VGG_PARENT_PYTHON_STEPS
+        del tr
+        torch.cuda.empty_cache()
+
+        os.environ.update(EPOCHS=str(VGG_EPOCHS + 1), SAVE_DIR=run_dir, SNAPSHOT="last")
+        resumed = build()
+        resumed_at = (resumed.state.step, resumed.cur_epoch)
+        train_epoch = resumed.train_epoch
+        new_path = {}
+
+        def profiled_train_epoch(epoch):
+            resumed.train_epoch = train_epoch
+            metrics, new_path["figures"] = _profiled_epoch(resumed, epoch)
+            return metrics
+
+        resumed.train_epoch = profiled_train_epoch
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter()
+        resumed.train()
+        torch.cuda.synchronize()
+        resume_wall_ms = (time.perf_counter() - t_resume) * 1e3
+        wall = time.perf_counter() - t0
+        final_step = resumed.state.step
+        steps_per_epoch = len(resumed.train_dataloader)
+        n_val = len(resumed.val_dataloader)
+        fa_after, k4_after = dict(fa.launches), dict(k4.launches)
+        turns = _host_paths_in_turns(resumed, VGG_EPOCHS)
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        train_cifar10.load_cifar10 = real_load
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)  # epoch starts follow val/saves
+    median_ms = steady[len(steady) // 2]
+    new = new_path["figures"]
+    host = sorted(counts["host_ms"][i] for i in range(len(times)) if i % steps_per_epoch)
+    host_ms = host[len(host) // 2]
+    log(f"[vgg] VGG16 ({n_params:,} params, {sorted(str(d) for d in param_dtypes)}), CIFAR-10 synthetic set, global "
+        f"batch {VGG_BATCH}, bf16 compute (DTYPE unset), SGD(0.9, wd 5e-4), warmup-cosine; {steps_per_epoch} "
+        f"steps/epoch, {n_val} val batches; train images reached the model as {sorted(str(d) for d in image_dtypes)}")
+    for i, m in enumerate(epoch_metrics):
+        log(f"[vgg] epoch {i}: train ce {m['ce_loss']:.4f} acc {m['accuracy']:.4f}")
+    for i, vm in enumerate(val_metrics):
+        log(f"[vgg] validation {i} (before training epoch 0): ce {vm['ce_loss']:.4f} acc {vm['accuracy']:.4f}")
+    log(f"[vgg] {counts['steps']} steps, {counts['evals']} validation forwards in {wall:.1f} s (data, saves and the "
+        f"parent-path epochs included); step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max "
+        f"{steady[-1]:.2f}, first {times[0]:.2f}); {_images_per_s(VGG_BATCH, median_ms):.0f} images/s; "
+        f"{VGG_FLOP_PER_IMAGE * VGG_BATCH / median_ms / 1e9:.1f} TFLOP/s; peak memory {peak_gb:.2f} GB; the host "
+        f"takes {host_ms:.2f} ms (median) to issue a step")
+    log(f"[vgg] resumed train epoch ({steps_per_epoch} steps), new host path (native crop/flip on 8 loader workers, "
+        f"2 batches ahead; pinned copies on a side stream): wall {new['wall_ms']:.1f} ms, device busy time "
+        f"{new['busy_ms']:.1f} ms, busy share {_fmt_busy(new['busy'])}; the whole resumed run (its epoch "
+        f"and the save of last): {resume_wall_ms:.1f} ms")
+    log(f"[vgg] the resumed train epoch again on the warm trainer, native crop/flip, in turns: {_turns_line(turns)}")
+    log(f"[vgg] the same epoch ({parent['steps']} steps) through the parent's host path (per-record Python "
+        f"transform, no workers, per-batch to_device): wall {parent['wall_ms']:.1f} ms, device busy time "
+        f"{parent['busy_ms']:.1f} ms, busy share {_fmt_busy(parent['busy'])}")
+
+    losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    if not epoch_metrics[-1]["ce_loss"] < epoch_metrics[0]["ce_loss"]:
+        raise RuntimeError(f"train loss did not fall: {[m['ce_loss'] for m in epoch_metrics]}")
+    if image_dtypes != {torch.uint8}:
+        raise RuntimeError(f"expected uint8 train batches (the native path), got {image_dtypes}")
+    if n_params != 134_301_514 or param_dtypes != {torch.float32}:
+        raise RuntimeError(f"expected VGG16's 134,301,514 f32 params, got {n_params} {param_dtypes}")
+    if fa_after != fa_before or k4_after != k4_before:
+        raise RuntimeError(f"hand kernels launched in the VGG phase: {fa_before} -> {fa_after}, {k4_before} -> {k4_after}")
+    if (first_steps, first_epoch) != (VGG_EPOCHS * steps_per_epoch, VGG_EPOCHS - 1):
+        raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
+    if resumed_at != (VGG_EPOCHS * steps_per_epoch, VGG_EPOCHS) or final_step != (VGG_EPOCHS + 1) * steps_per_epoch:
+        raise RuntimeError(f"resume at (step, epoch) {resumed_at}, ended at step {final_step}")
+    manager = CheckpointManager(os.path.join(run_dir, "weights"))
+    for name in ("best", "last"):
+        manager.validate(name)
+    meta = manager.read_meta("last")
+    if (meta["epoch"], meta["step"]) != (VGG_EPOCHS + 1, final_step):
+        raise RuntimeError(f"last checkpoint meta {meta}")
+    log(f"[vgg] best and last valid; resumed at step {resumed_at[0]}, epoch {resumed_at[1]}; last = epoch "
+        f"{meta['epoch']}, step {meta['step']}; hand-kernel launches in the phase: 0")
+    return {"step_ms": median_ms, "images_per_s": _images_per_s(VGG_BATCH, median_ms), "peak_gb": peak_gb,
+            "host_ms": host_ms, "new": new, "parent": parent, "turns": turns}
 
 
 def phase_resnet_pallas_ab(run_dir: str, n_steps: int = 5):
@@ -1755,6 +2027,8 @@ def main() -> int:
             resnet_launches, resnet = phase_resnet(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resnet_ab = phase_resnet_pallas_ab(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            vgg = phase_vgg(run_dir)
         times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         log(f"[times] {card} | served requests: p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms "
@@ -1768,7 +2042,16 @@ def main() -> int:
         log(f"[times] {card} | ResNet-50 training step (B=256, 224x224, bf16, PALLAS=1, through the entry): median "
             f"{resnet['step_ms']:.2f} ms, {resnet['images_per_s']:.0f} images/s, peak memory {resnet['peak_gb']:.2f} GB, "
             f"device busy share of the resumed epoch {busy}; on batches already on the card: PALLAS=1 "
-            f"{resnet_ab['1']:.2f} ms, PALLAS=0 {resnet_ab['0']:.2f} ms")
+            f"{resnet_ab['1']:.2f} ms, PALLAS=0 {resnet_ab['0']:.2f} ms; its resumed train epoch on the warm trainer: "
+            f"{_turns_line(resnet['turns'])}")
+        log(f"[times] {card} | VGG16 training step (CIFAR-10, B={VGG_BATCH}, 32x32, bf16 model, f32 params, through "
+            f"the entry): median {vgg['step_ms']:.2f} ms (the host issues it in {vgg['host_ms']:.2f} ms), "
+            f"{vgg['images_per_s']:.0f} images/s, peak memory "
+            f"{vgg['peak_gb']:.2f} GB; device busy share of the resumed train epoch {_fmt_busy(vgg['new']['busy'])} "
+            f"(wall {vgg['new']['wall_ms']:.1f} ms) against the parent's host path "
+            f"{_fmt_busy(vgg['parent']['busy'])} (per-record Python transform; wall "
+            f"{vgg['parent']['wall_ms']:.1f} ms over {vgg['parent']['steps']} steps); on the warm trainer, native "
+            f"crop/flip, in turns: {_turns_line(vgg['turns'])}")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -1787,7 +2070,8 @@ def main() -> int:
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": train_launches[launch_key],
             "launches_by_path": {"train": train_launches[launch_key], "train_ring": ring_launches[launch_key],
-                                 "train_resnet50": 0, "serve": serve_launches if kind == "fwd" else 0},
+                                 "train_resnet50": 0, "train_vgg16": 0,
+                                 "serve": serve_launches if kind == "fwd" else 0},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -1808,7 +2092,8 @@ def main() -> int:
             "source": f"distributed_training_pytorch_tpu_torch/csrc/{source}",
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": resnet_launches[name],
-            "launches_by_path": {"train_resnet50": resnet_launches[name], "train": 0, "train_ring": 0, "serve": 0},
+            "launches_by_path": {"train_resnet50": resnet_launches[name], "train": 0, "train_ring": 0,
+                                 "train_vgg16": 0, "serve": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -1833,7 +2118,8 @@ def main() -> int:
             "wrapper": f"distributed_training_pytorch_tpu_torch/ops/flash_attention.py::flash_block_{kind}",
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": ring_launches[launch_key],
-            "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0, "serve": 0},
+            "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0,
+                                 "train_vgg16": 0, "serve": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

@@ -1,4 +1,4 @@
-"""Rank-sharded batch loader with a deterministic global shuffle.
+"""Rank-sharded batch loader with a deterministic global shuffle and thread workers.
 
 Counterpart of ``distributed_training_pytorch_tpu/data/loader.py::ShardedLoader``, with
 its semantics kept exactly, so both loaders give the same batches:
@@ -9,38 +9,52 @@ its semantics kept exactly, so both loaders give the same batches:
   (``loader.py:142-151``), the same on every rank;
 * training drops the trailing partial batch; evaluation pads it at the global level (the
   last real row repeated) and emits a ``mask`` column, with ``global_real_count`` as the
-  weight for aggregating padded batches.
-
-* the source's ``transform`` attribute, when it has one, is applied to each record's
+  weight for aggregating padded batches;
+* ``transform`` (else the source's ``transform`` attribute) is applied to each record's
   ``image`` as ``transform(image, epoch=, index=)``, keyed by the record's index in the
-  source (``loader.py:153-157``); a source's ``arrays`` are sliced whole only when there is
-  no transform.
+  source; ``collate_fn`` (else the source's attribute) turns the list of records into the
+  batch, by default a field-wise ``np.stack``;
+* whole-batch fast paths (``_batch_fast_path``): ``"source"`` when the source has
+  ``load_batch(rows, epoch)``, ``"arrays"`` when it has in-memory ``arrays`` and the
+  transform has ``batch_apply(images, rows, epoch)`` (the native augmenter) or there is
+  no transform; a custom collate turns them off;
+* ``num_workers`` threads (8 by default; 0 produces on the calling thread) with at most
+  ``prefetch_batches`` batches in flight beyond the one being consumed: a fast-path batch
+  is one task, a per-record batch one task a record. Batches come out in the order they
+  were submitted (a FIFO of futures), never in the order they finish, so the batches of
+  a ``(seed, epoch, rank)`` are byte-equal whatever ``num_workers`` is. Each worker runs
+  its torch CPU ops (the per-record resize) on one intra-op thread, as torch's
+  ``DataLoader`` workers do: 8 workers, each with an OpenMP team as wide as the machine,
+  would put 8 times the cores' threads on the cores;
+* ``iter_batches(start)`` resumes mid-epoch without reading the skipped batches.
 
 The shard index and count (``process_index``/``process_count``) default to the rank and
 world size of ``torch.distributed`` (0 and 1 outside a process group); the trainer passes
 its mesh's data index and data extent instead, so the seq ranks of one data shard read the
-same rows. Batches are numpy arrays, made on the calling thread. What the JAX loader
-also has comes with later slices: the whole-batch fast paths (``load_batch``,
-``batch_apply``) of the record and native sources, a ``collate_fn``, thread workers with a
-prefetch window, corrupt-record skipping, and the mid-epoch resume entry
-``iter_batches``.
+same rows. Corrupt-record skipping (``skip_corrupt``) and the ``load_delay_s`` injection
+seam come with the record-file slice and raise if asked for.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+import concurrent.futures as cf
+import queue
+from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from distributed_training_pytorch_tpu_torch.data import transforms
 from distributed_training_pytorch_tpu_torch.parallel import mesh
 
 __all__ = ["ShardedLoader"]
 
+_RECORDS_SLICE = "comes with the record-file slice of the port"
+
 
 class ShardedLoader:
     """Iterate this rank's batches ``{field: np.ndarray}`` over an indexable source of
-    ``{field: array}`` records (an ``ArrayDataSource``'s rows are sliced at once)."""
+    ``{field: array}`` records."""
 
     def __init__(
         self,
@@ -49,20 +63,30 @@ class ShardedLoader:
         *,
         shuffle: bool = True,
         seed: int = 0,
+        transform: Optional[Callable] = None,
+        collate_fn: Optional[Callable] = None,
+        num_workers: int = 8,
+        prefetch_batches: int = 2,
         drop_last: bool = True,
         pad_final: bool = False,
         process_index: "int | None" = None,
         process_count: "int | None" = None,
+        skip_corrupt: bool = False,
     ):
         if drop_last and pad_final:
             raise ValueError("drop_last and pad_final are mutually exclusive")
+        if skip_corrupt:
+            raise NotImplementedError(f"skip_corrupt=True (corrupt-record skipping) {_RECORDS_SLICE}")
         self.source = source
+        self.collate_fn = collate_fn if collate_fn is not None else getattr(source, "collate_fn", None)
         # Sources carry their transform as an attribute; the loader applies it, so the
         # augmentation keys on (epoch, index).
-        self.transform = getattr(source, "transform", None)
+        self.transform = transform if transform is not None else getattr(source, "transform", None)
         self.global_batch_size = int(global_batch_size)
         self.shuffle = shuffle
         self.seed = seed
+        self.num_workers = int(num_workers)
+        self.prefetch_batches = max(1, int(prefetch_batches))
         self.drop_last = drop_last
         self.pad_final = pad_final
         self._epoch = 0
@@ -71,6 +95,15 @@ class ShardedLoader:
         if self.global_batch_size % self._pcount:
             raise ValueError(f"global batch {global_batch_size} not divisible by {self._pcount} ranks")
         self.local_batch_size = self.global_batch_size // self._pcount
+
+    @property
+    def load_delay_s(self) -> float:
+        return 0.0
+
+    @load_delay_s.setter
+    def load_delay_s(self, value: float) -> None:
+        if value:
+            raise NotImplementedError(f"load_delay_s (the loader's injection seam) {_RECORDS_SLICE}")
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the epoch permutation (``sampler.set_epoch``)."""
@@ -95,23 +128,57 @@ class ShardedLoader:
         n = len(self.source)
         return max(0, min(self.global_batch_size, n - batch_index * self.global_batch_size))
 
-    def _load_one(self, index: int) -> dict:
-        record = dict(self.source[index])
+    def _batch_fast_path(self) -> "str | None":
+        """``"source"``, ``"arrays"`` or None (per-record production)."""
+        if self.collate_fn is not None:
+            return None  # a custom collate exists to replace the fast paths' own stacking
+        if hasattr(self.source, "load_batch"):
+            return "source"
+        if hasattr(self.source, "arrays") and (self.transform is None or hasattr(self.transform, "batch_apply")):
+            return "arrays"
+        return None
+
+    def _load_one(self, index: int, epoch: int) -> dict:
+        record = dict(self.source[int(index)])
         if self.transform is not None and "image" in record:
-            record["image"] = self.transform(record["image"], epoch=self._epoch, index=index)
+            record["image"] = self.transform(record["image"], epoch=epoch, index=int(index))
         return record
 
-    def _produce(self, rows: np.ndarray) -> dict:
-        arrays = getattr(self.source, "arrays", None)
-        if arrays is not None and self.transform is None:
-            return {k: v[rows] for k, v in arrays.items()}
-        records = [self._load_one(int(i)) for i in rows]
-        return {k: np.stack([r[k] for r in records]) for k in records[0]}
+    def _collate(self, records: "list[dict]", mask: "np.ndarray | None") -> dict:
+        if self.collate_fn is not None:
+            batch = dict(self.collate_fn(records))
+        else:
+            batch = {k: np.stack([r[k] for r in records]) for k in records[0]}
+        if mask is not None:
+            batch["mask"] = mask  # the loader's, even under a custom collate
+        return batch
+
+    def _produce_batch(self, rows: np.ndarray, mask, epoch: int, fast: "str | None") -> dict:
+        if fast == "source":
+            batch = dict(self.source.load_batch(rows, epoch))
+        elif fast == "arrays":
+            batch = {k: v[rows] for k, v in self.source.arrays.items()}
+            if self.transform is not None and "image" in batch:
+                batch["image"] = self.transform.batch_apply(batch["image"], rows, epoch)
+        else:
+            return self._collate([self._load_one(i, epoch) for i in rows], mask)
+        if mask is not None:
+            batch["mask"] = mask
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
+        return self.iter_batches(0)
+
+    def iter_batches(self, start: int = 0) -> Iterator[dict]:
+        """This rank's batches from global batch ``start`` on. The permutation is a pure
+        function of ``(seed, epoch)``, so a mid-epoch resume skips at the index level and
+        reads none of the skipped records."""
         order = self._global_order()
+        epoch = self._epoch
+        num_batches = len(self)
         g, l, p = self.global_batch_size, self.local_batch_size, self._pidx
-        for b in range(len(self)):
+
+        def batch_rows(b: int) -> "tuple[np.ndarray, np.ndarray | None]":
             rows = order[b * g : (b + 1) * g]
             mask = None
             if self.pad_final:
@@ -119,7 +186,45 @@ class ShardedLoader:
                 if real < g:
                     rows = np.concatenate([rows, np.repeat(rows[-1:], g - real)])
                 mask = (np.arange(g) < real).astype(np.float32)[p * l : (p + 1) * l]
-            batch = self._produce(rows[p * l : (p + 1) * l])
-            if mask is not None:
-                batch["mask"] = mask
-            yield batch
+            return rows[p * l : (p + 1) * l], mask
+
+        fast = self._batch_fast_path()
+        start = max(0, int(start))
+        if self.num_workers <= 0:
+            for b in range(start, num_batches):
+                yield self._produce_batch(*batch_rows(b), epoch, fast)
+            return
+
+        # torch.set_num_threads sets the calling thread's OpenMP team and the default of
+        # every thread started after it: the workers take 1, and the finally below gives
+        # the default back (this thread's own count is read, and so fixed, first).
+        threads = torch.get_num_threads()
+        pool = cf.ThreadPoolExecutor(
+            self.num_workers, thread_name_prefix="loader", initializer=torch.set_num_threads, initargs=(1,)
+        )
+        window: queue.SimpleQueue = queue.SimpleQueue()  # futures in submission order
+
+        def submit(b: int) -> None:
+            rows, mask = batch_rows(b)
+            if fast is not None:
+                window.put((pool.submit(self._produce_batch, rows, mask, epoch, fast), None))
+            else:
+                window.put(([pool.submit(self._load_one, i, epoch) for i in rows], mask))
+
+        try:
+            upto = min(start + self.prefetch_batches, num_batches)
+            for b in range(start, upto):
+                submit(b)
+            for _ in range(start, num_batches):
+                item, mask = window.get()
+                if upto < num_batches:
+                    submit(upto)
+                    upto += 1
+                if fast is not None:
+                    yield item.result()
+                else:
+                    yield self._collate([f.result() for f in item], mask)
+        finally:
+            # An abandoned iterator drops the batches not yet started.
+            pool.shutdown(wait=True, cancel_futures=True)
+            torch.set_num_threads(threads)

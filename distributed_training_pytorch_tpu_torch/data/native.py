@@ -1,0 +1,374 @@
+"""ctypes bindings for the port's host data runtime (``csrc/dtp_native.cpp``).
+
+Counterpart of ``distributed_training_pytorch_tpu/data/native.py``: one GIL-free C++ call
+per batch (decode + resize + normalise, CIFAR-style crop/flip(/normalise), or plain
+normalise), multithreaded inside, with Philox randomness keyed per record by
+``(seed, epoch << 40 | index)``, so its output is bit-equal to the JAX package's library
+on the same inputs.
+
+The library is host C++, not a device kernel. It is built with ``g++`` at first use
+(the flags of the JAX package's ``csrc/Makefile``) into
+``build/torch_native/libdtp_native.so`` under the checkout root, which the repository's
+``.gitignore`` covers, and rebuilt when the source is newer than it. Where libjpeg or
+libpng is not installed (a probe compiles and links against both first), it is built with
+``-DDTP_NO_CODECS``: crop/flip and normalise are the same, and the decode functions raise
+``RuntimeError("built without libjpeg/libpng")``.
+
+A failed build is never silent: :func:`available` says whether the library loaded, and
+:func:`build_error` returns the compiler's message when it did not. Nothing here runs at
+import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+
+__all__ = [
+    "DecodeError",
+    "NativeCropFlipNormalize",
+    "NativeCropFlipU8",
+    "augment_crop_flip",
+    "augment_crop_flip_u8",
+    "available",
+    "build_error",
+    "codecs_available",
+    "decode_resize_normalize",
+    "decode_resize_normalize_bytes",
+    "decode_resize_u8_bytes",
+    "decode_rrc_flip_u8_bytes",
+    "normalize",
+]
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "dtp_native.cpp"
+LIBRARY = _PKG.parent / "build" / "torch_native" / "libdtp_native.so"
+CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+CODEC_LIBS = ["-ljpeg", "-lpng"]
+_CODEC_PROBE = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\nint main() { return 0; }\n"
+
+_lock = threading.Lock()
+_lib: "ctypes.CDLL | None" = None
+_error: "str | None" = None
+
+
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+def _codecs_installed(workdir: str) -> bool:
+    """Whether a program including ``jpeglib.h`` and ``png.h`` compiles and links here."""
+    probe = os.path.join(workdir, "probe.cpp")
+    with open(probe, "w") as f:
+        f.write(_CODEC_PROBE)
+    out = subprocess.run(
+        [_cxx(), probe, "-o", os.path.join(workdir, "probe"), *CODEC_LIBS],
+        capture_output=True, text=True, timeout=120,
+    )
+    return out.returncode == 0
+
+
+def _build() -> None:
+    """Compile ``SOURCE`` into ``LIBRARY`` (atomically: a concurrent loader sees the old
+    library or the new one, whole); raises ``RuntimeError`` with the compiler's output."""
+    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=LIBRARY.parent) as tmp:
+        codecs = _codecs_installed(tmp)
+        defines = [] if codecs else ["-DDTP_NO_CODECS"]
+        libs = (CODEC_LIBS if codecs else []) + ["-lpthread"]
+        tmp_lib = os.path.join(tmp, LIBRARY.name)
+        cmd = [_cxx(), *CXXFLAGS, *defines, "-o", tmp_lib, str(SOURCE), *libs]
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+        if out.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} exited {out.returncode}:\n{out.stdout}{out.stderr}")
+        os.replace(tmp_lib, LIBRARY)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    i64, i32, u64, f32 = ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+    fptr = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    u8ptr = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i64ptr = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    strs = ctypes.POINTER(ctypes.c_char_p)
+    argtypes = {
+        "dtp_decode_resize_normalize": [strs, i64, i32, i32, fptr, fptr, fptr, i32],
+        "dtp_augment_crop_flip": [u8ptr, i64, i32, i32, i32, u64, u64, i64ptr, fptr, fptr, i32, fptr, i32],
+        "dtp_normalize": [u8ptr, i64, i32, i32, fptr, fptr, fptr, i32],
+        "dtp_augment_crop_flip_u8": [u8ptr, i64, i32, i32, i32, u64, u64, i64ptr, i32, u8ptr, i32],
+        "dtp_decode_resize_normalize_bytes": [strs, i64ptr, i64, i32, i32, fptr, fptr, fptr, i32],
+        "dtp_decode_resize_u8_bytes": [strs, i64ptr, i64, i32, i32, u8ptr, i32],
+        "dtp_decode_rrc_flip_u8_bytes": [
+            strs, i64ptr, i64, i32, i32, u64, u64, i64ptr, i32, f32, f32, f32, f32, u8ptr, i32,
+        ],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = i64
+    lib.dtp_has_codecs.argtypes = []
+    lib.dtp_has_codecs.restype = i32
+
+
+def _load() -> "ctypes.CDLL | None":
+    """The loaded library, built first when it is missing or older than its source; None
+    when the build or the load failed (``build_error`` says why)."""
+    global _lib, _error
+    if _lib is not None or _error is not None:
+        return _lib
+    with _lock:
+        if _lib is not None or _error is not None:
+            return _lib
+        try:
+            built = not LIBRARY.exists() or SOURCE.stat().st_mtime > LIBRARY.stat().st_mtime
+            if built:
+                _build()
+            try:
+                lib = ctypes.CDLL(str(LIBRARY))
+            except OSError:
+                if built:
+                    raise
+                # a library built elsewhere (another machine's libjpeg): build it here
+                _build()
+                lib = ctypes.CDLL(str(LIBRARY))
+            _bind(lib)
+        except (RuntimeError, OSError, AttributeError) as e:
+            _error = str(e)
+            return None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    """Whether the native library is built and loaded (building it on the first call)."""
+    return _load() is not None
+
+
+def build_error() -> "str | None":
+    """The compiler's (or loader's) message when the library could not be built or loaded;
+    None when it loaded."""
+    _load()
+    return _error
+
+
+def codecs_available() -> bool:
+    """Whether the loaded library was built with libjpeg and libpng."""
+    lib = _load()
+    return lib is not None and bool(lib.dtp_has_codecs())
+
+
+def _require(decode: bool = False) -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native library unavailable: {_error}")
+    if decode and not lib.dtp_has_codecs():
+        raise RuntimeError("built without libjpeg/libpng")
+    return lib
+
+
+class DecodeError(ValueError):
+    """A payload in a native decode batch failed; ``index`` is its position in the
+    sequence passed to that call."""
+
+    def __init__(self, index: int, what: str = "record payload"):
+        self.index = index
+        super().__init__(f"failed to decode {what} #{index}")
+
+
+def _threads(n: "int | None") -> int:
+    return n if n is not None else min(16, os.cpu_count() or 1)
+
+
+def decode_resize_normalize(
+    paths: Sequence[str], height: int, width: int, mean: np.ndarray, std: np.ndarray, *,
+    threads: "int | None" = None,
+) -> np.ndarray:
+    """JPEG/PNG files -> [N, H, W, 3] float32, resized (OpenCV-compatible bilinear) and
+    normalised, in one native call."""
+    lib = _require(decode=True)
+    n = len(paths)
+    out = np.empty((n, height, width, 3), np.float32)
+    arr = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    rc = lib.dtp_decode_resize_normalize(
+        arr, n, height, width, _per_image(mean, 3, np.float32, "channel means"),
+        _per_image(std, 3, np.float32, "channel stds"),
+        out, _threads(threads),
+    )
+    if rc:
+        raise ValueError(f"failed to decode {paths[rc - 1]!r}")
+    return out
+
+
+def _payloads(payloads: Sequence[bytes]):
+    n = len(payloads)
+    # c_char_p elements point at each bytes object's buffer; lengths are passed apart.
+    return n, np.asarray([len(p) for p in payloads], np.int64), (ctypes.c_char_p * n)(*payloads)
+
+
+def decode_resize_normalize_bytes(
+    payloads: Sequence[bytes], height: int, width: int, mean: np.ndarray, std: np.ndarray, *,
+    threads: "int | None" = None,
+) -> np.ndarray:
+    """In-memory JPEG/PNG payloads -> [N, H, W, 3] float32, resized and normalised."""
+    lib = _require(decode=True)
+    n, lengths, bufs = _payloads(payloads)
+    out = np.empty((n, height, width, 3), np.float32)
+    rc = lib.dtp_decode_resize_normalize_bytes(
+        bufs, lengths, n, height, width, _per_image(mean, 3, np.float32, "channel means"),
+        _per_image(std, 3, np.float32, "channel stds"), out, _threads(threads),
+    )
+    if rc:
+        raise DecodeError(rc - 1)
+    return out
+
+
+def decode_resize_u8_bytes(
+    payloads: Sequence[bytes], height: int, width: int, *, threads: "int | None" = None
+) -> np.ndarray:
+    """In-memory JPEG/PNG payloads -> [N, H, W, 3] uint8 (decode + resize, no normalise)."""
+    lib = _require(decode=True)
+    n, lengths, bufs = _payloads(payloads)
+    out = np.empty((n, height, width, 3), np.uint8)
+    rc = lib.dtp_decode_resize_u8_bytes(bufs, lengths, n, height, width, out, _threads(threads))
+    if rc:
+        raise DecodeError(rc - 1)
+    return out
+
+
+def decode_rrc_flip_u8_bytes(
+    payloads: Sequence[bytes], height: int, width: int, indices: np.ndarray, *, seed: int, epoch: int,
+    hflip: bool = True, scale: "tuple[float, float]" = (0.08, 1.0), ratio: "tuple[float, float]" = (3 / 4, 4 / 3),
+    threads: "int | None" = None,
+) -> np.ndarray:
+    """In-memory JPEG/PNG payloads -> [N, H, W, 3] uint8 through decode, random-resized
+    crop and an optional flip in one call, Philox-keyed per ``(seed, epoch, indices[i])``
+    (10 attempts, then the centre square, as ``transforms.random_resized_crop``)."""
+    lib = _require(decode=True)
+    n, lengths, bufs = _payloads(payloads)
+    out = np.empty((n, height, width, 3), np.uint8)
+    rc = lib.dtp_decode_rrc_flip_u8_bytes(
+        bufs, lengths, n, height, width, seed, epoch, _per_image(indices, n, np.int64, "indices"), int(hflip),
+        float(scale[0]), float(scale[1]), float(ratio[0]), float(ratio[1]), out, _threads(threads),
+    )
+    if rc:
+        raise DecodeError(rc - 1)
+    return out
+
+
+def _nhwc_u8(images: np.ndarray) -> np.ndarray:
+    images = np.ascontiguousarray(images, np.uint8)
+    if images.ndim != 4 or images.shape[-1] != 3:
+        raise ValueError(f"expected uint8 NHWC images with 3 channels, got shape {images.shape}")
+    return images
+
+
+def _per_image(values, n: int, dtype, name: str) -> np.ndarray:
+    """``values`` as a contiguous array of exactly ``n`` entries: the C code reads ``n``
+    (an index per image, or a value per channel) without knowing the length."""
+    values = np.ascontiguousarray(values, dtype)
+    if values.shape != (n,):
+        raise ValueError(f"expected {n} {name}, got shape {values.shape}")
+    return values
+
+
+def augment_crop_flip(
+    images: np.ndarray, indices: np.ndarray, *, pad: int, seed: int, epoch: int, mean: np.ndarray,
+    std: np.ndarray, hflip: bool = True, threads: "int | None" = None,
+) -> np.ndarray:
+    """Reflect-pad, random crop, horizontal flip and normalise over a uint8 NHWC batch;
+    randomness keyed per record by ``(seed, epoch, indices[i])``."""
+    lib = _require()
+    images = _nhwc_u8(images)
+    n, h, w, _ = images.shape
+    out = np.empty((n, h, w, 3), np.float32)
+    lib.dtp_augment_crop_flip(
+        images, n, h, w, pad, seed, epoch, _per_image(indices, n, np.int64, "indices"),
+        _per_image(mean, 3, np.float32, "channel means"), _per_image(std, 3, np.float32, "channel stds"),
+        int(hflip), out, _threads(threads),
+    )
+    return out
+
+
+def augment_crop_flip_u8(
+    images: np.ndarray, indices: np.ndarray, *, pad: int, seed: int, epoch: int, hflip: bool = True,
+    threads: "int | None" = None,
+) -> np.ndarray:
+    """Crop and flip only, uint8 -> uint8, on the same Philox stream as
+    :func:`augment_crop_flip`: for normalising on the device, so the host-to-device copy
+    carries 1 byte a pixel channel instead of 4."""
+    lib = _require()
+    images = _nhwc_u8(images)
+    n, h, w, _ = images.shape
+    out = np.empty((n, h, w, 3), np.uint8)
+    lib.dtp_augment_crop_flip_u8(
+        images, n, h, w, pad, seed, epoch, _per_image(indices, n, np.int64, "indices"), int(hflip), out,
+        _threads(threads),
+    )
+    return out
+
+
+def normalize(images: np.ndarray, mean: np.ndarray, std: np.ndarray, *, threads: "int | None" = None) -> np.ndarray:
+    """uint8 NHWC -> normalised float32, one native call."""
+    lib = _require()
+    images = _nhwc_u8(images)
+    n, h, w, _ = images.shape
+    out = np.empty((n, h, w, 3), np.float32)
+    lib.dtp_normalize(
+        images, n, h, w, _per_image(mean, 3, np.float32, "channel means"),
+        _per_image(std, 3, np.float32, "channel stds"), out, _threads(threads),
+    )
+    return out
+
+
+class NativeCropFlipU8:
+    """Batch transform (the loader's ``batch_apply`` protocol) that keeps images uint8:
+    crop and flip only, normalised on the device by ``models.InputNormalizer``.
+    ``train=False`` passes the images through."""
+
+    def __init__(self, *, pad: int = 4, seed: int = 0, train: bool = True):
+        self.pad = pad
+        self.seed = seed
+        self.train = train
+
+    def batch_apply(self, images: np.ndarray, indices: np.ndarray, epoch: int) -> np.ndarray:
+        if not self.train:
+            return np.ascontiguousarray(images, np.uint8)
+        return augment_crop_flip_u8(images, np.asarray(indices, np.int64), pad=self.pad, seed=self.seed, epoch=epoch)
+
+    def __call__(self, img: np.ndarray, *, epoch: int = 0, index: int = 0) -> np.ndarray:
+        """One record (the loader's per-record path)."""
+        return self.batch_apply(img[None], np.array([index]), epoch)[0]
+
+
+class NativeCropFlipNormalize:
+    """Batch transform: reflect-pad-``pad`` random crop, horizontal flip and normalise
+    over uint8 NHWC batches, one native call a batch; ``train=False`` normalises only.
+    Keyed by ``(seed, epoch, index)`` like the Python pipeline, but it draws from Philox
+    differently, so the two paths are each deterministic and not equal to each other."""
+
+    def __init__(self, mean, std, *, pad: int = 4, seed: int = 0, train: bool = True):
+        self.mean = np.ascontiguousarray(mean, np.float32)
+        self.std = np.ascontiguousarray(std, np.float32)
+        self.pad = pad
+        self.seed = seed
+        self.train = train
+
+    def batch_apply(self, images: np.ndarray, indices: np.ndarray, epoch: int) -> np.ndarray:
+        if not self.train:
+            return normalize(images, self.mean, self.std)
+        return augment_crop_flip(
+            images, np.asarray(indices, np.int64), pad=self.pad, seed=self.seed, epoch=epoch, mean=self.mean,
+            std=self.std,
+        )
+
+    def __call__(self, img: np.ndarray, *, epoch: int = 0, index: int = 0) -> np.ndarray:
+        return self.batch_apply(img[None], np.array([index]), epoch)[0]

@@ -1,4 +1,8 @@
-from distributed_training_pytorch_tpu_torch.models.convert import params_from_jax, resnet_params_from_jax  # noqa: F401
+from distributed_training_pytorch_tpu_torch.models.convert import (  # noqa: F401
+    params_from_jax,
+    resnet_params_from_jax,
+    vgg_params_from_jax,
+)
 from distributed_training_pytorch_tpu_torch.models.resnet import (  # noqa: F401
     BottleneckBlock,
     ResNet,
@@ -11,11 +15,11 @@ from distributed_training_pytorch_tpu_torch.models.transformer_lm import (  # no
     LMTiny,
     TransformerLM,
 )
+from distributed_training_pytorch_tpu_torch.models.vgg import VGG16, ConvBlock  # noqa: F401
 from distributed_training_pytorch_tpu_torch.models.wrappers import InputNormalizer  # noqa: F401
 
 # Names of the JAX package's model zoo that later slices of the port bring.
 _LATER = {
-    ("vgg16", "vgg"): "VGG16 comes with the VGG16 training slice of the port",
     ("vit", "vit-b/16", "vit_b16", "vitb16", "vit_tiny", "vit-tiny"): "ViT comes with the ViT slice of the port",
     ("convnext-l", "convnext_l", "convnextl", "convnext", "convnext-tiny", "convnext_tiny"):
         "ConvNeXt comes with the ConvNeXt slice of the port",
@@ -23,10 +27,17 @@ _LATER = {
 
 
 def create_model(name: str, num_classes: int, **kwargs):
-    """Model-zoo factory (the JAX package's ``models.create_model``): ``resnet50`` and
-    ``resnet18_slim`` so far; the zoo's other names raise ``NotImplementedError`` naming
-    the slice that brings them."""
+    """Model-zoo factory (the JAX package's ``models.create_model``): ``vgg16``,
+    ``resnet50`` and ``resnet18_slim`` so far; the zoo's other names raise
+    ``NotImplementedError`` naming the slice that brings them. Every model takes the
+    ``pallas=`` knob; VGG16 has no fused-kernel coverage, so there it is consumed and its
+    plain resolution recorded (``ops.dispatch.vgg16_policy``)."""
     name = name.lower()
+    if name in ("vgg16", "vgg"):
+        from distributed_training_pytorch_tpu_torch.ops import dispatch
+
+        dispatch.vgg16_policy(kwargs.pop("pallas", None))
+        return VGG16(num_classes=num_classes, **kwargs)
     if name in ("resnet50", "resnet"):
         return ResNet50(num_classes=num_classes, **kwargs)
     if name in ("resnet18_slim", "resnet18-slim"):

@@ -11,6 +11,10 @@ array (``jax.tree.map(np.asarray, variables)``), so this module imports no JAX.
   ``params`` and ``batch_stats``: conv kernels HWIO -> OIHW, the head's ``[in, out]`` ->
   ``[out, in]``, BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``.
+* :func:`vgg_params_from_jax` — ``VGG16`` (optionally under ``InputNormalizer``): conv
+  kernels HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``, and the first
+  classifier weight's columns from the flax model's (h, w, c) flatten order to the port's
+  (c, h, w).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "resnet_params_from_jax"]
+__all__ = ["params_from_jax", "resnet_params_from_jax", "vgg_params_from_jax"]
 
 
 def _t(x) -> torch.Tensor:
@@ -125,4 +129,31 @@ def resnet_params_from_jax(variables: Mapping) -> "dict[str, torch.Tensor]":
     }
     for i, name in enumerate(_numbered(params, "BottleneckBlock")):
         out.update(_block(params[name], stats[name], f"blocks.{i}"))
+    return {prefix + k: v for k, v in out.items()}
+
+
+def vgg_params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
+    """``state_dict`` for the port's ``VGG16`` from flax ``params`` as numpy. Under
+    ``InputNormalizer`` (an ``inner`` scope) the keys get the wrapper's ``inner.`` prefix."""
+    prefix = ""
+    if "inner" in params:
+        params, prefix = params["inner"], "inner."
+    out = {}
+    channels = 3
+    for i, block in enumerate(_numbered(params, "ConvBlock")):
+        for j, conv in enumerate(_numbered(params[block], "Conv")):
+            p = params[block][conv]
+            out[f"blocks.{i}.convs.{j}.weight"] = _conv(p)
+            out[f"blocks.{i}.convs.{j}.bias"] = _t(p["bias"])
+            channels = np.asarray(p["kernel"]).shape[-1]
+    dense = _numbered(params, "Dense")
+    names = [f"classifier.{k}" for k in range(len(dense) - 1)] + ["head"]
+    for k, (name, target) in enumerate(zip(dense, names, strict=True)):
+        kernel = np.asarray(params[name]["kernel"])
+        if k == 0:  # rows (h, w, c) of the NHWC flatten -> (c, h, w) of the NCHW one
+            hw = kernel.shape[0] // channels
+            side = int(round(hw**0.5))
+            kernel = kernel.reshape(side, side, channels, -1).transpose(2, 0, 1, 3).reshape(kernel.shape)
+        out[f"{target}.weight"] = _t(kernel.T)
+        out[f"{target}.bias"] = _t(params[name]["bias"])
     return {prefix + k: v for k, v in out.items()}

@@ -13,6 +13,9 @@ CUDA kernel for CUDA tensors at every ``T``, and the kernel's plain version for 
 tensors. Nothing TPU-tuned carries over; a crossover, if the card shows one, comes from
 measurements on the card.
 
+VGG16 (:func:`vgg16_policy`) has no fused-kernel coverage (its convolutions are 3x3), so
+every resolution is plain, and an explicit knob is recorded as the JAX package records it.
+
 The fused 1x1-conv policy (:func:`conv1x1_policy`, ResNet) is the JAX package's: auto is
 off, and ``pallas=True`` / ``PALLAS=1`` turns it on. The TPU's verdict behind that default
 does not carry over; the card's own evidence is the ResNet-50 step with and without the
@@ -34,6 +37,7 @@ __all__ = [
     "reset",
     "resolve",
     "set_event_sink",
+    "vgg16_policy",
 ]
 
 _EVENT = "kernel_dispatch"
@@ -158,3 +162,12 @@ def conv1x1_policy(model: str, pallas: Optional[bool], *, op: str = "conv1x1_bn_
         reason = "pallas=False" if pallas is False else "auto: off, the JAX package's default; opt in with pallas=True"
         record(model, op, "plain", reason=reason)
     return bool(on)
+
+
+def vgg16_policy(pallas: Optional[bool]) -> bool:
+    """VGG16's policy: always plain (no fused-kernel coverage for 3x3 convolutions). An
+    explicit ``pallas`` knob is consumed and the plain resolution recorded, as the JAX
+    package's ``create_model`` records it; auto records nothing."""
+    if pallas is not None:
+        record("vgg16", "conv", "plain", reason="no fused-kernel coverage (3x3 convs) — pallas knob is a no-op")
+    return False

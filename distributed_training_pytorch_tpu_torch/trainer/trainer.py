@@ -15,7 +15,14 @@ contract for the arguments the entries pass, and the same epoch loop:
   ``checkpoint_epoch_N`` every ``save_period`` epochs; a resume from ``snapshot_path`` (a
   name, a path, or ``"latest_valid"``) restores params, optimizer state, step and epoch;
 * ``nan_policy``: ``None`` trains on, ``"skip"`` drops the update of a non-finite step
-  (the engine's guard), ``"raise"`` stops at the next sync point.
+  (the engine's guard), ``"raise"`` stops at the next sync point;
+* the host data path: each loader has ``num_workers`` thread workers (8) and
+  ``prefetch_batches`` batches in flight (2), and ``train_epoch`` and ``validate`` take
+  their batches through ``data.prefetch.device_prefetch``, which runs ``preprocess_batch``
+  and the copy to the device on a background thread, two batches ahead (on the card:
+  pinned memory, a side stream, an event the compute stream waits on). ``pin_memory`` is
+  accepted, as in the JAX package; on the card the prefetcher always pins, since a
+  ``non_blocking`` copy needs pinned memory.
 
 In the port the model runs on ``device`` (the card unless the caller passes
 ``device="cpu"``). ``mesh`` is the world's layout: ``None`` (every rank a data shard), an
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -52,6 +59,7 @@ from distributed_training_pytorch_tpu_torch.checkpoint import (
     epoch_checkpoint_name,
 )
 from distributed_training_pytorch_tpu_torch.data import ShardedLoader
+from distributed_training_pytorch_tpu_torch.data.prefetch import device_prefetch
 from distributed_training_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from distributed_training_pytorch_tpu_torch.precision import get_policy
 from distributed_training_pytorch_tpu_torch.train import NonFiniteLossError, TrainEngine, TrainState
@@ -85,6 +93,8 @@ class Trainer:
         mesh: "mesh_lib.Mesh | int | None" = None,
         seed: int = 0,
         accum_steps: int = 1,
+        num_workers: int = 8,
+        prefetch_batches: int = 2,
         log_every: int = 50,
         chain_steps: int = 1,
         last_save_period: int = 1,
@@ -120,6 +130,8 @@ class Trainer:
         self.save_period = save_period
         self.seed = seed
         self.accum_steps = accum_steps
+        self.num_workers = num_workers
+        self.prefetch_batches = prefetch_batches
         self.log_every = log_every
         self.last_save_period = max(1, int(last_save_period))
         self.nan_policy = nan_policy
@@ -199,12 +211,19 @@ class Trainer:
         shard, so the seq ranks of one data shard see the same rows."""
         train = phase == "train"
         return ShardedLoader(
-            dataset, self.batch_size, shuffle=train, seed=self.seed, drop_last=train, pad_final=not train,
+            dataset, self.batch_size, shuffle=train, seed=self.seed, num_workers=self.num_workers,
+            prefetch_batches=self.prefetch_batches, drop_last=train, pad_final=not train,
             process_index=self.mesh.data_index, process_count=self.batch_replicas,
         )
 
+    def device_batches(self, loader) -> "Iterator[dict]":
+        """The loader's batches through ``preprocess_batch``, as tensors on the device,
+        copied ahead by ``device_prefetch``."""
+        return device_prefetch((self.preprocess_batch(b) for b in loader), self.device)
+
     def to_device(self, batch: Mapping) -> dict:
-        """A host batch as tensors on the trainer's device."""
+        """A host batch as tensors on the trainer's device, copied on the calling
+        thread (the epoch loops use ``device_batches``)."""
         return {
             k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True) for k, v in batch.items()
         }
@@ -254,8 +273,7 @@ class Trainer:
         collected: "list[dict]" = []
         t0 = time.perf_counter()
         num_batches = len(self.train_dataloader)
-        for step_in_epoch, host_batch in enumerate(self.train_dataloader, start=1):
-            batch = self.to_device(self.preprocess_batch(host_batch))
+        for step_in_epoch, batch in enumerate(self.device_batches(self.train_dataloader), start=1):
             self.state, metrics = self.train_step(self.state, batch)
             collected.append(metrics)
             if self.log_every and step_in_epoch % self.log_every == 0:
@@ -301,9 +319,8 @@ class Trainer:
         each batch weighted by its global real-row count."""
         sums: "dict[str, Any]" = {}
         weight_total = 0.0
-        for b, host_batch in enumerate(self.val_dataloader):
+        for b, batch in enumerate(self.device_batches(self.val_dataloader)):
             weight = float(self.val_dataloader.global_real_count(b))
-            batch = self.to_device(self.preprocess_batch(host_batch))
             metrics = self.validate_step(self.state, batch)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.float() * weight

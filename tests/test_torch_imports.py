@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch/CUDA port: it imports neither JAX nor any module of the
 JAX package ``distributed_training_pytorch_tpu`` (whose name is a prefix of the port's,
 so module names are matched exactly or by ``name + "."``), and importing it initialises
-no CUDA context and builds nothing. ``chip_smoke.py``, ``scripts/torch_serve_profile.py``,
+no CUDA context and builds nothing (neither the kernels nor the native data runtime). ``chip_smoke.py``, ``scripts/torch_serve_profile.py``,
 ``scripts/torch_train_profile.py``, ``scripts/torch_resnet_profile.py`` and
 ``scripts/torch_flash_fwd_times.py`` run where the card is, beside the port, and are held
 to the same rule."""
@@ -28,6 +28,8 @@ PORT_MODULES = [
     "ops.conv1x1", "ops.metrics", "models.resnet", "models.wrappers", "examples.train_imagenet",
     # GPT-2-small training over a seq axis with ring attention
     "parallel.ring_attention",
+    # VGG16 on CIFAR-10 with the host data path
+    "data.native", "data.prefetch", "models.vgg", "examples.train_cifar10",
 ]
 
 _PROBE = f"""
@@ -37,11 +39,13 @@ for info in pkgutil.walk_packages({PORT}.__path__, prefix="{PORT}."):
     importlib.import_module(info.name)
 import chip_smoke  # its module-level imports
 import torch
+from {PORT}.data import native
 from {PORT}.ops import _build
 print(json.dumps({{
     "modules": sorted(sys.modules),
     "cuda_initialized": torch.cuda.is_initialized(),
     "kernels_loaded": _build._lib is not None,
+    "native_loaded": native._lib is not None or native._error is not None,
 }}))
 """
 
@@ -64,6 +68,7 @@ def test_importing_the_port_pulls_no_jax():
     assert [m for m in PORT_MODULES if f"{PORT}.{m}" not in probe["modules"]] == []
     assert probe["cuda_initialized"] is False
     assert probe["kernels_loaded"] is False
+    assert probe["native_loaded"] is False
 
 
 def _sources():

@@ -183,7 +183,9 @@ def test_resnet50_param_count_and_factory():
     model = ResNet50(1000, device="cpu")
     assert sum(p.numel() for p in model.parameters()) == 25_557_032
     assert isinstance(create_model("resnet18_slim", num_classes=5, device="cpu"), type(model))
-    for name in ("vgg16", "vit_b16", "convnext_l"):
+    vgg = create_model("vgg16", num_classes=5, device="cpu", stage_features=(4, 4, 4, 4, 4), classifier_widths=(8, 8))
+    assert type(vgg).__name__ == "VGG16"  # ported since the VGG16 slice
+    for name in ("vit_b16", "convnext_l"):
         with pytest.raises(NotImplementedError, match="slice"):
             create_model(name, num_classes=5, device="cpu")
 
