@@ -93,7 +93,28 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     of the resumed train epoch beside the parent's host path (no workers, a ``to_device``
     copy before each step): its first steps with the per-record Python transform, and the
     whole epoch in turns with the new path on one warm trainer, both with the native
-    crop/flip. The ResNet phase (8) runs the same in-turns comparison.
+    crop/flip. The ResNet phase (8) runs the same in-turns comparison;
+14. (vit) ViT-B/16 through the ImageNet entry (``MODEL=vit_b16``, ``PALLAS`` unset: auto
+    runs K1–K3 at T=197, non-causal): 224x224, 1000 classes, global batch 256, a bf16 model
+    with f32 params, AdamW, the synthetic set capped to 3 steps an epoch: 2 epochs, then a
+    resume from ``last`` for a third; every loss finite, the resume continuing the step and
+    epoch, exactly 12 launches each of K1, K2, K3 a train step and 12 of K1 a val forward,
+    all on the wgmma variant; the trained weights through ``PALLAS=0``
+    (``dot_product_attention``) and through ``pad_seq_to=256`` (K1–K3 with 197 valid keys of
+    256: logits and every parameter's gradient against the unpadded model); step time,
+    images/s, peak memory, the saves' time; the same steps with ``PALLAS`` unset and
+    ``PALLAS=0`` in turns. Phases 2, 3 and 6 hold and time K1–K3 at its attention shape
+    (``[256, 197, 12, 64]``, and 256 with 197 valid), on the q, k, v views of its fused qkv
+    projection, with SDPA non-causal as the yardstick;
+15. (convnext) ConvNeXt-L through the same entry (``MODEL=convnext_l``, ``PALLAS=1``: K4's
+    gelu epilogue in every block's expand Dense): 21,841 classes, global batch 256 in 4
+    micro-batches of 64 (``ACCUM=4``), otherwise as phase 14; exactly 36 K4 launches a
+    micro-batch forward (6 on the wgmma variant, 30 on the CUDA cores), so 144 a train step
+    and 36 a val forward, and no dz pass; the trained weights through ``PALLAS=0``; step
+    time, images/s, peak memory, the saves' time; ``PALLAS=1`` and ``PALLAS=0`` in turns.
+    Phase 7 holds K4 at its four expand shapes with gelu (and one row fewer) and its autograd
+    route against the plain version's; the last phase times K4 there beside ``F.linear``
+    then ``F.gelu(approximate="tanh")``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -102,6 +123,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -190,6 +212,36 @@ RESNET_ENV = {"MODEL": "resnet50", "IMAGE_SIZE": "224", "BATCH": str(RESNET_BATC
               "STEPS_PER_EPOCH": "3", "SHIP_UINT8": "1"}
 RESNET_RECORDS, RESNET_VAL_RECORDS = 3 * RESNET_BATCH, RESNET_BATCH  # 3 steps, 1 val batch
 RESNET_EPOCHS = 2  # then one resumed epoch
+
+# ViT-B/16 (BASELINE config 4) and ConvNeXt-L (config 5) through the ImageNet entry at
+# 224x224, global batch 256 (the entry's default is 1024), ENTRY_STEPS steps an epoch of
+# the synthetic set: 2 epochs, then a resume from last for a third.
+ENTRY_STEPS = 3
+ENTRY_EPOCHS = 2  # then one resumed epoch
+VIT_BATCH = 256
+VIT_ENV = {"MODEL": "vit_b16", "IMAGE_SIZE": "224", "BATCH": str(VIT_BATCH), "STEPS_PER_EPOCH": str(ENTRY_STEPS),
+           "SHIP_UINT8": "1"}  # PALLAS unset: auto, the flash kernels on the card
+VIT_SHAPE = (VIT_BATCH, 197, 12, 64)  # B, T, H, D of its attention: 196 patches and the class token
+VIT_DEPTH = 12
+VIT_PAD = 256  # pad_seq_to: 197 valid of 256
+# Forward FLOPs of one 224x224 image (torch.utils.flop_counter on the port's models: GEMMs,
+# convolutions and the attention products, 2 a multiply-add), three times that trained.
+VIT_FLOP_PER_IMAGE = 3 * 35.127656448e9
+CONVNEXT_BATCH, CONVNEXT_ACCUM = 256, 4  # 4 micro-batches of 64 a step (the recipe's ACCUM)
+CONVNEXT_ENV = {"MODEL": "convnext_l", "IMAGE_SIZE": "224", "BATCH": str(CONVNEXT_BATCH),
+                "STEPS_PER_EPOCH": str(ENTRY_STEPS), "SHIP_UINT8": "1", "PALLAS": "1"}
+CONVNEXT_FLOP_PER_IMAGE = 3 * 68.786890752e9  # with the 21,841-class head
+# ConvNeXt-L's expand Dense + GELU (K4 with the gelu epilogue, Cin -> 4 Cin) at micro-batch
+# 64: (stage, rows, Cin, Cout, blocks). Stages 1-2 take the wgmma variant; 3-4 exceed
+# WGMMA_MAX_CIN and take the CUDA cores.
+CONVNEXT_K4_SHAPES = [
+    ("stage1", 64 * 56 * 56, 192, 768, 3),
+    ("stage2", 64 * 28 * 28, 384, 1536, 3),
+    ("stage3", 64 * 14 * 14, 768, 3072, 27),
+    ("stage4", 64 * 7 * 7, 1536, 6144, 3),
+]
+CONVNEXT_BLOCKS = sum(s[4] for s in CONVNEXT_K4_SHAPES)  # 36 K4 launches a forward
+CONVNEXT_WGMMA_BLOCKS = sum(s[4] for s in CONVNEXT_K4_SHAPES if s[2] <= 512)  # 6 of them on wgmma
 
 
 def conv1x1_bound(rows, cin, cout, dtype_name="bfloat16", itemsize=2):
@@ -349,6 +401,8 @@ KERNEL_CASES = [
     (1, 96, 1000, 2, 64, False, None, "bfloat16"),
     (3, 40, 40, 2, 64, True, None, "bfloat16"),  # T below one box
     (1, 17, 50, 1, 128, False, None, "bfloat16"),  # both below a box, B = H = 1
+    (*VIT_SHAPE[:2], VIT_SHAPE[1], *VIT_SHAPE[2:], False, None, "bfloat16"),  # ViT-B/16: a 5-row tail
+    (VIT_BATCH, VIT_PAD, VIT_PAD, 12, 64, False, VIT_SHAPE[1], "bfloat16"),  # ViT-B/16 under pad_seq_to=256
 ]
 # f32: kernel and plain both sum in f32, in other orders over up to 1024 keys.
 # bf16: the same f32 softmax statistics on the same bf16 inputs, p rounded to bf16 before
@@ -367,7 +421,7 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    train_err = 0.0
+    train_err = vit_err = 0.0
     for b, tq, tk, h, d, causal, valid_len, dtype_name in KERNEL_CASES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
@@ -393,6 +447,8 @@ def phase_kernels():
             raise RuntimeError("flash kernel disagrees with its plain version")
         if (b, tq, h, d, causal, dtype_name) == (*TRAIN_SHAPE[:2], *TRAIN_SHAPE[2:], True, "bfloat16"):
             train_err = err
+        if (b, tq, h, d, causal, valid_len) == (*VIT_SHAPE[:2], *VIT_SHAPE[2:], False, None):
+            vit_err = err
         del q, k, v, o, lse, o_ref, lse_ref
     torch.cuda.empty_cache()
 
@@ -418,7 +474,29 @@ def phase_kernels():
         if not ok:
             raise RuntimeError("the wgmma forward disagrees on strided qkv views, or copied or skipped them")
         del qkv, q, k, v, o, lse, o_copy, lse_copy, o_ref, lse_ref
-    return train_err
+
+    # ViT-B/16's attention as its model makes it: the q, k, v views of a fused [B, T, 3, 12,
+    # 64] projection, non-causal, at T=197 and at 256 with 197 valid (pad_seq_to=256).
+    for t, valid_len in ((VIT_SHAPE[1], None), (VIT_PAD, VIT_SHAPE[1])):
+        qkv = torch.randn(VIT_BATCH, t, 3, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        before = fa.launches_by_variant[("fwd", "wgmma")]
+        o, lse = fa.flash_attention_fwd(q, k, v, valid_len=valid_len)
+        torch.cuda.synchronize()
+        in_place = all(fa.tma_operand(x) is x for x in (q, k, v))
+        ran = fa.launches_by_variant[("fwd", "wgmma")] == before + 1
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, valid_len=valid_len)
+        atol, rtol = TOL["bfloat16"]
+        ok = (in_place and ran and torch.allclose(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+              and torch.allclose(lse, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1]))
+        log(f"[kernel] ViT-B/16 qkv views B={VIT_BATCH} T={t} H=12 D=64 valid_len={valid_len} bfloat16 (wgmma, read in "
+            f"place: {in_place}): max|o-plain|={(o.float() - o_ref.float()).abs().max().item():.3e} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the wgmma forward disagrees on ViT's qkv views, or copied or skipped them")
+        del qkv, q, k, v, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return train_err, vit_err
 
 
 def phase_slice(run_dir: str):
@@ -569,6 +647,8 @@ BWD_CASES = [
     (3, 40, 40, 2, 64, True, None, "bfloat16", False),  # T below one 64-row TMA box
     (1, 17, 50, 1, 128, False, None, "bfloat16", True),  # both below a box, B = H = 1
     (*TRAIN_SHAPE[:2], TRAIN_SHAPE[1], *TRAIN_SHAPE[2:], True, None, "bfloat16", False),  # training
+    (*VIT_SHAPE[:2], VIT_SHAPE[1], *VIT_SHAPE[2:], False, None, "bfloat16", False),  # ViT-B/16
+    (VIT_BATCH, VIT_PAD, VIT_PAD, 12, 64, False, VIT_SHAPE[1], "bfloat16", False),  # ViT-B/16, padded
 ]
 # f32: kernel and plain both sum in f32, in other orders, over up to 1000 keys or queries.
 # bf16: the same f32 arithmetic on the same bf16 inputs, but ds and p are rounded to bf16
@@ -625,7 +705,7 @@ def phase_bwd_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    train_err = {}
+    train_err, vit_err = {}, {}
     for b, tq, tk, h, d, causal, valid_len, dtype_name, external in BWD_CASES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
@@ -656,6 +736,8 @@ def phase_bwd_kernels():
             raise RuntimeError("flash backward kernels disagree with their plain version")
         if (b, tq, h, d, causal, dtype_name) == (*TRAIN_SHAPE[:2], *TRAIN_SHAPE[2:], True, "bfloat16"):
             train_err = {"dq": results[0][0], "dkv": max(results[1][0], results[2][0])}
+        if (b, tq, h, d, causal, valid_len) == (*VIT_SHAPE[:2], *VIT_SHAPE[2:], False, None):
+            vit_err = {"dq": results[0][0], "dkv": max(results[1][0], results[2][0])}
         del q, k, v, do, o, lse, grads, refs
     torch.cuda.empty_cache()
 
@@ -681,6 +763,28 @@ def phase_bwd_kernels():
             raise RuntimeError("the wgmma backward disagrees on strided qkv views, or copied or skipped them")
         del qkv, q, k, v, do, o, lse, grads, refs
 
+    # The same at ViT-B/16's attention, non-causal: T=197, and 256 with 197 valid.
+    for t, valid_len in ((VIT_SHAPE[1], None), (VIT_PAD, VIT_SHAPE[1])):
+        qkv = torch.randn(VIT_BATCH, t, 3, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(VIT_BATCH, t, 12, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        o, lse = fa.flash_attention_plain(q, k, v, valid_len=valid_len)
+        before = dict(fa.launches_by_variant)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, valid_len=valid_len)
+        torch.cuda.synchronize()
+        in_place = all(fa.tma_operand(x) is x for x in (q, k, v))
+        ran = all(fa.launches_by_variant[(n, "wgmma")] == before[(n, "wgmma")] + 1 for n in ("bwd_dq", "bwd_dkv"))
+        refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, valid_len=valid_len)
+        results = [_grad_err(g, r) for g, r in zip(grads, refs, strict=True)]
+        ok = in_place and ran and all(r[2] for r in results)
+        errs = " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", results, strict=True))
+        log(f"[bwd] ViT-B/16 qkv views B={VIT_BATCH} T={t} H=12 D=64 valid_len={valid_len} bfloat16 (wgmma, read in "
+            f"place: {in_place}): max|grad-plain|/bound {errs} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the wgmma backward disagrees on ViT's qkv views, or copied or skipped them")
+        del qkv, q, k, v, do, o, lse, grads, refs
+    torch.cuda.empty_cache()
+
     # The autograd path: flash_attention forward + backward through the kernels against
     # autograd through the plain version, on strided views as the LM makes them.
     for dtype_name in ("float32", "bfloat16"):
@@ -699,7 +803,7 @@ def phase_bwd_kernels():
             f"max|grad diff| {err:.3e} (bound {bound:.1e}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("flash_attention's autograd path disagrees with autograd through plain attention")
-    return train_err
+    return train_err, vit_err
 
 
 def _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics):
@@ -834,63 +938,70 @@ def phase_train(run_dir: str):
     return launches, {"step_ms": median_ms, "tokens_per_s": b * t / median_ms * 1e3, "peak_gb": peak_gb}
 
 
-def phase_times(card: str):
-    """Kernel, plain and library times with CUDA events, and each kernel's bound, at the
-    training shape and the served/B=8 shapes; returns the training shape's rows."""
+def _attention_times(card, b, t, h, d, causal, gen, label=""):
+    """K1, K2 and K3 at one [B, T, H, D] bf16 shape with CUDA events: kernel, plain version,
+    bound, and SDPA as the yardstick (its backward as fwd+bwd minus fwd); the backward is
+    timed for B > 1 only."""
     import torch
     import torch.nn.functional as F
 
     from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(99)
-    rows = {}
-    shapes = [TRAIN_SHAPE] + SERVED_SHAPES[::-1]
-    for b, t, h, d in shapes:
-        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        row = {}
-        if b != 1:  # the backward at the training shape and at B=8
-            lq, lk, lv = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    row = {}
+    if b != 1:
+        lq, lk, lv = (x.detach().requires_grad_() for x in (qt, kt, vt))
 
-            def sdpa_fwd_bwd():
-                out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-                torch.autograd.grad(out, (lq, lk, lv), dot)
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+            torch.autograd.grad(out, (lq, lk, lv), dot)
 
-            def sdpa_fwd_grad():
-                F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        def sdpa_fwd_grad():
+            F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
 
-            sdpa_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd_grad)
-            plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, delta=delta),
-                                iters=5)
-            row["dq"] = {
-                "ms": time_ms(lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, causal=True, seq_len=t)),
-                "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
-            }
-            row["dkv"] = {
-                "ms": time_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, lse, delta, causal=True, seq_len=t)),
-                "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
-            }
-        row["fwd"] = {
-            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5),
-            "library_ms": sdpa_fwd,
+        sdpa_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd_grad)
+        plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, delta=delta),
+                            iters=5)
+        row["dq"] = {
+            "ms": time_ms(lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, causal=causal, seq_len=t)),
+            "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
         }
-        for kind, r in row.items():
-            bound_ms, bound_by, flops, nbytes = attention_bound(b, t, t, h, d, True, "bfloat16", 2, kind=kind)
-            r.update(bound_ms=bound_ms, bound_by=bound_by, shape=[b, t, h, d])
-            library = "sdpa backward (dq+dk+dv; fwd+bwd minus fwd)" if kind != "fwd" else "sdpa forward"
-            plain = "plain backward (dq+dk+dv)" if kind != "fwd" else "plain forward"
-            log(f"[times] {card} | flash_{kind if kind == 'fwd' else 'bwd_' + kind} B={b} T={t} H={h} D={d} "
-                f"bf16 causal: kernel {r['ms']:.4f} ms, {plain} {r['plain_ms']:.4f} ms, {library} "
-                f"{r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB), {bound_ms / r['ms']:.4f} of the bound")
-        rows[(b, t, h, d)] = row
-        del q, k, v, do, o, lse, delta, qt, kt, vt, dot
-        torch.cuda.empty_cache()
-    return rows[TRAIN_SHAPE]
+        row["dkv"] = {
+            "ms": time_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, lse, delta, causal=causal, seq_len=t)),
+            "plain_ms": plain_bwd, "library_ms": sdpa_bwd,
+        }
+    row["fwd"] = {
+        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), iters=5),
+        "library_ms": sdpa_fwd,
+    }
+    for kind, r in row.items():
+        bound_ms, bound_by, flops, nbytes = attention_bound(b, t, t, h, d, causal, "bfloat16", 2, kind=kind)
+        r.update(bound_ms=bound_ms, bound_by=bound_by, shape=[b, t, h, d], causal=causal)
+        library = "sdpa backward (dq+dk+dv; fwd+bwd minus fwd)" if kind != "fwd" else "sdpa forward"
+        plain = "plain backward (dq+dk+dv)" if kind != "fwd" else "plain forward"
+        log(f"[times] {card} | {label}flash_{kind if kind == 'fwd' else 'bwd_' + kind} B={b} T={t} H={h} D={d} "
+            f"bf16 {'causal' if causal else 'non-causal'}: kernel {r['ms']:.4f} ms, {plain} {r['plain_ms']:.4f} ms, "
+            f"{library} {r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {bound_ms / r['ms']:.4f} of the bound")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_times(card: str):
+    """Kernel, plain and library times with CUDA events, and each kernel's bound, at the
+    LM's training shape and the served/B=8 shapes (causal), and at ViT-B/16's (non-causal);
+    returns the LM training shape's rows and ViT's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = {shape: _attention_times(card, *shape, True, gen) for shape in [TRAIN_SHAPE] + SERVED_SHAPES[::-1]}
+    return rows[TRAIN_SHAPE], _attention_times(card, *VIT_SHAPE, False, gen, "ViT-B/16 ")
 
 
 # (rows, Cin, Cout, act, dtype): rows off the 128-row tile (70, 6,275), Cin and Cout off
@@ -963,8 +1074,9 @@ def _err_bound(got, ref, atol_f32):
 
 def phase_conv1x1():
     """Phase A: K4 and the backward's dz pass against their plain versions on the card;
-    returns K4's largest error over ResNet-50's nine bf16 shapes at batch 256, and the dz
-    pass's largest error over its cases (0 when bit-equal)."""
+    returns K4's largest error over ResNet-50's nine bf16 shapes at batch 256, the dz
+    pass's largest error over its cases (0 when bit-equal), and K4's largest error over
+    ConvNeXt-L's four expand shapes with gelu."""
     import torch
 
     from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
@@ -1100,7 +1212,52 @@ def phase_conv1x1():
                     f"affine_grads={affine_grads} {dtype_name}: {errs} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise RuntimeError("conv1x1_bn_act_diff's backward disagrees with autograd through the plain version")
-    return worst, dz_worst
+
+    # ConvNeXt-L's four expand Dense + GELU shapes at micro-batch 64 (a unit scale, an f32
+    # bias), each on the variant conv1x1_variant names (wgmma for Cin 192 and 384, the CUDA
+    # cores above WGMMA_MAX_CIN), and again with one row fewer, off every row tile.
+    convnext_worst = 0.0
+    for name, rows, cin, cout, _ in CONVNEXT_K4_SHAPES:
+        for n in (rows, rows - 1):
+            x = torch.randn(n, cin, device="cuda", generator=gen).to(torch.bfloat16)
+            w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(torch.bfloat16)
+            ones, bias = torch.ones(cout, device="cuda"), 0.1 * torch.randn(cout, device="cuda", generator=gen)
+            want = "wgmma" if cin <= k4.WGMMA_MAX_CIN else "cuda_cores"
+            if k4.conv1x1_variant(x, cout) != want:
+                raise RuntimeError(f"convnext_l {name} would take the {k4.conv1x1_variant(x, cout)} variant, not {want}")
+            err = check(f"convnext_l {name} N={n} {cin}->{cout} act=gelu bfloat16", x, w, ones, bias, "gelu")
+            convnext_worst = max(convnext_worst, err) if n == rows else convnext_worst
+            del x, w
+    # PallasDenseAct's autograd route (gelu, affine_grads=True, a constant unit scale; the
+    # backward keeps the plain ops and launches no dz pass) against autograd through the
+    # plain version, at stage 1 (wgmma forward) and stage 3 (CUDA-core forward). bf16 dx and
+    # dw within 2e-2 of their largest magnitude; the f32 bias gradient, sums over every row
+    # in other orders, within 1e-4 of its largest magnitude.
+    for name, rows, cin, cout, _ in (CONVNEXT_K4_SHAPES[0], CONVNEXT_K4_SHAPES[2]):
+        x = torch.randn(rows, cin, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(torch.bfloat16)
+        bias, ones = 0.1 * torch.randn(cout, device="cuda", generator=gen), torch.ones(cout, device="cuda")
+        g = (0.01 * torch.randn(rows, cout, device="cuda", generator=gen)).to(torch.bfloat16)
+        dz_before = k4.launches["conv1x1_bwd_dz"]
+        grads = []
+        for use_kernel in (True, False):
+            leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+            fn = k4.conv1x1_bn_act_diff if use_kernel else k4.conv1x1_bn_act_plain
+            kw = {"affine_grads": True} if use_kernel else {}
+            fn(leaves[0], leaves[1], ones, leaves[2], act="gelu", **kw).backward(g)
+            grads.append([t.grad for t in leaves])
+        results = [(n, *_err_bound(got, ref, 0.0)) for n, got, ref in zip(("x", "w"), grads[0][:2], grads[1][:2])]
+        db_err = (grads[0][2] - grads[1][2]).abs().max().item()
+        results.append(("bias", db_err, 1e-4 * grads[1][2].abs().max().item()))
+        ok = all(e <= b for _, e, b in results) and k4.launches["conv1x1_bwd_dz"] == dz_before
+        errs = " ".join(f"d{n}={e:.2e}/{b:.1e}" for n, e, b in results)
+        log(f"[conv1x1] autograd vs plain, convnext_l {name} [{rows}, {cin}] -> {cout} act=gelu affine_grads=True "
+            f"bfloat16: {errs}; dz launches {k4.launches['conv1x1_bwd_dz'] - dz_before} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("conv1x1_bn_act_diff's gelu route disagrees with autograd through the plain version")
+        del x, w, g, grads
+        torch.cuda.empty_cache()
+    return worst, dz_worst, convnext_worst
 
 
 def _images_per_s(batch, ms):
@@ -1500,60 +1657,6 @@ def phase_vgg(run_dir: str):
         f"{meta['epoch']}, step {meta['step']}; hand-kernel launches in the phase: 0")
     return {"step_ms": median_ms, "images_per_s": _images_per_s(VGG_BATCH, median_ms), "peak_gb": peak_gb,
             "host_ms": host_ms, "new": new, "parent": parent, "turns": turns}
-
-
-def phase_resnet_pallas_ab(run_dir: str, n_steps: int = 5):
-    """The same ResNet-50 train steps with PALLAS=1 (the kernel) and PALLAS=0 (cuDNN), on
-    batches already on the card, in turns (on, off, off, on): median step ms of each."""
-    import torch
-
-    from distributed_training_pytorch_tpu_torch.examples import train_imagenet
-
-    keys = (*RESNET_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "DTYPE")
-    saved_env = {k: os.environ.get(k) for k in keys}
-    trainers = {}
-    try:
-        os.environ.update(RESNET_ENV, SAVE_DIR=run_dir, EPOCHS="1")
-        for k in ("SNAPSHOT", "DTYPE"):
-            os.environ.pop(k, None)
-        for knob in ("1", "0"):
-            os.environ["PALLAS"] = knob
-            trainers[knob] = train_imagenet.build_trainer(
-                "cuda", synthetic_records=2 * RESNET_BATCH, synthetic_val_records=RESNET_BATCH
-            )
-    finally:
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    trainers["0"].model.load_state_dict(trainers["1"].model.state_dict())
-    batches = [trainers["1"].to_device(b) for b in trainers["1"].train_dataloader]
-    times = {"1": [], "0": []}
-
-    def run(knob, record):
-        tr = trainers[knob]
-        for i in range(n_steps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            tr.state, _ = tr.train_step(tr.state, batches[i % len(batches)])
-            end.record()
-            end.synchronize()
-            if record:
-                times[knob].append(start.elapsed_time(end))
-
-    for knob in ("1", "0"):
-        run(knob, record=False)  # warm-up: cuDNN's algorithm choice, the allocator
-    for knob in ("1", "0", "0", "1"):
-        run(knob, record=True)
-    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-    log(f"[resnet-ab] train step (batch {RESNET_BATCH}, 224x224, bf16), {2 * n_steps} steps each, in turns: "
-        f"PALLAS=1 median {med['1']:.2f} ms ({_images_per_s(RESNET_BATCH, med['1']):.0f} images/s), "
-        f"PALLAS=0 median {med['0']:.2f} ms ({_images_per_s(RESNET_BATCH, med['0']):.0f} images/s); "
-        f"all {{'1': {[round(t, 2) for t in times['1']]}, '0': {[round(t, 2) for t in times['0']]}}}")
-    del trainers, batches
-    torch.cuda.empty_cache()
-    return med
 
 
 def conv1x1_dz_bound(rows, cout, itemsize=2):
@@ -1991,6 +2094,365 @@ def phase_ring_train(run_dir: str):
                       "losses": [m["loss"] for m in epoch_metrics], "ring_loss": ring_loss, "flash_loss": flash_loss}
 
 
+ENTRY_KEYS = ("MODEL", "IMAGE_SIZE", "BATCH", "STEPS_PER_EPOCH", "SHIP_UINT8", "PALLAS", "EPOCHS", "SAVE_DIR",
+              "SNAPSHOT", "DTYPE", "NUM_CLASSES", "ACCUM", "BASE_LR", "IMAGENET_RECORDS", "VAL_RECORDS", "MESH",
+              "CHAIN_STEPS")
+
+
+@contextlib.contextmanager
+def _entry_env(env, **extra):
+    """The ImageNet entry's knobs set to ``env`` and ``extra`` (every other knob unset) for
+    the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in (*ENTRY_KEYS, *env, *extra)}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(env, **extra)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _entry_run(tag, env, run_dir, batch):
+    """The ImageNet entry on ``env``: ENTRY_EPOCHS epochs, then a resume from ``last`` for
+    one more, every kernel count set to 0 just before the first epoch and read after the
+    resumed one. Raises unless every loss is finite, the resume continues the step and the
+    epoch, and ``best``/``last`` are valid; returns the run's figures, its launches, the
+    trained model and a val batch on the card."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.examples import train_imagenet
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    step_ms, epoch_metrics, val_metrics, saves = [], [], [], []
+    counts = {"steps": 0, "evals": 0}
+
+    def build():
+        trainer = train_imagenet.build_trainer(
+            "cuda", synthetic_records=ENTRY_STEPS * batch, synthetic_val_records=batch
+        )
+        save = trainer.checkpoints.save
+
+        def timed_save(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(*args, **kw)
+            saves.append(time.perf_counter() - t0)
+
+        trainer.checkpoints.save = timed_save
+        return _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics)
+
+    torch.cuda.empty_cache()
+    with _entry_env(env, SAVE_DIR=run_dir, EPOCHS=str(ENTRY_EPOCHS)):
+        first = build()
+        n_params = sum(p.numel() for p in first.model.parameters())
+        accum = first.engine.accum_steps
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # count only this path's launches from here
+        k4.reset_launches()
+        t0 = time.perf_counter()
+        first.train()
+        first_at = (first.state.step, first.cur_epoch)
+        del first
+        os.environ.update(EPOCHS=str(ENTRY_EPOCHS + 1), SNAPSHOT="last")
+        resumed = build()
+        resumed_at = (resumed.state.step, resumed.cur_epoch)
+        resumed.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fa": dict(fa.launches), "fa_variant": dict(fa.launches_by_variant), "k4": dict(k4.launches),
+                    "k4_variant": dict(k4.launches_by_variant)}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        final_step = resumed.state.step
+        steps_per_epoch = len(resumed.train_dataloader)
+        n_val = len(resumed.val_dataloader)
+        val_batch = resumed.to_device(next(iter(resumed.val_dataloader)))
+        model = resumed.model
+        del resumed
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    # The first step of each epoch follows validation and a save: cold caches and allocator.
+    steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)
+    median_ms = steady[len(steady) // 2]
+    log(f"{tag} {n_params:,} params; global batch {batch} in {accum} micro-batch(es); {steps_per_epoch} steps/epoch, "
+        f"{n_val} val batch(es)")
+    for i, (m, vm) in enumerate(zip(epoch_metrics, val_metrics, strict=True)):
+        log(f"{tag} epoch {i}: val (before training) ce {vm['ce_loss']:.4f} acc {vm['accuracy']:.4f}; "
+            f"train ce {m['ce_loss']:.4f} acc {m['accuracy']:.4f} lr {m['lr']:.3e}")
+    log(f"{tag} {counts['steps']} steps, {counts['evals']} validation forwards in {wall:.1f} s (data, validation and "
+        f"saves included); step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}; all "
+        f"{[round(t, 2) for t in times]}); {_images_per_s(batch, median_ms):.0f} images/s; peak memory {peak_gb:.2f} GB; "
+        f"{len(saves)} checkpoint saves took {sum(saves):.1f} s ({', '.join(f'{t:.1f}' for t in saves)} s)")
+
+    losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    if first_at != (ENTRY_EPOCHS * steps_per_epoch, ENTRY_EPOCHS - 1):
+        raise RuntimeError(f"first run ended at (step, epoch) {first_at}")
+    if resumed_at != (ENTRY_EPOCHS * steps_per_epoch, ENTRY_EPOCHS) or final_step != (ENTRY_EPOCHS + 1) * steps_per_epoch:
+        raise RuntimeError(f"resume at (step, epoch) {resumed_at}, ended at step {final_step}")
+    manager = CheckpointManager(os.path.join(run_dir, "weights"))
+    for name in ("best", "last"):
+        manager.validate(name)
+    meta = manager.read_meta("last")
+    if (meta["epoch"], meta["step"]) != (ENTRY_EPOCHS + 1, final_step):
+        raise RuntimeError(f"last checkpoint meta {meta}")
+    log(f"{tag} best and last valid; resumed at step {resumed_at[0]}, epoch {resumed_at[1]}; last = epoch "
+        f"{meta['epoch']}, step {meta['step']}")
+    figures = {"step_ms": median_ms, "images_per_s": _images_per_s(batch, median_ms), "peak_gb": peak_gb,
+               "wall_s": wall, "save_s": sum(saves), "saves": len(saves), "n_params": n_params}
+    return figures, launches, counts, model, val_batch
+
+
+def _normalised(model, val_batch, n=32):
+    """The first ``n`` val images as the model's inner network sees them (NCHW f32,
+    normalised on the card by the entry's ``InputNormalizer``) and their labels."""
+    images = val_batch["image"].permute(0, 3, 1, 2)[:n]
+    return (images.float() / 255.0 - model.mean) / model.std, val_batch["label"][:n].long()
+
+
+def _agreement(tag, label, got, ref, rel):
+    """Raises unless ``got`` is finite and within ``rel`` of ``ref``'s largest magnitude."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and got.shape == ref.shape and err <= rel * scale
+    log(f"{tag} {label}: max|diff| {err:.4g} (bound {rel * scale:.4g}; max|ref| {scale:.4g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label} disagree")
+    return err / scale if scale else 0.0
+
+
+def _knobs_in_turns(tag, env, run_dir, batch, knobs, n_steps):
+    """The same train steps of the entry's model with each ``PALLAS`` value in ``knobs``
+    ("" = unset), on batches already on the card, in turns (first, second, second, first)
+    after a warm-up of each: median step ms of each."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_imagenet
+
+    trainers = {}
+    for knob in knobs:
+        with _entry_env(env, SAVE_DIR=run_dir, EPOCHS="1", PALLAS=knob):
+            trainers[knob] = train_imagenet.build_trainer("cuda", synthetic_records=2 * batch, synthetic_val_records=batch)
+    first, second = knobs
+    trainers[second].model.load_state_dict(trainers[first].model.state_dict())
+    batches = [trainers[first].to_device(b) for b in trainers[first].train_dataloader]
+    times = {knob: [] for knob in knobs}
+
+    def run(knob, record):
+        tr = trainers[knob]
+        for i in range(n_steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.state, _ = tr.train_step(tr.state, batches[i % len(batches)])
+            end.record()
+            end.synchronize()
+            if record:
+                times[knob].append(start.elapsed_time(end))
+
+    for knob in knobs:
+        run(knob, record=False)  # warm-up: cuDNN's and cuBLAS's choices, the allocator
+    for knob in (first, second, second, first):
+        run(knob, record=True)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    name = {"": "PALLAS unset", "0": "PALLAS=0", "1": "PALLAS=1"}
+    log(f"{tag} train step (batch {batch}, 224x224, bf16), {2 * n_steps} steps each, in turns on batches on the card: "
+        + ", ".join(f"{name[k]} median {med[k]:.2f} ms ({_images_per_s(batch, med[k]):.0f} images/s)" for k in knobs)
+        + f"; all {({name[k]: [round(t, 2) for t in v] for k, v in times.items()})}")
+    del trainers, batches
+    torch.cuda.empty_cache()
+    return {name[k]: med[k] for k in knobs}
+
+
+# The trained ViT through PALLAS=0 (dot_product_attention: bf16 logits, f32 softmax) against
+# the flash kernels (f32 logits, p rounded once): each layer's attention may part by a bf16
+# ulp or two, which 12 layers carry to the class token; held to 5e-2 of the largest
+# magnitude, as the ResNet phase holds its kernel path against cuDNN's. The padded stream
+# against the unpadded one runs the same kernels on the same valid keys, but its GEMMs have
+# other row counts (cuBLAS may sum in other orders): logits within 5e-2 of their largest
+# magnitude and each parameter's gradient within 5e-2 of its norm.
+VIT_PLAIN_REL = 5e-2
+VIT_PAD_REL = 5e-2
+
+
+def phase_vit(run_dir: str):
+    """ViT-B/16 through the port's ImageNet entry (``MODEL=vit_b16``, PALLAS unset: the
+    flash kernels): 2 epochs and a resumed third; exactly 12 launches each of K1, K2, K3 a
+    train step and 12 of K1 a val forward, all on the wgmma variant; the trained weights
+    through PALLAS=0 and through ``pad_seq_to=256``; then the same steps with PALLAS unset
+    and PALLAS=0 in turns. Returns the launches and the figures."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import ViTB16
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
+
+    torch.backends.cudnn.allow_tf32 = True  # the entry's own settings
+    figures, launches, counts, model, val_batch = _entry_run("[vit]", VIT_ENV, run_dir, VIT_BATCH)
+    steps, evals = counts["steps"], counts["evals"]
+    fl = launches["fa"]
+    log(f"[vit] ViT-B/16, 224x224, 1000 classes, bf16 compute, f32 params, AdamW(0.9, 0.999, wd 0.05), warmup-cosine, "
+        f"PALLAS unset; {VIT_FLOP_PER_IMAGE * VIT_BATCH / figures['step_ms'] / 1e9:.1f} TFLOP/s; flash launches {fl} "
+        f"over {steps} steps and {evals} validation forwards; conv1x1 launches {launches['k4']}")
+    expected = {"fwd": VIT_DEPTH * (steps + evals), "bwd_dq": VIT_DEPTH * steps, "bwd_dkv": VIT_DEPTH * steps}
+    if fl != expected:
+        raise RuntimeError(f"expected flash launches {expected} (12 per layer pass), got {fl}")
+    _check_wgmma_launches(fl, launches["fa_variant"], "[vit]")
+    if any(launches["k4"].values()):
+        raise RuntimeError(f"conv1x1 kernels launched on the ViT path: {launches['k4']}")
+    if model.inner.attention_fn is None or model.inner.pos_embed.shape[1] != VIT_SHAPE[1]:
+        raise RuntimeError("the entry's ViT-B/16 is not on the flash route at T=197")
+
+    model.eval()
+    x, labels = _normalised(model, val_batch)
+    features = {}
+
+    def run(net, name, backward=False):
+        hook = net.norm.register_forward_hook(lambda mod, inp, out: features.__setitem__(name, out[:, 0].detach()))
+        try:
+            logits = net(x)
+        finally:
+            hook.remove()
+        if backward:
+            cross_entropy_loss(logits, labels).backward()
+        return logits.detach()
+
+    with torch.no_grad():
+        plain = ViTB16(1000, dtype=torch.bfloat16, pallas=False, device="cuda").eval()
+        plain.load_state_dict(model.inner.state_dict())
+        got, ref = run(model.inner, "kernel"), run(plain, "plain")
+    plain_rel = _agreement("[vit]", "trained model, 32 val images, flash kernels vs PALLAS=0 (dot_product_attention): "
+                           "logits", got, ref, VIT_PLAIN_REL)
+    _agreement("[vit]", "the same, class-token features", features["kernel"], features["plain"], VIT_PLAIN_REL)
+    del plain
+
+    padded = ViTB16(1000, dtype=torch.bfloat16, pad_seq_to=VIT_PAD, device="cuda").eval()
+    padded.load_state_dict(model.inner.state_dict())
+    before = dict(fa.launches_by_variant)
+    got = run(padded, "padded", backward=True)
+    pad_launches = {n: fa.launches_by_variant[(n, "wgmma")] - before[(n, "wgmma")] for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    model.inner.zero_grad(set_to_none=True)
+    ref = run(model.inner, "unpadded", backward=True)
+    pad_rel = _agreement("[vit]", f"pad_seq_to={VIT_PAD} (197 valid) vs unpadded, the same weights: logits", got, ref,
+                         VIT_PAD_REL)
+    worst, worst_name = 0.0, ""
+    for (name, p), q in zip(model.inner.named_parameters(), padded.parameters(), strict=True):
+        rel = _rel_err(q.grad, p.grad)
+        if rel > worst:
+            worst, worst_name = rel, name
+    ok = worst <= VIT_PAD_REL and pad_launches == {"fwd": VIT_DEPTH, "bwd_dq": VIT_DEPTH, "bwd_dkv": VIT_DEPTH}
+    log(f"[vit] pad_seq_to={VIT_PAD}: every parameter's gradient of the CE on 32 val images within "
+        f"{worst:.4g} of its norm (worst {worst_name}; bound {VIT_PAD_REL}); wgmma launches of the padded pass "
+        f"{pad_launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the padded stream disagrees with the unpadded one")
+    del padded, model
+    torch.cuda.empty_cache()
+    figures["plain_rel"], figures["pad_rel"], figures["pad_grad_rel"] = plain_rel, pad_rel, worst
+    figures["turns"] = _knobs_in_turns("[vit-ab]", VIT_ENV, run_dir, VIT_BATCH, ("", "0"), n_steps=3)
+    return {k: fl[k] for k in ("fwd", "bwd_dq", "bwd_dkv")}, figures
+
+
+# The trained ConvNeXt through PALLAS=0 (cuBLAS's Dense, then the tanh GELU on the bf16
+# output) against K4 (f32 sums, the GELU on the f32 pre-activation, one rounding): 36 blocks
+# carry the per-block rounding differences to the logits; held to 5e-2 of their largest
+# magnitude, as the ResNet phase holds its kernel path against cuDNN's.
+CONVNEXT_PLAIN_REL = 5e-2
+
+
+def phase_convnext(run_dir: str):
+    """ConvNeXt-L through the port's ImageNet entry (``MODEL=convnext_l``, PALLAS=1: K4's
+    gelu epilogue; ACCUM=4, 21,841 classes): 2 epochs and a resumed third; exactly 36 K4
+    launches a micro-batch forward (6 wgmma, 30 CUDA cores), so 144 a train step and 36 a
+    val forward, and no dz pass; the trained weights through PALLAS=0; then the same steps
+    with PALLAS=1 and PALLAS=0 in turns. Returns the launches and the figures."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import ConvNeXtL
+
+    torch.backends.cudnn.allow_tf32 = True
+    figures, launches, counts, model, val_batch = _entry_run("[convnext]", CONVNEXT_ENV, run_dir, CONVNEXT_BATCH)
+    steps, evals = counts["steps"], counts["evals"]
+    k4l, by_variant = launches["k4"], launches["k4_variant"]
+    log(f"[convnext] ConvNeXt-L, 224x224, 21841 classes, bf16 compute, f32 params, AdamW(0.9, 0.999, wd 0.05), "
+        f"warmup-cosine, ACCUM={CONVNEXT_ACCUM}, PALLAS=1; "
+        f"{CONVNEXT_FLOP_PER_IMAGE * CONVNEXT_BATCH / figures['step_ms'] / 1e9:.1f} TFLOP/s; conv1x1 launches {k4l} "
+        f"by variant {({v: c for (_, v), c in by_variant.items()})} over {steps} steps and {evals} validation "
+        f"forwards; flash launches {launches['fa']}")
+    forwards = CONVNEXT_ACCUM * steps + evals
+    want = {"conv1x1_bn_act": CONVNEXT_BLOCKS * forwards, "wgmma": CONVNEXT_WGMMA_BLOCKS * forwards,
+            "cuda_cores": (CONVNEXT_BLOCKS - CONVNEXT_WGMMA_BLOCKS) * forwards, "conv1x1_bwd_dz": 0}
+    launched = {"conv1x1_bn_act": k4l["conv1x1_bn_act"], "wgmma": by_variant[("conv1x1_bn_act", "wgmma")],
+                "cuda_cores": by_variant[("conv1x1_bn_act", "cuda_cores")], "conv1x1_bwd_dz": k4l["conv1x1_bwd_dz"]}
+    if launched != want:
+        raise RuntimeError(f"expected conv1x1 launches {want} (36 a micro-batch forward: 6 wgmma, 30 CUDA cores), "
+                           f"got {launched}")
+    if any(launches["fa"].values()):
+        raise RuntimeError(f"flash kernels launched on the ConvNeXt path: {launches['fa']}")
+
+    model.eval()
+    x, _ = _normalised(model, val_batch)
+    with torch.no_grad():
+        plain = ConvNeXtL(21841, dtype=torch.bfloat16, pallas=False, device="cuda").eval()
+        plain.load_state_dict(model.inner.state_dict())
+        got, ref = model.inner(x), plain(x)
+    plain_rel = _agreement("[convnext]", "trained model, 32 val images, K4's gelu epilogue vs PALLAS=0: logits", got, ref,
+                           CONVNEXT_PLAIN_REL)
+    del plain, model
+    torch.cuda.empty_cache()
+    figures["plain_rel"] = plain_rel
+    figures["turns"] = _knobs_in_turns("[convnext-ab]", CONVNEXT_ENV, run_dir, CONVNEXT_BATCH, ("1", "0"), n_steps=3)
+    return launched, figures
+
+
+def phase_convnext_times(card: str):
+    """K4 with the gelu epilogue at ConvNeXt-L's four expand shapes (micro-batch 64, bf16,
+    a unit scale, an f32 bias): kernel, plain, bound, and ``F.linear`` then
+    ``F.gelu(approximate="tanh")`` as the yardstick; returns the rows and the sums over one
+    micro-batch forward (each shape times its blocks)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    counts = (dict(k4.launches), dict(k4.launches_by_variant))  # timing launches are not the main path's
+    rows = []
+    for name, n, cin, cout, blocks in CONVNEXT_K4_SHAPES:
+        x = torch.randn(n, cin, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(cout, cin, device="cuda", generator=gen) * cin**-0.5).to(torch.bfloat16)
+        ones, bias = torch.ones(cout, device="cuda"), 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        bias16 = bias.to(torch.bfloat16)
+        variant = k4.conv1x1_variant(x, cout)
+        ms = time_ms(lambda: k4.conv1x1_bn_act(x, w, ones, bias, act="gelu"))
+        plain_ms = time_ms(lambda: k4.conv1x1_bn_act_plain(x, w, ones, bias, act="gelu"), iters=5)
+        library_ms = time_ms(lambda: F.gelu(F.linear(x, w, bias16), approximate="tanh"))
+        bound_ms, bound_by, flops, nbytes = conv1x1_bound(n, cin, cout)
+        log(f"[times] {card} | conv1x1 gelu convnext_l {name} N={n} {cin}->{cout} bf16 ({variant}, {blocks} blocks): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear + F.gelu(tanh) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {bound_ms / ms:.4f} of "
+            f"the bound, {ms / library_ms:.2f}x the library")
+        rows.append({"name": name, "shape": [n, cin, cout], "variant": variant, "blocks": blocks, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, w
+        torch.cuda.empty_cache()
+    k4.launches.update(counts[0])
+    k4.launches_by_variant.update(counts[1])
+    total = {k: sum(r[k] * r["blocks"] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes"
+    log(f"[times] {card} | conv1x1 gelu, the 36 launches of one ConvNeXt-L micro-batch forward (64 images): kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / total['ms']:.4f} of it); x{CONVNEXT_ACCUM} a train step")
+    return rows, total
+
+
 def main() -> int:
     try:
         import torch
@@ -2010,11 +2472,11 @@ def main() -> int:
     try:
         t_start = time.perf_counter()
         card = phase_device()
-        fwd_err = phase_kernels()
-        bwd_err = phase_bwd_kernels()
+        fwd_err, vit_fwd_err = phase_kernels()
+        bwd_err, vit_bwd_err = phase_bwd_kernels()
         k5_err = phase_k5()
         ring = phase_ring(card)
-        conv_err, dz_err = phase_conv1x1()
+        conv_err, dz_err, convnext_err = phase_conv1x1()
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
@@ -2026,11 +2488,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resnet_launches, resnet = phase_resnet(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
-            resnet_ab = phase_resnet_pallas_ab(run_dir)
+            resnet_ab = _knobs_in_turns("[resnet-ab]", RESNET_ENV, run_dir, RESNET_BATCH, ("1", "0"), n_steps=5)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             vgg = phase_vgg(run_dir)
-        times = phase_times(card)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            vit_launches, vit = phase_vit(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            convnext_launches, convnext = phase_convnext(run_dir)
+        times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
+        convnext_times, convnext_total = phase_convnext_times(card)
         log(f"[times] {card} | served requests: p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms "
             f"over {serve['n']} requests (client clock, HTTP included; p99 is the slowest of so few)")
         log(f"[times] {card} | training step (B=64, T=1024, bf16): median {train['step_ms']:.2f} ms, "
@@ -2042,7 +2509,7 @@ def main() -> int:
         log(f"[times] {card} | ResNet-50 training step (B=256, 224x224, bf16, PALLAS=1, through the entry): median "
             f"{resnet['step_ms']:.2f} ms, {resnet['images_per_s']:.0f} images/s, peak memory {resnet['peak_gb']:.2f} GB, "
             f"device busy share of the resumed epoch {busy}; on batches already on the card: PALLAS=1 "
-            f"{resnet_ab['1']:.2f} ms, PALLAS=0 {resnet_ab['0']:.2f} ms; its resumed train epoch on the warm trainer: "
+            f"{resnet_ab['PALLAS=1']:.2f} ms, PALLAS=0 {resnet_ab['PALLAS=0']:.2f} ms; its resumed train epoch on the warm trainer: "
             f"{_turns_line(resnet['turns'])}")
         log(f"[times] {card} | VGG16 training step (CIFAR-10, B={VGG_BATCH}, 32x32, bf16 model, f32 params, through "
             f"the entry): median {vgg['step_ms']:.2f} ms (the host issues it in {vgg['host_ms']:.2f} ms), "
@@ -2052,15 +2519,22 @@ def main() -> int:
             f"{_fmt_busy(vgg['parent']['busy'])} (per-record Python transform; wall "
             f"{vgg['parent']['wall_ms']:.1f} ms over {vgg['parent']['steps']} steps); on the warm trainer, native "
             f"crop/flip, in turns: {_turns_line(vgg['turns'])}")
+        for label, fig in (("ViT-B/16 (B=256, PALLAS unset: the flash kernels)", vit),
+                           (f"ConvNeXt-L (B=256 in {CONVNEXT_ACCUM} micro-batches, PALLAS=1: K4's gelu epilogue)",
+                            convnext)):
+            log(f"[times] {card} | {label} training step through the entry: median {fig['step_ms']:.2f} ms, "
+                f"{fig['images_per_s']:.0f} images/s, peak memory {fig['peak_gb']:.2f} GB; the phase's "
+                f"{fig['saves']} checkpoint saves {fig['save_s']:.1f} s of its {fig['wall_s']:.1f} s; on batches on the "
+                f"card, in turns: " + ", ".join(f"{k} {v:.2f} ms" for k, v in fig["turns"].items()))
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
     kernels = []
-    for name, kind, launch_key, replaces, err, source in (
-        ("flash_fwd", "fwd", "fwd", ":81", fwd_err, "flash_fwd_wgmma.cu"),
-        ("flash_bwd_dq", "dq", "bwd_dq", ":135", bwd_err["dq"], "flash_bwd_wgmma.cu"),
-        ("flash_bwd_dkv", "dkv", "bwd_dkv", ":174", bwd_err["dkv"], "flash_bwd_wgmma.cu"),
+    for name, kind, launch_key, replaces, err, vit_err, source in (
+        ("flash_fwd", "fwd", "fwd", ":81", fwd_err, vit_fwd_err, "flash_fwd_wgmma.cu"),
+        ("flash_bwd_dq", "dq", "bwd_dq", ":135", bwd_err["dq"], vit_bwd_err["dq"], "flash_bwd_wgmma.cu"),
+        ("flash_bwd_dkv", "dkv", "bwd_dkv", ":174", bwd_err["dkv"], vit_bwd_err["dkv"], "flash_bwd_wgmma.cu"),
     ):
         r = times[kind]
         kernels.append({
@@ -2071,7 +2545,8 @@ def main() -> int:
             "launches": train_launches[launch_key],
             "launches_by_path": {"train": train_launches[launch_key], "train_ring": ring_launches[launch_key],
                                  "train_resnet50": 0, "train_vgg16": 0,
-                                 "serve": serve_launches if kind == "fwd" else 0},
+                                 "serve": serve_launches if kind == "fwd" else 0,
+                                 "train_vit_b16": vit_launches[launch_key], "train_convnext_l": 0},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -2081,6 +2556,9 @@ def main() -> int:
             "shape": r["shape"],
             "dtype": "bfloat16",
             "design": DESIGN[kind],
+            # ViT-B/16's attention, non-causal, at the phase's batch: the same keys.
+            "vit_b16": {**{k: vit_times[kind][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                          "shape")}, "max_abs_err": vit_err},
         })
     for name, source, replaces, err, total, shapes in (
         ("conv1x1_bn_act", "conv1x1_wgmma.cu", ":550", conv_err, conv_total, conv_times),
@@ -2093,7 +2571,8 @@ def main() -> int:
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": resnet_launches[name],
             "launches_by_path": {"train_resnet50": resnet_launches[name], "train": 0, "train_ring": 0,
-                                 "train_vgg16": 0, "serve": 0},
+                                 "train_vgg16": 0, "serve": 0, "train_vit_b16": 0,
+                                 "train_convnext_l": convnext_launches[name]},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -2107,6 +2586,13 @@ def main() -> int:
             "dtype": "bfloat16",
             "design": DESIGN[name],
         })
+        if name == "conv1x1_bn_act":
+            # ConvNeXt-L's expand + gelu: the 36 launches of a micro-batch forward, summed
+            # (each shape times its blocks), and each shape alone; by variant on the path.
+            kernels[-1]["convnext_l"] = {**convnext_total, "max_abs_err": convnext_err, "shapes": convnext_times,
+                                         "launches_by_variant": {v: convnext_launches[v] for v in ("wgmma", "cuda_cores")},
+                                         "source_by_variant": {"wgmma": "distributed_training_pytorch_tpu_torch/csrc/conv1x1_wgmma.cu",
+                                                               "cuda_cores": "distributed_training_pytorch_tpu_torch/csrc/conv1x1_bn_act.cu"}}
     for kind, launch_key, replaces, source in (("fwd", "fwd", ":399", "flash_fwd_wgmma.cu"),
                                                ("bwd", "bwd_dq", ":415", "flash_bwd_wgmma.cu")):
         r = ring["k5"][kind]
@@ -2119,7 +2605,7 @@ def main() -> int:
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": ring_launches[launch_key],
             "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0,
-                                 "train_vgg16": 0, "serve": 0},
+                                 "train_vgg16": 0, "serve": 0, "train_vit_b16": 0, "train_convnext_l": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

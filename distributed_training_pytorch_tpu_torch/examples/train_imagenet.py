@@ -1,24 +1,34 @@
-"""ImageNet-scale training entry of the port: ResNet-50 (the JAX package's BASELINE config
-3).
+"""ImageNet-scale training entry of the port: ResNet-50, ViT-B/16 and ConvNeXt-L (the JAX
+package's BASELINE configs 3 to 5).
 
-Counterpart of the repository's ``examples/train_imagenet.py`` for ``MODEL=resnet50``: SGD
-with momentum 0.9 and weight decay 1e-4 on every param, ``lr = BASE_LR * batch / 256``
-with 5 warmup epochs then cosine, the pad-masked cross-entropy and accuracy, the best
-checkpoint by val accuracy, random-resized-crop + flip on the host keyed by
-``(seed, epoch, index)``, and uint8 images normalised on the device (``SHIP_UINT8=1``,
-``InputNormalizer``). Run:
+Counterpart of the repository's ``examples/train_imagenet.py``, with its recipes:
+
+=================  ==========================================================================
+``MODEL=``         recipe
+``resnet50``       SGD momentum 0.9, wd 1e-4, ``lr = BASE_LR * batch / 256``, 1000 classes
+``vit_b16``        AdamW (0.9, 0.999), wd 0.05, ``lr = BASE_LR * batch / 4096``, 1000 classes
+``convnext_l``     AdamW as ViT, ``ACCUM=4`` micro-batches a step, 21841 classes
+``convnext_tiny``  the ``convnext_l`` recipe on a small ConvNeXt, for the CPU
+=================  ==========================================================================
+
+Every recipe warms up for 5 epochs, then follows a cosine; ``BASE_LR`` defaults to 0.1
+(SGD) or 1e-3 (AdamW). The entry trains on the pad-masked cross-entropy and accuracy,
+keeps the best checkpoint by val accuracy, runs random-resized-crop + flip on the host
+keyed by ``(seed, epoch, index)``, and normalises uint8 images on the device
+(``SHIP_UINT8=1``, ``InputNormalizer``). Run:
 
     python -m distributed_training_pytorch_tpu_torch.examples.train_imagenet
 
 Without ``IMAGENET_RECORDS`` a synthetic ImageNet-shaped set (the JAX entry's bytes) trains
 instead; ``STEPS_PER_EPOCH`` caps an epoch. Env knobs, as the JAX entry reads them:
-``MODEL`` (``resnet50``; ``vit_b16``, ``convnext_l`` and ``convnext_tiny`` raise until their
-slices), ``EPOCHS`` (90), ``BATCH`` (1024, global), ``ACCUM`` (1), ``BASE_LR`` (0.1),
-``IMAGE_SIZE`` (224), ``NUM_CLASSES`` (1000), ``SAVE_DIR`` (``./runs/<model>``),
-``SNAPSHOT``, ``STEPS_PER_EPOCH``, ``SHIP_UINT8`` (1), ``DTYPE`` (``fp32`` | ``bf16``; unset
-keeps a bf16 model under the f32 policy), ``PALLAS`` (1: the fused 1x1 kernel for
-ResNet's stage-1 1x1s; 0 or unset: cuDNN convolutions), ``CHAIN_STEPS`` (1), ``MESH``
-(the grammar of ``parallel/mesh.py``; ``dpN`` for this model).
+``MODEL`` (``resnet50``), ``EPOCHS`` (90), ``BATCH`` (1024, global), ``ACCUM`` (the recipe's),
+``BASE_LR`` (the recipe's), ``IMAGE_SIZE`` (224), ``NUM_CLASSES`` (the recipe's),
+``SAVE_DIR`` (``./runs/<model>``), ``SNAPSHOT``, ``STEPS_PER_EPOCH``, ``SHIP_UINT8`` (1),
+``DTYPE`` (``fp32`` | ``bf16``; unset keeps a bf16 model under the f32 policy), ``PALLAS``
+(per model: ResNet's stage-1 1x1s and ConvNeXt's expand Dense + GELU take the fused 1x1
+kernel with 1, cuDNN/cuBLAS with 0 or unset; ViT's attention takes the flash kernels
+unset or with 1, the plain softmax with 0), ``CHAIN_STEPS`` (1), ``MESH`` (the grammar of
+``parallel/mesh.py``; ``dpN`` for these models).
 ``IMAGENET_RECORDS``/``VAL_RECORDS`` (record files), ``TELEMETRY`` and ``PROFILE_DIR``
 raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
 ``cpu``). Under ``torchrun`` each process is one data-parallel rank.
@@ -33,7 +43,7 @@ import torch
 
 from distributed_training_pytorch_tpu_torch.data import ArrayDataSource
 from distributed_training_pytorch_tpu_torch.data import transforms as T
-from distributed_training_pytorch_tpu_torch.models import InputNormalizer, create_model
+from distributed_training_pytorch_tpu_torch.models import VIT_NAMES, InputNormalizer, create_model
 from distributed_training_pytorch_tpu_torch.ops.dispatch import pallas_from_env
 from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
 from distributed_training_pytorch_tpu_torch.ops.metrics import accuracy
@@ -47,11 +57,10 @@ __all__ = ["ImageNetTrainer", "RECIPES", "build_trainer", "main", "synthetic_sou
 
 RECIPES = {
     "resnet50": dict(num_classes=1000, optimizer="sgd", base_lr=0.1, accum=1, wd=1e-4),
-}
-_LATER = {
-    "vit_b16": "ViT-B/16 comes with the ViT slice of the port",
-    "convnext_l": "ConvNeXt-L comes with the ConvNeXt slice of the port",
-    "convnext_tiny": "ConvNeXt comes with the ConvNeXt slice of the port",
+    "vit_b16": dict(num_classes=1000, optimizer="adamw", base_lr=1e-3, accum=1, wd=0.05),
+    "convnext_l": dict(num_classes=21841, optimizer="adamw", base_lr=1e-3, accum=4, wd=0.05),
+    # The convnext_l recipe (optimizer, accumulation) on a model small enough for the CPU.
+    "convnext_tiny": dict(num_classes=21841, optimizer="adamw", base_lr=1e-3, accum=4, wd=0.05),
 }
 SYNTHETIC_CHUNK = 64  # images drawn at a time: one draw of 8192 x 224^2 x 3 normals is 9.9 GB
 
@@ -113,8 +122,6 @@ class ImageNetTrainer(Trainer):
         self, model_name: str, image_size: int, base_lr: float, *, synthetic_records: int = 8192,
         synthetic_val_records: int = 1024, **kw,
     ):
-        if model_name in _LATER:
-            raise NotImplementedError(f"MODEL={model_name}: {_LATER[model_name]}")
         for knob in ("IMAGENET_RECORDS", "VAL_RECORDS"):
             if os.environ.get(knob):
                 raise NotImplementedError(f"{knob} (record files) comes with the image data slice of the port")
@@ -151,6 +158,7 @@ class ImageNetTrainer(Trainer):
             dtype=model_dtype_for_entry(self.precision, explicit, torch.bfloat16),
             pallas=self.pallas,
             device=self.device,
+            **({"image_size": self.image_size} if self.model_name in VIT_NAMES else {}),
         )
         if _ship_uint8():
             model = InputNormalizer(model, mean=list(T.IMAGENET_MEAN), std=list(T.IMAGENET_STD))
@@ -176,16 +184,21 @@ class ImageNetTrainer(Trainer):
 
     def build_scheduler(self):
         steps_per_epoch = max(1, len(self.train_dataset) // self.batch_size)
-        lr = self.base_lr * self.batch_size / 256.0  # Goyal et al. scaling
+        if self.recipe["optimizer"] == "sgd":
+            lr = self.base_lr * self.batch_size / 256.0  # Goyal et al. scaling
+        else:
+            lr = self.base_lr * self.batch_size / 4096.0  # the AdamW convention
         return warmup_cosine_lr(lr, self.max_epoch, steps_per_epoch, warmup_epochs=5)
 
     def build_optimizer(self, schedule):
-        """``optax.chain(add_decayed_weights(wd), sgd(schedule, momentum=0.9))``: torch's
-        SGD adds ``wd * p`` to the gradient before the momentum trace, as that chain does;
-        the engine sets the lr from the schedule."""
-        return torch.optim.SGD(
-            self.model.parameters(), lr=float(schedule(0)), momentum=0.9, weight_decay=self.recipe["wd"]
-        )
+        """SGD: ``optax.chain(add_decayed_weights(wd), sgd(schedule, momentum=0.9))``, as
+        torch's SGD adds ``wd * p`` to the gradient before the momentum trace. AdamW:
+        ``optax.adamw(schedule, weight_decay=wd, b1=0.9, b2=0.999)``, one parameter group,
+        decay on every parameter, eps 1e-8. The engine sets the lr from the schedule."""
+        lr, wd = float(schedule(0)), self.recipe["wd"]
+        if self.recipe["optimizer"] == "sgd":
+            return torch.optim.SGD(self.model.parameters(), lr=lr, momentum=0.9, weight_decay=wd)
+        return torch.optim.AdamW(self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
 
 
 def build_trainer(
@@ -196,21 +209,21 @@ def build_trainer(
         if os.environ.get(knob):
             raise NotImplementedError(f"{knob} comes with the observability slice of the port")
     model_name = os.environ.get("MODEL", "resnet50").lower()
-    if model_name not in RECIPES and model_name not in _LATER:
+    if model_name not in RECIPES:
         raise SystemExit(f"MODEL={model_name!r}: choose from {sorted(RECIPES)}")
-    recipe = RECIPES.get(model_name, {})
+    recipe = RECIPES[model_name]
     save_dir = os.environ.get("SAVE_DIR", f"./runs/{model_name}")
     return ImageNetTrainer(
         model_name=model_name,
         image_size=int(os.environ.get("IMAGE_SIZE", "224")),
-        base_lr=float(os.environ.get("BASE_LR", str(recipe.get("base_lr", 0.1)))),
+        base_lr=float(os.environ.get("BASE_LR", str(recipe["base_lr"]))),
         synthetic_records=synthetic_records,
         synthetic_val_records=synthetic_val_records,
         max_epoch=int(os.environ.get("EPOCHS", "90")),
         batch_size=int(os.environ.get("BATCH", "1024")),
         chain_steps=int(os.environ.get("CHAIN_STEPS", "1")),
         mesh=mesh_from_env(),
-        accum_steps=int(os.environ.get("ACCUM", str(recipe.get("accum", 1)))),
+        accum_steps=int(os.environ.get("ACCUM", str(recipe["accum"]))),
         have_validate=True,
         save_best_for=("accuracy", "geq"),
         save_period=1,

@@ -15,6 +15,14 @@ array (``jax.tree.map(np.asarray, variables)``), so this module imports no JAX.
   kernels HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``, and the first
   classifier weight's columns from the flax model's (h, w, c) flatten order to the port's
   (c, h, w).
+* :func:`vit_params_from_jax` — ``ViT`` (optionally under ``InputNormalizer``): the patch
+  embedding HWIO -> OIHW, ``qkv`` ``[D, 3, H, Dh]`` -> ``[3 D, D]``, ``out`` ``[H, Dh, D]``
+  -> ``[D, D]``, Dense ``[in, out]`` -> ``[out, in]``; ``cls_token`` and ``pos_embed`` as
+  they are.
+* :func:`convnext_params_from_jax` — ``ConvNeXt`` (optionally under ``InputNormalizer``):
+  convs HWIO -> OIHW (the depthwise ``[7, 7, 1, C]`` -> ``[C, 1, 7, 7]``), Dense ``[in,
+  out]`` -> ``[out, in]``, ``layer_scale`` as it is; flax's ``PallasDenseAct`` is named
+  ``Dense_0`` like the plain Dense, so one mapping serves both values of the knob.
 """
 
 from __future__ import annotations
@@ -24,7 +32,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "resnet_params_from_jax", "vgg_params_from_jax"]
+__all__ = [
+    "convnext_params_from_jax",
+    "params_from_jax",
+    "resnet_params_from_jax",
+    "vgg_params_from_jax",
+    "vit_params_from_jax",
+]
 
 
 def _t(x) -> torch.Tensor:
@@ -156,4 +170,66 @@ def vgg_params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
             kernel = kernel.reshape(side, side, channels, -1).transpose(2, 0, 1, 3).reshape(kernel.shape)
         out[f"{target}.weight"] = _t(kernel.T)
         out[f"{target}.bias"] = _t(params[name]["bias"])
+    return {prefix + k: v for k, v in out.items()}
+
+
+def _unwrap(params: Mapping) -> "tuple[Mapping, str]":
+    """The model's params and the port's key prefix: ``inner.`` under ``InputNormalizer``.
+    A ``{"params": ...}`` variables dict is taken as well as the ``params`` tree."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    if "inner" in params:
+        return params["inner"], "inner."
+    return params, ""
+
+
+def _conv_bias(p: Mapping, prefix: str) -> dict:
+    return {f"{prefix}.weight": _conv(p), f"{prefix}.bias": _t(p["bias"])}
+
+
+def vit_params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
+    """``state_dict`` for the port's ``ViT`` from flax ``params`` as numpy, bare or under
+    ``InputNormalizer`` (an ``inner`` scope, the port wrapper's ``inner.`` prefix)."""
+    params, prefix = _unwrap(params)
+    out = {
+        **_conv_bias(params["patch_embed"], "patch_embed"),
+        "cls_token": _t(params["cls_token"]),
+        "pos_embed": _t(params["pos_embed"]),
+        **_ln(params["LayerNorm_0"], "norm"),
+        **_dense(params["Dense_0"], "head"),
+    }
+    for i, name in enumerate(_numbered(params, "EncoderBlock")):
+        blk = params[name]
+        out.update(_ln(blk["LayerNorm_0"], f"blocks.{i}.ln1"))
+        out.update(_dense(blk["MultiHeadAttention_0"]["qkv"], f"blocks.{i}.attn.qkv"))
+        out.update(_dense(blk["MultiHeadAttention_0"]["out"], f"blocks.{i}.attn.out"))
+        out.update(_ln(blk["LayerNorm_1"], f"blocks.{i}.ln2"))
+        out.update(_dense(blk["MlpBlock_0"]["Dense_0"], f"blocks.{i}.mlp.dense_in"))
+        out.update(_dense(blk["MlpBlock_0"]["Dense_1"], f"blocks.{i}.mlp.dense_out"))
+    return {prefix + k: v for k, v in out.items()}
+
+
+def convnext_params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
+    """``state_dict`` for the port's ``ConvNeXt`` from flax ``params`` as numpy, bare or
+    under ``InputNormalizer``. flax numbers the model's convs and LayerNorms in creation
+    order: ``Conv_0`` and ``LayerNorm_0`` the stem, then per later stage ``LayerNorm_s`` and
+    ``Conv_s`` the downsampling, and the last ``LayerNorm`` the head's."""
+    params, prefix = _unwrap(params)
+    convs, norms = _numbered(params, "Conv"), _numbered(params, "LayerNorm")
+    out = {
+        **_conv_bias(params[convs[0]], "stem"),
+        **_ln(params[norms[0]], "stem_norm"),
+        **_ln(params[norms[-1]], "norm"),
+        **_dense(params["Dense_0"], "head"),
+    }
+    for s, (conv, norm) in enumerate(zip(convs[1:], norms[1:-1], strict=True)):
+        out.update(_ln(params[norm], f"downsample.{s}.norm"))
+        out.update(_conv_bias(params[conv], f"downsample.{s}.conv"))
+    for i, name in enumerate(_numbered(params, "ConvNeXtBlock")):
+        blk = params[name]
+        out.update(_conv_bias(blk["Conv_0"], f"blocks.{i}.dwconv"))
+        out.update(_ln(blk["LayerNorm_0"], f"blocks.{i}.norm"))
+        out.update(_dense(blk["Dense_0"], f"blocks.{i}.expand"))
+        out.update(_dense(blk["Dense_1"], f"blocks.{i}.project"))
+        out[f"blocks.{i}.layer_scale"] = _t(blk["layer_scale"])
     return {prefix + k: v for k, v in out.items()}

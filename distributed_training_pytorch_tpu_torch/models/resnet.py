@@ -52,11 +52,12 @@ def _same_pads(size: int, k: int, s: int) -> "tuple[int, int]":
 
 
 class _Conv(nn.Conv2d):
-    """flax ``nn.Conv(use_bias=False, dtype=...)``: f32 weight, input and weight cast to
-    ``dtype``; ``padding=None`` is "SAME"."""
+    """flax ``nn.Conv(use_bias=bias, feature_group_count=groups, dtype=...)``: f32 params,
+    input and params cast to ``dtype``; ``padding=None`` is "SAME"."""
 
-    def __init__(self, cin, cout, k, stride, dtype, device, padding: "int | None" = None):
-        super().__init__(cin, cout, k, stride=stride, padding=0, bias=False, device=device)
+    def __init__(self, cin, cout, k, stride, dtype, device, padding: "int | None" = None, *, groups: int = 1,
+                 bias: bool = False):
+        super().__init__(cin, cout, k, stride=stride, padding=0, groups=groups, bias=bias, device=device)
         self.compute_dtype = dtype
         self.same = padding is None
         self.pad = 0 if padding is None else padding
@@ -73,7 +74,8 @@ class _Conv(nn.Conv2d):
             else:
                 x = F.pad(x, (left, right, top, bottom))
                 pad = 0
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, pad)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, pad, groups=self.groups)
 
 
 class _Conv1x1(_Conv):

@@ -16,10 +16,13 @@ measurements on the card.
 VGG16 (:func:`vgg16_policy`) has no fused-kernel coverage (its convolutions are 3x3), so
 every resolution is plain, and an explicit knob is recorded as the JAX package records it.
 
-The fused 1x1-conv policy (:func:`conv1x1_policy`, ResNet) is the JAX package's: auto is
-off, and ``pallas=True`` / ``PALLAS=1`` turns it on. The TPU's verdict behind that default
-does not carry over; the card's own evidence is the ResNet-50 step with and without the
-kernel (``PERF.md``).
+The fused 1x1-conv policy (:func:`conv1x1_policy`: ResNet's 1x1s, ConvNeXt's expand Dense +
+GELU as ``op="dense_gelu"``) is the JAX package's: auto is off, and ``pallas=True`` /
+``PALLAS=1`` turns it on. The TPU's verdict behind that default does not carry over; the
+card's own evidence is each model's step with and without the kernel (``PERF.md``).
+
+ViT records its plain resolution itself when ``pallas``/``use_flash`` is False, with the JAX
+model's reason, and otherwise takes :func:`attention_fn`.
 """
 
 from __future__ import annotations
@@ -152,15 +155,21 @@ def resolve(knob: Optional[bool], fallback):
     return fallback if knob is None else knob
 
 
-def conv1x1_policy(model: str, pallas: Optional[bool], *, op: str = "conv1x1_bn_act") -> bool:
-    """Resolve and record the fused GEMM-epilogue policy for ``model``: ``pallas`` wins, and
-    auto (``None``) stays off."""
+def conv1x1_policy(
+    model: str,
+    pallas: Optional[bool],
+    *,
+    op: str = "conv1x1_bn_act",
+    auto_off_reason: str = "auto: off, the JAX package's default; opt in with pallas=True",
+) -> bool:
+    """Resolve and record the fused GEMM-epilogue policy for ``model`` (``op``:
+    ``"conv1x1_bn_act"`` for ResNet's 1x1s, ``"dense_gelu"`` for ConvNeXt's expand Dense +
+    GELU): ``pallas`` wins, and auto (``None``) stays off."""
     on = resolve(pallas, False)
     if on:
         record(model, op, "pallas", reason="pallas=True")
     else:
-        reason = "pallas=False" if pallas is False else "auto: off, the JAX package's default; opt in with pallas=True"
-        record(model, op, "plain", reason=reason)
+        record(model, op, "plain", reason="pallas=False" if pallas is False else auto_off_reason)
     return bool(on)
 
 

@@ -28,23 +28,21 @@ export TORCH_NCCL_TRACE_BUFFER_SIZE="${TORCH_NCCL_TRACE_BUFFER_SIZE:-104857600}"
 #                       to a non-finite loss within 2 epochs, as it does the JAX entry;
 #                       BASE_LR=0.005 trains.
 #   resnet50         -> ResNet-50 / ImageNet recipe (examples/train_imagenet.py)
+#   vit_b16          -> ViT-B/16 / ImageNet recipe (AdamW; flash attention kernels unless PALLAS=0)
+#   convnext_l       -> ConvNeXt-L / ImageNet-21k recipe (AdamW, ACCUM=4; PALLAS=1 fuses the
+#                       expand Dense + GELU into the 1x1 kernel)
+#   convnext_tiny    -> the convnext_l recipe on a small ConvNeXt
 #   lm               -> the causal-LM entry (examples/train_lm.py; LM_SIZE=tiny|small)
 MODEL="${MODEL:-vgg16}"
 case "$MODEL" in
   vgg16) ENTRY=train_cifar10 ;;
-  resnet50) ENTRY=train_imagenet ;;
+  resnet50|vit_b16|convnext_l|convnext_tiny) ENTRY=train_imagenet ;;
   lm) ENTRY=train_lm ;;
   digits)
     echo "run_torch.sh: MODEL=digits comes with the image-folder slice of the port (it needs sklearn)" >&2
     exit 2 ;;
-  vit_b16)
-    echo "run_torch.sh: MODEL=vit_b16 comes with the ViT slice of the port" >&2
-    exit 2 ;;
-  convnext_l)
-    echo "run_torch.sh: MODEL=convnext_l comes with the ConvNeXt slice of the port" >&2
-    exit 2 ;;
   *)
-    echo "run_torch.sh: unknown MODEL=$MODEL (vgg16, resnet50 or lm)" >&2
+    echo "run_torch.sh: unknown MODEL=$MODEL (vgg16, resnet50, vit_b16, convnext_l, convnext_tiny or lm)" >&2
     exit 2 ;;
 esac
 

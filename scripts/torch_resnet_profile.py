@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Where one ResNet-50 training step of the PyTorch/CUDA port spends its time on the card,
-with the fused 1x1 kernel (``PALLAS=1``) and with cuDNN's 1x1 convolutions (``PALLAS=0``).
+"""Where one training step of the PyTorch/CUDA port's ImageNet entry spends its time on the
+card, for each ``PALLAS`` setting of a model: ResNet-50 (the default) with the fused 1x1
+kernel (``PALLAS=1``) and with cuDNN's 1x1 convolutions (``PALLAS=0``); ViT-B/16 with the
+flash kernels (``PALLAS`` unset) and with ``dot_product_attention`` (``PALLAS=0``);
+ConvNeXt-L with K4's gelu epilogue (``PALLAS=1``) and with cuBLAS's Dense + GELU
+(``PALLAS=0``).
 
-    python3 scripts/torch_resnet_profile.py [--batch 256] [--steps 3]
+    python3 scripts/torch_resnet_profile.py [--model resnet50|vit_b16|convnext_l] [--batch 256] [--steps 3]
 
 Builds the port's ImageNet entry (``distributed_training_pytorch_tpu_torch/examples/
-train_imagenet.py``: ResNet-50, 224x224, 1000 classes, bf16 compute, f32 params, SGD
-momentum, uint8 images normalised on the card) twice from the same weights, one for each
-setting, and for each, on two batches already on the card, takes 2 warm-up steps through
-the trainer's ``train_step`` hook, then:
+train_imagenet.py``: the model's recipe, 224x224, bf16 compute, f32 params, uint8 images
+normalised on the card; ConvNeXt-L in the recipe's 4 micro-batches a step) once for each
+setting from the same weights, and for each, on two batches already on the card, takes 2
+warm-up steps through the trainer's ``train_step`` hook, then:
 
 * ``step_ms``: the median of 5 steps, with CUDA events;
 * ``--steps`` steps under ``torch.profiler``: device time per step summed over the
   kernels of each family (``conv1x1_bn_act``: the port's forward kernel, either variant;
-  ``conv1x1_bwd_dz``: its backward's one-pass dz; ``convolution``: cuDNN's
-  forward, data-gradient and weight-gradient kernels; ``matmul``: cuBLAS/CUTLASS GEMMs,
-  the kernel's backward products and the head; ``batchnorm``; ``pooling``;
-  ``elementwise``: casts, ReLU, residual adds and the like; ``reduce``; ``optimizer``:
-  SGD's multi-tensor kernels; ``other``), the top kernels, the top kernels of the
+  ``conv1x1_bwd_dz``: its backward's one-pass dz; ``flash_attention``: K1–K3;
+  ``convolution``: cuDNN's forward, data-gradient and weight-gradient kernels (the
+  depthwise ones too); ``matmul``: cuBLAS/CUTLASS GEMMs, the kernel's backward products
+  and the head; ``batchnorm``; ``layernorm``; ``softmax``; ``pooling``; ``elementwise``:
+  casts, activations, residual adds and the like; ``reduce``; ``optimizer``: SGD's or
+  AdamW's multi-tensor kernels; ``other``), the top kernels, the top kernels of the
   elementwise family alone, the operators and kernels with the most device time of their
   own (with their calls a step), and the device's busy share of the profiled wall time.
 
@@ -40,6 +45,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# The PALLAS settings profiled for each model, the kernel path first ("": unset, auto).
+KNOBS = {"resnet50": ("1", "0"), "vit_b16": ("", "0"), "convnext_l": ("1", "0")}
+
 
 def _group(name: str) -> str:
     low = name.lower()
@@ -47,15 +55,21 @@ def _group(name: str) -> str:
         return "conv1x1_bn_act"
     if "conv1x1_bwd_dz" in low:
         return "conv1x1_bwd_dz"
+    if "flash_" in low:
+        return "flash_attention"
     if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "implicit")):
         return "convolution"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
         return "matmul"
     if "batch_norm" in low or "batchnorm" in low or "bn_" in low:
         return "batchnorm"
+    if "layer_norm" in low or "layernorm" in low:
+        return "layernorm"
+    if "softmax" in low:
+        return "softmax"
     if "pool" in low:
         return "pooling"
-    if "multi_tensor" in low or "sgd" in low:
+    if "multi_tensor" in low or "sgd" in low or "adam" in low:
         return "optimizer"
     if "reduce" in low:
         return "reduce"
@@ -127,6 +141,7 @@ def _profile(trainer, batches, steps: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(KNOBS), default="resnet50")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -145,11 +160,11 @@ def main() -> int:
     build = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
     os.makedirs(build, exist_ok=True)
     weights = None
-    for knob in ("1", "0"):
+    for knob in KNOBS[args.model]:
         with tempfile.TemporaryDirectory(dir=build) as run_dir:
-            os.environ.update(MODEL="resnet50", IMAGE_SIZE="224", BATCH=str(args.batch), EPOCHS="1", PALLAS=knob,
+            os.environ.update(MODEL=args.model, IMAGE_SIZE="224", BATCH=str(args.batch), EPOCHS="1", PALLAS=knob,
                               SHIP_UINT8="1", SAVE_DIR=run_dir)
-            for k in ("DTYPE", "STEPS_PER_EPOCH", "SNAPSHOT"):
+            for k in ("DTYPE", "STEPS_PER_EPOCH", "SNAPSHOT", "ACCUM", "NUM_CLASSES"):
                 os.environ.pop(k, None)
             trainer = train_imagenet.build_trainer(
                 "cuda", synthetic_records=2 * args.batch, synthetic_val_records=args.batch
@@ -161,7 +176,7 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             result = _profile(trainer, batches, args.steps)
             result.update(
-                card=card, pallas=knob, batch=args.batch,
+                card=card, model=args.model, pallas=knob or "unset", batch=args.batch,
                 images_per_s=args.batch / result["step_ms_p50"] * 1e3,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
             )

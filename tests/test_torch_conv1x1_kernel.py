@@ -245,3 +245,44 @@ def test_weight_gradient_is_f32_sums_rounded_once(cuda_device):
     ref = (g.T.float() @ x.float()).to(torch.bfloat16)  # dz = g * 1: f32 sums, rounded once
     differ = (w.grad != ref).float().mean().item()
     assert differ <= 0.05, f"{differ:.2%} of dw's elements differ from the f32 sums rounded once"
+
+
+# ConvNeXt-L's four expand Dense + GELU shapes (Cin -> 4 Cin), bf16, scale 1 and an f32
+# bias, with row counts off the tiles (a micro-batch of 64 gives 200,704, 50,176, 12,544
+# and 3,136 rows): stages 1-2 on the wgmma variant, 3-4 (Cin above WGMMA_MAX_CIN) on the
+# CUDA cores.
+CONVNEXT_CASES = [(6275, 192, "wgmma"), (3137, 384, "wgmma"), (1569, 768, "cuda_cores"), (997, 1536, "cuda_cores")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cin,variant", CONVNEXT_CASES)
+def test_convnext_expand_shapes_match_plain(cuda_device, rows, cin, variant):
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    x, w, _, bias = _inputs(gen, rows, cin, 4 * cin, torch.bfloat16, cuda_device)
+    ones = torch.ones(4 * cin, device=cuda_device)
+    assert k4.conv1x1_variant(x, 4 * cin) == variant
+    before = k4.launches_by_variant[("conv1x1_bn_act", variant)]
+    y = k4.conv1x1_bn_act(x, w, ones, bias, act="gelu")
+    torch.cuda.synchronize()
+    assert k4.launches_by_variant[("conv1x1_bn_act", variant)] == before + 1
+    _close(y, k4.conv1x1_bn_act_plain(x, w, ones, bias, act="gelu"), torch.bfloat16, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [192, 768])
+def test_autograd_on_the_convnext_route_matches_plain(cuda_device, cin):
+    """PallasDenseAct's route (gelu, ``affine_grads=True``, a constant unit scale) on both
+    forward variants: the kernel forward and the plain-op backward against autograd through
+    the plain version; bf16 gradients within 2e-2 of their largest magnitude."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x, w, _, bias = _inputs(gen, 997, cin, 4 * cin, torch.bfloat16, cuda_device)
+    ones = torch.ones(4 * cin, device=cuda_device)
+    g = torch.randn(997, 4 * cin, device=cuda_device, generator=gen).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+    dz_before = k4.launches["conv1x1_bwd_dz"]
+    k4.conv1x1_bn_act_diff(leaves[0], leaves[1], ones, leaves[2], act="gelu", affine_grads=True).backward(g)
+    assert k4.launches["conv1x1_bwd_dz"] == dz_before  # gelu's backward keeps the plain ops
+    refs = [t.clone().requires_grad_() for t in (x, w, bias)]
+    k4.conv1x1_bn_act_plain(refs[0], refs[1], ones, refs[2], act="gelu").backward(g)
+    for got, ref in zip(leaves, refs, strict=True):
+        _close(got.grad, ref.grad, torch.bfloat16, None)

@@ -40,6 +40,9 @@ CASES = [
     (2, 1000, 1000, 2, 128, True, None, torch.bfloat16),
     (2, 197, 197, 2, 128, False, 100, torch.bfloat16),
     (3, 40, 40, 2, 64, True, None, torch.bfloat16),  # T below one 64-row TMA box
+    # ViT-B/16: T=197 (3 tiles and a 5-row tail), and 197 valid of 256 (pad_seq_to=256)
+    (16, 197, 197, 12, 64, False, None, torch.bfloat16),
+    (16, 256, 256, 12, 64, False, 197, torch.bfloat16),
 ]
 
 

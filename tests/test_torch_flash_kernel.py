@@ -47,6 +47,9 @@ CASES = [
     (1, 17, 50, 1, 128, False, None, torch.bfloat16),
     (8, 1024, 1024, 12, 64, True, None, torch.bfloat16),
     (64, 1024, 1024, 12, 64, True, None, torch.bfloat16),
+    # ViT-B/16: T=197 (3 tiles and a 5-row tail), and 197 valid of 256 (pad_seq_to=256)
+    (16, 197, 197, 12, 64, False, None, torch.bfloat16),
+    (16, 256, 256, 12, 64, False, 197, torch.bfloat16),
 ]
 
 
@@ -116,3 +119,19 @@ def test_fwd_variant_counter_shows_the_path_taken(cuda_device, dtype, variant):
     assert fa.launches == {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}
     assert fa.launches_by_variant[("fwd", variant)] == 1
     assert fa.launches_by_variant[("fwd", other)] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid_len", [(197, None), (256, 197)])
+def test_wgmma_fwd_reads_vit_qkv_views_in_place(cuda_device, t, valid_len):
+    """ViT-B/16's attention as the model makes it: q, k, v views of a fused [B, T, 3, 12, 64]
+    projection, non-causal, read in place by TMA."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    qkv = torch.randn(4, t, 3, 12, 64, device=cuda_device, generator=gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert all(fa.tma_operand(x) is x for x in (q, k, v))
+    before = fa.launches_by_variant[("fwd", "wgmma")]
+    o, lse = fa.flash_attention_fwd(q, k, v, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant[("fwd", "wgmma")] == before + 1
+    _close(o, lse, *fa.flash_attention_plain(q, k, v, valid_len=valid_len))

@@ -185,9 +185,8 @@ def test_resnet50_param_count_and_factory():
     assert isinstance(create_model("resnet18_slim", num_classes=5, device="cpu"), type(model))
     vgg = create_model("vgg16", num_classes=5, device="cpu", stage_features=(4, 4, 4, 4, 4), classifier_widths=(8, 8))
     assert type(vgg).__name__ == "VGG16"  # ported since the VGG16 slice
-    for name in ("vit_b16", "convnext_l"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            create_model(name, num_classes=5, device="cpu")
+    for name, cls in (("vit_b16", "ViT"), ("convnext_l", "ConvNeXt")):  # ported since the ViT/ConvNeXt slice
+        assert type(create_model(name, num_classes=5, device="meta")).__name__ == cls
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])
