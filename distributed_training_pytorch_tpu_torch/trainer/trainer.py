@@ -316,11 +316,24 @@ class Trainer:
 
     def validate(self) -> dict:
         """Validation over the val loader: the mean of each metric over the real rows,
-        each batch weighted by its global real-row count."""
+        each batch weighted by its global real-row count. A padded batch (fewer real rows
+        than the global batch) warns once unless the trainer declares
+        ``criterion_uses_mask = True``: metrics that ignore ``batch["mask"]`` count the
+        padded rows (the JAX Trainer's warning, ``trainer.py:2396-2410``)."""
         sums: "dict[str, Any]" = {}
         weight_total = 0.0
+        mask_contract_checked = False
         for b, batch in enumerate(self.device_batches(self.val_dataloader)):
             weight = float(self.val_dataloader.global_real_count(b))
+            if not mask_contract_checked and "mask" in batch and weight < self.batch_size:
+                mask_contract_checked = True
+                if getattr(self, "criterion_uses_mask", None) is not True:
+                    self.log(
+                        "this validation batch is padded (batch['mask']): metrics must down-weight padded "
+                        "rows (ops.metrics' weights=) or they are diluted. Set self.criterion_uses_mask = True "
+                        "once your build_criterion handles the mask to silence this.",
+                        "warning",
+                    )
             metrics = self.validate_step(self.state, batch)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.float() * weight
