@@ -2412,6 +2412,275 @@ def phase_convnext(run_dir: str):
     return launched, figures
 
 
+FOLDER_LABELS = ["cat", "dog", "snake"]
+FOLDER_COUNTS = {"train": 32, "val": 8, "test": 8}  # per label: 6 train steps an epoch at batch 16
+FOLDER_BATCH = 16
+FOLDER_SIZE = 224
+FOLDER_EPOCHS = 2  # then one resumed epoch
+FOLDER_SHAPES = [(180, 240), (256, 256), (333, 200)]  # (height, width): the resize does work
+# VGG16 at 224x224: 15.47 G multiply-adds per image forward, three times that for forward
+# and backward.
+FOLDER_FLOP_PER_IMAGE = 3 * 2 * 15.47e9
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def png_bytes(raw_rows, color: int, palette: "bytes | None" = None) -> bytes:
+    """An 8-bit PNG of the unfiltered scanlines ``raw_rows`` ([H, W * channels] uint8), row
+    ``y`` filtered with type ``y % 5``, so every filter type 0-4 occurs; written with the
+    standard library's ``zlib``."""
+    import struct
+    import zlib
+
+    h, n = raw_rows.shape
+    bpp = {0: 1, 2: 3, 3: 1, 6: 4}[color]
+    x = raw_rows.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, bpp:], b[1:], c[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) // 2, paeth])
+    f = np.arange(h) % 5
+    enc = ((x - preds[f, np.arange(h)]) % 256).astype(np.uint8)
+    stream = np.concatenate([f[:, None].astype(np.uint8), enc], 1).tobytes()
+    header = struct.pack(">IIBBBBB", n // bpp, h, 8, color, 0, 0, 0)
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+    if palette is not None:
+        out += _png_chunk(b"PLTE", palette)
+    return out + _png_chunk(b"IDAT", zlib.compress(stream, 6)) + _png_chunk(b"IEND", b"")
+
+
+def bmp_bytes(rgb) -> bytes:
+    """A 24-bit bottom-up BMP of an RGB image."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 3) // 4 * 4
+    pixels = np.zeros((h, stride), np.uint8)
+    pixels[:, : w * 3] = rgb[::-1, :, ::-1].reshape(h, w * 3)
+    header = struct.pack("<2sIHHI", b"BM", 54 + pixels.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, pixels.size, 2835, 2835, 0, 0)
+    return header + info + pixels.tobytes()
+
+
+def image_file(rgb, kind: str) -> bytes:
+    """``rgb`` as a file of ``kind``: ``png0`` (gray), ``png2`` (RGB), ``png3`` (a 3-3-2
+    palette), ``png6`` (RGBA) or ``bmp`` (24-bit)."""
+    h, w, _ = rgb.shape
+    if kind == "bmp":
+        return bmp_bytes(rgb)
+    if kind == "png0":
+        return png_bytes(rgb.mean(axis=2).astype(np.uint8), 0)
+    if kind == "png2":
+        return png_bytes(rgb.reshape(h, w * 3), 2)
+    if kind == "png3":
+        index = (rgb[..., 0] >> 5 << 5) | (rgb[..., 1] >> 5 << 2) | (rgb[..., 2] >> 6)
+        levels = np.arange(256)
+        palette = np.stack([(levels >> 5) * 36, ((levels >> 2) & 7) * 36, (levels & 3) * 85], 1).astype(np.uint8)
+        return png_bytes(index.astype(np.uint8), 3, palette.tobytes())
+    alpha = np.full((h, w, 1), 200, np.uint8)
+    return png_bytes(np.concatenate([rgb, alpha], 2).reshape(h, w * 4), 6)
+
+
+FOLDER_KINDS = ["png2", "png0", "png3", "png6", "bmp"]
+
+
+def write_folder_tree(root: str, seed: int = 0) -> dict:
+    """``train``/``val``/``test`` x ``FOLDER_LABELS``: class-coloured images with a smooth
+    pattern and noise, in every file kind of ``FOLDER_KINDS`` and every shape of
+    ``FOLDER_SHAPES``; returns the count of files by kind."""
+    rng = np.random.default_rng(seed)
+    kinds = dict.fromkeys(FOLDER_KINDS, 0)
+    for split, n in FOLDER_COUNTS.items():
+        for li, label in enumerate(FOLDER_LABELS):
+            os.makedirs(os.path.join(root, split, label))
+            for i in range(n):
+                h, w = FOLDER_SHAPES[i % len(FOLDER_SHAPES)]
+                yy, xx = np.mgrid[0:h, 0:w]
+                base = np.array([70 + 60 * li, 190 - 60 * li, 100 + 30 * li], np.float32)
+                wave = 30 * np.sin(xx / (9 + 4 * li) + yy / 13)[..., None]
+                img = np.clip(base + wave + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+                kind = FOLDER_KINDS[(i + li) % len(FOLDER_KINDS)]
+                kinds[kind] += 1
+                with open(os.path.join(root, split, label, f"{i:03d}.{kind[:3]}"), "wb") as f:
+                    f.write(image_file(img, kind))
+    return kinds
+
+
+def _host_ms(fn, reps: int = 20) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def folder_host_times(root: str) -> dict:
+    """Host ms per 224x224 image of each of the ten train transforms (each made to fire,
+    at its largest kernel, on one thread of the calling process) and of the decoders (a
+    file of each kind, 256x200)."""
+    from distributed_training_pytorch_tpu_torch.data import dataset
+    from distributed_training_pytorch_tpu_torch.data import transforms as T
+
+    rng = np.random.default_rng(1)
+    src = np.clip(rng.normal(128, 40, (333, 200, 3)), 0, 255).astype(np.uint8)
+    img = T.resize(FOLDER_SIZE, FOLDER_SIZE)(src, None)
+    gen = np.random.default_rng(2)
+    made = {
+        "resize": lambda: T.resize(FOLDER_SIZE, FOLDER_SIZE)(src, gen),
+        "random_rotate90": lambda: np.ascontiguousarray(T.random_rotate90(1.0)(img, gen)),
+        "horizontal_flip": lambda: np.ascontiguousarray(T.horizontal_flip(1.0)(img, gen)),
+        "vertical_flip": lambda: np.ascontiguousarray(T.vertical_flip(1.0)(img, gen)),
+        "blur": lambda: T.blur(1.0, max_kernel=7)(img, gen),
+        "median_blur": lambda: T.median_blur(1.0, max_kernel=5)(img, gen),
+        "clahe": lambda: T.clahe(1.0)(img, gen),
+        "random_brightness_contrast": lambda: T.random_brightness_contrast(1.0)(img, gen),
+        "random_gamma": lambda: T.random_gamma(1.0)(img, gen),
+        "image_compression": lambda: T.image_compression(1.0)(img, gen),
+        "normalize": lambda: T.normalize()(img, gen),
+    }
+    times = {name: _host_ms(fn) for name, fn in made.items()}
+    decoders = {}
+    for kind in FOLDER_KINDS:
+        path = os.path.join(root, f"decode.{kind}")
+        with open(path, "wb") as f:
+            f.write(image_file(np.ascontiguousarray(src[:256]), kind))
+        decoders[kind] = _host_ms(lambda path=path: dataset.decode_image(path))
+    return {"transforms": times, "decoders": decoders}
+
+
+def phase_folder(run_dir: str):
+    """The image-folder entry (``examples/example_trainer.py``'s ``ExampleTrainer``, the
+    configuration of ``examples/main.py`` but for the epochs and the save period) at
+    224x224, full-width VGG16 (3 classes, f32), global batch 16 on the card, over a tree of
+    PNG (color types 0, 2, 3, 6, every filter type) and 24-bit BMP files of three shapes,
+    through the ten-step train chain on 8 loader workers: 2 epochs, then a resume from
+    ``last`` for a third whose train epoch is profiled; then ``eval.evaluate`` on ``last``
+    and the test folder. Raises unless every loss is finite, the JPEG re-encoding, CLAHE,
+    blur and median blur each fired, no hand kernel launched, the resume continued the step
+    and epoch, and top-1 and top-2 lie in [0, 1]."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.data import native
+    from distributed_training_pytorch_tpu_torch.data import transforms as T
+    from distributed_training_pytorch_tpu_torch.examples import eval as folder_eval
+    from distributed_training_pytorch_tpu_torch.examples import main as folder_main
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    if not native.available():
+        raise RuntimeError(f"the native data runtime did not build: {native.build_error()}")
+    log(f"[folder] native data runtime built (codecs: {native.codecs_available()}) at {native.LIBRARY}")
+    torch.cuda.empty_cache()
+    data_root = os.path.join(run_dir, "data")
+    t_tree = time.perf_counter()
+    kinds = write_folder_tree(data_root)
+    log(f"[folder] wrote the tree in {time.perf_counter() - t_tree:.1f} s: {FOLDER_COUNTS} files a label, by kind "
+        f"{kinds}, shapes {FOLDER_SHAPES}")
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+    fired_before = dict(T.FIRED)
+    fa_before, k4_before = dict(fa.launches), dict(k4.launches)
+
+    def build(max_epoch, snapshot):
+        trainer = folder_main.build_trainer(
+            "cuda", train_path=os.path.join(data_root, "train"), val_path=os.path.join(data_root, "val"),
+            max_epoch=max_epoch, save_period=1, save_folder=run_dir, snapshot_path=snapshot)
+        return _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics)
+
+    first = build(FOLDER_EPOCHS, None)
+    n_params = sum(p.numel() for p in first.model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first.train()
+    first_steps, first_epoch = first.state.step, first.cur_epoch
+    steps_per_epoch = len(first.train_dataloader)
+    del first
+    torch.cuda.empty_cache()
+    resumed = build(FOLDER_EPOCHS + 1, "last")
+    resumed_at = (resumed.state.step, resumed.cur_epoch)
+    train_epoch = resumed.train_epoch
+    profiled = {}
+
+    def profiled_train_epoch(epoch):
+        resumed.train_epoch = train_epoch
+        metrics, profiled["figures"] = _profiled_epoch(resumed, epoch)
+        return metrics
+
+    resumed.train_epoch = profiled_train_epoch
+    resumed.train()
+    final_step = resumed.state.step
+    wall = time.perf_counter() - t0
+    fa_after, k4_after = dict(fa.launches), dict(k4.launches)
+    fired = {k: T.FIRED[k] - fired_before.get(k, 0) for k in T.FIRED}
+    del resumed
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    t_eval = time.perf_counter()
+    scores = folder_eval.evaluate(os.path.join(run_dir, "weights", "last"), os.path.join(data_root, "test"),
+                                  FOLDER_LABELS, device="cuda")
+    eval_s = time.perf_counter() - t_eval
+    host = folder_host_times(run_dir)
+
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)  # epoch starts follow val/saves
+    median_ms = steady[len(steady) // 2]
+    host_issue = sorted(counts["host_ms"][i] for i in range(len(times)) if i % steps_per_epoch)
+    new = profiled["figures"]
+    log(f"[folder] VGG16 ({n_params:,} params, f32), {FOLDER_SIZE}x{FOLDER_SIZE}, global batch {FOLDER_BATCH}, "
+        f"{steps_per_epoch} steps/epoch; {counts['steps']} steps and {counts['evals']} validation forwards in "
+        f"{wall:.1f} s (decoding, the train chain, validation and saves included)")
+    for i, m in enumerate(epoch_metrics):
+        log(f"[folder] epoch {i}: train ce {m['ce_loss']:.4f} acc {m['accuracy']:.4f} lr {m['lr']:.4g}")
+    for i, vm in enumerate(val_metrics):
+        log(f"[folder] validation {i}: ce {vm['ce_loss']:.4f} acc {vm['accuracy']:.4f}")
+    log(f"[folder] transforms fired in the phase (the train chain, on 8 loader workers): {dict(sorted(fired.items()))}")
+    log(f"[folder] step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}, first "
+        f"{times[0]:.2f}); {_images_per_s(FOLDER_BATCH, median_ms):.0f} images/s; "
+        f"{FOLDER_FLOP_PER_IMAGE * FOLDER_BATCH / median_ms / 1e9:.1f} TFLOP/s; peak memory {peak_gb:.2f} GB; the host "
+        f"takes {host_issue[len(host_issue) // 2]:.2f} ms (median) to issue a step")
+    log(f"[folder] resumed train epoch ({steps_per_epoch} steps): wall {new['wall_ms']:.1f} ms, device busy time "
+        f"{new['busy_ms']:.1f} ms, busy share {_fmt_busy(new['busy'])}")
+    log(f"[folder] host ms per {FOLDER_SIZE}x{FOLDER_SIZE} image, one thread: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host["transforms"].items())
+        + "; decode a 256x200 file: " + ", ".join(f"{k} {v:.3f}" for k, v in host["decoders"].items()))
+    log(f"[folder] eval.evaluate on last, test folder ({FOLDER_COUNTS['test'] * len(FOLDER_LABELS)} images): top-1 "
+        f"{scores['top1']:.4f}, top-2 {scores['top2']:.4f} in {eval_s:.1f} s")
+
+    losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    missing = [k for k in ("image_compression", "clahe", "blur", "median_blur") if fired.get(k, 0) < 1]
+    if missing:
+        raise RuntimeError(f"transforms that never fired in the phase: {missing} (fired: {fired})")
+    if fa_after != fa_before or k4_after != k4_before:
+        raise RuntimeError(f"hand kernels launched in the folder phase: {fa_before} -> {fa_after}, {k4_before} -> {k4_after}")
+    if n_params != 134_272_835:
+        raise RuntimeError(f"expected VGG16's 134,272,835 params at 3 classes, got {n_params}")
+    if (first_steps, first_epoch) != (FOLDER_EPOCHS * steps_per_epoch, FOLDER_EPOCHS - 1):
+        raise RuntimeError(f"first run ended at step {first_steps}, epoch {first_epoch}")
+    if resumed_at != (FOLDER_EPOCHS * steps_per_epoch, FOLDER_EPOCHS) or final_step != (FOLDER_EPOCHS + 1) * steps_per_epoch:
+        raise RuntimeError(f"resume at (step, epoch) {resumed_at}, ended at step {final_step}")
+    manager = CheckpointManager(os.path.join(run_dir, "weights"))
+    meta = manager.read_meta("last")
+    if (meta["epoch"], meta["step"]) != (FOLDER_EPOCHS + 1, final_step):
+        raise RuntimeError(f"last checkpoint meta {meta}")
+    if not (0.0 <= scores["top1"] <= scores["top2"] <= 1.0):
+        raise RuntimeError(f"eval scores out of range: {scores}")
+    log(f"[folder] resumed at step {resumed_at[0]}, epoch {resumed_at[1]}; last = epoch {meta['epoch']}, step "
+        f"{meta['step']}; hand-kernel launches in the phase: 0")
+    return {"step_ms": median_ms, "images_per_s": _images_per_s(FOLDER_BATCH, median_ms), "peak_gb": peak_gb,
+            "new": new, "host": host, "fired": fired, "scores": scores}
+
+
 def phase_convnext_times(card: str):
     """K4 with the gelu epilogue at ConvNeXt-L's four expand shapes (micro-batch 64, bf16,
     a unit scale, an f32 bias): kernel, plain, bound, and ``F.linear`` then
@@ -2453,6 +2722,23 @@ def phase_convnext_times(card: str):
     return rows, total
 
 
+def run_only(names) -> int:
+    """Development runs: the device phase, then only the named run phases (``folder``,
+    ``vgg``), each in its own temporary directory; no kernels line and no final line."""
+    phases = {"folder": phase_folder, "vgg": phase_vgg}
+    try:
+        phase_device()
+        run_root = os.path.join(REPO, "build")
+        os.makedirs(run_root, exist_ok=True)
+        for name in names:
+            with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+                phases[name](run_dir)
+    except Exception:  # noqa: BLE001 — any failed phase fails the run
+        traceback.print_exc()
+        return 1
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2469,6 +2755,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (the port package is missing)",
               file=sys.stderr)
         return 2
+    if "--only" in sys.argv:
+        return run_only(sys.argv[sys.argv.index("--only") + 1].split(","))
     try:
         t_start = time.perf_counter()
         card = phase_device()
@@ -2495,6 +2783,8 @@ def main() -> int:
             vit_launches, vit = phase_vit(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             convnext_launches, convnext = phase_convnext(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            folder = phase_folder(run_dir)
         times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         convnext_times, convnext_total = phase_convnext_times(card)
@@ -2526,6 +2816,12 @@ def main() -> int:
                 f"{fig['images_per_s']:.0f} images/s, peak memory {fig['peak_gb']:.2f} GB; the phase's "
                 f"{fig['saves']} checkpoint saves {fig['save_s']:.1f} s of its {fig['wall_s']:.1f} s; on batches on the "
                 f"card, in turns: " + ", ".join(f"{k} {v:.2f} ms" for k, v in fig["turns"].items()))
+        log(f"[times] {card} | VGG16 training step (image folders, B={FOLDER_BATCH}, {FOLDER_SIZE}x{FOLDER_SIZE}, f32, "
+            f"the ten-step train chain on 8 loader workers, through ExampleTrainer): median {folder['step_ms']:.2f} ms, "
+            f"{folder['images_per_s']:.0f} images/s, peak memory {folder['peak_gb']:.2f} GB, device busy share of "
+            f"the resumed train epoch {_fmt_busy(folder['new']['busy'])} (wall {folder['new']['wall_ms']:.1f} ms); "
+            f"host ms per image: " + ", ".join(f"{k} {v:.3f}" for k, v in folder["host"]["transforms"].items())
+            + "; decoders: " + ", ".join(f"{k} {v:.3f}" for k, v in folder["host"]["decoders"].items()))
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -2546,7 +2842,8 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[launch_key], "train_ring": ring_launches[launch_key],
                                  "train_resnet50": 0, "train_vgg16": 0,
                                  "serve": serve_launches if kind == "fwd" else 0,
-                                 "train_vit_b16": vit_launches[launch_key], "train_convnext_l": 0},
+                                 "train_vit_b16": vit_launches[launch_key], "train_convnext_l": 0,
+                                 "train_folder": 0},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -2572,7 +2869,7 @@ def main() -> int:
             "launches": resnet_launches[name],
             "launches_by_path": {"train_resnet50": resnet_launches[name], "train": 0, "train_ring": 0,
                                  "train_vgg16": 0, "serve": 0, "train_vit_b16": 0,
-                                 "train_convnext_l": convnext_launches[name]},
+                                 "train_convnext_l": convnext_launches[name], "train_folder": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -2605,7 +2902,8 @@ def main() -> int:
             "replaces": f"distributed_training_pytorch_tpu/ops/pallas.py{replaces}",
             "launches": ring_launches[launch_key],
             "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0,
-                                 "train_vgg16": 0, "serve": 0, "train_vit_b16": 0, "train_convnext_l": 0},
+                                 "train_vgg16": 0, "serve": 0, "train_vit_b16": 0, "train_convnext_l": 0,
+                                 "train_folder": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

@@ -14,7 +14,13 @@ CheckpointManager``, on ``torch.save`` instead of Orbax:
   removed after the swap); leftovers of a crash are repaired when a manager opens the
   directory;
 * ``restore`` validates the manifest first, and ``restore_latest_valid`` walks the
-  committed checkpoints newest first and restores the first that validates.
+  committed checkpoints newest first and restores the first that validates;
+  ``restore(..., params_only=True)`` loads the model's weights and buffers only and keeps
+  the target's optimizer and step (offline evaluation, whose optimizer is not the run's);
+* ``meta.json`` records ``params_top_level``, the sorted first names of the saved weights:
+  ``["inner"]`` for a model wrapped in ``InputNormalizer``, as the JAX manager records its
+  param tree's top level (``checkpoint/manager.py:271``), so an evaluator can rebuild
+  the wrapper the run trained.
 
 Saves are synchronous; the JAX trainer's background saver (``resilience/
 async_saver.py``) comes with a later slice. Only rank 0 writes; with a process group,
@@ -33,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_pytorch_tpu_torch.parallel.mesh import process_count, process_index
+from distributed_training_pytorch_tpu_torch.train.state import unwrap
 
 __all__ = [
     "BEST",
@@ -158,7 +165,8 @@ class CheckpointManager:
         ``epoch`` (the caller's policy: ``epoch + 1`` for ``last``, ``epoch`` for ``best``)."""
         payload = state.state_dict()  # every rank takes part (a DDP module's state is local)
         if process_index() == 0:
-            meta = {"epoch": int(epoch), "step": int(payload["step"]), "best_value": self._best_value}
+            meta = {"epoch": int(epoch), "step": int(payload["step"]), "best_value": self._best_value,
+                    "params_top_level": sorted({k.split(".", 1)[0] for k in payload["params"]})}
             if metrics is not None:
                 meta["metrics"] = {k: float(v) for k, v in metrics.items()}
             self._staging_seq += 1
@@ -271,16 +279,23 @@ class CheckpointManager:
         with open(os.path.join(self._resolve(name_or_path), META_NAME), encoding="utf-8") as f:
             return json.load(f)
 
-    def restore(self, name_or_path: str, state, *, validate: bool = True) -> "tuple[Any, int]":
+    def restore(
+        self, name_or_path: str, state, *, params_only: bool = False, validate: bool = True
+    ) -> "tuple[Any, int]":
         """Load a checkpoint into ``state`` (its model and optimizer, in place) and return
-        ``(state, resume_epoch)``. The best value seen so far comes back with it."""
+        ``(state, resume_epoch)``. The best value seen so far comes back with it.
+        ``params_only=True`` loads the model's weights and buffers alone, keeping the
+        target's optimizer state and step."""
         path = self._resolve(name_or_path)
         if validate:
             self.validate(path)
         meta = self.read_meta(path)
         device = next(iter(state.params.values())).device
         payload = torch.load(os.path.join(path, STATE_NAME), map_location=device, weights_only=True)
-        state.load_state_dict(payload)
+        if params_only:
+            unwrap(state.model).load_state_dict(payload["params"])
+        else:
+            state.load_state_dict(payload)
         if meta.get("best_value") is not None:
             self._best_value = float(meta["best_value"])
         return state, int(meta.get("epoch", 0))

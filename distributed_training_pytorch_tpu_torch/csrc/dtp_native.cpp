@@ -16,6 +16,7 @@
 
 #include <algorithm>
 #include <cmath>
+#include <cstdlib>
 #include <atomic>
 #include <cstdint>
 #include <cstdio>
@@ -307,13 +308,12 @@ struct DecodeArgs {
   std::atomic<int64_t>* failed;
 };
 
-// img (h x w RGB, freed here) -> resized + normalized floats at out slot i.
-static void resize_normalize_into(uint8_t* img, int h, int w, int out_h,
+// img (h x w RGB) -> resized + normalized floats at out slot i.
+static void resize_normalize_into(const uint8_t* img, int h, int w, int out_h,
                                   int out_w, const float* mean,
                                   const float* stdv, float* out, int64_t i) {
   std::vector<uint8_t> resized((size_t)out_h * out_w * 3);
   bilinear_resize_u8(img, h, w, resized.data(), out_h, out_w);
-  free(img);
   float* dst = out + (size_t)i * out_h * out_w * 3;
   const size_t npx = (size_t)out_h * out_w;
   for (size_t px = 0; px < npx; ++px)
@@ -331,6 +331,7 @@ static void decode_one(int64_t i, void* p) {
     return;
   }
   resize_normalize_into(img, h, w, a->out_h, a->out_w, a->mean, a->stdv, a->out, i);
+  free(img);
 }
 
 int64_t dtp_decode_resize_normalize(const char* const* paths, int64_t n,
@@ -365,6 +366,7 @@ static void decode_bytes_one(int64_t i, void* p) {
     return;
   }
   resize_normalize_into(img, h, w, a->out_h, a->out_w, a->mean, a->stdv, a->out, i);
+  free(img);
 }
 
 int64_t dtp_decode_resize_normalize_bytes(
@@ -612,6 +614,545 @@ int64_t dtp_normalize(const uint8_t* in, int64_t n, int h, int w,
   return 0;
 }
 
-int dtp_version() { return 1; }
+// Resize + normalise one decoded uint8 RGB image (decoded by the caller: the folder
+// sources' PNG and BMP records), with the decode entries' resize and normalisation, so
+// such records come out as a decoded JPEG/PNG payload does.
+int64_t dtp_resize_normalize_u8(const uint8_t* in, int h, int w, int out_h, int out_w,
+                                const float* mean, const float* stdv, float* out) {
+  if (h <= 0 || w <= 0 || out_h <= 0 || out_w <= 0) return 1;
+  resize_normalize_into(in, h, w, out_h, out_w, mean, stdv, out, 0);
+  return 0;
+}
+
+// ------------------------------------------------- per-image codec-free ops
+// Five per-image entry points that need no library, so the card's machine (no OpenCV,
+// no libjpeg/libpng: built with -DDTP_NO_CODECS) has them too. uint8 HWC in, uint8 out;
+// each returns 0, or a nonzero code for arguments it does not take. Each reproduces the
+// integer (or float) arithmetic of the OpenCV / libjpeg-turbo call the JAX package makes,
+// so the results are bit-equal to it (tests/test_torch_folder_transforms.py).
+
+// OpenCV's borderInterpolate for BORDER_REFLECT_101 (gfedcb|abcdefgh|gfedcba).
+static int reflect101(int p, int len) {
+  if (len == 1) return 0;
+  while (p < 0 || p >= len) p = p < 0 ? -p : 2 * len - 2 - p;
+  return p;
+}
+
+// PNG: reverse the scanline filters of a non-interlaced IDAT stream (already inflated,
+// h rows of one filter byte and ceil(w * channels * depth / 8) bytes) and convert to RGB
+// as cv2.imread(path, IMREAD_COLOR)[..., ::-1] does: gray and gray+alpha replicated
+// (1/2/4-bit gray scaled to 0..255), palette expanded (an index past the palette is black,
+// as libpng's zero-filled palette gives), alpha dropped, 16-bit samples' high byte kept.
+// Returns 0, 1 for an unsupported type/depth, 2 for a short stream, 3 for a bad filter.
+static int png_channels(int color) {
+  switch (color) {
+    case 0: return 1;
+    case 2: return 3;
+    case 3: return 1;
+    case 4: return 2;
+    case 6: return 4;
+    default: return 0;
+  }
+}
+
+static inline int paeth(int a, int b, int c) {
+  int p = a + b - c;
+  int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+  if (pa <= pb && pa <= pc) return a;
+  return pb <= pc ? b : c;
+}
+
+int64_t dtp_png_unfilter(const uint8_t* raw, int64_t raw_len, int height, int width,
+                         int depth, int color, const uint8_t* palette, int palette_entries,
+                         uint8_t* out) {
+  const int ch = png_channels(color);
+  bool ok_depth = (depth == 8) || (depth == 16 && color != 3) ||
+                  ((depth == 1 || depth == 2 || depth == 4) && (color == 0 || color == 3));
+  if (!ch || !ok_depth || height <= 0 || width <= 0) return 1;
+  const int64_t rowbytes = ((int64_t)width * ch * depth + 7) / 8;
+  if (raw_len < (int64_t)height * (rowbytes + 1)) return 2;
+  const int bpp = std::max(1, ch * depth / 8);
+  std::vector<uint8_t> prev((size_t)rowbytes, 0), cur((size_t)rowbytes);
+  uint8_t pal[256 * 3] = {0};
+  if (color == 3) std::memcpy(pal, palette, (size_t)std::min(palette_entries, 256) * 3);
+  const int gray_scale = depth < 8 ? 255 / ((1 << depth) - 1) : 1;
+  for (int y = 0; y < height; ++y) {
+    const uint8_t* src = raw + (int64_t)y * (rowbytes + 1);
+    const int f = src[0];
+    ++src;
+    for (int64_t i = 0; i < rowbytes; ++i) {
+      const int a = i >= bpp ? cur[i - bpp] : 0, b = prev[i], c = i >= bpp ? prev[i - bpp] : 0;
+      int v;
+      switch (f) {
+        case 0: v = src[i]; break;
+        case 1: v = src[i] + a; break;
+        case 2: v = src[i] + b; break;
+        case 3: v = src[i] + ((a + b) >> 1); break;
+        case 4: v = src[i] + paeth(a, b, c); break;
+        default: return 3;
+      }
+      cur[i] = (uint8_t)v;
+    }
+    uint8_t* dst = out + (int64_t)y * width * 3;
+    for (int x = 0; x < width; ++x) {
+      int s[4];
+      for (int k = 0; k < ch; ++k) {
+        const int64_t idx = (int64_t)x * ch + k;
+        if (depth == 16) {
+          s[k] = cur[idx * 2];
+        } else if (depth == 8) {
+          s[k] = cur[idx];
+        } else {
+          const int64_t bit = idx * depth;
+          s[k] = (cur[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
+        }
+      }
+      if (color == 3) {
+        std::memcpy(dst + x * 3, pal + s[0] * 3, 3);
+      } else if (ch <= 2) {
+        const uint8_t g = (uint8_t)(s[0] * gray_scale);
+        dst[x * 3] = dst[x * 3 + 1] = dst[x * 3 + 2] = g;
+      } else {
+        dst[x * 3] = (uint8_t)s[0];
+        dst[x * 3 + 1] = (uint8_t)s[1];
+        dst[x * 3 + 2] = (uint8_t)s[2];
+      }
+    }
+    std::swap(prev, cur);
+  }
+  return 0;
+}
+
+// cv2.blur(img, (k, k)): BORDER_REFLECT_101, integer window sums, and sum / k^2 rounded
+// to nearest (k^2 is odd, so there are no ties). Odd k >= 1.
+int64_t dtp_box_blur_u8(const uint8_t* in, int height, int width, int channels, int k,
+                        uint8_t* out) {
+  if (k < 1 || !(k & 1) || height <= 0 || width <= 0 || channels <= 0) return 1;
+  const int r = k / 2, d = k * k;
+  std::vector<int> xmap((size_t)width + 2 * r), rows((size_t)height * width * channels);
+  for (int i = -r; i < width + r; ++i) xmap[i + r] = reflect101(i, width);
+  for (int y = 0; y < height; ++y)
+    for (int x = 0; x < width; ++x)
+      for (int c = 0; c < channels; ++c) {
+        int s = 0;
+        for (int j = 0; j < k; ++j) s += in[((size_t)y * width + xmap[x + j]) * channels + c];
+        rows[((size_t)y * width + x) * channels + c] = s;
+      }
+  for (int y = 0; y < height; ++y)
+    for (int x = 0; x < width; ++x)
+      for (int c = 0; c < channels; ++c) {
+        int s = 0;
+        for (int j = -r; j <= r; ++j)
+          s += rows[((size_t)reflect101(y + j, height) * width + x) * channels + c];
+        out[((size_t)y * width + x) * channels + c] = (uint8_t)((2 * s + d) / (2 * d));
+      }
+  return 0;
+}
+
+// cv2.medianBlur(img, k): the median of each channel over the k x k window,
+// BORDER_REPLICATE. k in {3, 5} (OpenCV's 8-bit sorting-network sizes). A 256-bin
+// histogram slides along each row (Huang's method): a step moves one column out and one
+// in, and the median moves from the last one.
+int64_t dtp_median_blur_u8(const uint8_t* in, int height, int width, int channels, int k,
+                           uint8_t* out) {
+  if ((k != 3 && k != 5) || height <= 0 || width <= 0 || channels <= 0) return 1;
+  const int r = k / 2, half = k * k / 2;
+  auto at = [&](int y, int x, int c) {
+    return in[((size_t)y * width + std::min(std::max(x, 0), width - 1)) * channels + c];
+  };
+  for (int y = 0; y < height; ++y) {
+    int rows[5];
+    for (int j = 0; j < k; ++j) rows[j] = std::min(std::max(y + j - r, 0), height - 1);
+    for (int c = 0; c < channels; ++c) {
+      int hist[256] = {0};
+      for (int j = 0; j < k; ++j)
+        for (int dx = -r; dx <= r; ++dx) ++hist[at(rows[j], dx, c)];
+      int med = 0, below = 0;  // below: how many window values are < med
+      for (int x = 0; x < width; ++x) {
+        if (x > 0)
+          for (int j = 0; j < k; ++j) {
+            const int gone = at(rows[j], x - r - 1, c), come = at(rows[j], x + r, c);
+            --hist[gone];
+            below -= gone < med;
+            ++hist[come];
+            below += come < med;
+          }
+        while (below > half) below -= hist[--med];
+        while (below + hist[med] <= half) below += hist[med++];
+        out[((size_t)y * width + x) * channels + c] = (uint8_t)med;
+      }
+    }
+  }
+  return 0;
+}
+
+// ---- CLAHE over LAB: cv2.cvtColor(RGB2LAB) -> createCLAHE(clip, (t, t)).apply(L) ->
+// cvtColor(LAB2RGB), with OpenCV's 8-bit fixed-point colour conversions (its tables, built
+// as OpenCV builds them in float/double) and its CLAHE (clip, redistribution, float LUT
+// and bilinear interpolation between tile centres).
+struct LabTables {
+  uint16_t gamma[256];     // sRGB -> linear, x 255 * 8
+  uint16_t cbrt[3072];     // f(t) of CIE LAB, x 2^15
+  uint16_t inv_gamma[4096];  // linear -> sRGB, 0..255
+  int y_of_l[256], fy_of_l[256];
+  int c_fwd[9], c_inv[9];
+  LabTables() {
+    const float lthresh = 216.f / 24389.f, lscale = 841.f / 108.f, lbias = 16.f / 116.f;
+    const float cb_scale = 1.f / 2040.f, third = 1.f / 3.f;
+    for (int i = 0; i < 3072; ++i) {
+      const float x = cb_scale * (float)i;
+      const float f = x < lthresh ? std::fma(x, lscale, lbias)
+                                  : (float)std::pow((double)x, (double)third);
+      cbrt[i] = (uint16_t)std::lrint(32768.f * f);
+    }
+    for (int i = 0; i < 256; ++i) {
+      const double x = (double)((float)i / 255.f);
+      const double g = x <= 809.0 / 20000.0 ? x / (323.0 / 25.0)
+                                            : std::pow((x + 11.0 / 200.0) / (1.0 + 11.0 / 200.0), 12.0 / 5.0);
+      gamma[i] = (uint16_t)std::lrint(2040.f * (float)g);
+    }
+    for (int i = 0; i < 4096; ++i) {
+      const double x = (double)((1.f / 4096.f) * (float)i);
+      const double g = x <= 7827.0 / 2500000.0 ? x * (323.0 / 25.0)
+                                               : std::pow(x, 1.0 / (12.0 / 5.0)) * (1.0 + 11.0 / 200.0) - 11.0 / 200.0;
+      inv_gamma[i] = (uint16_t)std::lrint(255.f * (float)g);
+    }
+    const int base = 1 << 14;
+    for (int i = 0; i < 256; ++i) {
+      if (i <= 20) {
+        y_of_l[i] = (int)std::lrint((float)(i * base * 20 * 9) / (float)(17 * 29 * 29 * 29));
+        fy_of_l[i] = (int)std::lrint((float)base * (16.f / 116.f + (float)(i * 5) / (float)(3 * 17 * 29)));
+      } else {
+        const float fy = (float)(i * 100 * base) / (float)(255 * 116) + (float)(16 * base) / 116.f;
+        fy_of_l[i] = (int)std::lrint(fy);
+        y_of_l[i] = (int)std::lrint(fy * fy * fy / (float)(base * base));
+      }
+    }
+    static const double rgb2xyz[9] = {0.412453, 0.357580, 0.180423, 0.212671, 0.715160,
+                                      0.072169, 0.019334, 0.119193, 0.950227};
+    static const double xyz2rgb[9] = {3.240479, -1.53715, -0.498535, -0.969256, 1.875991,
+                                      0.041556, 0.055648, -0.204043, 1.057311};
+    static const double d65[3] = {0.950456, 1.0, 1.088754};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        c_fwd[i * 3 + j] = (int)std::lrint(4096.0 * rgb2xyz[i * 3 + j] / d65[i]);
+        c_inv[i * 3 + j] = (int)std::lrint(4096.0 * xyz2rgb[i * 3 + j] * d65[j]);
+      }
+  }
+  // OpenCV's abToXZ_b: f^-1 of an a/b-shifted f(Y), on the 2^14 scale.
+  static int ab_to_xz(int i) {
+    const int base = 1 << 14;
+    return i <= 3390 ? i * 108 / 841 - base * 16 / 116 * 108 / 841 : i * i / base * i / base;
+  }
+};
+
+static const LabTables& lab_tables() {
+  static const LabTables t;  // built once, thread-safe (C++11 static init)
+  return t;
+}
+
+static inline int descale(int64_t x, int n) { return (int)((x + ((int64_t)1 << (n - 1))) >> n); }
+static inline uint8_t sat_u8(int v) { return (uint8_t)std::min(std::max(v, 0), 255); }
+
+int64_t dtp_clahe_u8(const uint8_t* in, int height, int width, double clip_limit, int tiles,
+                     uint8_t* out) {
+  if (height <= 0 || width <= 0 || tiles <= 0) return 1;
+  const LabTables& T = lab_tables();
+  const size_t npx = (size_t)height * width;
+  std::vector<uint8_t> L(npx), A(npx), B(npx);
+  const int* C = T.c_fwd;
+  for (size_t p = 0; p < npx; ++p) {
+    const int r = T.gamma[in[p * 3]], g = T.gamma[in[p * 3 + 1]], b = T.gamma[in[p * 3 + 2]];
+    const int fx = T.cbrt[descale(r * C[0] + g * C[1] + b * C[2], 12)];
+    const int fy = T.cbrt[descale(r * C[3] + g * C[4] + b * C[5], 12)];
+    const int fz = T.cbrt[descale(r * C[6] + g * C[7] + b * C[8], 12)];
+    L[p] = sat_u8(descale((int64_t)296 * fy - 1336934, 15));
+    A[p] = sat_u8(descale((int64_t)500 * (fx - fy) + (128 << 15), 15));
+    B[p] = sat_u8(descale((int64_t)200 * (fy - fz) + (128 << 15), 15));
+  }
+  // CLAHE on L. A size the tiles do not divide is padded (bottom/right) with
+  // BORDER_REFLECT_101 by tiles - size % tiles rows and columns, as OpenCV pads it (a full
+  // extra tile's worth on the side that did divide).
+  const bool divides = width % tiles == 0 && height % tiles == 0;
+  const int eh = divides ? height : height + tiles - height % tiles;
+  const int ew = divides ? width : width + tiles - width % tiles;
+  const int th = eh / tiles, tw = ew / tiles, area = th * tw;
+  const float lut_scale = 255.f / (float)area;
+  int limit = 0;
+  if (clip_limit > 0.0) limit = std::max((int)(clip_limit * area / 256), 1);
+  std::vector<uint8_t> lut((size_t)tiles * tiles * 256);
+  for (int ty = 0; ty < tiles; ++ty)
+    for (int tx = 0; tx < tiles; ++tx) {
+      int hist[256] = {0};
+      for (int y = ty * th; y < (ty + 1) * th; ++y) {
+        const int sy = reflect101(y, height);
+        for (int x = tx * tw; x < (tx + 1) * tw; ++x) ++hist[L[(size_t)sy * width + reflect101(x, width)]];
+      }
+      if (limit > 0) {
+        int clipped = 0;
+        for (int i = 0; i < 256; ++i)
+          if (hist[i] > limit) {
+            clipped += hist[i] - limit;
+            hist[i] = limit;
+          }
+        const int batch = clipped / 256;
+        int residual = clipped - batch * 256;
+        for (int i = 0; i < 256; ++i) hist[i] += batch;
+        if (residual) {
+          const int step = std::max(256 / residual, 1);
+          for (int i = 0; i < 256 && residual > 0; i += step, --residual) ++hist[i];
+        }
+      }
+      uint8_t* tl = &lut[((size_t)ty * tiles + tx) * 256];
+      int sum = 0;
+      for (int i = 0; i < 256; ++i) {
+        sum += hist[i];
+        tl[i] = sat_u8((int)std::lrint((float)sum * lut_scale));
+      }
+    }
+  const float inv_tw = 1.f / (float)tw, inv_th = 1.f / (float)th;
+  std::vector<int> x1((size_t)width), x2((size_t)width);
+  std::vector<float> xa((size_t)width), xa1((size_t)width);
+  for (int x = 0; x < width; ++x) {
+    const float txf = (float)x * inv_tw - 0.5f;
+    const int t1 = (int)std::floor(txf);
+    xa[x] = txf - (float)t1;
+    xa1[x] = 1.f - xa[x];
+    x1[x] = std::max(t1, 0) * 256;
+    x2[x] = std::min(t1 + 1, tiles - 1) * 256;
+  }
+  for (int y = 0; y < height; ++y) {
+    const float tyf = (float)y * inv_th - 0.5f;
+    const int t1 = (int)std::floor(tyf);
+    const float ya = tyf - (float)t1, ya1 = 1.f - ya;
+    const uint8_t* p1 = &lut[(size_t)std::max(t1, 0) * tiles * 256];
+    const uint8_t* p2 = &lut[(size_t)std::min(t1 + 1, tiles - 1) * tiles * 256];
+    for (int x = 0; x < width; ++x) {
+      uint8_t& v = L[(size_t)y * width + x];
+      const float res = ((float)p1[x1[x] + v] * xa1[x] + (float)p1[x2[x] + v] * xa[x]) * ya1 +
+                        ((float)p2[x1[x] + v] * xa1[x] + (float)p2[x2[x] + v] * xa[x]) * ya;
+      v = sat_u8((int)std::lrint(res));
+    }
+  }
+  // LAB -> RGB (OpenCV's Lab2RGBinteger).
+  const int base = 1 << 14;
+  const int* D = T.c_inv;
+  for (size_t p = 0; p < npx; ++p) {
+    const int y = T.y_of_l[L[p]], ify = T.fy_of_l[L[p]];
+    const int adiv = ((5 * A[p] * 53687 + (1 << 7)) >> 13) - 128 * base / 500;
+    const int bdiv = ((B[p] * 41943 + (1 << 4)) >> 9) - 128 * base / 200 + 1;
+    const int x = LabTables::ab_to_xz(ify + adiv), z = LabTables::ab_to_xz(ify - bdiv);
+    for (int c = 0; c < 3; ++c) {
+      const int v = descale((int64_t)D[c * 3] * x + (int64_t)D[c * 3 + 1] * y + (int64_t)D[c * 3 + 2] * z, 14);
+      out[p * 3 + c] = (uint8_t)T.inv_gamma[std::min(std::max(v, 0), 4095)];
+    }
+  }
+  return 0;
+}
+
+// ---- JPEG round trip: what cv2.imdecode(cv2.imencode(".jpg", img, quality)) gives with
+// libjpeg-turbo's defaults (baseline, 4:2:0, islow DCT, fancy upsampling), without an
+// entropy coder (Huffman coding is lossless): RGB -> YCbCr (jccolor, 16-bit fixed point),
+// h2v2 downsampling with the alternating 1,2 bias, edge replication to whole blocks,
+// jfdctint, quantisation by libjpeg-turbo's reciprocal multiply (the standard tables at
+// jpeg_quality_scaling, clamped to 1..255), dequantisation, jidctint with its range
+// limit, h2v2 fancy upsampling (3/4-1/4, biases 8 and 7), and jdcolor's YCbCr -> RGB.
+static const int kLumQ[64] = {16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+                              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+                              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+static const int kChrQ[64] = {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+                              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+                              99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+                              99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+enum : int64_t {
+  F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
+  F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172
+};
+
+static inline int64_t dsc(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
+
+// jpeg_fdct_islow over one 8x8 block (row pass, then column pass), in place.
+static void fdct_islow(int64_t* d) {
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, stride = pass ? 1 : 8;
+    const int n = pass ? 15 : 11;
+    for (int k = 0; k < 8; ++k) {
+      int64_t* p = d + k * stride;
+      const int64_t t0 = p[0] + p[7 * step], t7 = p[0] - p[7 * step];
+      const int64_t t1 = p[step] + p[6 * step], t6 = p[step] - p[6 * step];
+      const int64_t t2 = p[2 * step] + p[5 * step], t5 = p[2 * step] - p[5 * step];
+      const int64_t t3 = p[3 * step] + p[4 * step], t4 = p[3 * step] - p[4 * step];
+      const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+      p[0] = pass ? dsc(t10 + t11, 2) : (t10 + t11) << 2;
+      p[4 * step] = pass ? dsc(t10 - t11, 2) : (t10 - t11) << 2;
+      const int64_t z1e = (t12 + t13) * F0541;
+      p[2 * step] = dsc(z1e + t13 * F0765, n);
+      p[6 * step] = dsc(z1e - t12 * F1847, n);
+      const int64_t z5 = (t4 + t6 + t5 + t7) * F1175;
+      const int64_t z1 = -(t4 + t7) * F0899, z2 = -(t5 + t6) * F2562;
+      const int64_t z3 = -(t4 + t6) * F1961 + z5, z4 = -(t5 + t7) * F0390 + z5;
+      p[7 * step] = dsc(t4 * F0298 + z1 + z3, n);
+      p[5 * step] = dsc(t5 * F2053 + z2 + z4, n);
+      p[3 * step] = dsc(t6 * F3072 + z2 + z3, n);
+      p[step] = dsc(t7 * F1501 + z1 + z4, n);
+    }
+  }
+}
+
+// jpeg_idct_islow over one dequantised 8x8 block (column pass, then row pass), in place;
+// the row pass's outputs are samples before the range limit.
+static void idct_islow(int64_t* d) {
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 1 : 8, stride = pass ? 8 : 1;
+    const int n = pass ? 18 : 11;
+    for (int k = 0; k < 8; ++k) {
+      int64_t* p = d + k * stride;
+      const int64_t z2 = p[2 * step], z3 = p[6 * step];
+      const int64_t z1e = (z2 + z3) * F0541;
+      const int64_t tmp2 = z1e - z3 * F1847, tmp3 = z1e + z2 * F0765;
+      const int64_t tmp0 = (p[0] + p[4 * step]) << 13, tmp1 = (p[0] - p[4 * step]) << 13;
+      const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+      int64_t o0 = p[7 * step], o1 = p[5 * step], o2 = p[3 * step], o3 = p[step];
+      const int64_t z5 = (o0 + o2 + o1 + o3) * F1175;
+      const int64_t z1 = -(o0 + o3) * F0899, zz2 = -(o1 + o2) * F2562;
+      const int64_t z3o = -(o0 + o2) * F1961 + z5, z4 = -(o1 + o3) * F0390 + z5;
+      o0 = o0 * F0298 + z1 + z3o;
+      o1 = o1 * F2053 + zz2 + z4;
+      o2 = o2 * F3072 + zz2 + z3o;
+      o3 = o3 * F1501 + z1 + z4;
+      p[0] = dsc(t10 + o3, n);
+      p[7 * step] = dsc(t10 - o3, n);
+      p[step] = dsc(t11 + o2, n);
+      p[6 * step] = dsc(t11 - o2, n);
+      p[2 * step] = dsc(t12 + o1, n);
+      p[5 * step] = dsc(t12 - o1, n);
+      p[3 * step] = dsc(t13 + o0, n);
+      p[4 * step] = dsc(t13 - o0, n);
+    }
+  }
+}
+
+// One plane (rows x cols, multiples of 8) through DCT, quantisation and back, in place.
+static void jpeg_plane(std::vector<int>& plane, int rows, int cols, const int* base, int quality) {
+  const int scale = quality < 50 ? 5000 / quality : 200 - 2 * quality;
+  int q[64];
+  int64_t fq[64], corr[64];
+  int shift[64];
+  for (int i = 0; i < 64; ++i) {
+    q[i] = std::min(std::max((base[i] * scale + 50) / 100, 1), 255);
+    // libjpeg-turbo's compute_reciprocal for the islow divisor q * 8 (16-bit DCTELEM).
+    const int64_t div = (int64_t)q[i] * 8;
+    int b = 0;
+    while ((div >> (b + 1)) != 0) ++b;
+    int r = 16 + b;
+    int64_t f = ((int64_t)1 << r) / div, fr = ((int64_t)1 << r) % div, c = div / 2;
+    if (fr == 0) {
+      f >>= 1;
+      --r;
+    } else if (fr <= div / 2) {
+      ++c;
+    } else {
+      ++f;
+    }
+    fq[i] = f;
+    corr[i] = c;
+    shift[i] = r;
+  }
+  int64_t blk[64];
+  for (int by = 0; by < rows; by += 8)
+    for (int bx = 0; bx < cols; bx += 8) {
+      for (int i = 0; i < 64; ++i) blk[i] = plane[(size_t)(by + i / 8) * cols + bx + i % 8] - 128;
+      fdct_islow(blk);
+      for (int i = 0; i < 64; ++i) {
+        const int64_t a = blk[i] < 0 ? -blk[i] : blk[i];
+        const int64_t v = ((a + corr[i]) * fq[i]) >> shift[i];
+        blk[i] = (blk[i] < 0 ? -v : v) * q[i];
+      }
+      idct_islow(blk);
+      for (int i = 0; i < 64; ++i) {
+        const int64_t x10 = ((blk[i] + 512) & 1023) - 512;  // RANGE_MASK wrap, then clamp
+        plane[(size_t)(by + i / 8) * cols + bx + i % 8] = (int)std::min<int64_t>(std::max<int64_t>(x10 + 128, 0), 255);
+      }
+    }
+}
+
+int64_t dtp_jpeg_roundtrip_u8(const uint8_t* in, int height, int width, int quality, uint8_t* out) {
+  if (height <= 0 || width <= 0 || quality < 1 || quality > 100) return 1;
+  const int H = height, W = width;
+  const int64_t FIXY[3] = {19595, 38470, 7471};  // FIX(0.299), FIX(0.587), FIX(0.114)
+  const int64_t half = 1 << 15, cbcr_off = (int64_t)128 << 16;
+  // Luma plane, right/bottom edges replicated to whole 8x8 blocks.
+  const int yr = (H + 7) / 8 * 8, yc = (W + 7) / 8 * 8;
+  // Chroma: ceil(H/2) x ceil(W/2) samples, blocks cover ceil(W/16)*8 columns and
+  // ceil(H/16)*8 rows.
+  const int ch = (H + 1) / 2, cw = (W + 1) / 2;
+  const int cc = (W + 15) / 16 * 8, cr = (H + 15) / 16 * 8;
+  std::vector<int> Y((size_t)yr * yc), Cb((size_t)H * 2 * cc), Cr((size_t)H * 2 * cc);
+  for (int y = 0; y < H; ++y)
+    for (int x = 0; x < 2 * cc; ++x) {
+      const uint8_t* p = in + ((size_t)y * W + std::min(x, W - 1)) * 3;
+      const int64_t r = p[0], g = p[1], b = p[2];
+      if (x < yc) Y[(size_t)y * yc + x] = (int)((FIXY[0] * r + FIXY[1] * g + FIXY[2] * b + half) >> 16);
+      Cb[(size_t)y * 2 * cc + x] = (int)((-11059 * r - 21709 * g + 32768 * b + cbcr_off + half - 1) >> 16);
+      Cr[(size_t)y * 2 * cc + x] = (int)((32768 * r - 27439 * g - 5329 * b + cbcr_off + half - 1) >> 16);
+    }
+  for (int y = H; y < yr; ++y) std::memcpy(&Y[(size_t)y * yc], &Y[(size_t)(H - 1) * yc], sizeof(int) * yc);
+  std::vector<int> planes[2];
+  for (int k = 0; k < 2; ++k) {
+    const std::vector<int>& full = k ? Cr : Cb;
+    std::vector<int>& d = planes[k];
+    d.assign((size_t)cr * cc, 0);
+    for (int y = 0; y < ch; ++y) {
+      const int* r0 = &full[(size_t)(2 * y) * 2 * cc];
+      const int* r1 = &full[(size_t)std::min(2 * y + 1, H - 1) * 2 * cc];
+      for (int x = 0; x < cc; ++x)
+        d[(size_t)y * cc + x] = (r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + 1 + (x & 1)) >> 2;
+    }
+    for (int y = ch; y < cr; ++y) std::memcpy(&d[(size_t)y * cc], &d[(size_t)(ch - 1) * cc], sizeof(int) * cc);
+    jpeg_plane(d, cr, cc, kChrQ, quality);
+  }
+  jpeg_plane(Y, yr, yc, kLumQ, quality);
+  // Fancy upsampling: each output sample is 3/4 the nearer chroma sample and 1/4 the
+  // next nearer in each direction, edges replicated; libjpeg-turbo replicates each sample
+  // 2x2 instead where the chroma rows are 2 samples wide or less. Then YCbCr -> RGB.
+  const bool fancy = cw > 2;
+  std::vector<int> up[2];
+  for (int k = 0; k < 2; ++k) {
+    const std::vector<int>& d = planes[k];
+    up[k].assign((size_t)2 * ch * 2 * cw, 0);
+    for (int y = 0; y < ch; ++y)
+      for (int v = 0; v < 2; ++v) {
+        const int ny = std::min(std::max(v ? y + 1 : y - 1, 0), ch - 1);
+        int* o = &up[k][(size_t)(2 * y + v) * 2 * cw];
+        auto colsum = [&](int x) {
+          x = std::min(std::max(x, 0), cw - 1);
+          return d[(size_t)y * cc + x] * 3 + d[(size_t)ny * cc + x];
+        };
+        for (int x = 0; x < cw; ++x) {
+          if (!fancy) {
+            o[2 * x] = o[2 * x + 1] = d[(size_t)y * cc + x];
+            continue;
+          }
+          const int t = colsum(x);
+          o[2 * x] = (t * 3 + colsum(x - 1) + 8) >> 4;
+          o[2 * x + 1] = (t * 3 + colsum(x + 1) + 7) >> 4;
+        }
+      }
+  }
+  for (int y = 0; y < H; ++y)
+    for (int x = 0; x < W; ++x) {
+      const int64_t yy = Y[(size_t)y * yc + x];
+      const int64_t cb = up[0][(size_t)y * 2 * cw + x] - 128, crv = up[1][(size_t)y * 2 * cw + x] - 128;
+      uint8_t* o = out + ((size_t)y * W + x) * 3;
+      o[0] = sat_u8((int)(yy + ((91881 * crv + half) >> 16)));
+      o[1] = sat_u8((int)(yy + ((-22554 * cb + half - 46802 * crv) >> 16)));
+      o[2] = sat_u8((int)(yy + ((116130 * cb + half) >> 16)));
+    }
+  return 0;
+}
+
+int dtp_version() { return 2; }
 
 }  // extern "C"

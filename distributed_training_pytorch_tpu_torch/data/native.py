@@ -14,6 +14,12 @@ libpng is not installed (a probe compiles and links against both first), it is b
 ``-DDTP_NO_CODECS``: crop/flip and normalise are the same, and the decode functions raise
 ``RuntimeError("built without libjpeg/libpng")``.
 
+Five per-image entry points need no library and are in both builds: the PNG scanline
+unfilter (:func:`png_unfilter`, over a stream the caller inflated with the standard
+library's ``zlib``), and :func:`box_blur`, :func:`median_blur`, :func:`clahe` and
+:func:`jpeg_roundtrip`, which reproduce the OpenCV and libjpeg-turbo arithmetic of the JAX
+package's ``cv2`` transforms. They take and return uint8 HWC images, one image a call.
+
 A failed build is never silent: :func:`available` says whether the library loaded, and
 :func:`build_error` returns the compiler's message when it did not. Nothing here runs at
 import.
@@ -38,13 +44,20 @@ __all__ = [
     "augment_crop_flip",
     "augment_crop_flip_u8",
     "available",
+    "box_blur",
     "build_error",
+    "clahe",
     "codecs_available",
     "decode_resize_normalize",
     "decode_resize_normalize_bytes",
     "decode_resize_u8_bytes",
     "decode_rrc_flip_u8_bytes",
+    "jpeg_roundtrip",
+    "median_blur",
+    "mixed_native_batch",
     "normalize",
+    "png_unfilter",
+    "resize_normalize",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -110,6 +123,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "dtp_decode_rrc_flip_u8_bytes": [
             strs, i64ptr, i64, i32, i32, u64, u64, i64ptr, i32, f32, f32, f32, f32, u8ptr, i32,
         ],
+        "dtp_resize_normalize_u8": [u8ptr, i32, i32, i32, i32, fptr, fptr, fptr],
+        "dtp_png_unfilter": [u8ptr, i64, i32, i32, i32, i32, u8ptr, i32, u8ptr],
+        "dtp_box_blur_u8": [u8ptr, i32, i32, i32, i32, u8ptr],
+        "dtp_median_blur_u8": [u8ptr, i32, i32, i32, i32, u8ptr],
+        "dtp_clahe_u8": [u8ptr, i32, i32, ctypes.c_double, i32, u8ptr],
+        "dtp_jpeg_roundtrip_u8": [u8ptr, i32, i32, i32, u8ptr],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -177,11 +196,13 @@ def _require(decode: bool = False) -> ctypes.CDLL:
 
 class DecodeError(ValueError):
     """A payload in a native decode batch failed; ``index`` is its position in the
-    sequence passed to that call."""
+    sequence passed to that call (None for a single file, which ``what`` names), and
+    ``reason`` what was wrong with it, where that is known."""
 
-    def __init__(self, index: int, what: str = "record payload"):
+    def __init__(self, index: "int | None", what: str = "record payload", reason: "str | None" = None):
         self.index = index
-        super().__init__(f"failed to decode {what} #{index}")
+        super().__init__(f"failed to decode {what}" + (f" #{index}" if index is not None else "")
+                         + (f": {reason}" if reason else ""))
 
 
 def _threads(n: "int | None") -> int:
@@ -262,6 +283,40 @@ def decode_rrc_flip_u8_bytes(
     if rc:
         raise DecodeError(rc - 1)
     return out
+
+
+def resize_normalize(
+    image: np.ndarray, height: int, width: int, mean: np.ndarray, std: np.ndarray
+) -> np.ndarray:
+    """One decoded uint8 RGB image -> [height, width, 3] float32, with the decode
+    entries' resize and normalisation (a decoded PNG or BMP record of the folder sources
+    comes out as the native PNG decode path's would)."""
+    lib = _require()
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim != 3 or image.shape[-1] != 3:
+        raise ValueError(f"expected a uint8 HWC image with 3 channels, got shape {image.shape}")
+    out = np.empty((height, width, 3), np.float32)
+    _check(lib.dtp_resize_normalize_u8(image, image.shape[0], image.shape[1], height, width,
+                                       _per_image(mean, 3, np.float32, "channel means"),
+                                       _per_image(std, 3, np.float32, "channel stds"), out),
+           "resize_normalize", (image.shape, height, width))
+    return out
+
+
+def mixed_native_batch(n, height, width, native_positions, native_fn, py_fn, *, dtype=np.float32) -> np.ndarray:
+    """Assemble a decoded batch where the rows at ``native_positions`` take one batch call
+    (``native_fn(positions)`` returns their stacked images) and each other row its own
+    (``py_fn(position)``). Positions, not record indices: a padded batch repeats rows. A
+    ``DecodeError`` of the batch call names the batch position."""
+    images = np.empty((n, height, width, 3), dtype)
+    if native_positions:
+        try:
+            images[native_positions] = native_fn(native_positions)
+        except DecodeError as e:
+            raise DecodeError(native_positions[e.index], "batch record") from None
+    for p in sorted(set(range(n)) - set(native_positions)):
+        images[p] = py_fn(p)
+    return images
 
 
 def _nhwc_u8(images: np.ndarray) -> np.ndarray:
@@ -372,3 +427,75 @@ class NativeCropFlipNormalize:
 
     def __call__(self, img: np.ndarray, *, epoch: int = 0, index: int = 0) -> np.ndarray:
         return self.batch_apply(img[None], np.array([index]), epoch)[0]
+
+
+def _hwc_u8(image: np.ndarray, channels: "int | None" = None) -> np.ndarray:
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim != 3 or (channels is not None and image.shape[-1] != channels):
+        want = f"{channels} channels" if channels is not None else "channels last"
+        raise ValueError(f"expected a uint8 HWC image with {want}, got shape {image.shape}")
+    return image
+
+
+def _check(rc: int, name: str, args) -> None:
+    if rc:
+        raise ValueError(f"{name}{args} refused its arguments (code {rc})")
+
+
+def png_unfilter(
+    stream: bytes, height: int, width: int, bit_depth: int, color_type: int, palette: "bytes | None" = None
+) -> np.ndarray:
+    """A non-interlaced PNG's inflated IDAT stream -> [H, W, 3] uint8 RGB, as
+    ``cv2.imread(path, IMREAD_COLOR)[..., ::-1]`` gives it: filters 0-4 reversed, gray
+    replicated, the palette expanded, alpha dropped, 16-bit samples' high byte kept.
+    Raises ``ValueError`` for an unsupported type or depth, a short stream or a bad
+    filter byte."""
+    lib = _require()
+    raw = np.frombuffer(stream, np.uint8)
+    pal = np.frombuffer(palette or bytes(3), np.uint8)
+    out = np.empty((height, width, 3), np.uint8)
+    rc = lib.dtp_png_unfilter(np.ascontiguousarray(raw), raw.size, height, width, bit_depth, color_type,
+                              np.ascontiguousarray(pal), pal.size // 3, out)
+    if rc:
+        reason = {1: f"bit depth {bit_depth} with color type {color_type}", 2: "a truncated image stream",
+                  3: "an unknown scanline filter"}[rc]
+        raise ValueError(f"PNG with {reason}")
+    return out
+
+
+def box_blur(image: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.blur(image, (k, k))``: the k x k mean (odd k), BORDER_REFLECT_101, rounded."""
+    image = _hwc_u8(image)
+    out = np.empty_like(image)
+    _check(_require().dtp_box_blur_u8(image, *image.shape, int(k), out), "box_blur", (image.shape, k))
+    return out
+
+
+def median_blur(image: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.medianBlur(image, k)`` for k in {3, 5}: each channel's k x k median,
+    BORDER_REPLICATE."""
+    image = _hwc_u8(image)
+    out = np.empty_like(image)
+    _check(_require().dtp_median_blur_u8(image, *image.shape, int(k), out), "median_blur", (image.shape, k))
+    return out
+
+
+def clahe(image: np.ndarray, clip_limit: float = 4.0, tile: int = 8) -> np.ndarray:
+    """CLAHE on the L channel of an RGB image, as ``cv2.cvtColor(RGB2LAB)``,
+    ``cv2.createCLAHE(clip_limit, (tile, tile)).apply`` on L and ``cvtColor(LAB2RGB)``."""
+    image = _hwc_u8(image, 3)
+    out = np.empty_like(image)
+    h, w, _ = image.shape
+    _check(_require().dtp_clahe_u8(image, h, w, float(clip_limit), int(tile), out), "clahe", (image.shape, tile))
+    return out
+
+
+def jpeg_roundtrip(image: np.ndarray, quality: int) -> np.ndarray:
+    """An RGB image through a baseline 4:2:0 JPEG at ``quality`` and back, as
+    ``cv2.imdecode(cv2.imencode(".jpg", bgr, [IMWRITE_JPEG_QUALITY, quality]))`` with
+    libjpeg-turbo gives it (no entropy coding: it is lossless)."""
+    image = _hwc_u8(image, 3)
+    out = np.empty_like(image)
+    h, w, _ = image.shape
+    _check(_require().dtp_jpeg_roundtrip_u8(image, h, w, int(quality), out), "jpeg_roundtrip", (image.shape, quality))
+    return out

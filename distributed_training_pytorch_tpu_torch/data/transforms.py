@@ -1,22 +1,34 @@
 """Host-side image transforms with deterministic per-record randomness.
 
-The port's copy of what the ImageNet entry needs from ``distributed_training_pytorch_tpu/
-data/transforms.py``: the Philox key packing (``philox_key``, ``SHUFFLE_INDEX``, also the
-loader's epoch shuffle), ``IMAGENET_MEAN``/``IMAGENET_STD``, ``resize``,
-``random_resized_crop``, ``horizontal_flip``, ``normalize``, ``Compose`` and
-``eval_transform``. A transform maps ``(rgb uint8 HWC image, np.random.Generator)`` to an
-image; ``Compose`` keys its generator by ``(seed, epoch, index)``, so every rank computes
-the same augmentation for the same record, and a resume replays the same stream.
+The port's copy of ``distributed_training_pytorch_tpu/data/transforms.py``: the Philox key
+packing (``philox_key``, ``SHUFFLE_INDEX``, also the loader's epoch shuffle),
+``IMAGENET_MEAN``/``IMAGENET_STD``, every transform, ``Compose``, ``train_transform`` (the
+image-folder entry's ten-step train chain) and ``eval_transform``. A transform maps
+``(rgb uint8 HWC image, np.random.Generator)`` to an image; ``Compose`` keys its generator
+by ``(seed, epoch, index)``, so every rank computes the same augmentation for the same
+record, and a resume replays the same stream.
 
-The random draws are the JAX package's, in the same order, so the crop boxes and flips
-are identical. Resizing differs in one respect: the JAX package calls OpenCV's
-``INTER_LINEAR``, and the card's machine has no OpenCV, so here the resize is bilinear in
-f32 with half-pixel centres and no antialiasing (OpenCV's sampling grid), rounded to
-uint8. OpenCV's fixed-point arithmetic may land a pixel 1 away.
+The random draws are the JAX package's, in the same order, so the same transforms fire
+with the same parameters. The JAX package calls OpenCV for five of them; the card's
+machine has no OpenCV, so here:
+
+* ``blur``, ``median_blur``, ``clahe`` and ``image_compression`` call the port's native
+  library (``data/native.py``: ``box_blur``, ``median_blur``, ``clahe``,
+  ``jpeg_roundtrip``), which reproduces OpenCV's and libjpeg-turbo's arithmetic and gives
+  the same bytes (``tests/test_torch_folder_transforms.py``). A library that did not build
+  raises; there is no other path;
+* ``resize`` is bilinear in f32 with half-pixel centres and no antialiasing (OpenCV's
+  sampling grid), rounded to uint8; OpenCV's fixed-point arithmetic may land a pixel 1
+  away.
+
+``FIRED`` counts, per transform name, how many times a random transform fired in this
+process (loader workers included), so a run can show that each one ran.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Callable, Sequence
 
 import numpy as np
@@ -24,22 +36,46 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "FIRED",
     "IMAGENET_MEAN",
     "IMAGENET_STD",
     "SHUFFLE_INDEX",
     "Compose",
+    "blur",
+    "clahe",
     "eval_transform",
     "horizontal_flip",
+    "image_compression",
+    "median_blur",
     "normalize",
     "philox_key",
+    "random_brightness_contrast",
+    "random_gamma",
     "random_resized_crop",
+    "random_rotate90",
     "resize",
+    "train_transform",
+    "vertical_flip",
 ]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 Transform = Callable[[np.ndarray, np.random.Generator], np.ndarray]
+
+FIRED: "collections.Counter[str]" = collections.Counter()
+_fired_lock = threading.Lock()
+
+
+def _fired(name: str) -> None:
+    with _fired_lock:
+        FIRED[name] += 1
+
+
+def _native():
+    from distributed_training_pytorch_tpu_torch.data import native
+
+    return native
 
 
 def philox_key(seed: int, epoch: int, index: int) -> np.ndarray:
@@ -103,9 +139,108 @@ def random_resized_crop(
     return apply
 
 
+def random_rotate90(p: float = 0.5) -> Transform:
+    def apply(img, rng):
+        if rng.random() < p:
+            _fired("random_rotate90")
+            img = np.rot90(img, k=int(rng.integers(1, 4)))
+        return img
+
+    return apply
+
+
 def horizontal_flip(p: float = 0.5) -> Transform:
     def apply(img, rng):
-        return img[:, ::-1] if rng.random() < p else img
+        if rng.random() < p:
+            _fired("horizontal_flip")
+            return img[:, ::-1]
+        return img
+
+    return apply
+
+
+def vertical_flip(p: float = 0.5) -> Transform:
+    def apply(img, rng):
+        if rng.random() < p:
+            _fired("vertical_flip")
+            return img[::-1]
+        return img
+
+    return apply
+
+
+def blur(p: float = 0.5, max_kernel: int = 7) -> Transform:
+    """``cv2.blur`` with an odd kernel of 3 to ``max_kernel``, through ``native.box_blur``."""
+
+    def apply(img, rng):
+        if rng.random() < p:
+            k = int(rng.integers(1, max_kernel // 2 + 1)) * 2 + 1  # odd, 3..7
+            _fired("blur")
+            img = _native().box_blur(img, k)
+        return img
+
+    return apply
+
+
+def median_blur(p: float = 0.5, max_kernel: int = 5) -> Transform:
+    """``cv2.medianBlur`` with an odd kernel of 3 to ``max_kernel``, through
+    ``native.median_blur``."""
+
+    def apply(img, rng):
+        if rng.random() < p:
+            k = int(rng.integers(1, max_kernel // 2 + 1)) * 2 + 1  # odd, 3..5
+            _fired("median_blur")
+            img = _native().median_blur(img, k)
+        return img
+
+    return apply
+
+
+def clahe(p: float = 0.5, clip_limit: float = 4.0, tile: int = 8) -> Transform:
+    """CLAHE on LAB's L channel (OpenCV's), through ``native.clahe``."""
+
+    def apply(img, rng):
+        if rng.random() < p:
+            _fired("clahe")
+            img = _native().clahe(img, clip_limit, tile)
+        return img
+
+    return apply
+
+
+def random_brightness_contrast(p: float = 0.5, limit: float = 0.2) -> Transform:
+    def apply(img, rng):
+        if rng.random() < p:
+            alpha = 1.0 + float(rng.uniform(-limit, limit))  # contrast
+            beta = float(rng.uniform(-limit, limit)) * 255.0  # brightness
+            _fired("random_brightness_contrast")
+            img = np.clip(img.astype(np.float32) * alpha + beta, 0, 255).astype(np.uint8)
+        return img
+
+    return apply
+
+
+def random_gamma(p: float = 0.5, gamma_range: "tuple[int, int]" = (80, 120)) -> Transform:
+    def apply(img, rng):
+        if rng.random() < p:
+            gamma = float(rng.uniform(*gamma_range)) / 100.0
+            _fired("random_gamma")
+            img = (np.power(img.astype(np.float32) / 255.0, gamma) * 255.0).astype(np.uint8)
+        return img
+
+    return apply
+
+
+def image_compression(p: float = 0.5, quality_range: "tuple[int, int]" = (80, 100)) -> Transform:
+    """A JPEG encode and decode at a quality in ``quality_range`` (OpenCV's, with
+    libjpeg-turbo's defaults), through ``native.jpeg_roundtrip``."""
+
+    def apply(img, rng):
+        if rng.random() < p:
+            quality = int(rng.integers(quality_range[0], quality_range[1] + 1))
+            _fired("image_compression")
+            img = _native().jpeg_roundtrip(img, quality)
+        return img
 
     return apply
 
@@ -130,6 +265,28 @@ class Compose:
         for t in self.transforms:
             img = t(img, rng)
         return np.ascontiguousarray(img)
+
+
+def train_transform(height: int, width: int, *, seed: int = 0, p: float = 0.5) -> Compose:
+    """The image-folder entry's train chain: resize, rotate90, the two flips, blur,
+    median blur, CLAHE, brightness/contrast, gamma and JPEG re-encoding (each at ``p``),
+    then normalise."""
+    return Compose(
+        [
+            resize(height, width),
+            random_rotate90(p),
+            horizontal_flip(p),
+            vertical_flip(p),
+            blur(p),
+            median_blur(p),
+            clahe(p),
+            random_brightness_contrast(p),
+            random_gamma(p),
+            image_compression(p),
+            normalize(),
+        ],
+        seed=seed,
+    )
 
 
 def eval_transform(height: int, width: int) -> Compose:

@@ -118,6 +118,9 @@ class ImageNetTrainer(Trainer):
     """The ImageNet recipe on the port's ``Trainer``; ``synthetic_records`` /
     ``synthetic_val_records`` size the synthetic sets (the JAX entry's 8192 and 1024)."""
 
+    # the masked metrics weight padded validation rows out
+    criterion_uses_mask = True
+
     def __init__(
         self, model_name: str, image_size: int, base_lr: float, *, synthetic_records: int = 8192,
         synthetic_val_records: int = 1024, **kw,

@@ -69,6 +69,9 @@ def load_windows(seq_len: int, path: "str | None" = None) -> np.ndarray:
 class LMTrainer(Trainer):
     """Tokens ride the loader's ``image`` slot; targets are the shifted window."""
 
+    # the criterion and the fused loss weight padded validation rows out
+    criterion_uses_mask = True
+
     def __init__(self, seq_len: int, base_lr: float, size: str, moe_every: int, **kw):
         self.seq_len = seq_len
         self.base_lr = base_lr

@@ -218,8 +218,37 @@ class Trainer:
 
     def device_batches(self, loader) -> "Iterator[dict]":
         """The loader's batches through ``preprocess_batch``, as tensors on the device,
-        copied ahead by ``device_prefetch``."""
-        return device_prefetch((self.preprocess_batch(b) for b in loader), self.device)
+        copied ahead by ``device_prefetch``; the first train batch also through
+        ``_check_image_range``."""
+        batches = (self.preprocess_batch(b) for b in loader)
+        if loader is self.train_dataloader and not self._image_range_checked:
+            batches = (self._check_image_range(b) for b in batches)
+        return device_prefetch(batches, self.device)
+
+    _image_range_checked = False
+
+    def _check_image_range(self, batch: Mapping) -> Mapping:
+        """One-time guard on the first train batch: a float image batch whose values reach
+        past 16 in magnitude almost certainly missed its normalisation
+        (``InputNormalizer`` passes floats through as already normalised), so the model
+        would train on input some 100 times too large with no error anywhere else. The
+        JAX Trainer (``trainer.py:2486``) looks at the batch's first image only; this one
+        looks at the whole batch, so a raw image later in the first batch is caught too."""
+        if not self._image_range_checked:
+            self._image_range_checked = True
+            img = batch.get("image") if hasattr(batch, "get") else None
+            if img is not None:
+                img = np.asarray(img)
+                if np.issubdtype(img.dtype, np.floating) and img.size:
+                    hi = float(np.max(np.abs(img)))
+                    if hi > 16.0:  # normalised images sit within a few sigma of 0
+                        self.log(
+                            f"float image batch spans |x| up to {hi:.0f} — looks like raw 0-255 pixels. Float "
+                            "inputs bypass on-device normalization (InputNormalizer passes them through); ship "
+                            "uint8 or normalize on host.",
+                            "warning",
+                        )
+        return batch
 
     def to_device(self, batch: Mapping) -> dict:
         """A host batch as tensors on the trainer's device, copied on the calling

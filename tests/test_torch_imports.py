@@ -30,7 +30,12 @@ PORT_MODULES = [
     "parallel.ring_attention",
     # VGG16 on CIFAR-10 with the host data path
     "data.native", "data.prefetch", "models.vgg", "examples.train_cifar10",
+    # the image-folder entry
+    "examples.example_trainer", "examples.main", "examples.eval",
 ]
+# The card's machine has neither OpenCV nor PIL: the port decodes and transforms images
+# without them.
+IMAGE_LIBRARIES = ("cv2", "PIL")
 
 _PROBE = f"""
 import importlib, json, pkgutil, sys
@@ -65,6 +70,7 @@ def test_importing_the_port_pulls_no_jax():
 
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in probe["modules"] if _forbidden(m)] == []
+    assert [m for m in probe["modules"] if m.split(".")[0] in IMAGE_LIBRARIES] == []
     assert [m for m in PORT_MODULES if f"{PORT}.{m}" not in probe["modules"]] == []
     assert probe["cuda_initialized"] is False
     assert probe["kernels_loaded"] is False
@@ -81,6 +87,24 @@ def _sources():
     yield os.path.join(REPO, "scripts", "torch_train_profile.py")
     yield os.path.join(REPO, "scripts", "torch_resnet_profile.py")
     yield os.path.join(REPO, "scripts", "torch_flash_fwd_times.py")
+    yield os.path.join(REPO, "scripts", "torch_phase_in_turns.py")
+
+
+def _imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_no_source_of_the_port_imports_an_image_library():
+    offenders = [f"{os.path.relpath(path, REPO)}:{line} {name}" for path in _sources()
+                 for line, name in _imports(path) if name.split(".")[0] in IMAGE_LIBRARIES]
+    assert offenders == []
 
 
 def test_no_source_of_the_port_imports_jax():

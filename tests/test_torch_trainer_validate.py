@@ -73,3 +73,18 @@ def test_padded_validation_warns_unless_the_criterion_uses_the_mask(tmp_path, n_
         trainer.validate()
     warnings = [m for kind, m in logger.lines if kind == "warning" and "criterion_uses_mask" in m]
     assert len(warnings) == (2 if warns else 0)  # once a validation
+
+
+@pytest.mark.parametrize(
+    "module, cls",
+    [("train_lm", "LMTrainer"), ("train_imagenet", "ImageNetTrainer"), ("train_cifar10", "Cifar10Trainer"),
+     ("example_trainer", "ExampleTrainer")],
+)
+def test_the_entries_declare_that_their_criteria_use_the_mask(module, cls):
+    """Each entry's criterion weights padded rows out, and declares it, as its JAX twin
+    does (``examples/train_lm.py:119``, ``train_imagenet.py:141``, ``train_cifar10.py:175``,
+    ``example_trainer.py:88``), so that validation does not warn."""
+    import importlib
+
+    trainer = getattr(importlib.import_module(f"distributed_training_pytorch_tpu_torch.examples.{module}"), cls)
+    assert trainer.criterion_uses_mask is True
