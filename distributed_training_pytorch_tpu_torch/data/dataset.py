@@ -70,10 +70,15 @@ def decode_image(path: str) -> np.ndarray:
     """A PNG, BMP or JPEG file -> RGB uint8 HWC, as ``cv2.imread(path)[..., ::-1]``."""
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_PNG_SIGNATURE):
-        return _decode_png(data, path)
-    if data.startswith(b"BM"):
-        return _decode_bmp(data, path)
+    try:
+        if data.startswith(_PNG_SIGNATURE):
+            return _decode_png(data, path)
+        if data.startswith(b"BM"):
+            return _decode_bmp(data, path)
+    except native.DecodeError:
+        raise
+    except (struct.error, ValueError) as e:  # a header or pixel array cut short
+        raise native.DecodeError(None, f"file {path!r}", f"a truncated or malformed image ({e})") from None
     if data.startswith(b"\xff\xd8"):
         return _decode_jpeg(data, path)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":

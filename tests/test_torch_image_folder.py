@@ -25,6 +25,7 @@ import pytest
 
 from distributed_training_pytorch_tpu_torch.data import ImageFolderDataSource, NativeImageFolderSource, native
 from distributed_training_pytorch_tpu_torch.data import ShardedLoader
+from distributed_training_pytorch_tpu_torch.data.dataset import decode_image
 from distributed_training_pytorch_tpu_torch.data.transforms import IMAGENET_STD, eval_transform
 
 cv2 = pytest.importorskip("cv2")
@@ -160,3 +161,16 @@ def test_the_loader_pads_and_masks_a_folder(tree, num_workers):
     assert batches[-1]["mask"].tolist() == [1.0] * real_last + [0.0] * (4 - real_last)
     labels = np.concatenate([b["label"] for b in batches])[:n]
     np.testing.assert_array_equal(labels, [r[1] for r in src.records])
+
+
+@pytest.mark.parametrize("kind", ["png", "bmp"])
+def test_a_truncated_file_raises_a_decode_error_naming_it(tmp_path, kind):
+    """F7: a PNG cut inside its header raised ``struct.error``, which is no ``ValueError``,
+    where the JAX source raises a ``ValueError`` (``cv2.imread`` gives None), so a loader
+    that skips corrupt records (which catches ``ValueError``) stopped on it."""
+    ok = cv2.imencode(f".{kind}", np.zeros((6, 5, 3), np.uint8))[1].tobytes()
+    path = tmp_path / f"cut.{kind}"
+    path.write_bytes(ok[: 20 if kind == "png" else 30])
+    with pytest.raises(native.DecodeError, match="cut") as err:
+        decode_image(str(path))
+    assert isinstance(err.value, ValueError)
