@@ -114,7 +114,24 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     time, images/s, peak memory, the saves' time; ``PALLAS=1`` and ``PALLAS=0`` in turns.
     Phase 7 holds K4 at its four expand shapes with gelu (and one row fewer) and its autograd
     route against the plain version's; the last phase times K4 there beside ``F.linear``
-    then ``F.gelu(approximate="tanh")``.
+    then ``F.gelu(approximate="tanh")``;
+16. (digits) VGG16 on the digits corpus through ``examples/train_digits.py``'s ``main`` (the
+    tree written from ``digits_8x8.npz``, f32, batch 128): 3 epochs, then a resumed fourth,
+    each ending in ``eval.evaluate`` of ``best`` and ``last``; the split 1,438/359, every
+    loss finite, the train CE below the first epoch's, top-1 and top-2 in [0, 1], no hand
+    kernel; the step time and the busy share of the resumed epoch;
+17. (records) ResNet18Slim on the digits packed into 4 + 2 record shards through
+    ``examples/train_records.py``'s ``main`` (decoded on the codec-free route where the
+    library has no libpng), as phase 16; then one epoch over a copy of the shards with one
+    payload overwritten by garbage under ``skip_corrupt_records=True``: exactly 1 skipped;
+18. (records_resnet50) ResNet-50 through the ImageNet entry on record shards of seeded PNG
+    images of ImageNet's usual sizes (``IMAGENET_RECORDS``/``VAL_RECORDS``, ``PALLAS=1``,
+    batch 256, 3 steps an epoch, 2 epochs and a resumed third): 9 K4 launches a step and a
+    val forward, all wgmma, 9 dz a step; the resumed epoch on records and on the synthetic
+    set in turns on one trainer;
+19. (fp16) the digits entry with ``DTYPE=fp16``: 2 epochs at a loss scale of 2^15, then a
+    step forced to overflow (skipped, params and buffers bit-equal, the scale halved, one
+    skip counted) and the scale and counter through a save and a restore.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -2423,39 +2440,6 @@ FOLDER_SHAPES = [(180, 240), (256, 256), (333, 200)]  # (height, width): the res
 FOLDER_FLOP_PER_IMAGE = 3 * 2 * 15.47e9
 
 
-def _png_chunk(kind: bytes, body: bytes) -> bytes:
-    import struct
-    import zlib
-
-    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
-
-
-def png_bytes(raw_rows, color: int, palette: "bytes | None" = None) -> bytes:
-    """An 8-bit PNG of the unfiltered scanlines ``raw_rows`` ([H, W * channels] uint8), row
-    ``y`` filtered with type ``y % 5``, so every filter type 0-4 occurs; written with the
-    standard library's ``zlib``."""
-    import struct
-    import zlib
-
-    h, n = raw_rows.shape
-    bpp = {0: 1, 2: 3, 3: 1, 6: 4}[color]
-    x = raw_rows.astype(np.int16)
-    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
-    a[:, bpp:], b[1:], c[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    preds = np.stack([np.zeros_like(x), a, b, (a + b) // 2, paeth])
-    f = np.arange(h) % 5
-    enc = ((x - preds[f, np.arange(h)]) % 256).astype(np.uint8)
-    stream = np.concatenate([f[:, None].astype(np.uint8), enc], 1).tobytes()
-    header = struct.pack(">IIBBBBB", n // bpp, h, 8, color, 0, 0, 0)
-    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
-    if palette is not None:
-        out += _png_chunk(b"PLTE", palette)
-    return out + _png_chunk(b"IDAT", zlib.compress(stream, 6)) + _png_chunk(b"IEND", b"")
-
-
 def bmp_bytes(rgb) -> bytes:
     """A 24-bit bottom-up BMP of an RGB image."""
     import struct
@@ -2472,6 +2456,8 @@ def bmp_bytes(rgb) -> bytes:
 def image_file(rgb, kind: str) -> bytes:
     """``rgb`` as a file of ``kind``: ``png0`` (gray), ``png2`` (RGB), ``png3`` (a 3-3-2
     palette), ``png6`` (RGBA) or ``bmp`` (24-bit)."""
+    from distributed_training_pytorch_tpu_torch.data.png import png_bytes
+
     h, w, _ = rgb.shape
     if kind == "bmp":
         return bmp_bytes(rgb)
@@ -2722,10 +2708,387 @@ def phase_convnext_times(card: str):
     return rows, total
 
 
+# Real data: the digits corpus (1,438 train, 359 test 32x32 images) through the digits entry
+# (VGG16) and, packed into record shards, through the records entry (ResNet18Slim); then
+# ResNet-50 through the ImageNet entry on record shards of ImageNet-sized PNG images.
+DIGITS_BATCH = 128
+DIGITS_EPOCHS = 3  # then one resumed epoch
+DIGITS_SPLIT = {"train": 1438, "test": 359}
+FP16_EPOCHS = 2
+DIGITS_VGG16_PARAMS = 134_301_514  # 10 classes
+DATA_KEYS = ("DIGITS_DIR", "RECORDS_DIR", "SAVE_DIR", "EPOCHS", "BATCH", "DIGITS_LR", "RECORDS_LR", "SAVE_PERIOD",
+             "SNAPSHOT", "DTYPE", "PALLAS", "MESH", "CHAIN_STEPS", "TELEMETRY", "DEVICE")
+R50_LABELS = 16  # class folders of the synthetic tree; the model keeps ImageNet's 1000 outputs
+R50_SHAPES = [(375, 500), (500, 375), (333, 500), (500, 500)]  # (height, width): ImageNet's usual sizes
+
+
+@contextlib.contextmanager
+def _knobs(**values):
+    """The data entries' knobs (``DATA_KEYS``) unset but for ``values`` for the block,
+    restored after it."""
+    saved = {k: os.environ.get(k) for k in (*DATA_KEYS, *values)}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _hand_kernel_counts():
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    return dict(fa.launches), dict(k4.launches)
+
+
+def _run_main(entry, step_ms, counts, epoch_metrics, val_metrics, profile=False):
+    """``entry.main("cuda")`` (materialise, train, evaluate the saved checkpoints, write the
+    summary) with the trainer it builds instrumented (``_instrument``); with ``profile`` the
+    trainer's first train epoch runs under the profiler. Returns the trainer, the summary
+    and the profiled epoch's figures (None without ``profile``)."""
+    build = entry.build_trainer
+    profiled = {}
+
+    def instrumented(*args, **kw):
+        trainer = _instrument(build(*args, **kw), step_ms, counts, epoch_metrics, val_metrics)
+        if profile:
+            recorded = trainer.train_epoch
+
+            def profiled_epoch(epoch):
+                trainer.train_epoch = recorded
+                metrics, profiled["figures"] = _profiled_epoch(trainer, epoch)
+                return metrics
+
+            trainer.train_epoch = profiled_epoch
+        return trainer
+
+    entry.build_trainer = instrumented
+    try:
+        trainer, summary = entry.main("cuda")
+    finally:
+        entry.build_trainer = build
+    return trainer, summary, profiled.get("figures")
+
+
+def _data_entry_run(tag, entry, run_dir, epochs):
+    """``entry`` (``train_digits`` or ``train_records``) through its ``main``: ``epochs``
+    epochs, then a resume from ``last`` for one more whose train epoch is profiled. Raises
+    unless the split is the corpus's, every loss is finite, the train CE falls below the
+    first epoch's, the resume
+    continues the step and the epoch, each saved checkpoint's top-1 and top-2 lie in [0, 1]
+    and no hand kernel launched; returns the figures and the resumed trainer."""
+    import torch
+
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+    before = _hand_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    digits = os.path.join(run_dir, "digits")
+    with _knobs(DIGITS_DIR=digits, SAVE_DIR=os.path.join(run_dir, "run"), EPOCHS=str(epochs),
+                BATCH=str(DIGITS_BATCH)):
+        first, summary, _ = _run_main(entry, step_ms, counts, epoch_metrics, val_metrics)
+        first_at = (first.state.step, first.cur_epoch)
+        steps_per_epoch = len(first.train_dataloader)
+        del first
+        torch.cuda.empty_cache()
+        os.environ.update(EPOCHS=str(epochs + 1), SNAPSHOT="last")
+        resumed, resumed_summary, busy = _run_main(entry, step_ms, counts, epoch_metrics, val_metrics, profile=True)
+    wall = time.perf_counter() - t0
+    after = _hand_kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = [s.elapsed_time(e) for s, e in step_ms]
+    steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)  # epoch starts follow val/saves
+    median_ms = steady[len(steady) // 2]
+    host_issue = sorted(counts["host_ms"][i] for i in range(len(times)) if i % steps_per_epoch)
+    for i, m in enumerate(epoch_metrics):
+        extra = f" loss scale {m['loss_scale']:.0f}" if "loss_scale" in m else ""
+        log(f"{tag} epoch {i}: train ce {m['ce_loss']:.4f} acc {m['accuracy']:.4f} lr {m['lr']:.4g}{extra}")
+    for i, vm in enumerate(val_metrics):
+        log(f"{tag} validation {i}: ce {vm['ce_loss']:.4f} acc {vm['accuracy']:.4f}")
+    log(f"{tag} corpus {summary['train_images']} train / {summary['test_images']} test images; {counts['steps']} steps "
+        f"and {counts['evals']} validation forwards in {wall:.1f} s (two runs of the entry: materialising, packing, "
+        f"saves and the evaluations included); step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max "
+        f"{steady[-1]:.2f}); {_images_per_s(DIGITS_BATCH, median_ms):.0f} images/s; the host takes "
+        f"{host_issue[len(host_issue) // 2]:.2f} ms (median) to issue a step; peak memory {peak_gb:.2f} GB")
+    log(f"{tag} resumed train epoch ({steps_per_epoch} steps): wall {busy['wall_ms']:.1f} ms, device busy time "
+        f"{busy['busy_ms']:.1f} ms, busy share {_fmt_busy(busy['busy'])}")
+    for name, scores in resumed_summary["results"].items():
+        log(f"{tag} eval.evaluate on {name}: top-1 {scores['top1']:.4f}, top-2 {scores['top2']:.4f}")
+
+    if {"train": summary["train_images"], "test": summary["test_images"]} != DIGITS_SPLIT:
+        raise RuntimeError(f"the digits split is {summary['train_images']}/{summary['test_images']}")
+    losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    # VGG16, which has no BatchNorm, sits near ln 10 for its first epochs at the recipe's lr
+    # (the JAX record's curve: 2.303, 2.273, 2.301, 2.298), so the check is that a later
+    # epoch's train CE lies below the first's, not the last's
+    if not min(m["ce_loss"] for m in epoch_metrics[1:]) < epoch_metrics[0]["ce_loss"]:
+        raise RuntimeError(f"the train CE did not fall: {[m['ce_loss'] for m in epoch_metrics]}")
+    if first_at != (epochs * steps_per_epoch, epochs - 1):
+        raise RuntimeError(f"first run ended at (step, epoch) {first_at}")
+    if (resumed.state.step, resumed.cur_epoch) != ((epochs + 1) * steps_per_epoch, epochs):
+        raise RuntimeError(f"the resumed run ended at (step, epoch) {(resumed.state.step, resumed.cur_epoch)}")
+    if set(resumed_summary["results"]) != {"best", "last"} or not all(
+            0.0 <= r["top1"] <= r["top2"] <= 1.0 for r in resumed_summary["results"].values()):
+        raise RuntimeError(f"eval scores: {resumed_summary['results']}")
+    if after != before:
+        raise RuntimeError(f"hand kernels launched in the phase: {before} -> {after}")
+    log(f"{tag} resumed at step {epochs * steps_per_epoch}, epoch {epochs}; hand-kernel launches in the phase: 0")
+    figures = {"step_ms": median_ms, "images_per_s": _images_per_s(DIGITS_BATCH, median_ms), "peak_gb": peak_gb,
+               "busy": busy, "results": resumed_summary["results"], "wall_s": wall,
+               "curve": [m["ce_loss"] for m in epoch_metrics]}
+    return figures, resumed
+
+
+def phase_digits(run_dir: str):
+    """VGG16 on the digits corpus through the digits entry (``examples/train_digits.py``'s
+    ``main``: the tree materialised from ``digits_8x8.npz`` with the port's PNG writer, the
+    digits train chain on 8 loader workers, f32, global batch 128): 3 epochs, then a
+    resumed fourth whose train epoch is profiled, each run ending in ``eval.evaluate`` of
+    ``best`` and ``last``."""
+    from distributed_training_pytorch_tpu_torch.examples import train_digits
+
+    figures, trainer = _data_entry_run("[digits]", train_digits, run_dir, DIGITS_EPOCHS)
+    if sum(p.numel() for p in trainer.model.parameters()) != DIGITS_VGG16_PARAMS:
+        raise RuntimeError(f"expected VGG16's {DIGITS_VGG16_PARAMS:,} params at 10 classes")
+    return figures
+
+
+def _corrupt_one_payload(pattern, index):
+    """Overwrite record ``index``'s payload in its shard with seeded garbage."""
+    from distributed_training_pytorch_tpu_torch.data import RecordFileSource
+
+    src = RecordFileSource(pattern)
+    shard, local = src._locate(index)
+    payload, _ = src.read_record(index)
+    with open(src.paths[shard], "r+b") as f:
+        f.seek(int(src._shard_offsets[shard][local]) + 16)
+        f.write(np.random.default_rng(index).integers(0, 256, len(payload), dtype=np.uint8).tobytes())
+
+
+def phase_records(run_dir: str):
+    """ResNet18Slim on the digits corpus through record shards (``examples/
+    train_records.py``'s ``main``: the tree packed into 4 + 2 shards, decoded on the
+    codec-free route where the library has no libpng, cropped natively, uint8 to the card,
+    global batch 128): 3 epochs, then a resumed fourth whose train epoch is profiled, each
+    run ending in ``eval.evaluate`` through the image-folder path; then one epoch on a copy
+    of the shards with one payload overwritten by garbage under ``skip_corrupt_records=True``,
+    which must skip exactly that record."""
+    from distributed_training_pytorch_tpu_torch.data import native
+    from distributed_training_pytorch_tpu_torch.examples import train_records
+
+    figures, trainer = _data_entry_run("[records]", train_records, run_dir, DIGITS_EPOCHS)
+    log(f"[records] the library was built {'with' if native.codecs_available() else 'without'} codecs: the "
+        f"{'fused decode entries' if native.codecs_available() else 'codec-free route (zlib, the unfilter, the uint8 entries)'}"
+        " decoded the shards")
+    records = os.path.join(run_dir, "digits", "records")
+    corrupt = os.path.join(run_dir, "corrupt")
+    shutil.copytree(records, corrupt)
+    patterns = {split: os.path.join(corrupt, f"{split}-*.rec") for split in ("train", "test")}
+    with _knobs(BATCH=str(DIGITS_BATCH)):
+        tolerant = train_records.build_trainer(patterns, os.path.join(run_dir, "tolerant"), "cuda", max_epoch=1,
+                                               skip_corrupt_records=True, have_validate=False)
+    loader = tolerant.train_dataloader
+    loader.set_epoch(0)
+    victim = int(loader._global_order()[0])  # a record of the epoch's first batch
+    _corrupt_one_payload(patterns["train"], victim)
+    before = _hand_kernel_counts()
+    tolerant.train()
+    if loader.corrupt_skipped != 1 or _hand_kernel_counts() != before:
+        raise RuntimeError(f"expected the one corrupt record skipped, got {loader.corrupt_skipped}")
+    log(f"[records] one epoch over shards with record {victim}'s payload overwritten, skip_corrupt_records=True: "
+        f"{loader.corrupt_skipped} record skipped, train step {tolerant.state.step}")
+    del trainer, tolerant
+    return figures
+
+
+def write_r50_tree(root: str, n_train: int, n_val: int, seed: int = 0) -> int:
+    """``train``/``val`` x ``R50_LABELS`` classes of smooth class-coloured RGB PNG images
+    of ``R50_SHAPES``, made from ``seed`` on a pool of threads; returns the bytes written."""
+    import concurrent.futures as cf
+
+    from distributed_training_pytorch_tpu_torch.data.png import rgb_png
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for split, n in (("train", n_train), ("val", n_val)):
+        for label in range(R50_LABELS):
+            os.makedirs(os.path.join(root, split, f"{label:02d}"))
+        for i in range(n):
+            label = i % R50_LABELS
+            jobs.append((os.path.join(root, split, f"{label:02d}", f"{i:05d}.png"), label, i,
+                         rng.uniform(9, 31, 3), rng.uniform(0, 6.3, 3)))
+
+    def one(job):
+        path, label, i, periods, phases = job
+        h, w = R50_SHAPES[i % len(R50_SHAPES)]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        base = 60 + 8 * label
+        img = np.stack([base + 50 * np.sin(xx / periods[0] + yy / 29 + phases[0]),
+                        200 - base // 2 + 40 * np.cos(yy / periods[1] + phases[1]),
+                        120 + 45 * np.sin((xx + yy) / periods[2] + phases[2])], -1)
+        data = rgb_png(np.clip(img, 0, 255).astype(np.uint8), level=1, filters="sub")
+        with open(path, "wb") as f:
+            f.write(data)
+        return len(data)
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        return sum(pool.map(one, jobs))
+
+
+def _data_paths_in_turns(trainer, epoch, paths, order=("records", "synthetic", "synthetic", "records")):
+    """The same train epoch of one warm trainer over each loader of ``paths`` in turns;
+    returns each path's profiled figures per run. The trainer's instrumented hooks are
+    dropped first, so these steps are not counted as the phase's."""
+    for hook in ("train_step", "validate_step", "train_epoch", "validate"):
+        trainer.__dict__.pop(hook, None)
+    own = trainer.train_dataloader
+    runs = {name: [] for name in paths}
+    try:
+        for name in order:
+            trainer.train_dataloader = paths[name]
+            runs[name].append(_profiled_epoch(trainer, epoch)[1])
+    finally:
+        trainer.train_dataloader = own
+    return runs
+
+
+def phase_records_resnet50(run_dir: str):
+    """ResNet-50 through the ImageNet entry on record shards (``MODEL=resnet50 PALLAS=1``,
+    ``IMAGENET_RECORDS``/``VAL_RECORDS``): a seeded tree of smooth PNG images of ImageNet's
+    usual sizes packed into 8 + 2 shards, global batch 256, 3 steps an epoch, 2 epochs and a
+    resumed third (the native decode + random-resized crop + flip on 8 loader workers, uint8
+    to the card). Raises unless every loss is finite and K4 launched exactly 9 times a train
+    step and a val forward, all on the wgmma variant, and its dz pass 9 times a step; then
+    the resumed train epoch on one warm trainer over the records and over the synthetic set,
+    in turns."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.data import native, pack_image_folder
+    from distributed_training_pytorch_tpu_torch.examples import train_imagenet
+
+    torch.backends.cudnn.allow_tf32 = True  # the entry's own settings: bf16 convolutions
+    tree = os.path.join(run_dir, "tree")
+    t0 = time.perf_counter()
+    nbytes = write_r50_tree(tree, 3 * RESNET_BATCH, RESNET_BATCH)
+    t_tree = time.perf_counter() - t0
+    labels = [f"{i:02d}" for i in range(R50_LABELS)]
+    shards = os.path.join(run_dir, "shards")
+    pack_image_folder(os.path.join(tree, "train"), labels, os.path.join(shards, "train"), num_shards=8)
+    pack_image_folder(os.path.join(tree, "val"), labels, os.path.join(shards, "val"), num_shards=2)
+    log(f"[records_resnet50] wrote {4 * RESNET_BATCH} PNG images ({nbytes / 1e6:.1f} MB; {R50_SHAPES}) in {t_tree:.1f} s "
+        f"and packed them in {time.perf_counter() - t0 - t_tree:.1f} s; library codecs: {native.codecs_available()}")
+    env = dict(RESNET_ENV, IMAGENET_RECORDS=os.path.join(shards, "train-*.rec"),
+               VAL_RECORDS=os.path.join(shards, "val-*.rec"))
+    figures, launches, counts, model, _ = _entry_run("[records_resnet50]", env, os.path.join(run_dir, "run"),
+                                                     RESNET_BATCH)
+    del model
+    k4_n, k4_wgmma, dz_n = (launches["k4"]["conv1x1_bn_act"], launches["k4_variant"][("conv1x1_bn_act", "wgmma")],
+                            launches["k4"]["conv1x1_bwd_dz"])
+    log(f"[records_resnet50] conv1x1 launches {k4_n} ({k4_wgmma} on the wgmma variant), backward dz launches {dz_n}, "
+        f"over {counts['steps']} steps and {counts['evals']} validation forwards")
+    if k4_n != len(RESNET_K4_SHAPES) * (counts["steps"] + counts["evals"]) or k4_wgmma != k4_n:
+        raise RuntimeError(f"expected {len(RESNET_K4_SHAPES)} conv1x1 launches per train step and val forward, all on "
+                           f"the wgmma variant, got {k4_n} ({k4_wgmma} wgmma)")
+    if dz_n != len(RESNET_K4_SHAPES) * counts["steps"]:
+        raise RuntimeError(f"expected {len(RESNET_K4_SHAPES)} dz launches per train step, got {dz_n}")
+    torch.cuda.empty_cache()
+
+    with _entry_env(env, SAVE_DIR=os.path.join(run_dir, "run"), EPOCHS=str(ENTRY_EPOCHS + 1), SNAPSHOT="last"):
+        trainer = train_imagenet.build_trainer("cuda")
+    size = trainer.image_size
+    synthetic = train_imagenet.synthetic_source(
+        len(trainer.train_dataloader) * RESNET_BATCH, size, trainer.num_classes,
+        train_imagenet.train_transform(size, seed=trainer.seed), seed=0)
+    paths = {"records": trainer.train_dataloader, "synthetic": trainer.build_dataloader(synthetic, phase="train")}
+    _profiled_epoch(trainer, ENTRY_EPOCHS)  # warm: cuDNN's choices, the allocator, the workers' first decode
+    turns = _data_paths_in_turns(trainer, ENTRY_EPOCHS, paths)
+    log(f"[records_resnet50] the resumed train epoch ({len(trainer.train_dataloader)} steps) on one warm trainer, "
+        f"in turns: {_turns_line(turns)}")
+    del trainer, paths, synthetic
+    torch.cuda.empty_cache()
+    return {**figures, "turns": turns}, {"conv1x1_bn_act": k4_n, "conv1x1_bwd_dz": dz_n}
+
+
+def phase_fp16(run_dir: str):
+    """VGG16 on the digits corpus through the digits entry with ``DTYPE=fp16`` (f32
+    params, fp16 compute, dynamic loss scaling from 2^15): 2 epochs; then one step on an
+    input forced past fp16's range, which must be skipped with params and buffers
+    bit-equal, the scale halved and one skip counted; then a clean step, a save of
+    ``last`` and a new trainer resumed from it, which must carry the scale, the counter
+    and the skip count."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_digits
+
+    step_ms, epoch_metrics, val_metrics = [], [], []
+    counts = {"steps": 0, "evals": 0}
+    before = _hand_kernel_counts()
+    digits, save = os.path.join(run_dir, "digits"), os.path.join(run_dir, "run")
+    with _knobs(DIGITS_DIR=digits, SAVE_DIR=save, EPOCHS=str(FP16_EPOCHS), BATCH=str(DIGITS_BATCH), DTYPE="fp16"):
+        trainer, summary, _ = _run_main(train_digits, step_ms, counts, epoch_metrics, val_metrics)
+        for hook in ("train_step", "validate_step", "train_epoch", "validate"):
+            trainer.__dict__.pop(hook, None)
+        params = dict(trainer.model.named_parameters())
+        if trainer.precision.name != "fp16" or any(p.dtype != torch.float32 for p in params.values()):
+            raise RuntimeError("expected the fp16 policy over f32 params")
+        batches = trainer.device_batches(trainer.train_dataloader)
+        batch = next(batches)
+        batches.close()
+        state_before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        scale_before = trainer.state.loss_scale
+        huge = dict(batch, image=torch.full_like(batch["image"], 7e4))  # past fp16's 65504
+        trainer.state, m = trainer.train_step(trainer.state, huge)
+        skipped = {"nonfinite": float(m["nonfinite"]), "used": float(m["loss_scale"])}
+        s = trainer.state.loss_scale
+        after = (float(s.scale), int(s.growth_counter), int(s.skipped_steps))
+        unchanged = all(torch.equal(v, state_before[k]) for k, v in trainer.model.state_dict().items())
+        trainer.state, m = trainer.train_step(trainer.state, batch)
+        s = trainer.state.loss_scale
+        saved = (float(s.scale), int(s.growth_counter), int(s.skipped_steps))
+        trainer.checkpoints.save("last", trainer.state, FP16_EPOCHS)
+        os.environ.update(SNAPSHOT="last")
+        restored = train_digits.build_trainer(digits, save, "cuda").state.loss_scale
+        restored = (float(restored.scale), int(restored.growth_counter), int(restored.skipped_steps))
+    for i, em in enumerate(epoch_metrics):
+        log(f"[fp16] epoch {i}: train ce {em['ce_loss']:.4f} acc {em['accuracy']:.4f} loss scale "
+            f"{em.get('loss_scale', float('nan')):.0f} skipped steps {em.get('nonfinite', float('nan')):.0f}")
+    times = [a.elapsed_time(b) for a, b in step_ms]
+    steady = sorted(times[1:])
+    log(f"[fp16] {counts['steps']} steps, step time median {steady[len(steady) // 2]:.2f} ms; scale before the "
+        f"overflow step {float(scale_before.scale):.0f} (counter {int(scale_before.growth_counter)}); the overflow step: "
+        f"{skipped}, then (scale, counter, skips) {after}, params and buffers unchanged: {unchanged}; after a clean "
+        f"step {saved}; restored from last {restored}; eval {summary['results']}")
+    losses = [em["ce_loss"] for em in epoch_metrics] + [vm["ce_loss"] for vm in val_metrics]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite losses: {losses}")
+    if [em["loss_scale"] for em in epoch_metrics] != [2.0**15] * FP16_EPOCHS:
+        raise RuntimeError(f"loss scale reported {[em.get('loss_scale') for em in epoch_metrics]}, expected 2^15")
+    if skipped != {"nonfinite": 1.0, "used": 2.0**15} or after != (2.0**14, 0, 1) or not unchanged:
+        raise RuntimeError(f"the overflow step: {skipped}, state {after}, unchanged {unchanged}")
+    if saved != (2.0**14, 1, 1) or restored != saved:
+        raise RuntimeError(f"the scale saved {saved} came back as {restored}")
+    if _hand_kernel_counts() != before:
+        raise RuntimeError("a hand kernel launched in the fp16 phase")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": steady[len(steady) // 2], "after": after, "restored": restored,
+            "curve": [em["ce_loss"] for em in epoch_metrics]}
+
+
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named run phases (``folder``,
     ``vgg``), each in its own temporary directory; no kernels line and no final line."""
-    phases = {"folder": phase_folder, "vgg": phase_vgg}
+    phases = {"folder": phase_folder, "vgg": phase_vgg, "digits": phase_digits, "records": phase_records,
+              "records_resnet50": phase_records_resnet50, "fp16": phase_fp16}
     try:
         phase_device()
         run_root = os.path.join(REPO, "build")
@@ -2785,6 +3148,14 @@ def main() -> int:
             convnext_launches, convnext = phase_convnext(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             folder = phase_folder(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            digits = phase_digits(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            records = phase_records(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            r50, r50_launches = phase_records_resnet50(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            fp16 = phase_fp16(run_dir)
         times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         convnext_times, convnext_total = phase_convnext_times(card)
@@ -2822,6 +3193,18 @@ def main() -> int:
             f"the resumed train epoch {_fmt_busy(folder['new']['busy'])} (wall {folder['new']['wall_ms']:.1f} ms); "
             f"host ms per image: " + ", ".join(f"{k} {v:.3f}" for k, v in folder["host"]["transforms"].items())
             + "; decoders: " + ", ".join(f"{k} {v:.3f}" for k, v in folder["host"]["decoders"].items()))
+        for label, fig in (("VGG16 on the digits corpus (B=128, 32x32, f32, through train_digits)", digits),
+                           ("ResNet18Slim on the digits record shards (B=128, 32x32, bf16, through train_records)",
+                            records)):
+            log(f"[times] {card} | {label}: step median {fig['step_ms']:.2f} ms, {fig['images_per_s']:.0f} images/s, "
+                f"device busy share of the resumed train epoch {_fmt_busy(fig['busy']['busy'])} (wall "
+                f"{fig['busy']['wall_ms']:.1f} ms); eval " + ", ".join(
+                    f"{k} top-1 {v['top1']:.4f} top-2 {v['top2']:.4f}" for k, v in fig["results"].items()))
+        log(f"[times] {card} | ResNet-50 on record shards (B=256, 224x224, bf16, PALLAS=1, through the entry): median "
+            f"{r50['step_ms']:.2f} ms, {r50['images_per_s']:.0f} images/s, peak memory {r50['peak_gb']:.2f} GB; its "
+            f"resumed train epoch on the warm trainer, in turns: {_turns_line(r50['turns'])}")
+        log(f"[times] {card} | VGG16 on the digits corpus, DTYPE=fp16 with dynamic loss scaling: step median "
+            f"{fp16['step_ms']:.2f} ms")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -2843,7 +3226,8 @@ def main() -> int:
                                  "train_resnet50": 0, "train_vgg16": 0,
                                  "serve": serve_launches if kind == "fwd" else 0,
                                  "train_vit_b16": vit_launches[launch_key], "train_convnext_l": 0,
-                                 "train_folder": 0},
+                                 "train_folder": 0, "train_digits": 0, "train_records": 0,
+                                 "train_records_resnet50": 0, "train_digits_fp16": 0},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -2869,7 +3253,9 @@ def main() -> int:
             "launches": resnet_launches[name],
             "launches_by_path": {"train_resnet50": resnet_launches[name], "train": 0, "train_ring": 0,
                                  "train_vgg16": 0, "serve": 0, "train_vit_b16": 0,
-                                 "train_convnext_l": convnext_launches[name], "train_folder": 0},
+                                 "train_convnext_l": convnext_launches[name], "train_folder": 0,
+                                 "train_digits": 0, "train_records": 0,
+                                 "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -2903,7 +3289,8 @@ def main() -> int:
             "launches": ring_launches[launch_key],
             "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0,
                                  "train_vgg16": 0, "serve": 0, "train_vit_b16": 0, "train_convnext_l": 0,
-                                 "train_folder": 0},
+                                 "train_folder": 0, "train_digits": 0, "train_records": 0,
+                                 "train_records_resnet50": 0, "train_digits_fp16": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

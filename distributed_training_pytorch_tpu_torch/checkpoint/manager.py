@@ -6,7 +6,9 @@ CheckpointManager``, on ``torch.save`` instead of Orbax:
 * three named policies: ``best`` (on a validation-metric improvement by a
   ``(metric, "geq"|"leq")`` rule), ``last``, and ``checkpoint_epoch_N``
   (:func:`epoch_checkpoint_name`), the periodic saves, of which ``max_to_keep`` are kept;
-* a checkpoint is a directory: ``state.pt`` (params, optimizer state, step), ``meta.json``
+* a checkpoint is a directory: ``state.pt`` (params, optimizer state, step, and a dynamic
+  loss scale's tensors when the state has one, as the JAX manager's ``scale`` item,
+  ``checkpoint/manager.py:317-330``: a resume carries on with the same scale and counter), ``meta.json``
   (resume epoch, best value, metrics) and ``manifest.dtp.json`` (size and SHA-256 of every
   other file);
 * atomic commits: every save is written under ``.staging/<name>.<n>`` and renamed onto
@@ -169,6 +171,8 @@ class CheckpointManager:
                     "params_top_level": sorted({k.split(".", 1)[0] for k in payload["params"]})}
             if metrics is not None:
                 meta["metrics"] = {k: float(v) for k, v in metrics.items()}
+            if "loss_scale" in payload:  # the JAX manager's meta names the scale's type (:330)
+                meta["loss_scale"] = type(state.loss_scale).__name__
             self._staging_seq += 1
             staging = os.path.join(self.directory, _STAGING_DIR, f"{name}.{self._staging_seq}")
             os.makedirs(staging)

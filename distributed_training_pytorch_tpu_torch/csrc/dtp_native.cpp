@@ -1,5 +1,6 @@
 // Host data runtime of the PyTorch/CUDA port: the port's own copy of the JAX package's
-// csrc/dtp_native.cpp, with the same seven extern "C" entry points and the same results.
+// csrc/dtp_native.cpp, with the same seven extern "C" entry points and the same results,
+// and the codec-free entry points the port adds.
 //
 // JPEG/PNG decode (libjpeg/libpng), OpenCV-compatible bilinear resize (half-pixel
 // centres), normalisation, and a deterministic crop/flip(/normalise) augmenter: all
@@ -437,24 +438,21 @@ struct DecodeRrcArgs {
   std::atomic<int64_t>* failed;
 };
 
-static void decode_rrc_one(int64_t i, void* p) {
-  DecodeRrcArgs* a = (DecodeRrcArgs*)p;
-  int h = 0, w = 0;
-  uint8_t* img = decode_bytes(a->bufs[i], (size_t)a->lengths[i], &h, &w);
-  if (!img) {
-    int64_t expect = -1;
-    a->failed->compare_exchange_strong(expect, i);
-    return;
-  }
+// The random-resized-crop + flip of one decoded h x w image into dst (out_h x out_w):
+// shared by the fused decode entry and the codec-free entry below, so both draw the same
+// window and flip for the same (seed, epoch, index).
+static void rrc_flip_into(const uint8_t* img, int h, int w, uint64_t seed, uint64_t epoch,
+                          int64_t index, int hflip, float scale_lo, float scale_hi,
+                          float ratio_lo, float ratio_hi, uint8_t* dst, int out_h, int out_w) {
   Philox rng;
-  rng.init(a->seed, (a->epoch << 40) | (uint64_t)a->indices[i]);
+  rng.init(seed, (epoch << 40) | (uint64_t)index);
   const double area = (double)h * w;
-  const double log_rlo = std::log((double)a->ratio_lo);
-  const double log_rhi = std::log((double)a->ratio_hi);
+  const double log_rlo = std::log((double)ratio_lo);
+  const double log_rhi = std::log((double)ratio_hi);
   int x0 = 0, y0 = 0, cw = w, ch = h;
   bool found = false;
   for (int att = 0; att < 10 && !found; ++att) {
-    double target = area * (a->scale_lo + rng.uniform() * (a->scale_hi - a->scale_lo));
+    double target = area * (scale_lo + rng.uniform() * (scale_hi - scale_lo));
     double r = std::exp(log_rlo + rng.uniform() * (log_rhi - log_rlo));
     int tw = (int)std::lround(std::sqrt(target * r));
     int th = (int)std::lround(std::sqrt(target / r));
@@ -470,10 +468,22 @@ static void decode_rrc_one(int64_t i, void* p) {
     y0 = (h - side) / 2; x0 = (w - side) / 2;
     cw = side; ch = side;
   }
-  bool flip = a->hflip && rng.uniform() < 0.5;
-  bilinear_resize_window_u8(img, h, w, x0, y0, cw, ch,
-                            a->out + (size_t)i * a->out_h * a->out_w * 3,
-                            a->out_h, a->out_w, flip);
+  bool flip = hflip && rng.uniform() < 0.5;
+  bilinear_resize_window_u8(img, h, w, x0, y0, cw, ch, dst, out_h, out_w, flip);
+}
+
+static void decode_rrc_one(int64_t i, void* p) {
+  DecodeRrcArgs* a = (DecodeRrcArgs*)p;
+  int h = 0, w = 0;
+  uint8_t* img = decode_bytes(a->bufs[i], (size_t)a->lengths[i], &h, &w);
+  if (!img) {
+    int64_t expect = -1;
+    a->failed->compare_exchange_strong(expect, i);
+    return;
+  }
+  rrc_flip_into(img, h, w, a->seed, a->epoch, a->indices[i], a->hflip, a->scale_lo,
+                a->scale_hi, a->ratio_lo, a->ratio_hi,
+                a->out + (size_t)i * a->out_h * a->out_w * 3, a->out_h, a->out_w);
   free(img);
 }
 
@@ -486,6 +496,68 @@ int64_t dtp_decode_rrc_flip_u8_bytes(
   DecodeRrcArgs a{bufs, lengths, out_h, out_w, seed, epoch, indices, hflip,
                   scale_lo, scale_hi, ratio_lo, ratio_hi, out, &failed};
   run_parallel(n, threads, decode_rrc_one, &a);
+  return failed.load() >= 0 ? failed.load() + 1 : 0;
+}
+
+// Codec-free counterparts of the two uint8 decode entries above, for images the caller
+// decoded (a build with -DDTP_NO_CODECS decodes nothing itself: the port decodes PNG
+// payloads with zlib and dtp_png_unfilter). imgs[i] is an h[i] x w[i] RGB image; out is
+// [n, out_h, out_w, 3]. Each returns 0, or 1 + the index of an image with no pixels.
+// The same resize and the same random-resized-crop as the fused entries, so a payload
+// gives the same bytes through either route.
+struct PixelsArgs {
+  const uint8_t* const* imgs;
+  const int64_t* heights;
+  const int64_t* widths;
+  int out_h, out_w;
+  uint64_t seed, epoch;
+  const int64_t* indices;
+  int hflip;
+  float scale_lo, scale_hi, ratio_lo, ratio_hi;
+  uint8_t* out;
+  std::atomic<int64_t>* failed;
+};
+
+static bool pixels_ok(const PixelsArgs* a, int64_t i) {
+  if (a->heights[i] > 0 && a->widths[i] > 0) return true;
+  int64_t expect = -1;
+  a->failed->compare_exchange_strong(expect, i);
+  return false;
+}
+
+static void resize_pixels_one(int64_t i, void* p) {
+  PixelsArgs* a = (PixelsArgs*)p;
+  if (!pixels_ok(a, i)) return;
+  bilinear_resize_u8(a->imgs[i], (int)a->heights[i], (int)a->widths[i],
+                     a->out + (size_t)i * a->out_h * a->out_w * 3, a->out_h, a->out_w);
+}
+
+int64_t dtp_resize_u8_batch(const uint8_t* const* imgs, const int64_t* heights,
+                            const int64_t* widths, int64_t n, int out_h, int out_w,
+                            uint8_t* out, int threads) {
+  std::atomic<int64_t> failed(-1);
+  PixelsArgs a{imgs, heights, widths, out_h, out_w, 0, 0, nullptr, 0, 0, 0, 0, 0, out, &failed};
+  run_parallel(n, threads, resize_pixels_one, &a);
+  return failed.load() >= 0 ? failed.load() + 1 : 0;
+}
+
+static void rrc_pixels_one(int64_t i, void* p) {
+  PixelsArgs* a = (PixelsArgs*)p;
+  if (!pixels_ok(a, i)) return;
+  rrc_flip_into(a->imgs[i], (int)a->heights[i], (int)a->widths[i], a->seed, a->epoch,
+                a->indices[i], a->hflip, a->scale_lo, a->scale_hi, a->ratio_lo, a->ratio_hi,
+                a->out + (size_t)i * a->out_h * a->out_w * 3, a->out_h, a->out_w);
+}
+
+int64_t dtp_rrc_flip_u8_batch(const uint8_t* const* imgs, const int64_t* heights,
+                              const int64_t* widths, int64_t n, int out_h, int out_w,
+                              uint64_t seed, uint64_t epoch, const int64_t* indices, int hflip,
+                              float scale_lo, float scale_hi, float ratio_lo, float ratio_hi,
+                              uint8_t* out, int threads) {
+  std::atomic<int64_t> failed(-1);
+  PixelsArgs a{imgs, heights, widths, out_h, out_w, seed, epoch, indices, hflip,
+               scale_lo, scale_hi, ratio_lo, ratio_hi, out, &failed};
+  run_parallel(n, threads, rrc_pixels_one, &a);
   return failed.load() >= 0 ? failed.load() + 1 : 0;
 }
 

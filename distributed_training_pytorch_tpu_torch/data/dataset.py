@@ -31,7 +31,7 @@ import numpy as np
 
 from distributed_training_pytorch_tpu_torch.data import native, transforms
 
-__all__ = ["ArrayDataSource", "ImageFolderDataSource", "NativeImageFolderSource", "decode_image"]
+__all__ = ["ArrayDataSource", "ImageFolderDataSource", "NativeImageFolderSource", "decode_bytes", "decode_image"]
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -70,23 +70,30 @@ def decode_image(path: str) -> np.ndarray:
     """A PNG, BMP or JPEG file -> RGB uint8 HWC, as ``cv2.imread(path)[..., ::-1]``."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_bytes(data, f"file {path!r}")
+
+
+def decode_bytes(data: bytes, what: str) -> np.ndarray:
+    """PNG, BMP or JPEG bytes -> RGB uint8 HWC, as ``cv2.imdecode(..., IMREAD_COLOR)[...,
+    ::-1]``; a ``DecodeError`` names ``what`` (a file, a record) and says what was wrong.
+    A JPEG where the library has no libjpeg raises ``MissingCodecError``."""
     try:
         if data.startswith(_PNG_SIGNATURE):
-            return _decode_png(data, path)
+            return _decode_png(data, what)
         if data.startswith(b"BM"):
-            return _decode_bmp(data, path)
+            return _decode_bmp(data, what)
     except native.DecodeError:
         raise
     except (struct.error, ValueError) as e:  # a header or pixel array cut short
-        raise native.DecodeError(None, f"file {path!r}", f"a truncated or malformed image ({e})") from None
+        raise native.DecodeError(None, what, f"a truncated or malformed image ({e})") from None
     if data.startswith(b"\xff\xd8"):
-        return _decode_jpeg(data, path)
+        return _decode_jpeg(data, what)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise native.DecodeError(None, f"file {path!r}", "the port has no WebP decoder")
-    raise native.DecodeError(None, f"file {path!r}", "not a PNG, BMP or JPEG file")
+        raise native.DecodeError(None, what, "the port has no WebP decoder")
+    raise native.DecodeError(None, what, "not a PNG, BMP or JPEG file")
 
 
-def _decode_png(data: bytes, path: str) -> np.ndarray:
+def _decode_png(data: bytes, what: str) -> np.ndarray:
     pos, header, palette, idat = 8, None, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos : pos + 8])
@@ -101,22 +108,22 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         elif kind == b"IEND":
             break
     if header is None or not idat:
-        raise native.DecodeError(None, f"file {path!r}", "a PNG without IHDR or IDAT")
+        raise native.DecodeError(None, what, "a PNG without IHDR or IDAT")
     width, height, depth, color, _, _, interlace = header
     if interlace:
-        raise native.DecodeError(None, f"file {path!r}", "Adam7-interlaced PNG is not supported")
+        raise native.DecodeError(None, what, "Adam7-interlaced PNG is not supported")
     try:
         return native.png_unfilter(zlib.decompress(b"".join(idat)), height, width, depth, color, palette)
     except (zlib.error, ValueError) as e:
-        raise native.DecodeError(None, f"file {path!r}", str(e)) from None
+        raise native.DecodeError(None, what, str(e)) from None
 
 
-def _decode_bmp(data: bytes, path: str) -> np.ndarray:
+def _decode_bmp(data: bytes, what: str) -> np.ndarray:
     offset = struct.unpack_from("<I", data, 10)[0]
     header_size, width, height, _, bits, compression = struct.unpack_from("<IiiHHI", data, 14)
     colors_used = struct.unpack_from("<I", data, 46)[0] if header_size >= 40 else 0
     if compression not in (0, 3) or bits not in (1, 4, 8, 24, 32) or (compression == 3 and bits != 32):
-        raise native.DecodeError(None, f"file {path!r}", f"a {bits}-bit BMP with compression {compression}")
+        raise native.DecodeError(None, what, f"a {bits}-bit BMP with compression {compression}")
     h, w = abs(height), width
     stride = (w * bits + 31) // 32 * 4
     rows = np.frombuffer(data, np.uint8, h * stride, offset).reshape(h, stride)
@@ -148,22 +155,22 @@ def _jpeg_size(data: bytes) -> "tuple[int, int] | None":
     return None
 
 
-def _no_libjpeg(path: str) -> native.DecodeError:
-    return native.DecodeError(
-        None, f"file {path!r}", "this machine has no libjpeg (the native library was built without codecs)"
+def _no_libjpeg(what: str) -> native.MissingCodecError:
+    return native.MissingCodecError(
+        None, what, "this machine has no libjpeg (the native library was built without codecs)"
     )
 
 
-def _decode_jpeg(data: bytes, path: str) -> np.ndarray:
+def _decode_jpeg(data: bytes, what: str) -> np.ndarray:
     if not native.codecs_available():
-        raise _no_libjpeg(path)
+        raise _no_libjpeg(what)
     size = _jpeg_size(data)
     if size is None:
-        raise native.DecodeError(None, f"file {path!r}", "no JPEG frame header")
+        raise native.DecodeError(None, what, "no JPEG frame header")
     try:
         return native.decode_resize_u8_bytes([data], *size)[0]  # at its own size: no resampling
     except native.DecodeError:
-        raise native.DecodeError(None, f"file {path!r}", "libjpeg refused it") from None
+        raise native.DecodeError(None, what, "libjpeg refused it") from None
 
 
 class NativeImageFolderSource(ImageFolderDataSource):
@@ -193,7 +200,7 @@ class NativeImageFolderSource(ImageFolderDataSource):
         labels = np.array([self.records[int(i)][1] for i in rows], np.int32)
         jpeg = [p for p, i in enumerate(rows) if self.records[int(i)][0].lower().endswith(self._NATIVE_EXTS)]
         if jpeg and not native.codecs_available():
-            raise _no_libjpeg(self.records[int(rows[jpeg[0]])][0])
+            raise _no_libjpeg(f"file {self.records[int(rows[jpeg[0]])][0]!r}")
         images = native.mixed_native_batch(
             len(rows), self.height, self.width, jpeg,
             lambda pos: native.decode_resize_normalize(

@@ -31,14 +31,25 @@ its semantics kept exactly, so both loaders give the same batches:
 The shard index and count (``process_index``/``process_count``) default to the rank and
 world size of ``torch.distributed`` (0 and 1 outside a process group); the trainer passes
 its mesh's data index and data extent instead, so the seq ranks of one data shard read the
-same rows. Corrupt-record skipping (``skip_corrupt``) and the ``load_delay_s`` injection
-seam come with the record-file slice and raise if asked for.
+same rows.
+
+``skip_corrupt`` (``loader.py:56``, ``:94-126``): a record that fails to load
+(``CorruptRecordError``, or a decode ``ValueError``) is replaced by the next readable one,
+deterministically, and counted in ``corrupt_skipped``; a source with its own tolerant batch
+path (``data/records.py``'s ``skip_corrupt``) gets the flag set on it, so its whole-batch
+fast path degrades the same way (this sets the attribute on the caller's source object).
+A payload the machine cannot decode at all (``MissingCodecError``) is never skipped.
+``load_delay_s`` is an injection seam: a sleep of that many seconds in every batch's
+production, on the producing thread (at collate for the per-record path with workers),
+so that a test can make the loader the bottleneck on purpose; it is 0 in production.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import queue
+import threading
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -48,8 +59,6 @@ from distributed_training_pytorch_tpu_torch.data import transforms
 from distributed_training_pytorch_tpu_torch.parallel import mesh
 
 __all__ = ["ShardedLoader"]
-
-_RECORDS_SLICE = "comes with the record-file slice of the port"
 
 
 class ShardedLoader:
@@ -75,8 +84,6 @@ class ShardedLoader:
     ):
         if drop_last and pad_final:
             raise ValueError("drop_last and pad_final are mutually exclusive")
-        if skip_corrupt:
-            raise NotImplementedError(f"skip_corrupt=True (corrupt-record skipping) {_RECORDS_SLICE}")
         self.source = source
         self.collate_fn = collate_fn if collate_fn is not None else getattr(source, "collate_fn", None)
         # Sources carry their transform as an attribute; the loader applies it, so the
@@ -89,6 +96,12 @@ class ShardedLoader:
         self.prefetch_batches = max(1, int(prefetch_batches))
         self.drop_last = drop_last
         self.pad_final = pad_final
+        self.skip_corrupt = bool(skip_corrupt)
+        self._corrupt_skipped = 0
+        self._skip_lock = threading.Lock()
+        self.load_delay_s = 0.0
+        if self.skip_corrupt and hasattr(source, "skip_corrupt"):
+            source.skip_corrupt = True
         self._epoch = 0
         self._pidx = mesh.process_index() if process_index is None else process_index
         self._pcount = mesh.process_count() if process_count is None else process_count
@@ -97,13 +110,10 @@ class ShardedLoader:
         self.local_batch_size = self.global_batch_size // self._pcount
 
     @property
-    def load_delay_s(self) -> float:
-        return 0.0
-
-    @load_delay_s.setter
-    def load_delay_s(self, value: float) -> None:
-        if value:
-            raise NotImplementedError(f"load_delay_s (the loader's injection seam) {_RECORDS_SLICE}")
+    def corrupt_skipped(self) -> int:
+        """Records skipped as corrupt: the loader's own substitutions plus the source's
+        (its tolerant reads and batch decodes), one number whichever layer skipped."""
+        return self._corrupt_skipped + int(getattr(self.source, "corrupt_skipped", 0))
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the epoch permutation (``sampler.set_epoch``)."""
@@ -138,11 +148,29 @@ class ShardedLoader:
             return "arrays"
         return None
 
-    def _load_one(self, index: int, epoch: int) -> dict:
+    def _load_one_raw(self, index: int, epoch: int) -> dict:
         record = dict(self.source[int(index)])
         if self.transform is not None and "image" in record:
             record["image"] = self.transform(record["image"], epoch=epoch, index=int(index))
         return record
+
+    def _load_one(self, index: int, epoch: int) -> dict:
+        if not self.skip_corrupt:
+            return self._load_one_raw(index, epoch)
+        from distributed_training_pytorch_tpu_torch.data.records import CorruptRecordError, tolerant_fetch
+
+        record, skipped = tolerant_fetch(
+            lambda i: self._load_one_raw(i, epoch), index, len(self.source),
+            exceptions=(CorruptRecordError, ValueError),  # decode and transform failures raise ValueError too
+        )
+        if skipped:
+            with self._skip_lock:  # worker threads count at once
+                self._corrupt_skipped += skipped
+        return record
+
+    def _maybe_delay(self) -> None:
+        if self.load_delay_s:
+            time.sleep(float(self.load_delay_s))  # the injection seam (see the module docstring)
 
     def _collate(self, records: "list[dict]", mask: "np.ndarray | None") -> dict:
         if self.collate_fn is not None:
@@ -154,6 +182,7 @@ class ShardedLoader:
         return batch
 
     def _produce_batch(self, rows: np.ndarray, mask, epoch: int, fast: "str | None") -> dict:
+        self._maybe_delay()
         if fast == "source":
             batch = dict(self.source.load_batch(rows, epoch))
         elif fast == "arrays":
@@ -223,6 +252,7 @@ class ShardedLoader:
                 if fast is not None:
                     yield item.result()
                 else:
+                    self._maybe_delay()  # the per-record path: the delay at collate
                     yield self._collate([f.result() for f in item], mask)
         finally:
             # An abandoned iterator drops the batches not yet started.

@@ -20,6 +20,13 @@ library's ``zlib``), and :func:`box_blur`, :func:`median_blur`, :func:`clahe` an
 :func:`jpeg_roundtrip`, which reproduce the OpenCV and libjpeg-turbo arithmetic of the JAX
 package's ``cv2`` transforms. They take and return uint8 HWC images, one image a call.
 
+Two batch entry points start from uint8 pixels the caller decoded, the codec-free route
+of the uint8 decode entries for a build without codecs: :func:`resize_u8_batch` (the
+resize of :func:`decode_resize_u8_bytes`) and :func:`rrc_flip_u8_batch` (the
+random-resized crop and flip of :func:`decode_rrc_flip_u8_bytes`). A PNG payload gives the
+same bytes through either route (``data/records.py`` takes the fused entries where the
+library has codecs, and these where it has none).
+
 A failed build is never silent: :func:`available` says whether the library loaded, and
 :func:`build_error` returns the compiler's message when it did not. Nothing here runs at
 import.
@@ -38,7 +45,9 @@ from typing import Sequence
 import numpy as np
 
 __all__ = [
+    "ARGTYPES",
     "DecodeError",
+    "MissingCodecError",
     "NativeCropFlipNormalize",
     "NativeCropFlipU8",
     "augment_crop_flip",
@@ -58,6 +67,8 @@ __all__ = [
     "normalize",
     "png_unfilter",
     "resize_normalize",
+    "resize_u8_batch",
+    "rrc_flip_u8_batch",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -107,35 +118,46 @@ def _build() -> None:
         os.replace(tmp_lib, LIBRARY)
 
 
+_i64, _i32, _u64, _f32 = ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+_fptr = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_u8ptr = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i64ptr = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_strs = ctypes.POINTER(ctypes.c_char_p)
+_ptrs = ctypes.POINTER(ctypes.c_void_p)
+
+# The ctypes argument types of every extern "C" function of ``SOURCE`` that returns
+# int64_t, which ctypes converts by these alone (tests/test_torch_records.py parses the
+# source and holds each entry against its signature).
+ARGTYPES = {
+    "dtp_decode_resize_normalize": [_strs, _i64, _i32, _i32, _fptr, _fptr, _fptr, _i32],
+    "dtp_augment_crop_flip": [_u8ptr, _i64, _i32, _i32, _i32, _u64, _u64, _i64ptr, _fptr, _fptr, _i32, _fptr, _i32],
+    "dtp_normalize": [_u8ptr, _i64, _i32, _i32, _fptr, _fptr, _fptr, _i32],
+    "dtp_augment_crop_flip_u8": [_u8ptr, _i64, _i32, _i32, _i32, _u64, _u64, _i64ptr, _i32, _u8ptr, _i32],
+    "dtp_decode_resize_normalize_bytes": [_strs, _i64ptr, _i64, _i32, _i32, _fptr, _fptr, _fptr, _i32],
+    "dtp_decode_resize_u8_bytes": [_strs, _i64ptr, _i64, _i32, _i32, _u8ptr, _i32],
+    "dtp_decode_rrc_flip_u8_bytes": [
+        _strs, _i64ptr, _i64, _i32, _i32, _u64, _u64, _i64ptr, _i32, _f32, _f32, _f32, _f32, _u8ptr, _i32,
+    ],
+    "dtp_resize_u8_batch": [_ptrs, _i64ptr, _i64ptr, _i64, _i32, _i32, _u8ptr, _i32],
+    "dtp_rrc_flip_u8_batch": [
+        _ptrs, _i64ptr, _i64ptr, _i64, _i32, _i32, _u64, _u64, _i64ptr, _i32, _f32, _f32, _f32, _f32, _u8ptr, _i32,
+    ],
+    "dtp_resize_normalize_u8": [_u8ptr, _i32, _i32, _i32, _i32, _fptr, _fptr, _fptr],
+    "dtp_png_unfilter": [_u8ptr, _i64, _i32, _i32, _i32, _i32, _u8ptr, _i32, _u8ptr],
+    "dtp_box_blur_u8": [_u8ptr, _i32, _i32, _i32, _i32, _u8ptr],
+    "dtp_median_blur_u8": [_u8ptr, _i32, _i32, _i32, _i32, _u8ptr],
+    "dtp_clahe_u8": [_u8ptr, _i32, _i32, ctypes.c_double, _i32, _u8ptr],
+    "dtp_jpeg_roundtrip_u8": [_u8ptr, _i32, _i32, _i32, _u8ptr],
+}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    i64, i32, u64, f32 = ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
-    fptr = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-    u8ptr = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    i64ptr = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-    strs = ctypes.POINTER(ctypes.c_char_p)
-    argtypes = {
-        "dtp_decode_resize_normalize": [strs, i64, i32, i32, fptr, fptr, fptr, i32],
-        "dtp_augment_crop_flip": [u8ptr, i64, i32, i32, i32, u64, u64, i64ptr, fptr, fptr, i32, fptr, i32],
-        "dtp_normalize": [u8ptr, i64, i32, i32, fptr, fptr, fptr, i32],
-        "dtp_augment_crop_flip_u8": [u8ptr, i64, i32, i32, i32, u64, u64, i64ptr, i32, u8ptr, i32],
-        "dtp_decode_resize_normalize_bytes": [strs, i64ptr, i64, i32, i32, fptr, fptr, fptr, i32],
-        "dtp_decode_resize_u8_bytes": [strs, i64ptr, i64, i32, i32, u8ptr, i32],
-        "dtp_decode_rrc_flip_u8_bytes": [
-            strs, i64ptr, i64, i32, i32, u64, u64, i64ptr, i32, f32, f32, f32, f32, u8ptr, i32,
-        ],
-        "dtp_resize_normalize_u8": [u8ptr, i32, i32, i32, i32, fptr, fptr, fptr],
-        "dtp_png_unfilter": [u8ptr, i64, i32, i32, i32, i32, u8ptr, i32, u8ptr],
-        "dtp_box_blur_u8": [u8ptr, i32, i32, i32, i32, u8ptr],
-        "dtp_median_blur_u8": [u8ptr, i32, i32, i32, i32, u8ptr],
-        "dtp_clahe_u8": [u8ptr, i32, i32, ctypes.c_double, i32, u8ptr],
-        "dtp_jpeg_roundtrip_u8": [u8ptr, i32, i32, i32, u8ptr],
-    }
-    for name, types in argtypes.items():
+    for name, types in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = types
-        fn.restype = i64
+        fn.restype = _i64
     lib.dtp_has_codecs.argtypes = []
-    lib.dtp_has_codecs.restype = i32
+    lib.dtp_has_codecs.restype = _i32
 
 
 def _load() -> "ctypes.CDLL | None":
@@ -201,8 +223,14 @@ class DecodeError(ValueError):
 
     def __init__(self, index: "int | None", what: str = "record payload", reason: "str | None" = None):
         self.index = index
+        self.reason = reason
         super().__init__(f"failed to decode {what}" + (f" #{index}" if index is not None else "")
                          + (f": {reason}" if reason else ""))
+
+
+class MissingCodecError(DecodeError):
+    """A payload this machine cannot decode at all (a JPEG where the library was built
+    without libjpeg): not a corrupt record, so never skipped as one."""
 
 
 def _threads(n: "int | None") -> int:
@@ -282,6 +310,51 @@ def decode_rrc_flip_u8_bytes(
     )
     if rc:
         raise DecodeError(rc - 1)
+    return out
+
+
+def _pixels(images: Sequence[np.ndarray]):
+    """Pointers to, and the heights and widths of, decoded uint8 HWC RGB images (each
+    made contiguous; the returned list keeps those arrays alive for the call)."""
+    kept = [_hwc_u8(img, 3) for img in images]
+    ptrs = (ctypes.c_void_p * len(kept))(*[img.ctypes.data for img in kept])
+    heights = np.asarray([img.shape[0] for img in kept], np.int64)
+    widths = np.asarray([img.shape[1] for img in kept], np.int64)
+    return kept, ptrs, heights, widths
+
+
+def resize_u8_batch(images: Sequence[np.ndarray], height: int, width: int, *, threads: "int | None" = None) -> np.ndarray:
+    """Decoded uint8 RGB images of any sizes -> [N, H, W, 3] uint8, with the resize of
+    :func:`decode_resize_u8_bytes`: the codec-free route of that entry, for images the
+    caller decoded (a PNG payload through ``zlib`` and :func:`png_unfilter`)."""
+    lib = _require()
+    kept, ptrs, heights, widths = _pixels(images)
+    out = np.empty((len(kept), height, width, 3), np.uint8)
+    rc = lib.dtp_resize_u8_batch(ptrs, heights, widths, len(kept), height, width, out, _threads(threads))
+    if rc:
+        raise DecodeError(rc - 1, "image", "no pixels")
+    return out
+
+
+def rrc_flip_u8_batch(
+    images: Sequence[np.ndarray], height: int, width: int, indices: np.ndarray, *, seed: int, epoch: int,
+    hflip: bool = True, scale: "tuple[float, float]" = (0.08, 1.0), ratio: "tuple[float, float]" = (3 / 4, 4 / 3),
+    threads: "int | None" = None,
+) -> np.ndarray:
+    """Decoded uint8 RGB images -> [N, H, W, 3] uint8 through the random-resized crop and
+    flip of :func:`decode_rrc_flip_u8_bytes` (the same Philox draws per
+    ``(seed, epoch, indices[i])``, the same 10 attempts and centre square, the same
+    bilinear sampling): its codec-free route."""
+    lib = _require()
+    kept, ptrs, heights, widths = _pixels(images)
+    n = len(kept)
+    out = np.empty((n, height, width, 3), np.uint8)
+    rc = lib.dtp_rrc_flip_u8_batch(
+        ptrs, heights, widths, n, height, width, seed, epoch, _per_image(indices, n, np.int64, "indices"),
+        int(hflip), float(scale[0]), float(scale[1]), float(ratio[0]), float(ratio[1]), out, _threads(threads),
+    )
+    if rc:
+        raise DecodeError(rc - 1, "image", "no pixels")
     return out
 
 

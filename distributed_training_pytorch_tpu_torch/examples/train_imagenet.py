@@ -19,8 +19,13 @@ keyed by ``(seed, epoch, index)``, and normalises uint8 images on the device
 
     python -m distributed_training_pytorch_tpu_torch.examples.train_imagenet
 
-Without ``IMAGENET_RECORDS`` a synthetic ImageNet-shaped set (the JAX entry's bytes) trains
-instead; ``STEPS_PER_EPOCH`` caps an epoch. Env knobs, as the JAX entry reads them:
+``IMAGENET_RECORDS`` (a glob or a directory of record shards, ``data/records.py``) trains on
+real images: ``NativeRecordTrainSource(aug="rrc")`` decodes each payload and draws its
+random-resized crop and flip in one native batch call when the entry ships uint8 and
+``RECORDS_NATIVE`` is not ``0``, else ``RecordFileSource`` with the per-record transform;
+``VAL_RECORDS`` validates through ``NativeRecordFileSource`` (decode, resize, normalise).
+Without them a synthetic ImageNet-shaped set (the JAX entry's bytes) trains and validates
+instead. ``STEPS_PER_EPOCH`` caps an epoch of either. Env knobs, as the JAX entry reads them:
 ``MODEL`` (``resnet50``), ``EPOCHS`` (90), ``BATCH`` (1024, global), ``ACCUM`` (the recipe's),
 ``BASE_LR`` (the recipe's), ``IMAGE_SIZE`` (224), ``NUM_CLASSES`` (the recipe's),
 ``SAVE_DIR`` (``./runs/<model>``), ``SNAPSHOT``, ``STEPS_PER_EPOCH``, ``SHIP_UINT8`` (1),
@@ -29,8 +34,8 @@ instead; ``STEPS_PER_EPOCH`` caps an epoch. Env knobs, as the JAX entry reads th
 kernel with 1, cuDNN/cuBLAS with 0 or unset; ViT's attention takes the flash kernels
 unset or with 1, the plain softmax with 0), ``CHAIN_STEPS`` (1), ``MESH`` (the grammar of
 ``parallel/mesh.py``; ``dpN`` for these models).
-``IMAGENET_RECORDS``/``VAL_RECORDS`` (record files), ``TELEMETRY`` and ``PROFILE_DIR``
-raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
+``IMAGENET_RECORDS``, ``VAL_RECORDS``, ``RECORDS_NATIVE`` (1). ``TELEMETRY`` and
+``PROFILE_DIR`` raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
 ``cpu``). Under ``torchrun`` each process is one data-parallel rank.
 """
 
@@ -41,8 +46,14 @@ import os
 import numpy as np
 import torch
 
-from distributed_training_pytorch_tpu_torch.data import ArrayDataSource
+from distributed_training_pytorch_tpu_torch.data import (
+    ArrayDataSource,
+    NativeRecordFileSource,
+    NativeRecordTrainSource,
+    RecordFileSource,
+)
 from distributed_training_pytorch_tpu_torch.data import transforms as T
+from distributed_training_pytorch_tpu_torch.data.records import shard_paths
 from distributed_training_pytorch_tpu_torch.models import VIT_NAMES, InputNormalizer, create_model
 from distributed_training_pytorch_tpu_torch.ops.dispatch import pallas_from_env
 from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
@@ -100,12 +111,28 @@ def synthetic_source(n: int, image_size: int, num_classes: int, transform, seed:
 
 class _LimitedSource:
     """Length-capping view over a source: ``STEPS_PER_EPOCH`` for timed runs without
-    touching the underlying set."""
+    touching the underlying set. The source's whole-batch ``load_batch`` (the native record
+    path) is forwarded, so the loader keeps its fast path (the capped rows index the
+    source unchanged)."""
 
     def __init__(self, source, max_records: int):
         self.source = source
         self.transform = getattr(source, "transform", None)
         self._len = min(len(source), max_records)
+        if hasattr(source, "load_batch"):
+            self.load_batch = source.load_batch
+
+    @property
+    def skip_corrupt(self) -> bool:
+        return getattr(self.source, "skip_corrupt", False)
+
+    @skip_corrupt.setter
+    def skip_corrupt(self, value: bool) -> None:  # the loader's skip_corrupt=True reaches the source
+        self.source.skip_corrupt = value
+
+    @property
+    def corrupt_skipped(self) -> int:
+        return int(getattr(self.source, "corrupt_skipped", 0))
 
     def __len__(self):
         return self._len
@@ -125,9 +152,6 @@ class ImageNetTrainer(Trainer):
         self, model_name: str, image_size: int, base_lr: float, *, synthetic_records: int = 8192,
         synthetic_val_records: int = 1024, **kw,
     ):
-        for knob in ("IMAGENET_RECORDS", "VAL_RECORDS"):
-            if os.environ.get(knob):
-                raise NotImplementedError(f"{knob} (record files) comes with the image data slice of the port")
         self.model_name = model_name
         self.image_size = image_size
         self.base_lr = base_lr
@@ -135,21 +159,36 @@ class ImageNetTrainer(Trainer):
         self.num_classes = int(os.environ.get("NUM_CLASSES", self.recipe["num_classes"]))
         self.synthetic_records = synthetic_records
         self.synthetic_val_records = synthetic_val_records
+        self.train_records = os.environ.get("IMAGENET_RECORDS") or None
+        self.val_records = os.environ.get("VAL_RECORDS") or None
+        for pattern in (self.train_records, self.val_records):
+            if pattern:
+                shard_paths(pattern)  # a pattern that matches no shard fails before the model is built
         self.dtype_env = os.environ.get("DTYPE") or None
         self.pallas = pallas_from_env()
         kw.setdefault("precision", self.dtype_env)
         super().__init__(**kw)
 
     def build_train_dataset(self):
-        self.log("IMAGENET_RECORDS unset — synthetic ImageNet-shaped data", "warning")
         tfm = train_transform(self.image_size, seed=self.seed, ship_uint8=_ship_uint8())
-        source = synthetic_source(self.synthetic_records, self.image_size, self.num_classes, tfm, seed=0)
+        if self.train_records:
+            if _ship_uint8() and os.environ.get("RECORDS_NATIVE", "1") != "0":
+                # decode + random-resized crop + flip in one native call a batch, uint8 out
+                source = NativeRecordTrainSource(self.train_records, self.image_size, self.image_size, aug="rrc",
+                                                 seed=self.seed)
+            else:
+                source = RecordFileSource(self.train_records, transform=tfm)
+        else:
+            self.log("IMAGENET_RECORDS unset — synthetic ImageNet-shaped data", "warning")
+            source = synthetic_source(self.synthetic_records, self.image_size, self.num_classes, tfm, seed=0)
         cap = os.environ.get("STEPS_PER_EPOCH")
         if cap:
             source = _LimitedSource(source, int(cap) * self.batch_size)
         return source
 
     def build_val_dataset(self):
+        if self.val_records:
+            return NativeRecordFileSource(self.val_records, height=self.image_size, width=self.image_size)
         tfm = eval_transform(self.image_size)
         return synthetic_source(self.synthetic_val_records, self.image_size, self.num_classes, tfm, seed=1)
 

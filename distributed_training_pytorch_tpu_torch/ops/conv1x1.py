@@ -169,11 +169,22 @@ def _as_nhwc(x):
     return x
 
 
+def _refuse_half(name: str, *dtypes) -> None:
+    """K4 has no float16 variant: an fp16 path that would launch it raises, naming it,
+    rather than running the plain version unseen."""
+    if torch.float16 in dtypes:
+        raise NotImplementedError(
+            f"float16 on K4 ({name}, the fused 1x1 conv): it is built for float32 and bfloat16 only; an fp16 "
+            "ResNet or ConvNeXt runs with PALLAS=0 (cuDNN / cuBLAS), or in bf16"
+        )
+
+
 def _launch_kernel(x, w, scale, bias, act: "str | None", out_dtype):
     """K4 on CUDA tensors, the kernel that :func:`conv1x1_variant` names; the wgmma variant
     reads x by TMA, so a view that TMA cannot read in place is copied first (:func:`tma_rows`)."""
     from distributed_training_pytorch_tpu_torch.ops import _build
 
+    _refuse_half("conv1x1_bn_act", x.dtype, out_dtype)
     if x.dtype not in KERNEL_DTYPES or out_dtype not in KERNEL_DTYPES:
         raise TypeError(f"conv1x1 kernel takes float32 or bfloat16 in and out, got {x.dtype} -> {out_dtype}")
     for name, t in (("w", w), ("scale", scale), ("bias", bias)):
@@ -244,6 +255,7 @@ def conv1x1_bwd_dz_plain(g, y, scale, *, act: "str | None" = None, out_dtype=Non
 def _launch_bwd_dz(g, y, scale, act: "str | None", out_dtype):
     from distributed_training_pytorch_tpu_torch.ops import _build
 
+    _refuse_half("conv1x1_bwd_dz", g.dtype, out_dtype)
     if g.dtype not in KERNEL_DTYPES or out_dtype not in KERNEL_DTYPES or (act == "relu" and y.dtype != g.dtype):
         raise TypeError(f"conv1x1_bwd_dz kernel takes float32 or bfloat16 g (y of g's dtype), got {g.dtype} -> {out_dtype}")
     if not g.is_contiguous() or (act == "relu" and not y.is_contiguous()):

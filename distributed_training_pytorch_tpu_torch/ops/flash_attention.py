@@ -162,6 +162,11 @@ def _check_kernel_inputs(tensors):
     kernels take, a head dim they are built for, a grid that fits, and a unit D stride
     (every other stride is read as given)."""
     dev, dtype = tensors[0][1].device, tensors[0][1].dtype
+    if any(x.dtype == torch.float16 for _, x in tensors):
+        raise NotImplementedError(
+            "float16 on the flash-attention kernels (K1 forward, K2 dq, K3 dk/dv): they are built for float32 and "
+            "bfloat16 only; an fp16 model runs attention with PALLAS=0 (the plain softmax), or in bf16"
+        )
     if any(x.device != dev for _, x in tensors):
         raise ValueError(f"flash kernel inputs on different devices: {[str(x.device) for _, x in tensors]}")
     if dtype not in KERNEL_DTYPES or any(x.dtype != dtype for _, x in tensors):

@@ -11,8 +11,8 @@ as the JAX engine does (``train/engine.py:307-338``). One difference in bf16: th
 policy also rounds LayerNorm scales and the tied embedding to bf16 before use; the port
 keeps those f32.
 
-``fp16`` needs dynamic loss scaling (``precision/loss_scale.py``), which comes with a
-later slice of the port: asking for it raises ``NotImplementedError``.
+``fp16`` (f32 params, fp16 compute, f32 output) needs dynamic loss scaling: the Trainer
+turns it on by default and refuses to run fp16 without it (``precision/loss_scale.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ class Policy:
 _PRESETS = {
     "fp32": Policy(torch.float32, torch.float32, torch.float32, name="fp32"),
     "bf16": Policy(torch.float32, torch.bfloat16, torch.float32, name="bf16"),
+    # fp16's range (about 6e-5 to 65504) needs loss scaling; the Trainer enforces it.
+    "fp16": Policy(torch.float32, torch.float16, torch.float32, name="fp16"),
 }
 _ALIASES = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16", "half": "fp16"}
 
@@ -57,11 +59,6 @@ def get_policy(spec: "str | Policy | None") -> Policy:
         return spec
     if isinstance(spec, str):
         key = _ALIASES.get(spec.lower(), spec.lower())
-        if key == "fp16":
-            raise NotImplementedError(
-                "precision='fp16' needs dynamic loss scaling (DynamicScale), which comes with "
-                "the mixed-precision slice of the port; use 'bf16'"
-            )
         if key in _PRESETS:
             return _PRESETS[key]
         raise ValueError(f"unknown precision {spec!r} (choose from {sorted(_PRESETS)} or pass a Policy)")

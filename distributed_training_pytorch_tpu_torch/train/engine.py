@@ -19,6 +19,12 @@ optimizer's update. What carries over exactly:
   as they were, still advances ``step``, and reports ``metrics["nonfinite"] = 1``
   (``engine.py:411-433``). Unlike the compiled guard it reads one flag back to the host
   per step;
+* dynamic loss scaling (``state.loss_scale`` a ``DynamicScale``; ``engine.py:310-330``,
+  ``:404-431``): the loss is multiplied by the scale before ``backward`` and the gradients
+  divided by it after (the accumulated micro-batch gradients once); the guard runs whether
+  or not ``nan_guard`` is set, its flag is the protocol's ``grads_finite``, and the scale's
+  next state is computed on the device; ``metrics["loss_scale"]`` is the scale this step
+  used;
 * ``metrics["lr"]`` is the schedule at the pre-update step (``engine.py:440-441``), and
   that is the learning rate set on the optimizer for the update.
 
@@ -40,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_training_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, broadcast_over_seq, process_count
-from distributed_training_pytorch_tpu_torch.precision import get_policy
+from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic
 from distributed_training_pytorch_tpu_torch.train.state import TrainState, unwrap
 
 __all__ = ["LossFn", "NonFiniteLossError", "TrainEngine"]
@@ -106,10 +112,15 @@ class TrainEngine:
         loss, metrics = self.loss_fn(model, batch, train)
         return self.precision.cast_output(loss), dict(metrics)
 
-    def _grads_and_metrics(self, model, batch):
+    def _grads_and_metrics(self, model, batch, scale=None):
+        """Forward and backward; with a dynamic ``scale`` the differentiated loss is
+        scaled, the gradients unscaled, and the returned loss is the unscaled one."""
+        objective = (lambda loss: loss) if scale is None else scale.scale_loss
         if self.accum_steps == 1:
             loss, metrics = self._loss(model, batch, True)
-            loss.backward()
+            objective(loss).backward()
+            if scale is not None:
+                scale.unscale_grads([p.grad for p in unwrap(model).parameters()])
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}
         n = next(iter(batch.values())).shape[0]
         if n % self.accum_steps:
@@ -123,10 +134,12 @@ class TrainEngine:
             ctx = sync() if (sync is not None and not last) else contextlib.nullcontext()
             with ctx:
                 loss, metrics = self._loss(model, micro, True)
-                (loss / self.accum_steps).backward()
+                (objective(loss) / self.accum_steps).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             for k, v in metrics.items():
                 metric_sums[k] = v.detach() + metric_sums.get(k, 0.0)
+        if scale is not None:
+            scale.unscale_grads([p.grad for p in unwrap(model).parameters()])
         inv = 1.0 / self.accum_steps
         return loss_sum * inv, {k: v * inv for k, v in metric_sums.items()}
 
@@ -141,16 +154,18 @@ class TrainEngine:
             for group in opt.param_groups:
                 group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        buffers = list(unwrap(model).buffers()) if self.nan_guard else []
+        dynamic = is_dynamic(state.loss_scale)
+        guard = self.nan_guard or dynamic  # one guard: an overflow and a NaN are one skip
+        buffers = list(unwrap(model).buffers()) if guard else []
         saved = [b.detach().clone() for b in buffers]  # the forward updates BN statistics
-        loss, metrics = self._grads_and_metrics(model, batch)
+        loss, metrics = self._grads_and_metrics(model, batch, state.loss_scale if dynamic else None)
         # The seq ranks of a data shard step with the gradients (and the guard with the
         # loss) of the first of them, so their model copies stay bit-equal.
         broadcast_over_seq([p.grad for p in unwrap(model).parameters()] + [loss], self.mesh)
         metrics.setdefault("loss", loss)
         metrics = self._reduce({**metrics, "_objective": loss}, batch)
         loss = metrics.pop("_objective")  # the differentiated loss, as the guard reads it
-        if self.nan_guard:
+        if guard:
             ok = torch.isfinite(loss)
             for p in unwrap(model).parameters():
                 if p.grad is not None:
@@ -162,6 +177,9 @@ class TrainEngine:
                     for b, before in zip(buffers, saved, strict=True):
                         b.copy_(before)
             metrics["nonfinite"] = (~ok).float()
+            if dynamic:
+                metrics["loss_scale"] = state.loss_scale.scale  # the scale this step used
+                state.loss_scale = state.loss_scale.adjust(ok)
         else:
             opt.step()
         state.step += 1

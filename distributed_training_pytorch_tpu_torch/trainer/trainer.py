@@ -16,6 +16,14 @@ contract for the arguments the entries pass, and the same epoch loop:
   name, a path, or ``"latest_valid"``) restores params, optimizer state, step and epoch;
 * ``nan_policy``: ``None`` trains on, ``"skip"`` drops the update of a non-finite step
   (the engine's guard), ``"raise"`` stops at the next sync point;
+* ``precision`` names the dtype policy (``"fp32"``, ``"bf16"``, ``"fp16"``) and
+  ``loss_scale`` the loss scaling (``None``: dynamic under fp16, none otherwise;
+  ``"dynamic"``, ``"none"`` or an instance), resolved and refused as the JAX Trainer does
+  (``trainer.py:248-280``): fp16 without a dynamic scale, and a dynamic scale under
+  ``nan_policy`` ``"raise"`` or ``"restore_last_good"``, raise ``ValueError``. The scale's
+  state rides in ``state.loss_scale`` and in every checkpoint;
+* ``skip_corrupt_records`` is forwarded to both loaders (``skip_corrupt``): a record that
+  cannot be read or decoded is replaced by the next readable one and counted;
 * the host data path: each loader has ``num_workers`` thread workers (8) and
   ``prefetch_batches`` batches in flight (2), and ``train_epoch`` and ``validate`` take
   their batches through ``data.prefetch.device_prefetch``, which runs ``preprocess_batch``
@@ -61,7 +69,7 @@ from distributed_training_pytorch_tpu_torch.checkpoint import (
 from distributed_training_pytorch_tpu_torch.data import ShardedLoader
 from distributed_training_pytorch_tpu_torch.data.prefetch import device_prefetch
 from distributed_training_pytorch_tpu_torch.parallel import mesh as mesh_lib
-from distributed_training_pytorch_tpu_torch.precision import get_policy
+from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic, resolve_loss_scale
 from distributed_training_pytorch_tpu_torch.train import NonFiniteLossError, TrainEngine, TrainState
 
 __all__ = ["Trainer"]
@@ -101,6 +109,8 @@ class Trainer:
         max_checkpoints_to_keep: "int | None" = None,
         nan_policy: "str | None" = None,
         precision=None,
+        loss_scale=None,
+        skip_corrupt_records: bool = False,
         device="cuda",
         **unported,
     ):
@@ -119,11 +129,35 @@ class Trainer:
                 "chain_steps > 1 (chained steps; a captured CUDA graph in the port) comes with a "
                 "later slice of the port"
             )
-        if nan_policy not in (None, "skip", "raise"):
+        if nan_policy not in (None, "skip", "raise", "restore_last_good"):
             raise NotImplementedError(
                 f"nan_policy={nan_policy!r}: the port has None, 'skip' and 'raise'; "
                 "'restore_last_good' comes with the resilience slice"
             )
+        self.precision_requested = precision is not None
+        self.precision = get_policy(precision)
+        self._initial_loss_scale = resolve_loss_scale(loss_scale, self.precision)
+        if self.precision.compute_dtype == torch.float16 and not is_dynamic(self._initial_loss_scale):
+            raise ValueError(
+                "precision='fp16' requires dynamic loss scaling (fp16 grads underflow below ~6e-5 without it): "
+                "leave loss_scale unset or pass loss_scale='dynamic'. Use precision='bf16' for scale-free low "
+                "precision — bf16 keeps fp32's exponent range."
+            )
+        if is_dynamic(self._initial_loss_scale) and nan_policy in ("raise", "restore_last_good"):
+            raise ValueError(
+                f"nan_policy={nan_policy!r} is incompatible with dynamic loss scaling: overflow-skip + backoff IS "
+                "the scale calibration mechanism — 'raise' would abort normal fp16 training on the first benign "
+                "overflow, and 'restore_last_good' would roll the whole state back to an old checkpoint (undoing "
+                "the backoff, so the overflow repeats) every time the scale probes too high. Use nan_policy=None "
+                "or 'skip' (skipped steps are still counted once in nonfinite_steps and "
+                "state.loss_scale.skipped_steps)."
+            )
+        if nan_policy == "restore_last_good":
+            raise NotImplementedError(
+                "nan_policy='restore_last_good' comes with the resilience slice; the port has None, 'skip' and "
+                "'raise'"
+            )
+        self.skip_corrupt_records = bool(skip_corrupt_records)
         self.max_epoch = max_epoch
         self.batch_size = batch_size
         self.have_validate = have_validate
@@ -151,9 +185,6 @@ class Trainer:
             raise ValueError(
                 f"global batch_size {batch_size} is not divisible by the mesh's {self.batch_replicas} data shards"
             )
-        self.precision_requested = precision is not None
-        self.precision = get_policy(precision)
-
         self.save_folder = save_folder
         self.save_weight_folder = os.path.join(save_folder, "weights")
         self.checkpoints = CheckpointManager(
@@ -192,7 +223,9 @@ class Trainer:
             precision=self.precision,
             mesh=self.mesh,
         )
-        self.state = TrainState(model=self.model, optimizer=self.optimizer)
+        scale = self._initial_loss_scale
+        self.state = TrainState(model=self.model, optimizer=self.optimizer,
+                                loss_scale=scale.to(self.device) if is_dynamic(scale) else scale)
 
         if snapshot_path is not None:
             if snapshot_path == "latest_valid":
@@ -214,6 +247,7 @@ class Trainer:
             dataset, self.batch_size, shuffle=train, seed=self.seed, num_workers=self.num_workers,
             prefetch_batches=self.prefetch_batches, drop_last=train, pad_final=not train,
             process_index=self.mesh.data_index, process_count=self.batch_replicas,
+            skip_corrupt=self.skip_corrupt_records,
         )
 
     def device_batches(self, loader) -> "Iterator[dict]":

@@ -33,16 +33,19 @@ export TORCH_NCCL_TRACE_BUFFER_SIZE="${TORCH_NCCL_TRACE_BUFFER_SIZE:-104857600}"
 #                       expand Dense + GELU into the 1x1 kernel)
 #   convnext_tiny    -> the convnext_l recipe on a small ConvNeXt
 #   lm               -> the causal-LM entry (examples/train_lm.py; LM_SIZE=tiny|small)
+#   digits           -> VGG16 to accuracy on the digits corpus (examples/train_digits.py;
+#                       the corpus ships with the port, no sklearn needed)
+#   records          -> ResNet18Slim to accuracy on the digits corpus packed into record
+#                       shards (examples/train_records.py)
 MODEL="${MODEL:-vgg16}"
 case "$MODEL" in
   vgg16) ENTRY=train_cifar10 ;;
   resnet50|vit_b16|convnext_l|convnext_tiny) ENTRY=train_imagenet ;;
   lm) ENTRY=train_lm ;;
-  digits)
-    echo "run_torch.sh: MODEL=digits comes with the image-folder slice of the port (it needs sklearn)" >&2
-    exit 2 ;;
+  digits) ENTRY=train_digits ;;
+  records) ENTRY=train_records ;;
   *)
-    echo "run_torch.sh: unknown MODEL=$MODEL (vgg16, resnet50, vit_b16, convnext_l, convnext_tiny or lm)" >&2
+    echo "run_torch.sh: unknown MODEL=$MODEL (vgg16, resnet50, vit_b16, convnext_l, convnext_tiny, lm, digits or records)" >&2
     exit 2 ;;
 esac
 

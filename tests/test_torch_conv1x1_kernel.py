@@ -113,11 +113,13 @@ def test_autograd_matches_autograd_through_plain(cuda_device, act, affine_grads)
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
-    x = torch.zeros(4, 8, device=cuda_device, dtype=torch.float16)
-    w = torch.zeros(4, 8, device=cuda_device, dtype=torch.float16)
+    x = torch.zeros(4, 8, device=cuda_device, dtype=torch.float64)
+    w = torch.zeros(4, 8, device=cuda_device, dtype=torch.float64)
     ones = torch.ones(4, device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         k4.conv1x1_bn_act(x, w, ones, ones)
+    with pytest.raises(NotImplementedError, match="float16 on K4"):  # no fp16 variant: refused by name
+        k4.conv1x1_bn_act(x.half(), w.half(), ones, ones)
 
 
 def _wgmma_count():

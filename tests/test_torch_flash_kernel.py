@@ -85,8 +85,11 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     q = torch.zeros(1, 8, 2, 24, device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_fwd(q, q, q)
-    h = torch.zeros(1, 8, 2, 8, device=cuda_device, dtype=torch.float16)
+    d = torch.zeros(1, 8, 2, 8, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(d, d, d)
+    h = torch.zeros(1, 8, 2, 8, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float16 on the flash-attention kernels"):
         fa.flash_attention_fwd(h, h, h)
 
 

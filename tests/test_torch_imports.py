@@ -32,10 +32,13 @@ PORT_MODULES = [
     "data.native", "data.prefetch", "models.vgg", "examples.train_cifar10",
     # the image-folder entry
     "examples.example_trainer", "examples.main", "examples.eval",
+    # real data: the digits corpus, record files, fp16 with dynamic loss scaling
+    "data.png", "data.records", "precision.loss_scale", "examples.digits_data", "examples.train_digits",
+    "examples.train_records",
 ]
-# The card's machine has neither OpenCV nor PIL: the port decodes and transforms images
-# without them.
-IMAGE_LIBRARIES = ("cv2", "PIL")
+# The card's machine has neither OpenCV nor PIL, nor scikit-learn: the port decodes and
+# transforms images without them, and ships the digits corpus as an array of its own.
+IMAGE_LIBRARIES = ("cv2", "PIL", "sklearn")
 
 _PROBE = f"""
 import importlib, json, pkgutil, sys

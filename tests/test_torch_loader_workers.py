@@ -263,9 +263,25 @@ def test_collate_fn_takes_the_records_and_the_loader_keeps_the_mask():
 
 
 def test_record_slice_options_raise():
-    with pytest.raises(NotImplementedError, match="record-file slice"):
-        ShardedLoader(_Source(4), 2, skip_corrupt=True)
+    """The record slice's loader options, which raised before it landed: ``skip_corrupt``
+    substitutes the next readable record for one that raises ``CorruptRecordError`` and
+    counts it, and ``load_delay_s`` is set and read back (the seam sleeps a batch)."""
+    from distributed_training_pytorch_tpu_torch.data.records import CorruptRecordError
+
+    class _Corrupt(_Source):
+        def __getitem__(self, index):
+            if index == 1:
+                raise CorruptRecordError("record 1 is damaged")
+            return super().__getitem__(index)
+
+    loader = ShardedLoader(_Corrupt(4), 2, shuffle=False, skip_corrupt=True, num_workers=2)
+    batches = list(loader)
+    assert loader.corrupt_skipped == 1
+    assert np.array_equal(batches[0]["x"], [[0], [2]])  # record 1 gave way to record 2
+    with pytest.raises(CorruptRecordError):
+        list(ShardedLoader(_Corrupt(4), 2, shuffle=False, num_workers=0))
     loader = ShardedLoader(_Source(4), 2)
-    loader.load_delay_s = 0.0
-    with pytest.raises(NotImplementedError, match="record-file slice"):
-        loader.load_delay_s = 0.5
+    loader.load_delay_s = 0.5
+    assert loader.load_delay_s == 0.5
+
+

@@ -240,11 +240,14 @@ def test_imagenet_entry_tracks_the_jax_entry_on_the_adamw_recipes(adamw_side, mo
 
 @pytest.mark.parametrize("knob", ["IMAGENET_RECORDS", "VAL_RECORDS"])
 def test_unported_models_and_records_raise(monkeypatch, tmp_path, knob):
-    """Every model of the zoo is ported; record files still raise, for every recipe."""
-    kw = dict(image_size=32, base_lr=0.1, max_epoch=1, batch_size=8, save_folder=str(tmp_path), device="cpu")
+    """Every model of the zoo is ported, and so are record files (``tests/
+    test_torch_records.py``): for every recipe a record knob is read, and a pattern that
+    matches no shard raises, naming it."""
+    kw = dict(image_size=32, base_lr=0.1, max_epoch=1, batch_size=8, save_folder=str(tmp_path), device="cpu",
+              have_validate=True)
     monkeypatch.setenv(knob, "/nowhere/*.rec")
     for model_name in train_imagenet.RECIPES:
-        with pytest.raises(NotImplementedError, match="record files"):
+        with pytest.raises(FileNotFoundError, match=r"no record shards match /nowhere/\*\.rec"):
             train_imagenet.ImageNetTrainer(model_name=model_name, **kw)
 
 

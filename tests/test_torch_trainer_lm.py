@@ -293,9 +293,17 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="observability"):
         train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1, batch_size=BATCH,
                            save_folder=str(tmp_path), device="cpu", telemetry=True)
+    # DTYPE=fp16 trains with dynamic loss scaling; the flash kernels, which have no fp16
+    # variant, refuse it by name where they would launch (here on the CPU the plain
+    # attention runs, as for every dtype)
     monkeypatch.setenv("DTYPE", "fp16")
-    with pytest.raises(NotImplementedError, match="loss scaling"):
-        _trainer(tmp_path)
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.precision import is_dynamic
+
+    assert is_dynamic(_trainer(tmp_path).state.loss_scale)
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float16 on the flash-attention kernels"):
+        fa._check_kernel_inputs((("q", q), ("k", q), ("v", q)))
     monkeypatch.setenv("MESH", "fsdp2x1")
     from distributed_training_pytorch_tpu_torch.parallel.mesh import mesh_from_env
 
