@@ -13,8 +13,9 @@ libjpeg/libpng (the JAX package decodes with ``cv2.imread``):
   (``native.png_unfilter``), byte-equal to ``cv2.imread(path)[..., ::-1]``. Adam7-interlaced
   files raise a ``DecodeError`` naming the file;
 * BMP: uncompressed 24- and 32-bit, and 8-bit and lower with a palette, read with numpy;
-* JPEG: the native library's libjpeg decoder where it was built with codecs; elsewhere a
-  ``DecodeError`` naming the file and saying that the machine has no libjpeg;
+* JPEG: the native library's libjpeg decoder where it was built with codecs, then the EXIF
+  orientation as ``cv2.imread`` applies it (``data/jpeg.py``); elsewhere a ``DecodeError``
+  naming the file and saying that the machine has no libjpeg;
 * WebP: a ``DecodeError`` naming the file (the port has no WebP decoder).
 
 A file is recognised by its first bytes, not its extension.
@@ -29,7 +30,7 @@ from typing import Sequence
 
 import numpy as np
 
-from distributed_training_pytorch_tpu_torch.data import native, transforms
+from distributed_training_pytorch_tpu_torch.data import jpeg, native, transforms
 
 __all__ = ["ArrayDataSource", "ImageFolderDataSource", "NativeImageFolderSource", "decode_bytes", "decode_image"]
 
@@ -168,9 +169,10 @@ def _decode_jpeg(data: bytes, what: str) -> np.ndarray:
     if size is None:
         raise native.DecodeError(None, what, "no JPEG frame header")
     try:
-        return native.decode_resize_u8_bytes([data], *size)[0]  # at its own size: no resampling
+        image = native.decode_resize_u8_bytes([data], *size)[0]  # at its own size: no resampling
     except native.DecodeError:
         raise native.DecodeError(None, what, "libjpeg refused it") from None
+    return jpeg.apply_orientation(image, jpeg.exif_orientation(data))  # as cv2.imread turns it
 
 
 class NativeImageFolderSource(ImageFolderDataSource):

@@ -154,8 +154,8 @@ def write_shards(prefix: str, records: "Iterable[tuple[bytes, int]]", *, num_sha
 
 def decode_image_bytes(payload: bytes, what: str = "record payload") -> np.ndarray:
     """PNG, BMP or JPEG bytes -> RGB uint8 HWC, as the JAX package's ``cv2.imdecode``
-    gives them, with the port's decoders; ``what`` names the payload in a
-    ``DecodeError``."""
+    gives them (a JPEG turned by its EXIF orientation), with the port's decoders; ``what``
+    names the payload in a ``DecodeError``."""
     return dataset.decode_bytes(payload, what)
 
 
