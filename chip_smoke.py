@@ -124,14 +124,25 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     ``examples/train_records.py``'s ``main`` (decoded on the codec-free route where the
     library has no libpng), as phase 16; then one epoch over a copy of the shards with one
     payload overwritten by garbage under ``skip_corrupt_records=True``: exactly 1 skipped;
-18. (records_resnet50) ResNet-50 through the ImageNet entry on record shards of seeded PNG
-    images of ImageNet's usual sizes (``IMAGENET_RECORDS``/``VAL_RECORDS``, ``PALLAS=1``,
+18. (records_resnet50) ResNet-50 through the ImageNet entry on record shards of seeded JPEG
+    images (baseline 4:2:0, quality 90, from the port's encoder) of ImageNet's usual sizes
+    (``IMAGENET_RECORDS``/``VAL_RECORDS``, ``PALLAS=1``,
     batch 256, 3 steps an epoch, 2 epochs and a resumed third): 9 K4 launches a step and a
     val forward, all wgmma, 9 dz a step; the resumed epoch on records and on the synthetic
     set in turns on one trainer;
 19. (fp16) the digits entry with ``DTYPE=fp16``: 2 epochs at a loss scale of 2^15, then a
     step forced to overflow (skipped, params and buffers bit-equal, the scale halved, one
-    skip counted) and the scale and counter through a save and a restore.
+    skip counted) and the scale and counter through a save and a restore;
+20. (jpeg, run after phase 7) the port's own JPEG decoder on this machine's build of the
+    native library: the committed fixtures (``tests/data/jpeg/``) bit-equal to what ``cv2``
+    gave (their SHA-256 in ``manifest.json``), without and with the EXIF orientation; the
+    decode's host ms for a 375x500 quality-90 4:2:0 image on one thread and the fused batch
+    entry's images/s on 8 threads.
+
+The image-folder phase (``phase_folder``, run between 15 and 16: ``ExampleTrainer``'s
+ten-step train chain, a resume and ``eval.evaluate``) reads PNG, BMP and JPEG files, the
+JPEG ones from the port's encoder (4:2:0 at qualities 90 and 60, 4:4:4, grey, and one with
+an EXIF orientation of 6) and decoded by the port's own decoder.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -2455,12 +2466,21 @@ def bmp_bytes(rgb) -> bytes:
 
 def image_file(rgb, kind: str) -> bytes:
     """``rgb`` as a file of ``kind``: ``png0`` (gray), ``png2`` (RGB), ``png3`` (a 3-3-2
-    palette), ``png6`` (RGBA) or ``bmp`` (24-bit)."""
+    palette), ``png6`` (RGBA), ``bmp`` (24-bit), or a baseline JPEG from the port's encoder:
+    ``jpg90``/``jpg60`` (4:2:0 at quality 90/60), ``jpg444`` (4:4:4 at 85), ``jpggrey``
+    (grey at 90)."""
+    from distributed_training_pytorch_tpu_torch.data import native
     from distributed_training_pytorch_tpu_torch.data.png import png_bytes
 
     h, w, _ = rgb.shape
     if kind == "bmp":
         return bmp_bytes(rgb)
+    if kind in ("jpg90", "jpg60"):
+        return native.jpeg_encode(rgb, int(kind[3:]))
+    if kind == "jpg444":
+        return native.jpeg_encode(rgb, 85, subsampling="4:4:4")
+    if kind == "jpggrey":
+        return native.jpeg_encode(rgb.mean(axis=2).astype(np.uint8), 90)
     if kind == "png0":
         return png_bytes(rgb.mean(axis=2).astype(np.uint8), 0)
     if kind == "png2":
@@ -2474,15 +2494,18 @@ def image_file(rgb, kind: str) -> bytes:
     return png_bytes(np.concatenate([rgb, alpha], 2).reshape(h, w * 4), 6)
 
 
-FOLDER_KINDS = ["png2", "png0", "png3", "png6", "bmp"]
+FOLDER_KINDS = ["png2", "png0", "png3", "png6", "bmp", "jpg90", "jpg60", "jpg444", "jpggrey"]
 
 
 def write_folder_tree(root: str, seed: int = 0) -> dict:
     """``train``/``val``/``test`` x ``FOLDER_LABELS``: class-coloured images with a smooth
     pattern and noise, in every file kind of ``FOLDER_KINDS`` and every shape of
-    ``FOLDER_SHAPES``; returns the count of files by kind."""
+    ``FOLDER_SHAPES``, the first ``jpg90`` file of the first train label with an EXIF
+    orientation of 6 (``jpg90_exif6``); returns the count of files by kind."""
+    from distributed_training_pytorch_tpu_torch.data import jpeg
+
     rng = np.random.default_rng(seed)
-    kinds = dict.fromkeys(FOLDER_KINDS, 0)
+    kinds = dict.fromkeys(FOLDER_KINDS + ["jpg90_exif6"], 0)
     for split, n in FOLDER_COUNTS.items():
         for li, label in enumerate(FOLDER_LABELS):
             os.makedirs(os.path.join(root, split, label))
@@ -2493,9 +2516,12 @@ def write_folder_tree(root: str, seed: int = 0) -> dict:
                 wave = 30 * np.sin(xx / (9 + 4 * li) + yy / 13)[..., None]
                 img = np.clip(base + wave + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
                 kind = FOLDER_KINDS[(i + li) % len(FOLDER_KINDS)]
+                data = image_file(img, kind)
+                if kind == "jpg90" and split == "train" and li == 0 and not kinds["jpg90_exif6"]:
+                    data, kind = jpeg.with_orientation(data, 6), "jpg90_exif6"
                 kinds[kind] += 1
                 with open(os.path.join(root, split, label, f"{i:03d}.{kind[:3]}"), "wb") as f:
-                    f.write(image_file(img, kind))
+                    f.write(data)
     return kinds
 
 
@@ -2545,7 +2571,9 @@ def phase_folder(run_dir: str):
     """The image-folder entry (``examples/example_trainer.py``'s ``ExampleTrainer``, the
     configuration of ``examples/main.py`` but for the epochs and the save period) at
     224x224, full-width VGG16 (3 classes, f32), global batch 16 on the card, over a tree of
-    PNG (color types 0, 2, 3, 6, every filter type) and 24-bit BMP files of three shapes,
+    PNG (color types 0, 2, 3, 6, every filter type), 24-bit BMP and JPEG files (the port's
+    encoder: 4:2:0 at qualities 90 and 60, 4:4:4, grey, one with an EXIF orientation of 6;
+    decoded by the port's own decoder) of three shapes,
     through the ten-step train chain on 8 loader workers: 2 epochs, then a resume from
     ``last`` for a third whose train epoch is profiled; then ``eval.evaluate`` on ``last``
     and the test folder. Raises unless every loss is finite, the JPEG re-encoding, CLAHE,
@@ -2570,6 +2598,8 @@ def phase_folder(run_dir: str):
     kinds = write_folder_tree(data_root)
     log(f"[folder] wrote the tree in {time.perf_counter() - t_tree:.1f} s: {FOLDER_COUNTS} files a label, by kind "
         f"{kinds}, shapes {FOLDER_SHAPES}")
+    if not all(kinds.values()):
+        raise RuntimeError(f"a file kind is missing from the tree: {kinds}")
     step_ms, epoch_metrics, val_metrics = [], [], []
     counts = {"steps": 0, "evals": 0}
     fired_before = dict(T.FIRED)
@@ -2720,6 +2750,7 @@ DATA_KEYS = ("DIGITS_DIR", "RECORDS_DIR", "SAVE_DIR", "EPOCHS", "BATCH", "DIGITS
              "SNAPSHOT", "DTYPE", "PALLAS", "MESH", "CHAIN_STEPS", "TELEMETRY", "DEVICE")
 R50_LABELS = 16  # class folders of the synthetic tree; the model keeps ImageNet's 1000 outputs
 R50_SHAPES = [(375, 500), (500, 375), (333, 500), (500, 500)]  # (height, width): ImageNet's usual sizes
+R50_JPEG_QUALITY = 90  # baseline 4:2:0, as ImageNet's JPEG files are written
 
 
 @contextlib.contextmanager
@@ -2911,11 +2942,13 @@ def phase_records(run_dir: str):
 
 
 def write_r50_tree(root: str, n_train: int, n_val: int, seed: int = 0) -> int:
-    """``train``/``val`` x ``R50_LABELS`` classes of smooth class-coloured RGB PNG images
-    of ``R50_SHAPES``, made from ``seed`` on a pool of threads; returns the bytes written."""
+    """``train``/``val`` x ``R50_LABELS`` classes of smooth class-coloured RGB images of
+    ``R50_SHAPES`` with a little noise, as baseline 4:2:0 JPEG files at quality 90 (what
+    ImageNet's shards hold; the port's encoder), made from ``seed`` on a pool of threads;
+    returns the bytes written."""
     import concurrent.futures as cf
 
-    from distributed_training_pytorch_tpu_torch.data.png import rgb_png
+    from distributed_training_pytorch_tpu_torch.data import native
 
     rng = np.random.default_rng(seed)
     jobs = []
@@ -2924,7 +2957,7 @@ def write_r50_tree(root: str, n_train: int, n_val: int, seed: int = 0) -> int:
             os.makedirs(os.path.join(root, split, f"{label:02d}"))
         for i in range(n):
             label = i % R50_LABELS
-            jobs.append((os.path.join(root, split, f"{label:02d}", f"{i:05d}.png"), label, i,
+            jobs.append((os.path.join(root, split, f"{label:02d}", f"{i:05d}.jpg"), label, i,
                          rng.uniform(9, 31, 3), rng.uniform(0, 6.3, 3)))
 
     def one(job):
@@ -2935,7 +2968,8 @@ def write_r50_tree(root: str, n_train: int, n_val: int, seed: int = 0) -> int:
         img = np.stack([base + 50 * np.sin(xx / periods[0] + yy / 29 + phases[0]),
                         200 - base // 2 + 40 * np.cos(yy / periods[1] + phases[1]),
                         120 + 45 * np.sin((xx + yy) / periods[2] + phases[2])], -1)
-        data = rgb_png(np.clip(img, 0, 255).astype(np.uint8), level=1, filters="sub")
+        img += np.random.default_rng(i).normal(0, 6, img.shape).astype(np.float32)
+        data = native.jpeg_encode(np.clip(img, 0, 255).astype(np.uint8), R50_JPEG_QUALITY)
         with open(path, "wb") as f:
             f.write(data)
         return len(data)
@@ -2963,13 +2997,14 @@ def _data_paths_in_turns(trainer, epoch, paths, order=("records", "synthetic", "
 
 def phase_records_resnet50(run_dir: str):
     """ResNet-50 through the ImageNet entry on record shards (``MODEL=resnet50 PALLAS=1``,
-    ``IMAGENET_RECORDS``/``VAL_RECORDS``): a seeded tree of smooth PNG images of ImageNet's
-    usual sizes packed into 8 + 2 shards, global batch 256, 3 steps an epoch, 2 epochs and a
-    resumed third (the native decode + random-resized crop + flip on 8 loader workers, uint8
-    to the card). Raises unless every loss is finite and K4 launched exactly 9 times a train
-    step and a val forward, all on the wgmma variant, and its dz pass 9 times a step; then
-    the resumed train epoch on one warm trainer over the records and over the synthetic set,
-    in turns."""
+    ``IMAGENET_RECORDS``/``VAL_RECORDS``): a seeded tree of smooth JPEG images (4:2:0,
+    quality 90) of ImageNet's usual sizes packed into 8 + 2 shards, global batch 256, 3 steps
+    an epoch, 2 epochs and a resumed third (the port's own JPEG decoder + random-resized crop
+    + flip in one native call a batch on 8 loader workers, uint8 to the card). Raises unless
+    the payloads are JPEG, every loss is finite and K4 launched exactly 9 times a train step
+    and a val forward, all on the wgmma variant, and its dz pass 9 times a step; then the
+    resumed train epoch on one warm trainer over the records and over the synthetic set, in
+    turns."""
     import torch
 
     from distributed_training_pytorch_tpu_torch.data import native, pack_image_folder
@@ -2984,7 +3019,13 @@ def phase_records_resnet50(run_dir: str):
     shards = os.path.join(run_dir, "shards")
     pack_image_folder(os.path.join(tree, "train"), labels, os.path.join(shards, "train"), num_shards=8)
     pack_image_folder(os.path.join(tree, "val"), labels, os.path.join(shards, "val"), num_shards=2)
-    log(f"[records_resnet50] wrote {4 * RESNET_BATCH} PNG images ({nbytes / 1e6:.1f} MB; {R50_SHAPES}) in {t_tree:.1f} s "
+    from distributed_training_pytorch_tpu_torch.data import RecordFileSource
+
+    first = RecordFileSource(os.path.join(shards, "train-*.rec")).read_record(0)[0]
+    if first[:2] != b"\xff\xd8":
+        raise RuntimeError(f"expected JPEG payloads in the shards, got {first[:8]!r}")
+    log(f"[records_resnet50] wrote {4 * RESNET_BATCH} JPEG images (4:2:0, quality {R50_JPEG_QUALITY}; "
+        f"{nbytes / 1e6:.1f} MB; {R50_SHAPES}) in {t_tree:.1f} s "
         f"and packed them in {time.perf_counter() - t0 - t_tree:.1f} s; library codecs: {native.codecs_available()}")
     env = dict(RESNET_ENV, IMAGENET_RECORDS=os.path.join(shards, "train-*.rec"),
                VAL_RECORDS=os.path.join(shards, "val-*.rec"))
@@ -3016,6 +3057,61 @@ def phase_records_resnet50(run_dir: str):
     del trainer, paths, synthetic
     torch.cuda.empty_cache()
     return {**figures, "turns": turns}, {"conv1x1_bn_act": k4_n, "conv1x1_bwd_dz": dz_n}
+
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+JPEG_TIMED_SHAPE = (375, 500)  # ImageNet's most common size
+JPEG_BATCH, JPEG_THREADS = 256, 8  # a ResNet-50 step's images, on the loader's 8 threads
+
+
+def phase_jpeg(card: str):
+    """The port's own JPEG decoder on the card's machine (which has no OpenCV, libjpeg or
+    libpng): each committed fixture (``tests/data/jpeg/``, written by OpenCV: progressive,
+    the five samplings, restart intervals, optimised tables, grey, a quality-100 noise image,
+    an EXIF orientation) decoded by the library this machine built, its RGB bytes' SHA-256
+    equal to what ``cv2`` gave (``manifest.json``, recomputed by ``tests/test_torch_jpeg.py``),
+    without and with the EXIF orientation; then host times: ``native.jpeg_decode`` of a
+    375x500 quality-90 4:2:0 image on one thread, and the fused batch entry
+    (``decode_rrc_flip_u8_bytes``, the ResNet-50 train route) over 256 such payloads on 8
+    threads. Raises on any hash that differs."""
+    import hashlib
+
+    from distributed_training_pytorch_tpu_torch.data import dataset, native
+
+    if not native.available():
+        raise RuntimeError(f"the native data runtime did not build: {native.build_error()}")
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    bad = []
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        plain = hashlib.sha256(native.jpeg_decode(data, name).tobytes()).hexdigest()
+        turned = hashlib.sha256(dataset.decode_image(path).tobytes()).hexdigest()
+        if (plain, turned) != (entry["sha256"], entry["sha256_oriented"]):
+            bad.append(name)
+    log(f"[jpeg] {len(manifest) - len(bad)} of {len(manifest)} fixtures decode to cv2's bytes (library built "
+        f"{'with' if native.codecs_available() else 'without'} libpng: -DDTP_NO_CODECS "
+        f"{'off' if native.codecs_available() else 'on'})")
+    if bad:
+        raise RuntimeError(f"fixtures whose decoded bytes differ from the manifest: {bad}")
+    h, w = JPEG_TIMED_SHAPE
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 90 * np.sin(xx / 23 + yy / 41), 120 + 70 * np.cos(yy / 17), 60 + xx * 0.3], -1)
+    img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+    payload = native.jpeg_encode(img, 90)
+    one_ms = _host_ms(lambda: native.jpeg_decode(payload), reps=50)
+    payloads = [payload] * JPEG_BATCH
+    idx = np.arange(JPEG_BATCH)
+    batch_ms = _host_ms(lambda: native.decode_rrc_flip_u8_bytes(payloads, 224, 224, idx, seed=0, epoch=0,
+                                                                threads=JPEG_THREADS), reps=5)
+    rate = JPEG_BATCH / batch_ms * 1e3
+    log(f"[jpeg] {card} | host times on the card's machine (its CPU, not the card): decode of a {h}x{w} quality-90 "
+        f"4:2:0 JPEG ({len(payload)} bytes) {one_ms:.3f} ms on one thread; the fused decode + random-resized crop + "
+        f"flip entry over {JPEG_BATCH} of them on {JPEG_THREADS} threads {batch_ms:.1f} ms, {rate:.0f} images/s")
+    return {"fixtures": len(manifest), "decode_ms": one_ms, "batch_ms": batch_ms, "images_per_s": rate}
 
 
 def phase_fp16(run_dir: str):
@@ -3085,12 +3181,16 @@ def phase_fp16(run_dir: str):
 
 
 def run_only(names) -> int:
-    """Development runs: the device phase, then only the named run phases (``folder``,
-    ``vgg``), each in its own temporary directory; no kernels line and no final line."""
+    """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
+    ``vgg``, ...), each run phase in its own temporary directory; no kernels line and no
+    final line."""
     phases = {"folder": phase_folder, "vgg": phase_vgg, "digits": phase_digits, "records": phase_records,
               "records_resnet50": phase_records_resnet50, "fp16": phase_fp16}
     try:
-        phase_device()
+        card = phase_device()
+        if "jpeg" in names:
+            phase_jpeg(card)
+            names = [n for n in names if n != "jpeg"]
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
         for name in names:
@@ -3128,6 +3228,7 @@ def main() -> int:
         k5_err = phase_k5()
         ring = phase_ring(card)
         conv_err, dz_err, convnext_err = phase_conv1x1()
+        jpeg = phase_jpeg(card)
         run_root = os.path.join(REPO, "build")
         os.makedirs(run_root, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
@@ -3203,6 +3304,9 @@ def main() -> int:
         log(f"[times] {card} | ResNet-50 on record shards (B=256, 224x224, bf16, PALLAS=1, through the entry): median "
             f"{r50['step_ms']:.2f} ms, {r50['images_per_s']:.0f} images/s, peak memory {r50['peak_gb']:.2f} GB; its "
             f"resumed train epoch on the warm trainer, in turns: {_turns_line(r50['turns'])}")
+        log(f"[times] {card} | JPEG decode on the card's machine's CPU: {jpeg['decode_ms']:.3f} ms per {JPEG_TIMED_SHAPE[0]}x"
+            f"{JPEG_TIMED_SHAPE[1]} quality-90 4:2:0 image on one thread, {jpeg['images_per_s']:.0f} images/s through the "
+            f"fused decode + crop entry on {JPEG_THREADS} threads; {jpeg['fixtures']} fixtures bit-equal to cv2")
         log(f"[times] {card} | VGG16 on the digits corpus, DTYPE=fp16 with dynamic loss scaling: step median "
             f"{fp16['step_ms']:.2f} ms")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

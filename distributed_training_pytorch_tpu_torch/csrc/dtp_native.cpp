@@ -2,18 +2,20 @@
 // csrc/dtp_native.cpp, with the same seven extern "C" entry points and the same results,
 // and the codec-free entry points the port adds.
 //
-// JPEG/PNG decode (libjpeg/libpng), OpenCV-compatible bilinear resize (half-pixel
-// centres), normalisation, and a deterministic crop/flip(/normalise) augmenter: all
-// batch-level, multithreaded inside, and GIL-free (called through ctypes, one call per
-// batch). This is host C++, built with g++ by data/native.py at first use.
+// JPEG decode (the library's own decoder, below: no libjpeg), PNG decode (libpng),
+// OpenCV-compatible bilinear resize (half-pixel centres), normalisation, and a
+// deterministic crop/flip(/normalise) augmenter: all batch-level, multithreaded inside, and
+// GIL-free (called through ctypes, one call per batch). This is host C++, built with g++ by
+// data/native.py at first use.
 //
 // Determinism: augmentation randomness is Philox4x32 keyed by
 // (seed, epoch<<40 | record_index), the key layout of data/transforms.py::philox_key,
 // so results are the same on every host, across resumes and whatever the threads do.
 //
-// Built with -DDTP_NO_CODECS where libjpeg/libpng are not installed: the crop/flip and
-// normalise entry points are the same, decoding fails every payload, and
-// dtp_has_codecs() returns 0 so that the bindings refuse the decode calls.
+// Built with -DDTP_NO_CODECS where libpng is not installed: the crop/flip and normalise
+// entry points are the same, the decode entries still take JPEG and fail every PNG
+// payload, and dtp_has_codecs() returns 0 so that the bindings send PNG payloads to the
+// codec-free route.
 
 #include <algorithm>
 #include <cmath>
@@ -26,7 +28,6 @@
 #include <vector>
 
 #ifndef DTP_NO_CODECS
-#include <jpeglib.h>
 #include <png.h>
 #include <csetjmp>
 #endif
@@ -147,48 +148,10 @@ static void bilinear_resize_window_u8(const uint8_t* src, int sh, int sw,
   }
 }
 
+static uint8_t* jpeg_decode_alloc(const uint8_t* data, size_t len, int* h, int* w);
+
 #ifndef DTP_NO_CODECS
 // ------------------------------------------------------------------- decode
-struct JpegErr {
-  jpeg_error_mgr mgr;
-  jmp_buf jb;
-};
-
-static void jpeg_err_exit(j_common_ptr cinfo) {
-  JpegErr* err = (JpegErr*)cinfo->err;
-  longjmp(err->jb, 1);
-}
-
-// ---- in-memory decoders (file path slurps and delegates) ------------------
-
-static uint8_t* decode_jpeg_mem(const uint8_t* data, size_t len, int* h, int* w) {
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  uint8_t* volatile buf = nullptr;  // setjmp liveness, see decode_jpeg
-  if (setjmp(jerr.jb)) {
-    jpeg_destroy_decompress(&cinfo);
-    free(buf);
-    return nullptr;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, data, (unsigned long)len);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  *w = cinfo.output_width;
-  *h = cinfo.output_height;
-  buf = (uint8_t*)malloc((size_t)(*w) * (*h) * 3);
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = buf + (size_t)cinfo.output_scanline * (*w) * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return buf;
-}
-
 struct PngMemReader {
   const uint8_t* data;
   size_t len, pos;
@@ -238,20 +201,21 @@ static uint8_t* decode_png_mem(const uint8_t* data, size_t len, int* h, int* w) 
   return buf;
 }
 
-static uint8_t* decode_bytes(const uint8_t* data, size_t len, int* h, int* w) {
-  if (len >= 2 && data[0] == 0xFF && data[1] == 0xD8)
-    return decode_jpeg_mem(data, len, h, w);
-  if (len >= 8 && png_sig_cmp(const_cast<png_bytep>(data), 0, 8) == 0)
-    return decode_png_mem(data, len, h, w);
-  return nullptr;
-}
-
 int dtp_has_codecs() { return 1; }
 #else
-static uint8_t* decode_bytes(const uint8_t*, size_t, int*, int*) { return nullptr; }
-
 int dtp_has_codecs() { return 0; }
 #endif  // DTP_NO_CODECS
+
+// A JPEG goes to the library's own decoder in both builds; a PNG to libpng where it is
+// linked (the caller decodes it otherwise).
+static uint8_t* decode_bytes(const uint8_t* data, size_t len, int* h, int* w) {
+  if (len >= 2 && data[0] == 0xFF && data[1] == 0xD8) return jpeg_decode_alloc(data, len, h, w);
+#ifndef DTP_NO_CODECS
+  if (len >= 8 && png_sig_cmp(const_cast<png_bytep>(data), 0, 8) == 0)
+    return decode_png_mem(data, len, h, w);
+#endif
+  return nullptr;
+}
 
 // File path: slurp and delegate, so there is exactly ONE decoder per format
 // (the mem/file paths previously duplicated the setjmp/transform logic).
@@ -1022,7 +986,11 @@ int64_t dtp_clahe_u8(const uint8_t* in, int height, int width, double clip_limit
   return 0;
 }
 
-// ---- JPEG round trip: what cv2.imdecode(cv2.imencode(".jpg", img, quality)) gives with
+// ---- JPEG, with libjpeg-turbo's arithmetic: the round trip, the baseline encoder and the
+// decoder share the colour conversions, the h2v2 downsampling, jfdctint and the quantiser,
+// jidctint with its range limit, and the upsamplers.
+//
+// The round trip is what cv2.imdecode(cv2.imencode(".jpg", img, quality)) gives with
 // libjpeg-turbo's defaults (baseline, 4:2:0, islow DCT, fancy upsampling), without an
 // entropy coder (Huffman coding is lossless): RGB -> YCbCr (jccolor, 16-bit fixed point),
 // h2v2 downsampling with the alternating 1,2 bias, edge replication to whole blocks,
@@ -1037,6 +1005,14 @@ static const int kChrQ[64] = {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99
                               24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
                               99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
                               99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// Zigzag position -> natural (row-major) index, with libjpeg's 16 extra entries of 63 so
+// that a corrupt run length past the block's end lands on its last coefficient.
+static const uint8_t kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
+    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 enum : int64_t {
   F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
@@ -1057,8 +1033,8 @@ static void fdct_islow(int64_t* d) {
       const int64_t t2 = p[2 * step] + p[5 * step], t5 = p[2 * step] - p[5 * step];
       const int64_t t3 = p[3 * step] + p[4 * step], t4 = p[3 * step] - p[4 * step];
       const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
-      p[0] = pass ? dsc(t10 + t11, 2) : (t10 + t11) << 2;
-      p[4 * step] = pass ? dsc(t10 - t11, 2) : (t10 - t11) << 2;
+      p[0] = pass ? dsc(t10 + t11, 2) : (t10 + t11) * 4;
+      p[4 * step] = pass ? dsc(t10 - t11, 2) : (t10 - t11) * 4;
       const int64_t z1e = (t12 + t13) * F0541;
       p[2 * step] = dsc(z1e + t13 * F0765, n);
       p[6 * step] = dsc(z1e - t12 * F1847, n);
@@ -1074,17 +1050,23 @@ static void fdct_islow(int64_t* d) {
 }
 
 // jpeg_idct_islow over one dequantised 8x8 block (column pass, then row pass), in place;
-// the row pass's outputs are samples before the range limit.
+// the row pass's outputs are samples before the range limit. A column or row whose AC
+// terms are all zero takes jidctint's shortcut, which gives the same values.
 static void idct_islow(int64_t* d) {
   for (int pass = 0; pass < 2; ++pass) {
     const int step = pass ? 1 : 8, stride = pass ? 8 : 1;
     const int n = pass ? 18 : 11;
     for (int k = 0; k < 8; ++k) {
       int64_t* p = d + k * stride;
+      if (!(p[step] | p[2 * step] | p[3 * step] | p[4 * step] | p[5 * step] | p[6 * step] | p[7 * step])) {
+        const int64_t dc = pass ? dsc(p[0], 5) : p[0] * 4;
+        for (int i = 0; i < 8; ++i) p[i * step] = dc;
+        continue;
+      }
       const int64_t z2 = p[2 * step], z3 = p[6 * step];
       const int64_t z1e = (z2 + z3) * F0541;
       const int64_t tmp2 = z1e - z3 * F1847, tmp3 = z1e + z2 * F0765;
-      const int64_t tmp0 = (p[0] + p[4 * step]) << 13, tmp1 = (p[0] - p[4 * step]) << 13;
+      const int64_t tmp0 = (p[0] + p[4 * step]) * 8192, tmp1 = (p[0] - p[4 * step]) * 8192;
       const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
       int64_t o0 = p[7 * step], o1 = p[5 * step], o2 = p[3 * step], o3 = p[step];
       const int64_t z5 = (o0 + o2 + o1 + o3) * F1175;
@@ -1106,125 +1088,1113 @@ static void idct_islow(int64_t* d) {
   }
 }
 
-// One plane (rows x cols, multiples of 8) through DCT, quantisation and back, in place.
-static void jpeg_plane(std::vector<int>& plane, int rows, int cols, const int* base, int quality) {
-  const int scale = quality < 50 ? 5000 / quality : 200 - 2 * quality;
+// One block of coefficients (natural order, 16-bit as libjpeg's JCOEF) through
+// dequantisation and jidctint into 8 rows of dst. The range limit saturates: OpenCV's
+// libjpeg-turbo runs the SIMD islow IDCT, whose signed packs clamp every sample to -128..127
+// before the +128 level shift (the C version wraps values 512 or more past the range).
+static void idct_block(const int16_t* coef, const uint16_t* qv, uint8_t* dst, size_t stride) {
+  int64_t blk[64];
+  for (int i = 0; i < 64; ++i) blk[i] = (int64_t)coef[i] * qv[i];
+  idct_islow(blk);
+  for (int r = 0; r < 8; ++r, dst += stride)
+    for (int c = 0; c < 8; ++c) {
+      const int64_t v = blk[r * 8 + c] + 128;
+      dst[c] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+    }
+}
+
+// The standard tables scaled to a quality (jpeg_quality_scaling, clamped to 1..255 for
+// baseline), and libjpeg-turbo's compute_reciprocal for each islow divisor q * 8.
+struct Quantizer {
   int q[64];
   int64_t fq[64], corr[64];
   int shift[64];
-  for (int i = 0; i < 64; ++i) {
-    q[i] = std::min(std::max((base[i] * scale + 50) / 100, 1), 255);
-    // libjpeg-turbo's compute_reciprocal for the islow divisor q * 8 (16-bit DCTELEM).
-    const int64_t div = (int64_t)q[i] * 8;
-    int b = 0;
-    while ((div >> (b + 1)) != 0) ++b;
-    int r = 16 + b;
-    int64_t f = ((int64_t)1 << r) / div, fr = ((int64_t)1 << r) % div, c = div / 2;
-    if (fr == 0) {
-      f >>= 1;
-      --r;
-    } else if (fr <= div / 2) {
-      ++c;
-    } else {
-      ++f;
+  Quantizer(const int* base, int quality) {
+    const int scale = quality < 50 ? 5000 / quality : 200 - 2 * quality;
+    for (int i = 0; i < 64; ++i) {
+      q[i] = std::min(std::max((base[i] * scale + 50) / 100, 1), 255);
+      const int64_t div = (int64_t)q[i] * 8;
+      int b = 0;
+      while ((div >> (b + 1)) != 0) ++b;
+      int r = 16 + b;
+      int64_t f = ((int64_t)1 << r) / div, fr = ((int64_t)1 << r) % div, c = div / 2;
+      if (fr == 0) {
+        f >>= 1;
+        --r;
+      } else if (fr <= div / 2) {
+        ++c;
+      } else {
+        ++f;
+      }
+      fq[i] = f;
+      corr[i] = c;
+      shift[i] = r;
     }
-    fq[i] = f;
-    corr[i] = c;
-    shift[i] = r;
   }
-  int64_t blk[64];
-  for (int by = 0; by < rows; by += 8)
-    for (int bx = 0; bx < cols; bx += 8) {
-      for (int i = 0; i < 64; ++i) blk[i] = plane[(size_t)(by + i / 8) * cols + bx + i % 8] - 128;
-      fdct_islow(blk);
-      for (int i = 0; i < 64; ++i) {
-        const int64_t a = blk[i] < 0 ? -blk[i] : blk[i];
-        const int64_t v = ((a + corr[i]) * fq[i]) >> shift[i];
-        blk[i] = (blk[i] < 0 ? -v : v) * q[i];
-      }
-      idct_islow(blk);
-      for (int i = 0; i < 64; ++i) {
-        const int64_t x10 = ((blk[i] + 512) & 1023) - 512;  // RANGE_MASK wrap, then clamp
-        plane[(size_t)(by + i / 8) * cols + bx + i % 8] = (int)std::min<int64_t>(std::max<int64_t>(x10 + 128, 0), 255);
-      }
+  // The 8x8 block of plane at (bx, by) (a multiple of 8) through jfdctint and quantisation.
+  void forward(const std::vector<int>& plane, int cols, int bx, int by, int16_t* coef) const {
+    int64_t blk[64];
+    for (int i = 0; i < 64; ++i) blk[i] = plane[(size_t)(by + i / 8) * cols + bx + i % 8] - 128;
+    fdct_islow(blk);
+    for (int i = 0; i < 64; ++i) {
+      const int64_t a = blk[i] < 0 ? -blk[i] : blk[i];
+      const int64_t v = ((a + corr[i]) * fq[i]) >> shift[i];
+      coef[i] = (int16_t)(blk[i] < 0 ? -v : v);
     }
+  }
+};
+
+// The encoder's component planes, as libjpeg's compressor builds them: jccolor's RGB ->
+// YCbCr (or the grey samples as they are), h2v2 downsampling for 4:2:0 chroma, the right
+// edge replicated to whole blocks and the bottom rows replicated to whole blocks.
+struct EncodePlanes {
+  int ncomp, maxs;  // maxs: the luma sampling factor (2 for 4:2:0, else 1)
+  std::vector<int> plane[3];
+  int cols[3], rows[3];  // whole blocks: width_in_blocks * 8, height_in_blocks * 8
+  EncodePlanes(const uint8_t* in, int H, int W, int channels, bool sub420) {
+    ncomp = channels == 1 ? 1 : 3;
+    maxs = (ncomp == 3 && sub420) ? 2 : 1;
+    const int yc = (W + 7) / 8 * 8, yr = (H + 7) / 8 * 8;
+    const int cc = (W + 8 * maxs - 1) / (8 * maxs) * 8, cr = (H + 8 * maxs - 1) / (8 * maxs) * 8;
+    const int fullc = ncomp == 3 ? std::max(yc, maxs * cc) : yc;  // full-resolution columns needed
+    cols[0] = yc; rows[0] = yr;
+    std::vector<int> full[3];
+    for (int k = 0; k < ncomp; ++k) full[k].assign((size_t)H * fullc, 0);
+    const int64_t half = 1 << 15, cbcr_off = (int64_t)128 << 16;
+    for (int y = 0; y < H; ++y)
+      for (int x = 0; x < fullc; ++x) {
+        const size_t o = (size_t)y * fullc + x;
+        if (ncomp == 1) {
+          full[0][o] = in[(size_t)y * W + std::min(x, W - 1)];
+          continue;
+        }
+        const uint8_t* p = in + ((size_t)y * W + std::min(x, W - 1)) * 3;
+        const int64_t r = p[0], g = p[1], b = p[2];
+        full[0][o] = (int)((19595 * r + 38470 * g + 7471 * b + half) >> 16);
+        full[1][o] = (int)((-11059 * r - 21709 * g + 32768 * b + cbcr_off + half - 1) >> 16);
+        full[2][o] = (int)((32768 * r - 27439 * g - 5329 * b + cbcr_off + half - 1) >> 16);
+      }
+    for (int k = 0; k < ncomp; ++k) {
+      const bool down = k > 0 && maxs == 2;
+      const int c = k == 0 ? yc : (maxs == 2 ? cc : yc), r = k == 0 ? yr : (maxs == 2 ? cr : yr);
+      const int valid = down ? (H + 1) / 2 : H;
+      cols[k] = c; rows[k] = r;
+      std::vector<int>& d = plane[k];
+      d.assign((size_t)r * c, 0);
+      for (int y = 0; y < valid; ++y) {
+        if (!down) {
+          for (int x = 0; x < c; ++x) d[(size_t)y * c + x] = full[k][(size_t)y * fullc + x];
+          continue;
+        }
+        const int* r0 = &full[k][(size_t)(2 * y) * fullc];
+        const int* r1 = &full[k][(size_t)std::min(2 * y + 1, H - 1) * fullc];
+        for (int x = 0; x < c; ++x)
+          d[(size_t)y * c + x] = (r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + 1 + (x & 1)) >> 2;
+      }
+      for (int y = valid; y < r; ++y) std::memcpy(&d[(size_t)y * c], &d[(size_t)(valid - 1) * c], sizeof(int) * c);
+    }
+  }
+};
+
+// A decoded component ready for upsampling: dw x dh valid samples (the downsampled size)
+// in rows of `stride`, to be stretched hf x vf to the image's size.
+struct SamplePlane {
+  std::vector<uint8_t> px;
+  size_t stride;
+  int dw, dh, hf, vf;
+};
+
+// One output row of a component, as libjpeg-turbo 3's upsamplers give it: h2v1 and h2v2
+// fancy (triangle filters; h2v2 with biases 8 and 7) where the component is more than 2
+// samples wide, else replication; h1v2 fancy (biases 1 and 2) at any width; replication for
+// every other integral ratio (int_upsample: 4:1:1 and the like). Rows above the top and
+// below the bottom repeat the edge rows, as the main controller's context rows do.
+static void upsample_row(const SamplePlane& p, int y, int W, int* dst, int* colsum) {
+  auto row = [&](int r) { return &p.px[(size_t)std::min(std::max(r, 0), p.dh - 1) * p.stride]; };
+  const int hf = p.hf, vf = p.vf, dw = p.dw;
+  if (hf == 1 && vf == 1) {
+    const uint8_t* s = row(y);
+    for (int x = 0; x < W; ++x) dst[x] = s[x];
+  } else if (hf == 2 && vf == 1 && dw > 2) {
+    const uint8_t* s = row(y);
+    dst[0] = s[0];
+    for (int i = 0; i < dw; ++i) {
+      const int t = 3 * s[i];
+      if (i > 0) dst[2 * i] = (t + s[i - 1] + 1) >> 2;
+      if (2 * i + 1 < W) dst[2 * i + 1] = (t + s[std::min(i + 1, dw - 1)] + 2) >> 2;
+    }
+  } else if (hf == 1 && vf == 2) {
+    const uint8_t* s = row(y >> 1);
+    const uint8_t* t = row((y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
+    const int bias = 1 + (y & 1);
+    for (int x = 0; x < W; ++x) dst[x] = (3 * s[x] + t[x] + bias) >> 2;
+  } else if (hf == 2 && vf == 2 && dw > 2) {
+    const uint8_t* s = row(y >> 1);
+    const uint8_t* t = row((y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
+    for (int i = 0; i < dw; ++i) colsum[i] = 3 * s[i] + t[i];
+    for (int i = 0; i < dw; ++i) {
+      const int c3 = 3 * colsum[i];
+      dst[2 * i] = (c3 + colsum[i > 0 ? i - 1 : 0] + 8) >> 4;
+      if (2 * i + 1 < W) dst[2 * i + 1] = (c3 + colsum[i + 1 < dw ? i + 1 : i] + 7) >> 4;
+    }
+  } else {
+    const uint8_t* s = row(y / vf);
+    for (int x = 0; x < W; ++x) dst[x] = s[x / hf];
+  }
+}
+
+enum JpegColor { kGrey = 0, kYCbCr = 1, kRGB = 2 };
+
+// Upsample each component and convert to RGB (jdcolor's fixed-point YCbCr -> RGB; a grey
+// image replicated to three channels, as IMREAD_COLOR gives it).
+struct YccTables {  // jdcolor's build_ycc_rgb_table
+  int cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  YccTables() {
+    const int64_t half = 1 << 15;
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = (int)((91881 * x + half) >> 16);
+      cb_b[i] = (int)((116130 * x + half) >> 16);
+      cr_g[i] = (int)(-46802 * x);
+      cb_g[i] = (int)(-22554 * x + half);
+    }
+  }
+};
+
+static const YccTables& ycc_tables() {
+  static const YccTables t;
+  return t;
+}
+
+static void planes_to_rgb(const SamplePlane* planes, int ncomp, JpegColor color, int H, int W, uint8_t* out) {
+  std::vector<int> rows[3], colsum((size_t)W + 2);
+  for (int k = 0; k < ncomp; ++k) rows[k].resize((size_t)W + 1);
+  const YccTables& T = ycc_tables();
+  for (int y = 0; y < H; ++y) {
+    for (int k = 0; k < ncomp; ++k) upsample_row(planes[k], y, W, rows[k].data(), colsum.data());
+    uint8_t* o = out + (size_t)y * W * 3;
+    const int* r0 = rows[0].data();
+    if (color == kGrey) {
+      for (int x = 0; x < W; ++x, o += 3) o[0] = o[1] = o[2] = (uint8_t)r0[x];
+      continue;
+    }
+    const int *r1 = rows[1].data(), *r2 = rows[2].data();
+    if (color == kRGB) {
+      for (int x = 0; x < W; ++x, o += 3) {
+        o[0] = (uint8_t)r0[x];
+        o[1] = (uint8_t)r1[x];
+        o[2] = (uint8_t)r2[x];
+      }
+      continue;
+    }
+    for (int x = 0; x < W; ++x, o += 3) {
+      const int yy = r0[x], cb = r1[x], cr = r2[x];
+      o[0] = sat_u8(yy + T.cr_r[cr]);
+      o[1] = sat_u8(yy + ((T.cb_g[cb] + T.cr_g[cr]) >> 16));
+      o[2] = sat_u8(yy + T.cb_b[cb]);
+    }
+  }
 }
 
 int64_t dtp_jpeg_roundtrip_u8(const uint8_t* in, int height, int width, int quality, uint8_t* out) {
   if (height <= 0 || width <= 0 || quality < 1 || quality > 100) return 1;
-  const int H = height, W = width;
-  const int64_t FIXY[3] = {19595, 38470, 7471};  // FIX(0.299), FIX(0.587), FIX(0.114)
-  const int64_t half = 1 << 15, cbcr_off = (int64_t)128 << 16;
-  // Luma plane, right/bottom edges replicated to whole 8x8 blocks.
-  const int yr = (H + 7) / 8 * 8, yc = (W + 7) / 8 * 8;
-  // Chroma: ceil(H/2) x ceil(W/2) samples, blocks cover ceil(W/16)*8 columns and
-  // ceil(H/16)*8 rows.
-  const int ch = (H + 1) / 2, cw = (W + 1) / 2;
-  const int cc = (W + 15) / 16 * 8, cr = (H + 15) / 16 * 8;
-  std::vector<int> Y((size_t)yr * yc), Cb((size_t)H * 2 * cc), Cr((size_t)H * 2 * cc);
-  for (int y = 0; y < H; ++y)
-    for (int x = 0; x < 2 * cc; ++x) {
-      const uint8_t* p = in + ((size_t)y * W + std::min(x, W - 1)) * 3;
-      const int64_t r = p[0], g = p[1], b = p[2];
-      if (x < yc) Y[(size_t)y * yc + x] = (int)((FIXY[0] * r + FIXY[1] * g + FIXY[2] * b + half) >> 16);
-      Cb[(size_t)y * 2 * cc + x] = (int)((-11059 * r - 21709 * g + 32768 * b + cbcr_off + half - 1) >> 16);
-      Cr[(size_t)y * 2 * cc + x] = (int)((32768 * r - 27439 * g - 5329 * b + cbcr_off + half - 1) >> 16);
-    }
-  for (int y = H; y < yr; ++y) std::memcpy(&Y[(size_t)y * yc], &Y[(size_t)(H - 1) * yc], sizeof(int) * yc);
-  std::vector<int> planes[2];
-  for (int k = 0; k < 2; ++k) {
-    const std::vector<int>& full = k ? Cr : Cb;
-    std::vector<int>& d = planes[k];
-    d.assign((size_t)cr * cc, 0);
-    for (int y = 0; y < ch; ++y) {
-      const int* r0 = &full[(size_t)(2 * y) * 2 * cc];
-      const int* r1 = &full[(size_t)std::min(2 * y + 1, H - 1) * 2 * cc];
-      for (int x = 0; x < cc; ++x)
-        d[(size_t)y * cc + x] = (r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + 1 + (x & 1)) >> 2;
-    }
-    for (int y = ch; y < cr; ++y) std::memcpy(&d[(size_t)y * cc], &d[(size_t)(ch - 1) * cc], sizeof(int) * cc);
-    jpeg_plane(d, cr, cc, kChrQ, quality);
-  }
-  jpeg_plane(Y, yr, yc, kLumQ, quality);
-  // Fancy upsampling: each output sample is 3/4 the nearer chroma sample and 1/4 the
-  // next nearer in each direction, edges replicated; libjpeg-turbo replicates each sample
-  // 2x2 instead where the chroma rows are 2 samples wide or less. Then YCbCr -> RGB.
-  const bool fancy = cw > 2;
-  std::vector<int> up[2];
-  for (int k = 0; k < 2; ++k) {
-    const std::vector<int>& d = planes[k];
-    up[k].assign((size_t)2 * ch * 2 * cw, 0);
-    for (int y = 0; y < ch; ++y)
-      for (int v = 0; v < 2; ++v) {
-        const int ny = std::min(std::max(v ? y + 1 : y - 1, 0), ch - 1);
-        int* o = &up[k][(size_t)(2 * y + v) * 2 * cw];
-        auto colsum = [&](int x) {
-          x = std::min(std::max(x, 0), cw - 1);
-          return d[(size_t)y * cc + x] * 3 + d[(size_t)ny * cc + x];
-        };
-        for (int x = 0; x < cw; ++x) {
-          if (!fancy) {
-            o[2 * x] = o[2 * x + 1] = d[(size_t)y * cc + x];
-            continue;
-          }
-          const int t = colsum(x);
-          o[2 * x] = (t * 3 + colsum(x - 1) + 8) >> 4;
-          o[2 * x + 1] = (t * 3 + colsum(x + 1) + 7) >> 4;
-        }
+  const EncodePlanes enc(in, height, width, 3, true);
+  const Quantizer lum(kLumQ, quality), chr(kChrQ, quality);
+  SamplePlane planes[3];
+  for (int k = 0; k < 3; ++k) {
+    const Quantizer& Q = k ? chr : lum;
+    uint16_t qv[64];
+    for (int i = 0; i < 64; ++i) qv[i] = (uint16_t)Q.q[i];
+    SamplePlane& p = planes[k];
+    p.stride = (size_t)enc.cols[k];
+    p.px.resize(p.stride * enc.rows[k]);
+    p.dw = k ? (width + 1) / 2 : width;
+    p.dh = k ? (height + 1) / 2 : height;
+    p.hf = p.vf = k ? 2 : 1;
+    int16_t coef[64];
+    for (int by = 0; by < enc.rows[k]; by += 8)
+      for (int bx = 0; bx < enc.cols[k]; bx += 8) {
+        Q.forward(enc.plane[k], enc.cols[k], bx, by, coef);
+        idct_block(coef, qv, &p.px[(size_t)by * p.stride + bx], p.stride);
       }
   }
-  for (int y = 0; y < H; ++y)
-    for (int x = 0; x < W; ++x) {
-      const int64_t yy = Y[(size_t)y * yc + x];
-      const int64_t cb = up[0][(size_t)y * 2 * cw + x] - 128, crv = up[1][(size_t)y * 2 * cw + x] - 128;
-      uint8_t* o = out + ((size_t)y * W + x) * 3;
-      o[0] = sat_u8((int)(yy + ((91881 * crv + half) >> 16)));
-      o[1] = sat_u8((int)(yy + ((-22554 * cb + half - 46802 * crv) >> 16)));
-      o[2] = sat_u8((int)(yy + ((116130 * cb + half) >> 16)));
-    }
+  planes_to_rgb(planes, 3, kYCbCr, height, width, out);
   return 0;
 }
 
-int dtp_version() { return 2; }
+// ---- Huffman tables: the standard ones of Annex K (jstdhuff.c), which the encoder writes
+// and the decoder takes for a missing table 0 or 1, as libjpeg-turbo does.
+static const uint8_t kBitsDcLum[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+static const uint8_t kBitsDcChr[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+static const uint8_t kValsDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+static const uint8_t kBitsAcLum[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+static const uint8_t kValsAcLum[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71,
+    0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37,
+    0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+static const uint8_t kBitsAcChr[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+static const uint8_t kValsAcChr[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
+    0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
+    0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// Canonical codes from a table's BITS (counts of codes of length 1..16): sizes[i] and
+// codes[i] for each of the n symbols in order. Returns false for a table whose codes do
+// not fit their lengths (libjpeg's JERR_BAD_HUFF_TABLE).
+static bool huff_codes(const uint8_t* bits, int* sizes, uint32_t* codes, int* n) {
+  int k = 0;
+  for (int l = 1; l <= 16; ++l)
+    for (int i = 0; i < bits[l - 1]; ++i) sizes[k++] = l;
+  *n = k;
+  uint32_t code = 0;
+  int si = k ? sizes[0] : 0;
+  for (int p = 0; p < k;) {
+    while (p < k && sizes[p] == si) codes[p++] = code++;
+    if (code > (1u << si)) return false;
+    code <<= 1;
+    ++si;
+  }
+  return true;
+}
+
+// ---- the baseline encoder: the counterpart of cv2.imencode(".jpg") with libjpeg-turbo's
+// defaults (JFIF, the standard tables at a quality, Annex K Huffman tables, islow DCT),
+// for writing test data where there is no OpenCV. 4:2:0 or 4:4:4 from RGB, or grey.
+struct BitWriter {
+  uint8_t* out;
+  int64_t cap, n = 0;
+  uint64_t acc = 0;
+  int bits = 0;
+  bool overflow = false;
+  void byte(uint8_t b) {
+    if (n < cap) out[n] = b; else overflow = true;
+    ++n;
+  }
+  void put(uint32_t code, int len) {
+    if (!len) return;
+    acc = (acc << len) | (code & ((1u << len) - 1));
+    bits += len;
+    while (bits >= 8) {
+      const uint8_t b = (uint8_t)(acc >> (bits - 8));
+      byte(b);
+      if (b == 0xFF) byte(0);
+      bits -= 8;
+    }
+  }
+  void flush() {  // pad the last byte with 1 bits
+    if (bits) put(0x7F, 8 - bits);
+    acc = 0;
+    bits = 0;
+  }
+  void marker(uint8_t m, const std::vector<uint8_t>& body) {
+    byte(0xFF);
+    byte(m);
+    byte((uint8_t)((body.size() + 2) >> 8));
+    byte((uint8_t)(body.size() + 2));
+    for (uint8_t b : body) byte(b);
+  }
+};
+
+struct EncTable {
+  uint32_t code[256];
+  int size[256];
+  EncTable(const uint8_t* bits, const uint8_t* vals) {
+    int sizes[256], n = 0;
+    uint32_t codes[256];
+    huff_codes(bits, sizes, codes, &n);
+    std::memset(size, 0, sizeof(size));
+    for (int i = 0; i < n; ++i) {
+      code[vals[i]] = codes[i];
+      size[vals[i]] = sizes[i];
+    }
+  }
+};
+
+static int bit_length(int v) {
+  int n = 0;
+  while (v) {
+    ++n;
+    v >>= 1;
+  }
+  return n;
+}
+
+static void encode_block(BitWriter& bw, const int16_t* coef, int* last_dc, const EncTable& dc, const EncTable& ac) {
+  int diff = coef[0] - *last_dc;
+  *last_dc = coef[0];
+  int mag = diff < 0 ? -diff : diff, nb = bit_length(mag);
+  bw.put(dc.code[nb], dc.size[nb]);
+  bw.put((uint32_t)(diff < 0 ? diff - 1 : diff), nb);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    const int v = coef[kNatural[k]];
+    if (!v) {
+      ++run;
+      continue;
+    }
+    for (; run > 15; run -= 16) bw.put(ac.code[0xF0], ac.size[0xF0]);
+    mag = v < 0 ? -v : v;
+    nb = bit_length(mag);
+    const int sym = (run << 4) + nb;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put((uint32_t)(v < 0 ? v - 1 : v), nb);
+    run = 0;
+  }
+  if (run) bw.put(ac.code[0], ac.size[0]);
+}
+
+// in: height x width x channels (1: grey, 3: RGB) uint8; subsampling 420 or 444 (RGB only);
+// restart_interval in MCUs (0: none). Writes the file into out (capacity bytes) and
+// returns its length; -1 for arguments it does not take, -2 when capacity is too small.
+int64_t dtp_jpeg_encode_u8(const uint8_t* in, int height, int width, int channels, int quality, int subsampling,
+                           int restart_interval, uint8_t* out, int64_t capacity) {
+  if (height <= 0 || width <= 0 || height > 65500 || width > 65500 || quality < 1 || quality > 100 ||
+      (channels != 1 && channels != 3) || (subsampling != 420 && subsampling != 444) || restart_interval < 0 ||
+      restart_interval > 65535)
+    return -1;
+  const EncodePlanes enc(in, height, width, channels, subsampling == 420);
+  const int nc = enc.ncomp, ms = enc.maxs;
+  const Quantizer lum(kLumQ, quality), chr(kChrQ, quality);
+  const EncTable dcl(kBitsDcLum, kValsDc), acl(kBitsAcLum, kValsAcLum);
+  const EncTable dcc(kBitsDcChr, kValsDc), acc_(kBitsAcChr, kValsAcChr);
+  BitWriter bw{out, capacity};
+  bw.byte(0xFF);
+  bw.byte(0xD8);
+  bw.marker(0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+  for (int t = 0; t < (nc == 3 ? 2 : 1); ++t) {
+    std::vector<uint8_t> body{(uint8_t)t};
+    for (int i = 0; i < 64; ++i) body.push_back((uint8_t)(t ? chr : lum).q[kNatural[i]]);
+    bw.marker(0xDB, body);
+  }
+  std::vector<uint8_t> sof{8, (uint8_t)(height >> 8), (uint8_t)height, (uint8_t)(width >> 8), (uint8_t)width,
+                           (uint8_t)nc};
+  for (int k = 0; k < nc; ++k) {
+    const int s = k ? 1 : ms;
+    sof.insert(sof.end(), {(uint8_t)(k + 1), (uint8_t)(s << 4 | s), (uint8_t)(k ? 1 : 0)});
+  }
+  bw.marker(0xC0, sof);
+  for (int t = 0; t < (nc == 3 ? 2 : 1); ++t)
+    for (int ac = 0; ac < 2; ++ac) {
+      const uint8_t* bits = ac ? (t ? kBitsAcChr : kBitsAcLum) : (t ? kBitsDcChr : kBitsDcLum);
+      const uint8_t* vals = ac ? (t ? kValsAcChr : kValsAcLum) : kValsDc;
+      std::vector<uint8_t> body{(uint8_t)(ac << 4 | t)};
+      int n = 0;
+      for (int i = 0; i < 16; ++i) {
+        body.push_back(bits[i]);
+        n += bits[i];
+      }
+      body.insert(body.end(), vals, vals + n);
+      bw.marker(0xC4, body);
+    }
+  if (restart_interval) bw.marker(0xDD, {(uint8_t)(restart_interval >> 8), (uint8_t)restart_interval});
+  std::vector<uint8_t> sos{(uint8_t)nc};
+  for (int k = 0; k < nc; ++k) sos.insert(sos.end(), {(uint8_t)(k + 1), (uint8_t)(k ? 0x11 : 0x00)});
+  sos.insert(sos.end(), {0, 63, 0});
+  bw.marker(0xDA, sos);
+  // One MCU: ms x ms luma blocks (1 x 1 without subsampling) and one block of each chroma.
+  // libjpeg's dummy blocks past the right edge repeat the DC of the block before them; a
+  // row of them past the bottom repeats the DC of the last block above.
+  const int mcu_px = 8 * ms;
+  const int mcus_x = nc == 1 ? enc.cols[0] / 8 : (width + mcu_px - 1) / mcu_px;
+  const int mcus_y = nc == 1 ? enc.rows[0] / 8 : (height + mcu_px - 1) / mcu_px;
+  int last_dc[3] = {0, 0, 0}, rst = 0;
+  int16_t blocks[4][64];
+  for (int64_t m = 0; m < (int64_t)mcus_x * mcus_y; ++m) {
+    if (restart_interval && m && m % restart_interval == 0) {
+      bw.flush();
+      bw.byte(0xFF);
+      bw.byte((uint8_t)(0xD0 + rst));
+      rst = (rst + 1) & 7;
+      last_dc[0] = last_dc[1] = last_dc[2] = 0;
+    }
+    const int mx = (int)(m % mcus_x), my = (int)(m / mcus_x);
+    for (int k = 0; k < nc; ++k) {
+      const int s = (k == 0 && nc == 3) ? ms : 1;
+      const Quantizer& Q = k ? chr : lum;
+      const int bw_blocks = enc.cols[k] / 8, bh_blocks = enc.rows[k] / 8;
+      for (int yi = 0; yi < s; ++yi)
+        for (int xi = 0; xi < s; ++xi) {
+          int16_t* b = blocks[yi * s + xi];
+          const int bx = mx * s + xi, by = my * s + yi;
+          if (by >= bh_blocks) {
+            std::memset(b, 0, sizeof(blocks[0]));
+            b[0] = blocks[yi * s - 1][0];
+          } else if (bx >= bw_blocks) {
+            std::memset(b, 0, sizeof(blocks[0]));
+            b[0] = blocks[yi * s + xi - 1][0];
+          } else {
+            Q.forward(enc.plane[k], enc.cols[k], bx * 8, by * 8, b);
+          }
+        }
+      for (int i = 0; i < s * s; ++i) encode_block(bw, blocks[i], &last_dc[k], k ? dcc : dcl, k ? acc_ : acl);
+    }
+  }
+  bw.flush();
+  bw.byte(0xFF);
+  bw.byte(0xD9);
+  return bw.overflow ? -2 : bw.n;
+}
+
+// ---- the decoder: baseline, extended sequential (8-bit) and progressive Huffman JPEG, as
+// libjpeg-turbo decodes them (jdmarker, jdhuff, jdphuff, jdcoefct, jidctint, jdsample,
+// jdcolor) for cv2.imdecode(..., IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION): RGB out. The
+// whole image's coefficients are kept, the scans fill them, and the back end runs once.
+// Everything it does not decode, and every file that is cut or corrupt, is refused with one
+// of these codes (data/native.py names them).
+enum JpegError {
+  kJpegNotJpeg = 1, kJpegTruncated, kJpegBadMarker, kJpegArithmetic, kJpegLossless, kJpegHierarchical,
+  kJpegPrecision, kJpegComponents, kJpegDnl, kJpegTooLarge, kJpegSampling, kJpegHuffTable, kJpegQuantTable,
+  kJpegCorruptData, kJpegRestart, kJpegProgression, kJpegIncomplete, kJpegNoImage, kJpegCmyk
+};
+
+struct JpegFail {
+  int code;
+};
+
+[[noreturn]] static void jfail(int code) { throw JpegFail{code}; }
+
+struct DecTable {
+  bool defined = false;
+  uint8_t bits[16], vals[256];
+  int nvals = 0;
+  uint8_t fast_len[512], fast_sym[512];  // codes of up to 9 bits by their first 9 bits
+  int32_t maxcode[18], valoffset[18];
+  void build() {
+    int sizes[256], n = 0;
+    uint32_t codes[256];
+    if (!huff_codes(bits, sizes, codes, &n)) jfail(kJpegHuffTable);
+    std::memset(fast_len, 0, sizeof(fast_len));
+    int p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      if (bits[l - 1]) {
+        valoffset[l] = p - (int32_t)codes[p];
+        p += bits[l - 1];
+        maxcode[l] = (int32_t)codes[p - 1];
+      } else {
+        maxcode[l] = -1;
+      }
+    }
+    maxcode[17] = 0x7FFFFFFF;
+    for (int i = 0; i < n; ++i)
+      if (sizes[i] <= 9)
+        for (uint32_t c = codes[i] << (9 - sizes[i]), e = (codes[i] + 1) << (9 - sizes[i]); c < e; ++c) {
+          fast_len[c] = (uint8_t)sizes[i];
+          fast_sym[c] = vals[i];
+        }
+    defined = true;
+  }
+  void standard(bool ac, int index) {
+    std::memcpy(bits, ac ? (index ? kBitsAcChr : kBitsAcLum) : (index ? kBitsDcChr : kBitsDcLum), 16);
+    nvals = ac ? 162 : 12;
+    std::memcpy(vals, ac ? (index ? kValsAcChr : kValsAcLum) : kValsDc, (size_t)nvals);
+    build();
+  }
+};
+
+struct JpegComp {
+  int id, h, v, tq;
+  int bw, bh;    // blocks that hold image samples (width_in_blocks, height_in_blocks)
+  int bwp, bhp;  // blocks stored: whole MCUs of an interleaved scan
+  int dw, dh;    // downsampled size in samples
+  std::vector<int16_t> coef;
+  uint16_t qv[64];
+  bool latched = false, scanned = false;
+  int coef_bits[64];
+  int pred = 0, dc_tbl = 0, ac_tbl = 0;
+};
+
+class JpegDecoder {
+ public:
+  JpegDecoder(const uint8_t* d, size_t n) : d_(d), n_(n) {}
+
+  // Parses up to the frame header: the image's height and width.
+  void header(int* h, int* w) {
+    start();
+    for (;;) {
+      const int m = next_marker();
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
+        read_sof(m, false);
+        *h = H_;
+        *w = W_;
+        return;
+      }
+      if (m == 0xDA || m == 0xD9) jfail(kJpegNoImage);
+      if (!other_marker(m)) jfail(kJpegBadMarker);
+    }
+  }
+
+  // Decodes the whole file into out (H x W x 3 RGB).
+  void decode(uint8_t* out) {
+    start();
+    for (;;) {
+      const int m = next_marker();
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
+        read_sof(m, true);
+      } else if (m == 0xDA) {
+        read_sos();
+      } else if (m == 0xD9) {
+        break;
+      } else if (!other_marker(m)) {
+        jfail(kJpegBadMarker);
+      }
+    }
+    if (!frame_ || !scans_) jfail(kJpegNoImage);
+    finish(out);
+  }
+
+ private:
+  const uint8_t* d_;
+  size_t n_, pos_ = 0;
+  int H_ = 0, W_ = 0, ncomp_ = 0, maxh_ = 1, maxv_ = 1, mcux_ = 0, mcuy_ = 0;
+  bool frame_ = false, progressive_ = false, jfif_ = false, adobe_ = false;
+  int adobe_transform_ = -1, restart_interval_ = 0, scans_ = 0;
+  bool sequential_done_ = false;
+  JpegComp comp_[3];
+  uint16_t qt_[4][64];
+  bool qt_defined_[4] = {false, false, false, false};
+  DecTable dc_[4], ac_[4];
+  // the entropy-coded segment's bit reader
+  uint64_t acc_ = 0;
+  int nbits_ = 0, pad_ = 0;
+  bool stop_ = false;
+  int eobrun_ = 0;
+
+  void start() {
+    if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) jfail(kJpegNotJpeg);
+    pos_ = 2;
+  }
+
+  int byte_at(size_t p) const {
+    if (p >= n_) jfail(kJpegTruncated);
+    return d_[p];
+  }
+
+  // jdmarker's next_marker: bytes before a marker are skipped (libjpeg warns of them and
+  // reads on), fill 0xFF bytes swallowed.
+  int next_marker() {
+    for (;;) {
+      while (byte_at(pos_) != 0xFF) ++pos_;
+      int c;
+      do c = byte_at(++pos_);
+      while (c == 0xFF);
+      ++pos_;
+      if (c != 0) return c;
+    }
+  }
+
+  // A marker segment's body: [pos_, pos_ + length - 2) after its length; advances past it.
+  size_t segment(size_t* len) {
+    const int length = byte_at(pos_) << 8 | byte_at(pos_ + 1);
+    if (length < 2) jfail(kJpegBadMarker);
+    const size_t body = pos_ + 2;
+    if (body + (size_t)(length - 2) > n_) jfail(kJpegTruncated);
+    *len = (size_t)length - 2;
+    pos_ = body + *len;
+    return body;
+  }
+
+  // The markers other than SOF, SOS and EOI; false for one that ends or breaks the header.
+  bool other_marker(int m) {
+    size_t len, b;
+    if (m == 0xC4) {
+      b = segment(&len);
+      read_dht(b, len);
+    } else if (m == 0xDB) {
+      b = segment(&len);
+      read_dqt(b, len);
+    } else if (m == 0xDD) {
+      b = segment(&len);
+      if (len != 2) jfail(kJpegBadMarker);
+      restart_interval_ = d_[b] << 8 | d_[b + 1];
+    } else if (m == 0xE0) {
+      b = segment(&len);
+      if (len >= 14 && !std::memcmp(d_ + b, "JFIF\0", 5)) jfif_ = true;
+    } else if (m == 0xEE) {
+      b = segment(&len);
+      if (len >= 12 && !std::memcmp(d_ + b, "Adobe", 5)) {
+        adobe_ = true;
+        adobe_transform_ = d_[b + 11];
+      }
+    } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xCC) {
+      segment(&len);  // APPn, COM, DAC
+    } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+      // RSTn or TEM outside a scan: no body, ignored as libjpeg ignores them
+    } else if (m == 0xDC) {
+      jfail(kJpegDnl);
+    } else if (m == 0xDE || m == 0xDF) {
+      jfail(kJpegHierarchical);
+    } else if (m == 0xD8) {
+      jfail(kJpegBadMarker);
+    } else {
+      return false;
+    }
+    return true;
+  }
+
+  void read_dqt(size_t b, size_t len) {
+    const size_t end = b + len;
+    while (b < end) {
+      const int pq = d_[b] >> 4, tq = d_[b] & 15;
+      ++b;
+      if (pq > 1 || tq > 3) jfail(kJpegQuantTable);
+      if (b + (size_t)64 * (pq + 1) > end) jfail(kJpegBadMarker);
+      for (int i = 0; i < 64; ++i) {
+        qt_[tq][kNatural[i]] = (uint16_t)(pq ? d_[b] << 8 | d_[b + 1] : d_[b]);
+        b += pq + 1;
+      }
+      qt_defined_[tq] = true;
+    }
+  }
+
+  void read_dht(size_t b, size_t len) {
+    const size_t end = b + len;
+    while (b < end) {
+      if (b + 17 > end) jfail(kJpegBadMarker);
+      const int tc = d_[b] >> 4, th = d_[b] & 15;
+      if (tc > 1 || th > 3) jfail(kJpegHuffTable);
+      DecTable& t = tc ? ac_[th] : dc_[th];
+      int count = 0;
+      for (int i = 0; i < 16; ++i) count += t.bits[i] = d_[b + 1 + i];
+      b += 17;
+      if (count > 256 || b + (size_t)count > end) jfail(kJpegHuffTable);
+      std::memcpy(t.vals, d_ + b, (size_t)count);
+      t.nvals = count;
+      b += count;
+      t.build();
+    }
+  }
+
+  void read_sof(int m, bool decoding) {
+    if (m == 0xC3) jfail(kJpegLossless);
+    if (m == 0xC5 || m == 0xC6 || m == 0xC7) jfail(kJpegHierarchical);
+    if (m >= 0xC9) jfail(kJpegArithmetic);
+    if (m == 0xC8) jfail(kJpegBadMarker);
+    if (frame_) jfail(kJpegBadMarker);
+    size_t len;
+    const size_t b = segment(&len);
+    if (len < 6) jfail(kJpegBadMarker);
+    if (d_[b] != 8) jfail(kJpegPrecision);
+    H_ = d_[b + 1] << 8 | d_[b + 2];
+    W_ = d_[b + 3] << 8 | d_[b + 4];
+    ncomp_ = d_[b + 5];
+    if (H_ == 0) jfail(kJpegDnl);
+    if (W_ == 0 || ncomp_ == 0) jfail(kJpegNoImage);
+    if (len != (size_t)(6 + 3 * ncomp_)) jfail(kJpegBadMarker);
+    if (ncomp_ == 4) jfail(kJpegCmyk);
+    if (ncomp_ != 1 && ncomp_ != 3) jfail(kJpegComponents);
+    // OpenCV's CV_IO_MAX_IMAGE_PIXELS, refused before anything is allocated.
+    if ((int64_t)H_ * W_ > ((int64_t)1 << 30) || H_ > 65500 || W_ > 65500) jfail(kJpegTooLarge);
+    progressive_ = m == 0xC2;
+    for (int k = 0; k < ncomp_; ++k) {
+      JpegComp& c = comp_[k];
+      c.id = d_[b + 6 + 3 * k];
+      c.h = d_[b + 7 + 3 * k] >> 4;
+      c.v = d_[b + 7 + 3 * k] & 15;
+      c.tq = d_[b + 8 + 3 * k];
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) jfail(kJpegSampling);
+      if (c.tq > 3) jfail(kJpegQuantTable);
+      maxh_ = std::max(maxh_, c.h);
+      maxv_ = std::max(maxv_, c.v);
+    }
+    mcux_ = (W_ + 8 * maxh_ - 1) / (8 * maxh_);
+    mcuy_ = (H_ + 8 * maxv_ - 1) / (8 * maxv_);
+    for (int k = 0; k < ncomp_; ++k) {
+      JpegComp& c = comp_[k];
+      if (maxh_ % c.h || maxv_ % c.v) jfail(kJpegSampling);  // a fractional ratio
+      c.dw = (int)(((int64_t)W_ * c.h + maxh_ - 1) / maxh_);
+      c.dh = (int)(((int64_t)H_ * c.v + maxv_ - 1) / maxv_);
+      c.bw = (int)(((int64_t)W_ * c.h + 8 * maxh_ - 1) / (8 * maxh_));
+      c.bh = (int)(((int64_t)H_ * c.v + 8 * maxv_ - 1) / (8 * maxv_));
+      c.bwp = mcux_ * c.h;
+      c.bhp = mcuy_ * c.v;
+      for (int i = 0; i < 64; ++i) c.coef_bits[i] = -1;
+      if (decoding) c.coef.assign((size_t)c.bwp * c.bhp * 64, 0);
+    }
+    frame_ = true;
+  }
+
+  // ---- bits of the entropy-coded segment
+  void fill() {
+    while (nbits_ <= 56) {
+      int b = 0;
+      if (!stop_) {
+        if (pos_ >= n_) {
+          stop_ = true;
+        } else if (d_[pos_] != 0xFF) {
+          b = d_[pos_++];
+        } else {
+          size_t p = pos_ + 1;
+          while (p < n_ && d_[p] == 0xFF) ++p;
+          if (p < n_ && d_[p] == 0) {
+            b = 0xFF;
+            pos_ = p + 1;
+          } else {
+            stop_ = true;  // a marker (or the end of the data): pos_ stays on its 0xFF
+          }
+        }
+      }
+      if (stop_) pad_ += 8;  // zero bits past the segment, as libjpeg inserts them
+      acc_ = acc_ << 8 | (uint64_t)b;
+      nbits_ += 8;
+    }
+  }
+
+  void consume(int k) {
+    nbits_ -= k;
+    if (nbits_ < pad_) jfail(pos_ >= n_ ? kJpegTruncated : kJpegCorruptData);  // it read past the segment
+  }
+
+  int get_bits(int k) {
+    if (!k) return 0;
+    if (nbits_ < 32) fill();
+    const int v = (int)((acc_ >> (nbits_ - k)) & ((1u << k) - 1));
+    consume(k);
+    return v;
+  }
+
+  static int extend(int v, int s) { return s && v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+  int decode_huff(const DecTable& t) {
+    if (nbits_ < 32) fill();
+    const int look = (int)((acc_ >> (nbits_ - 9)) & 511);
+    if (t.fast_len[look]) {
+      consume(t.fast_len[look]);
+      return t.fast_sym[look];
+    }
+    const int32_t code16 = (int32_t)((acc_ >> (nbits_ - 16)) & 0xFFFF);
+    for (int l = 10; l <= 16; ++l) {
+      const int32_t c = code16 >> (16 - l);
+      if (c <= t.maxcode[l]) {
+        consume(l);
+        const int i = c + t.valoffset[l];
+        if (i < 0 || i >= t.nvals) jfail(kJpegCorruptData);
+        return t.vals[i];
+      }
+    }
+    jfail(kJpegCorruptData);  // no code of 16 bits or fewer (libjpeg's JWRN_HUFF_BAD_CODE)
+  }
+
+  void reset_bits() {
+    acc_ = 0;
+    nbits_ = pad_ = 0;
+    stop_ = false;
+  }
+
+  // ---- a scan
+  void read_sos() {
+    if (!frame_) jfail(kJpegBadMarker);
+    if (!progressive_ && sequential_done_) jfail(kJpegBadMarker);  // libjpeg: JERR_EOI_EXPECTED
+    size_t len;
+    const size_t b = segment(&len);
+    if (len < 1) jfail(kJpegBadMarker);
+    const int ns = d_[b];
+    if (ns < 1 || ns > 4 || len != (size_t)(4 + 2 * ns)) jfail(kJpegBadMarker);
+    JpegComp* sc[4];
+    for (int i = 0; i < ns; ++i) {
+      const int id = d_[b + 1 + 2 * i];
+      sc[i] = nullptr;
+      for (int k = 0; k < ncomp_; ++k)
+        if (comp_[k].id == id) sc[i] = &comp_[k];
+      if (!sc[i]) jfail(kJpegBadMarker);
+      for (int j = 0; j < i; ++j)
+        if (sc[j] == sc[i]) jfail(kJpegBadMarker);
+      sc[i]->dc_tbl = d_[b + 2 + 2 * i] >> 4;
+      sc[i]->ac_tbl = d_[b + 2 + 2 * i] & 15;
+      if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3) jfail(kJpegHuffTable);
+    }
+    const int ss = d_[b + 1 + 2 * ns], se = d_[b + 2 + 2 * ns];
+    const int ah = d_[b + 3 + 2 * ns] >> 4, al = d_[b + 3 + 2 * ns] & 15;
+    if (ns > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) jfail(kJpegSampling);
+    }
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0) jfail(kJpegProgression);
+    } else {
+      // jdphuff's start_pass checks, the warnings among them made errors.
+      const bool dc = ss == 0;
+      if (dc ? se != 0 : (ss > se || se > 63 || ns != 1)) jfail(kJpegProgression);
+      if ((ah != 0 && al != ah - 1) || al > 13) jfail(kJpegProgression);
+      for (int i = 0; i < ns; ++i) {
+        int* cb = sc[i]->coef_bits;
+        if (!dc && cb[0] < 0) jfail(kJpegProgression);
+        for (int k = ss; k <= se; ++k) {
+          if (ah != (cb[k] < 0 ? 0 : cb[k])) jfail(kJpegProgression);
+          cb[k] = al;
+        }
+      }
+    }
+    for (int i = 0; i < ns; ++i) {
+      JpegComp& c = *sc[i];
+      if (!c.latched) {  // libjpeg latches a component's table at its first scan
+        if (!qt_defined_[c.tq]) jfail(kJpegQuantTable);
+        std::memcpy(c.qv, qt_[c.tq], sizeof(c.qv));
+        c.latched = true;
+      }
+      const bool need_dc = !progressive_ || (ss == 0 && ah == 0), need_ac = !progressive_ || ss > 0;
+      if (need_dc) table(dc_, c.dc_tbl, false);
+      if (need_ac) table(ac_, c.ac_tbl, true);
+      c.scanned = true;
+      c.pred = 0;
+    }
+    ++scans_;
+    if (!progressive_) {
+      bool all = true;
+      for (int k = 0; k < ncomp_; ++k) all = all && comp_[k].scanned;
+      sequential_done_ = all;
+    }
+    decode_scan(sc, ns, ss, se, ah, al);
+  }
+
+  void table(DecTable* tables, int index, bool ac) {
+    DecTable& t = tables[index];
+    if (!t.defined) {
+      if (index > 1) jfail(kJpegHuffTable);
+      t.standard(ac, index);
+    }
+    if (!ac)
+      for (int i = 0; i < t.nvals; ++i)
+        if (t.vals[i] > 15) jfail(kJpegHuffTable);
+  }
+
+  void decode_scan(JpegComp** sc, int ns, int ss, int se, int ah, int al) {
+    reset_bits();
+    eobrun_ = 0;
+    const int mx = ns == 1 ? sc[0]->bw : mcux_, my = ns == 1 ? sc[0]->bh : mcuy_;
+    int restarts_to_go = restart_interval_, next_rst = 0;
+    for (int64_t m = 0; m < (int64_t)mx * my; ++m) {
+      if (restart_interval_) {
+        if (restarts_to_go == 0) {
+          restart(next_rst);
+          next_rst = (next_rst + 1) & 7;
+          for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+          eobrun_ = 0;
+          restarts_to_go = restart_interval_;
+        }
+        --restarts_to_go;
+      }
+      const int x = (int)(m % mx), y = (int)(m / mx);
+      for (int i = 0; i < ns; ++i) {
+        JpegComp& c = *sc[i];
+        const int bh = ns == 1 ? 1 : c.v, bwid = ns == 1 ? 1 : c.h;
+        for (int yi = 0; yi < bh; ++yi)
+          for (int xi = 0; xi < bwid; ++xi) {
+            const int bx = x * bwid + xi, by = y * bh + yi;
+            int16_t* blk = &c.coef[((size_t)by * c.bwp + bx) * 64];
+            if (!progressive_) {
+              block_sequential(c, blk);
+            } else if (ss == 0) {
+              if (ah == 0) {
+                const int s = decode_huff(dc_[c.dc_tbl]);
+                c.pred += extend(get_bits(s), s);
+                blk[0] = (int16_t)(int)((unsigned)c.pred << al);
+              } else if (get_bits(1)) {
+                blk[0] = (int16_t)(blk[0] | (1 << al));
+              }
+            } else if (ah == 0) {
+              block_ac_first(c, blk, ss, se, al);
+            } else {
+              block_ac_refine(c, blk, ss, se, al);
+            }
+          }
+      }
+    }
+    // The scan's data ends here: the next marker follows, after any bytes libjpeg skips.
+    reset_bits();
+  }
+
+  // jdhuff's process_restart: the bits left are dropped and the next marker must be the
+  // expected RSTn (libjpeg resynchronises on another one; this decoder refuses the file).
+  void restart(int expected) {
+    reset_bits();
+    if (next_marker() != 0xD0 + expected) jfail(kJpegRestart);
+  }
+
+  void block_sequential(JpegComp& c, int16_t* blk) {
+    const int s = decode_huff(dc_[c.dc_tbl]);
+    c.pred += extend(get_bits(s), s);
+    blk[0] = (int16_t)c.pred;
+    const DecTable& t = ac_[c.ac_tbl];
+    for (int k = 1; k < 64; ++k) {
+      const int rs = decode_huff(t), r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)extend(get_bits(sz), sz);
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  void block_ac_first(JpegComp& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const DecTable& t = ac_[c.ac_tbl];
+    for (int k = ss; k <= se; ++k) {
+      const int rs = decode_huff(t);
+      int r = rs >> 4;
+      const int s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)(int)((unsigned)extend(get_bits(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += get_bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // jdphuff's decode_mcu_AC_refine: new coefficients of magnitude 1 << al, and a
+  // correction bit for each coefficient already nonzero that the run passes over.
+  void block_ac_refine(JpegComp& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = (int)((unsigned)-1 << al);
+    const DecTable& t = ac_[c.ac_tbl];
+    auto correct = [&](int16_t& coef) {
+      if (get_bits(1) && (coef & p1) == 0) coef = (int16_t)(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun_ == 0) {
+      for (; k <= se; ++k) {
+        const int rs = decode_huff(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) jfail(kJpegCorruptData);
+          s = get_bits(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += get_bits(r);
+          break;
+        }
+        do {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) correct(coef);
+      }
+      --eobrun_;
+    }
+  }
+
+  // ---- the back end
+  void finish(uint8_t* out) {
+    for (int k = 0; k < ncomp_; ++k) {
+      const JpegComp& c = comp_[k];
+      if (!c.scanned) jfail(kJpegIncomplete);
+      // A progressive file whose first ten coefficients are not all known to full precision
+      // gets libjpeg's block smoothing (jdcoefct.c); this decoder refuses it.
+      if (progressive_)
+        for (int i = 0; i < 10; ++i)
+          if (c.coef_bits[kNatural[i]] != 0) jfail(kJpegIncomplete);
+    }
+    JpegColor color = kYCbCr;
+    if (ncomp_ == 1) {
+      color = kGrey;
+    } else if (!jfif_ && adobe_) {
+      color = adobe_transform_ == 0 ? kRGB : kYCbCr;
+    } else if (!jfif_ && comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B') {
+      color = kRGB;
+    }
+    SamplePlane planes[3];
+    for (int k = 0; k < ncomp_; ++k) {
+      const JpegComp& c = comp_[k];
+      SamplePlane& p = planes[k];
+      p.stride = (size_t)c.bw * 8;
+      p.px.resize(p.stride * c.bh * 8);
+      p.dw = c.dw;
+      p.dh = c.dh;
+      p.hf = maxh_ / c.h;
+      p.vf = maxv_ / c.v;
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_block(&c.coef[((size_t)by * c.bwp + bx) * 64], c.qv, &p.px[(size_t)by * 8 * p.stride + bx * 8],
+                     p.stride);
+    }
+    planes_to_rgb(planes, ncomp_, color, H_, W_, out);
+  }
+};
+
+// Header query: the image's height and width into hw[0], hw[1]. Returns 0 or a JpegError.
+int64_t dtp_jpeg_header(const uint8_t* data, int64_t len, int64_t* hw) {
+  try {
+    JpegDecoder dec(data, (size_t)len);
+    int h = 0, w = 0;
+    dec.header(&h, &w);
+    hw[0] = h;
+    hw[1] = w;
+    return 0;
+  } catch (const JpegFail& e) {
+    return e.code;
+  }
+}
+
+// Decodes a JPEG of height x width (from dtp_jpeg_header) into out, RGB HWC uint8.
+// Returns 0 or a JpegError.
+int64_t dtp_jpeg_decode_u8(const uint8_t* data, int64_t len, int height, int width, uint8_t* out) {
+  try {
+    JpegDecoder dec(data, (size_t)len);
+    int h = 0, w = 0;
+    dec.header(&h, &w);
+    if (h != height || w != width) return kJpegBadMarker;
+    JpegDecoder full(data, (size_t)len);
+    full.decode(out);
+    return 0;
+  } catch (const JpegFail& e) {
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    return kJpegTooLarge;
+  }
+}
+
+static uint8_t* jpeg_decode_alloc(const uint8_t* data, size_t len, int* h, int* w) {
+  try {
+    JpegDecoder dec(data, len);
+    dec.header(h, w);
+    uint8_t* buf = (uint8_t*)malloc((size_t)(*h) * (*w) * 3);
+    if (!buf) return nullptr;
+    try {
+      JpegDecoder full(data, len);
+      full.decode(buf);
+    } catch (...) {
+      free(buf);
+      throw;
+    }
+    return buf;
+  } catch (...) {
+    return nullptr;
+  }
+}
+
+int dtp_version() { return 3; }
 
 }  // extern "C"

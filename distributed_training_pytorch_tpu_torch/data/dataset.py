@@ -13,9 +13,10 @@ libjpeg/libpng (the JAX package decodes with ``cv2.imread``):
   (``native.png_unfilter``), byte-equal to ``cv2.imread(path)[..., ::-1]``. Adam7-interlaced
   files raise a ``DecodeError`` naming the file;
 * BMP: uncompressed 24- and 32-bit, and 8-bit and lower with a palette, read with numpy;
-* JPEG: the native library's libjpeg decoder where it was built with codecs, then the EXIF
-  orientation as ``cv2.imread`` applies it (``data/jpeg.py``); elsewhere a ``DecodeError``
-  naming the file and saying that the machine has no libjpeg;
+* JPEG: the native library's own decoder (``native.jpeg_decode``, in every build), then
+  the EXIF orientation as ``cv2.imread`` applies it (``data/jpeg.py``); arithmetic-coded,
+  lossless, 12-bit, CMYK, truncated and corrupt files raise a ``DecodeError`` naming the
+  file and the reason;
 * WebP: a ``DecodeError`` naming the file (the port has no WebP decoder).
 
 A file is recognised by its first bytes, not its extension.
@@ -76,8 +77,8 @@ def decode_image(path: str) -> np.ndarray:
 
 def decode_bytes(data: bytes, what: str) -> np.ndarray:
     """PNG, BMP or JPEG bytes -> RGB uint8 HWC, as ``cv2.imdecode(..., IMREAD_COLOR)[...,
-    ::-1]``; a ``DecodeError`` names ``what`` (a file, a record) and says what was wrong.
-    A JPEG where the library has no libjpeg raises ``MissingCodecError``."""
+    ::-1]`` (a JPEG turned by its EXIF orientation); a ``DecodeError`` names ``what`` (a
+    file, a record) and says what was wrong."""
     try:
         if data.startswith(_PNG_SIGNATURE):
             return _decode_png(data, what)
@@ -142,47 +143,18 @@ def _decode_bmp(data: bytes, what: str) -> np.ndarray:
     return np.ascontiguousarray(rgb[::-1] if height > 0 else rgb)  # positive height: bottom-up
 
 
-def _jpeg_size(data: bytes) -> "tuple[int, int] | None":
-    """(height, width) from the first start-of-frame marker."""
-    pos = 2
-    while pos + 4 <= len(data):
-        if data[pos] != 0xFF:
-            return None
-        marker = data[pos + 1]
-        length = struct.unpack_from(">H", data, pos + 2)[0]
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            return struct.unpack_from(">HH", data, pos + 5)
-        pos += 2 + length
-    return None
-
-
-def _no_libjpeg(what: str) -> native.MissingCodecError:
-    return native.MissingCodecError(
-        None, what, "this machine has no libjpeg (the native library was built without codecs)"
-    )
-
-
 def _decode_jpeg(data: bytes, what: str) -> np.ndarray:
-    if not native.codecs_available():
-        raise _no_libjpeg(what)
-    size = _jpeg_size(data)
-    if size is None:
-        raise native.DecodeError(None, what, "no JPEG frame header")
-    try:
-        image = native.decode_resize_u8_bytes([data], *size)[0]  # at its own size: no resampling
-    except native.DecodeError:
-        raise native.DecodeError(None, what, "libjpeg refused it") from None
-    return jpeg.apply_orientation(image, jpeg.exif_orientation(data))  # as cv2.imread turns it
+    return jpeg.apply_orientation(native.jpeg_decode(data, what), jpeg.exif_orientation(data))
 
 
 class NativeImageFolderSource(ImageFolderDataSource):
     """Image-folder source whose batches decode, resize and normalise through the native
     library (the val/eval path; no augmentation): the JPEG records in one call a batch, as
-    the JAX package's native path decodes them; the PNG and BMP records through this
-    module's decoders, then the library's resize and normalisation
-    (``native.resize_normalize``), so every record of a batch shares one resize and one
-    normalisation (a PNG record comes out as the JAX native path's). Without codecs a JPEG
-    record raises a ``DecodeError`` naming it."""
+    the JAX package's native path decodes them (with the library's own JPEG decoder, in
+    every build, and no EXIF orientation, as the JAX native path's libjpeg applies none);
+    the PNG and BMP records through this module's decoders, then the library's resize and
+    normalisation (``native.resize_normalize``), so every record of a batch shares one
+    resize and one normalisation (a PNG record comes out as the JAX native path's)."""
 
     _NATIVE_EXTS = (".jpg", ".jpeg")
 
@@ -200,11 +172,9 @@ class NativeImageFolderSource(ImageFolderDataSource):
 
     def load_batch(self, rows: np.ndarray, epoch: int) -> dict:
         labels = np.array([self.records[int(i)][1] for i in rows], np.int32)
-        jpeg = [p for p, i in enumerate(rows) if self.records[int(i)][0].lower().endswith(self._NATIVE_EXTS)]
-        if jpeg and not native.codecs_available():
-            raise _no_libjpeg(f"file {self.records[int(rows[jpeg[0]])][0]!r}")
+        jpegs = [p for p, i in enumerate(rows) if self.records[int(i)][0].lower().endswith(self._NATIVE_EXTS)]
         images = native.mixed_native_batch(
-            len(rows), self.height, self.width, jpeg,
+            len(rows), self.height, self.width, jpegs,
             lambda pos: native.decode_resize_normalize(
                 [self.records[int(rows[p])][0] for p in pos], self.height, self.width, self.mean, self.std
             ),

@@ -38,7 +38,6 @@ same rows.
 deterministically, and counted in ``corrupt_skipped``; a source with its own tolerant batch
 path (``data/records.py``'s ``skip_corrupt``) gets the flag set on it, so its whole-batch
 fast path degrades the same way (this sets the attribute on the caller's source object).
-A payload the machine cannot decode at all (``MissingCodecError``) is never skipped.
 ``load_delay_s`` is an injection seam: a sleep of that many seconds in every batch's
 production, on the producing thread (at collate for the per-record path with workers),
 so that a test can make the loader the bottleneck on purpose; it is 0 in production.

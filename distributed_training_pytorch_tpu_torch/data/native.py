@@ -9,23 +9,30 @@ on the same inputs.
 The library is host C++, not a device kernel. It is built with ``g++`` at first use
 (the flags of the JAX package's ``csrc/Makefile``) into
 ``build/torch_native/libdtp_native.so`` under the checkout root, which the repository's
-``.gitignore`` covers, and rebuilt when the source is newer than it. Where libjpeg or
-libpng is not installed (a probe compiles and links against both first), it is built with
-``-DDTP_NO_CODECS``: crop/flip and normalise are the same, and the decode functions raise
-``RuntimeError("built without libjpeg/libpng")``.
+``.gitignore`` covers, and rebuilt when the source is newer than it.
+
+JPEG is decoded by the library's own decoder (:func:`jpeg_decode`; baseline, extended
+sequential and progressive Huffman files, byte-equal to OpenCV's libjpeg-turbo), which
+needs no library and is in every build. PNG is decoded by libpng where it is installed (a
+probe compiles and links against it first); elsewhere the library is built with
+``-DDTP_NO_CODECS`` and its decode entries refuse PNG payloads, which the port then decodes
+with the standard library's ``zlib`` and :func:`png_unfilter`.
 
 Five per-image entry points need no library and are in both builds: the PNG scanline
 unfilter (:func:`png_unfilter`, over a stream the caller inflated with the standard
 library's ``zlib``), and :func:`box_blur`, :func:`median_blur`, :func:`clahe` and
 :func:`jpeg_roundtrip`, which reproduce the OpenCV and libjpeg-turbo arithmetic of the JAX
 package's ``cv2`` transforms. They take and return uint8 HWC images, one image a call.
+:func:`jpeg_encode` writes baseline JPEG files (the counterpart of ``cv2.imencode``, for
+test data where there is no OpenCV).
 
 Two batch entry points start from uint8 pixels the caller decoded, the codec-free route
-of the uint8 decode entries for a build without codecs: :func:`resize_u8_batch` (the
-resize of :func:`decode_resize_u8_bytes`) and :func:`rrc_flip_u8_batch` (the
-random-resized crop and flip of :func:`decode_rrc_flip_u8_bytes`). A PNG payload gives the
-same bytes through either route (``data/records.py`` takes the fused entries where the
-library has codecs, and these where it has none).
+of the uint8 decode entries for a PNG payload in a build without libpng:
+:func:`resize_u8_batch` (the resize of :func:`decode_resize_u8_bytes`) and
+:func:`rrc_flip_u8_batch` (the random-resized crop and flip of
+:func:`decode_rrc_flip_u8_bytes`). A PNG payload gives the same bytes through either route
+(``data/records.py`` takes the fused entries where the library has libpng, and these where
+it has none).
 
 A failed build is never silent: :func:`available` says whether the library loaded, and
 :func:`build_error` returns the compiler's message when it did not. Nothing here runs at
@@ -47,7 +54,6 @@ import numpy as np
 __all__ = [
     "ARGTYPES",
     "DecodeError",
-    "MissingCodecError",
     "NativeCropFlipNormalize",
     "NativeCropFlipU8",
     "augment_crop_flip",
@@ -61,6 +67,9 @@ __all__ = [
     "decode_resize_normalize_bytes",
     "decode_resize_u8_bytes",
     "decode_rrc_flip_u8_bytes",
+    "jpeg_decode",
+    "jpeg_encode",
+    "jpeg_header",
     "jpeg_roundtrip",
     "median_blur",
     "mixed_native_batch",
@@ -75,8 +84,8 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "dtp_native.cpp"
 LIBRARY = _PKG.parent / "build" / "torch_native" / "libdtp_native.so"
 CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
-CODEC_LIBS = ["-ljpeg", "-lpng"]
-_CODEC_PROBE = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\nint main() { return 0; }\n"
+CODEC_LIBS = ["-lpng"]
+_CODEC_PROBE = "#include <cstdio>\n#include <png.h>\nint main() { return 0; }\n"
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -88,7 +97,7 @@ def _cxx() -> str:
 
 
 def _codecs_installed(workdir: str) -> bool:
-    """Whether a program including ``jpeglib.h`` and ``png.h`` compiles and links here."""
+    """Whether a program including ``png.h`` compiles and links against libpng here."""
     probe = os.path.join(workdir, "probe.cpp")
     with open(probe, "w") as f:
         f.write(_CODEC_PROBE)
@@ -148,6 +157,9 @@ ARGTYPES = {
     "dtp_median_blur_u8": [_u8ptr, _i32, _i32, _i32, _i32, _u8ptr],
     "dtp_clahe_u8": [_u8ptr, _i32, _i32, ctypes.c_double, _i32, _u8ptr],
     "dtp_jpeg_roundtrip_u8": [_u8ptr, _i32, _i32, _i32, _u8ptr],
+    "dtp_jpeg_encode_u8": [_u8ptr, _i32, _i32, _i32, _i32, _i32, _i32, _u8ptr, _i64],
+    "dtp_jpeg_header": [_u8ptr, _i64, _i64ptr],
+    "dtp_jpeg_decode_u8": [_u8ptr, _i64, _i32, _i32, _u8ptr],
 }
 
 
@@ -202,17 +214,16 @@ def build_error() -> "str | None":
 
 
 def codecs_available() -> bool:
-    """Whether the loaded library was built with libjpeg and libpng."""
+    """Whether the loaded library is linked against libpng, so that its decode entries
+    take PNG payloads too (JPEG they take in every build)."""
     lib = _load()
     return lib is not None and bool(lib.dtp_has_codecs())
 
 
-def _require(decode: bool = False) -> ctypes.CDLL:
+def _require() -> ctypes.CDLL:
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native library unavailable: {_error}")
-    if decode and not lib.dtp_has_codecs():
-        raise RuntimeError("built without libjpeg/libpng")
     return lib
 
 
@@ -228,9 +239,28 @@ class DecodeError(ValueError):
                          + (f": {reason}" if reason else ""))
 
 
-class MissingCodecError(DecodeError):
-    """A payload this machine cannot decode at all (a JPEG where the library was built
-    without libjpeg): not a corrupt record, so never skipped as one."""
+# dtp_jpeg_header / dtp_jpeg_decode_u8's refusals (csrc/dtp_native.cpp, enum JpegError).
+JPEG_ERRORS = {
+    1: "not a JPEG file (no start-of-image marker)",
+    2: "a truncated JPEG file (the data ends before its end-of-image marker)",
+    3: "a malformed JPEG marker segment",
+    4: "an arithmetic-coded JPEG (not supported)",
+    5: "a lossless JPEG (not supported)",
+    6: "a hierarchical JPEG (not supported)",
+    7: "a JPEG of other than 8-bit precision (not supported)",
+    8: "a JPEG with a component count other than 1 or 3",
+    9: "a JPEG whose height is set by a DNL marker (not supported)",
+    10: "a JPEG of more than 2^30 pixels",
+    11: "a JPEG with unsupported sampling factors",
+    12: "a JPEG with a bad or missing Huffman table",
+    13: "a JPEG with a bad or missing quantisation table",
+    14: "a JPEG with corrupt entropy-coded data",
+    15: "a JPEG whose restart markers are missing or out of order",
+    16: "a JPEG with bad scan parameters",
+    17: "an incomplete JPEG (a component or coefficients never fully coded; libjpeg would smooth the blocks)",
+    18: "a JPEG without a frame or a scan",
+    19: "a 4-component (CMYK/YCCK) JPEG (not supported)",
+}
 
 
 def _threads(n: "int | None") -> int:
@@ -242,8 +272,8 @@ def decode_resize_normalize(
     threads: "int | None" = None,
 ) -> np.ndarray:
     """JPEG/PNG files -> [N, H, W, 3] float32, resized (OpenCV-compatible bilinear) and
-    normalised, in one native call."""
-    lib = _require(decode=True)
+    normalised, in one native call (PNG only where the library has libpng)."""
+    lib = _require()
     n = len(paths)
     out = np.empty((n, height, width, 3), np.float32)
     arr = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
@@ -253,8 +283,27 @@ def decode_resize_normalize(
         out, _threads(threads),
     )
     if rc:
-        raise ValueError(f"failed to decode {paths[rc - 1]!r}")
+        with open(paths[rc - 1], "rb") as f:
+            reason = _refusal(f.read())
+        raise ValueError(f"failed to decode {paths[rc - 1]!r}" + (f": {reason}" if reason else ""))
     return out
+
+
+def _refusal(payload: bytes) -> "str | None":
+    """Why a decode entry refused ``payload``: the JPEG decoder's reason, or the missing
+    libpng."""
+    if payload[:2] == b"\xff\xd8":
+        try:
+            jpeg_decode(payload)
+        except DecodeError as e:
+            return e.reason
+    elif payload[:8] == b"\x89PNG\r\n\x1a\n" and not codecs_available():
+        return "a PNG payload, and the library was built without libpng"
+    return None
+
+
+def _raise_refused(payloads: Sequence[bytes], rc: int):
+    raise DecodeError(rc - 1, reason=_refusal(payloads[rc - 1]))
 
 
 def _payloads(payloads: Sequence[bytes]):
@@ -267,8 +316,9 @@ def decode_resize_normalize_bytes(
     payloads: Sequence[bytes], height: int, width: int, mean: np.ndarray, std: np.ndarray, *,
     threads: "int | None" = None,
 ) -> np.ndarray:
-    """In-memory JPEG/PNG payloads -> [N, H, W, 3] float32, resized and normalised."""
-    lib = _require(decode=True)
+    """In-memory JPEG/PNG payloads -> [N, H, W, 3] float32, resized and normalised (PNG
+    only where the library has libpng)."""
+    lib = _require()
     n, lengths, bufs = _payloads(payloads)
     out = np.empty((n, height, width, 3), np.float32)
     rc = lib.dtp_decode_resize_normalize_bytes(
@@ -276,20 +326,21 @@ def decode_resize_normalize_bytes(
         _per_image(std, 3, np.float32, "channel stds"), out, _threads(threads),
     )
     if rc:
-        raise DecodeError(rc - 1)
+        _raise_refused(payloads, rc)
     return out
 
 
 def decode_resize_u8_bytes(
     payloads: Sequence[bytes], height: int, width: int, *, threads: "int | None" = None
 ) -> np.ndarray:
-    """In-memory JPEG/PNG payloads -> [N, H, W, 3] uint8 (decode + resize, no normalise)."""
-    lib = _require(decode=True)
+    """In-memory JPEG/PNG payloads -> [N, H, W, 3] uint8 (decode + resize, no normalise;
+    PNG only where the library has libpng)."""
+    lib = _require()
     n, lengths, bufs = _payloads(payloads)
     out = np.empty((n, height, width, 3), np.uint8)
     rc = lib.dtp_decode_resize_u8_bytes(bufs, lengths, n, height, width, out, _threads(threads))
     if rc:
-        raise DecodeError(rc - 1)
+        _raise_refused(payloads, rc)
     return out
 
 
@@ -300,8 +351,9 @@ def decode_rrc_flip_u8_bytes(
 ) -> np.ndarray:
     """In-memory JPEG/PNG payloads -> [N, H, W, 3] uint8 through decode, random-resized
     crop and an optional flip in one call, Philox-keyed per ``(seed, epoch, indices[i])``
-    (10 attempts, then the centre square, as ``transforms.random_resized_crop``)."""
-    lib = _require(decode=True)
+    (10 attempts, then the centre square, as ``transforms.random_resized_crop``; PNG only
+    where the library has libpng)."""
+    lib = _require()
     n, lengths, bufs = _payloads(payloads)
     out = np.empty((n, height, width, 3), np.uint8)
     rc = lib.dtp_decode_rrc_flip_u8_bytes(
@@ -309,7 +361,7 @@ def decode_rrc_flip_u8_bytes(
         float(scale[0]), float(scale[1]), float(ratio[0]), float(ratio[1]), out, _threads(threads),
     )
     if rc:
-        raise DecodeError(rc - 1)
+        _raise_refused(payloads, rc)
     return out
 
 
@@ -572,3 +624,56 @@ def jpeg_roundtrip(image: np.ndarray, quality: int) -> np.ndarray:
     h, w, _ = image.shape
     _check(_require().dtp_jpeg_roundtrip_u8(image, h, w, int(quality), out), "jpeg_roundtrip", (image.shape, quality))
     return out
+
+
+def _payload_u8(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if len(data) else np.zeros(1, np.uint8)
+
+
+def jpeg_header(data: bytes, what: str = "JPEG data") -> "tuple[int, int]":
+    """``(height, width)`` from a JPEG's frame header; ``DecodeError`` naming ``what``."""
+    hw = np.zeros(2, np.int64)
+    rc = _require().dtp_jpeg_header(_payload_u8(data), len(data), hw)
+    if rc:
+        raise DecodeError(None, what, JPEG_ERRORS.get(rc, f"JPEG error {rc}"))
+    return int(hw[0]), int(hw[1])
+
+
+def jpeg_decode(data: bytes, what: str = "JPEG data") -> np.ndarray:
+    """A JPEG file's bytes -> [H, W, 3] uint8 RGB, byte-equal to ``cv2.imdecode(...,
+    IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION)[..., ::-1]`` with OpenCV's libjpeg-turbo (no
+    EXIF orientation: ``data/jpeg.py`` applies it where the port follows ``cv2``). Refuses
+    arithmetic-coded, lossless, hierarchical, 12-bit, CMYK/YCCK, truncated, corrupt and
+    incomplete progressive files with a ``DecodeError`` naming ``what`` and the reason."""
+    h, w = jpeg_header(data, what)
+    out = np.empty((h, w, 3), np.uint8)
+    rc = _require().dtp_jpeg_decode_u8(_payload_u8(data), len(data), h, w, out)
+    if rc:
+        raise DecodeError(None, what, JPEG_ERRORS.get(rc, f"JPEG error {rc}"))
+    return out
+
+
+def jpeg_encode(image: np.ndarray, quality: int = 95, *, subsampling: str = "4:2:0", restart_interval: int = 0) -> bytes:
+    """A baseline JPEG file of ``image`` (uint8 RGB HWC, or grey HW / HW1) at ``quality``,
+    as ``cv2.imencode(".jpg", bgr, [IMWRITE_JPEG_QUALITY, quality])`` writes it with
+    libjpeg-turbo's defaults: JFIF, the standard quantisation tables scaled to the quality,
+    the standard Huffman tables, islow DCT. ``subsampling`` is ``"4:2:0"`` or ``"4:4:4"``
+    (colour only); ``restart_interval`` counts MCUs (0: no restart markers)."""
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim == 3 and image.shape[-1] == 1:
+        image = image[..., 0]
+    if image.ndim not in (2, 3) or (image.ndim == 3 and image.shape[-1] != 3):
+        raise ValueError(f"expected a uint8 HW or HWC image with 3 channels, got shape {image.shape}")
+    if subsampling not in ("4:2:0", "4:4:4"):
+        raise ValueError(f"subsampling must be 4:2:0 or 4:4:4, got {subsampling!r}")
+    h, w = image.shape[:2]
+    channels = 1 if image.ndim == 2 else 3
+    # The largest a baseline block can take (every coefficient coded at full length, each
+    # byte stuffed) is under 400 bytes: an upper bound for the entropy-coded data.
+    blocks = ((h + 15) // 8) * ((w + 15) // 8) * (1 if channels == 1 else 3)
+    out = np.empty(2048 + 400 * blocks, np.uint8)
+    n = _require().dtp_jpeg_encode_u8(image, h, w, channels, int(quality), int(subsampling.replace(":", "")),
+                                      int(restart_interval), out, out.size)
+    if n < 0:
+        raise ValueError(f"jpeg_encode{(image.shape, quality, subsampling, restart_interval)} refused its arguments")
+    return out[:n].tobytes()

@@ -15,18 +15,19 @@ share one descriptor per shard.
 
 Decoding is the port's own (``data/dataset.py::decode_bytes``: PNG through the standard
 library's ``zlib`` and the native unfilter, BMP in numpy, JPEG through the native library's
-libjpeg where it was built with codecs), never OpenCV's. The batch sources take one of two
-routes, chosen by what the native library was built with:
+own decoder, in every build), never OpenCV's. :func:`decode_image_bytes` turns a JPEG by
+its EXIF orientation, as ``cv2.imdecode`` does; the batch sources apply none, as the JAX
+package's native path applies none. The batch sources take one of two routes for a
+payload:
 
-* with codecs (libjpeg and libpng installed): the library's fused batch entries, as the JAX
-  package's native path (decode + resize, decode + resize + normalise, decode +
-  random-resized-crop + flip), for the JPEG and PNG payloads;
-* without codecs (``-DDTP_NO_CODECS``, the card's machine): every payload is decoded here,
-  on a pool of threads, and the library continues from the uint8 pixels
-  (``native.resize_u8_batch``, ``native.resize_normalize``, ``native.rrc_flip_u8_batch``),
-  with the same resize, the same Philox draws and the same sampling, so a PNG payload gives
-  the same bytes through either route. A JPEG payload raises ``MissingCodecError`` naming
-  the shard and the record; it is never skipped or decoded some other way.
+* the library's fused batch entries, as the JAX package's native path (decode + resize,
+  decode + resize + normalise, decode + random-resized-crop + flip), for every JPEG
+  payload, and for the PNG payloads where the library has libpng;
+* the PNG payloads where it has none (``-DDTP_NO_CODECS``, the card's machine), and the
+  BMP payloads, are decoded here, on a pool of threads, and the library continues from the
+  uint8 pixels (``native.resize_u8_batch``, ``native.resize_normalize``,
+  ``native.rrc_flip_u8_batch``), with the same resize, the same Philox draws and the same
+  sampling, so a PNG payload gives the same bytes through either route.
 
 ``skip_corrupt`` (set on a source by ``ShardedLoader(skip_corrupt=True)``): a record whose
 header or payload is damaged is replaced by the next readable one (deterministically: the
@@ -87,16 +88,13 @@ class CorruptRecordError(native.DecodeError):
 def tolerant_fetch(fetch, index: int, n: int, *, exceptions=None):
     """Deterministic skip-and-substitute: ``fetch((index + k) % n)`` for ``k = 0, 1, ...``
     until one succeeds; returns ``(value, k)``, ``k`` the corrupt records skipped. Raises
-    ``CorruptRecordError`` after ``TOLERANT_PROBE_LIMIT`` failures in a row. A
-    ``MissingCodecError`` is not a corrupt record: it propagates at once."""
+    ``CorruptRecordError`` after ``TOLERANT_PROBE_LIMIT`` failures in a row."""
     exceptions = exceptions or (CorruptRecordError,)
     limit = min(TOLERANT_PROBE_LIMIT, n)
     last_err: "Exception | None" = None
     for k in range(limit):
         try:
             return fetch((int(index) + k) % n), k
-        except native.MissingCodecError:
-            raise
         except exceptions as e:
             last_err = e
     raise CorruptRecordError(f"{limit} consecutive corrupt records starting at {int(index)}") from last_err
@@ -173,8 +171,10 @@ def _decode_pool() -> cf.ThreadPoolExecutor:
         return _pool
 
 
-def _jpeg_or_png(payload: bytes) -> bool:
-    return payload[:2] == b"\xff\xd8" or payload[:8] == b"\x89PNG\r\n\x1a\n"
+def _fused(payload: bytes, png: bool) -> bool:
+    """Whether the library's fused entries decode ``payload``: a JPEG always, a PNG where
+    the library has libpng (``png``)."""
+    return payload[:2] == b"\xff\xd8" or (png and payload[:8] == b"\x89PNG\r\n\x1a\n")
 
 
 def shard_paths(pattern: str) -> "list[str]":
@@ -297,7 +297,7 @@ class RecordFileSource:
         payload, label = self.read_record_tolerant(int(index))
         try:
             image = self._decode(payload, int(index))
-        except (CorruptRecordError, native.MissingCodecError):
+        except CorruptRecordError:
             raise
         except native.DecodeError as e:  # it names the record already
             raise CorruptRecordError(str(e)) from e
@@ -314,8 +314,6 @@ class RecordFileSource:
         def one(p):
             try:
                 return decode_image_bytes(payloads[p])
-            except native.MissingCodecError as e:
-                raise native.MissingCodecError(p, "batch record", e.reason) from None
             except native.DecodeError as e:
                 raise native.DecodeError(p, "batch record", e.reason) from None
 
@@ -328,15 +326,15 @@ class RecordFileSource:
         (their stacked images), the others decoded here and finished by
         ``from_pixels(positions, images)``."""
         n = len(payloads)
-        codecs = native.codecs_available()  # the fused entries decode JPEG and PNG, with codecs only
-        fused_pos = [p for p in range(n) if codecs and _jpeg_or_png(payloads[p])]
+        png = native.codecs_available()
+        fused_pos = [p for p in range(n) if _fused(payloads[p], png)]
         rest = sorted(set(range(n)) - set(fused_pos))
         out = np.empty((n, height, width, 3), dtype)
         if fused_pos:
             try:
                 out[fused_pos] = fused(fused_pos)
             except native.DecodeError as e:
-                raise native.DecodeError(fused_pos[e.index], "batch record") from None
+                raise native.DecodeError(fused_pos[e.index], "batch record", e.reason) from None
         if rest:
             out[rest] = from_pixels(rest, self._decoded_rows(payloads, rest))
         return out
@@ -351,8 +349,6 @@ class RecordFileSource:
         for _ in range(TOLERANT_PROBE_LIMIT + 1):
             try:
                 return produce(payloads)
-            except native.MissingCodecError as e:
-                raise native.MissingCodecError(None, self.describe(int(rows[e.index])), e.reason) from None
             except native.DecodeError as e:
                 if not self.skip_corrupt:
                     self._raise_located(e, rows)

@@ -10,8 +10,8 @@ and teardown. Run from the directory that holds ``data/``:
 
 The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``); there is no fallback to the
 CPU when the card is missing. Under ``torchrun`` each process is one data-parallel rank.
-The card's machine has no libjpeg: there its folders must hold PNG or BMP files (a JPEG
-raises, naming the file).
+Folders may hold JPEG, PNG and BMP files on any machine: JPEG is decoded by the port's own
+native decoder (no libjpeg), a JPEG turned by its EXIF orientation as ``cv2.imread`` turns it.
 """
 
 from __future__ import annotations

@@ -356,7 +356,10 @@ def test_decoders_read_what_cv2_writes(tmp_path, ext):
     np.testing.assert_array_equal(dataset.decode_image(path), cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1])
 
 
-def test_undecodable_files_raise_naming_the_file(tmp_path, monkeypatch):
+def test_undecodable_files_raise_naming_the_file_and_a_jpeg_decodes_without_codecs(tmp_path, monkeypatch):
+    """Adam7 PNG, WebP and a cut PNG or JPEG raise a ``DecodeError`` naming the file; a
+    JPEG decodes through the port's own decoder on a library built without codecs (the
+    card's machine), byte-equal to ``cv2.imread``."""
     interlaced = str(tmp_path / "adam7.png")
     write_png(interlaced, [bytes(6)] * 2, 2, 2, 8, 2, interlace=1)
     with pytest.raises(native.DecodeError, match=r"adam7\.png.*Adam7"):
@@ -366,10 +369,19 @@ def test_undecodable_files_raise_naming_the_file(tmp_path, monkeypatch):
     with pytest.raises(native.DecodeError, match=r"x\.webp.*WebP"):
         dataset.decode_image(str(webp))
     jpg = str(tmp_path / "x.jpg")
-    cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
-    monkeypatch.setattr(native, "codecs_available", lambda: False)
-    with pytest.raises(native.DecodeError, match=r"x\.jpg.*no libjpeg"):
-        dataset.decode_image(jpg)
+    cv2.imwrite(jpg, np.random.RandomState(4).randint(0, 256, size=(11, 13, 3)).astype(np.uint8))
+    monkeypatch.setattr(native, "_codecs_installed", lambda workdir: False)
+    monkeypatch.setattr(native, "LIBRARY", tmp_path / "lib" / "libdtp_native.so")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", None)
+    assert native.available(), native.build_error()
+    assert not native.codecs_available()
+    np.testing.assert_array_equal(dataset.decode_image(jpg), cv2.imread(jpg, cv2.IMREAD_COLOR)[:, :, ::-1])
+    cut = tmp_path / "cut.jpg"
+    with open(jpg, "rb") as f:
+        cut.write_bytes(f.read()[:-40])
+    with pytest.raises(native.DecodeError, match=r"cut\.jpg.*truncated"):
+        dataset.decode_image(str(cut))
     truncated = tmp_path / "t.png"
     write_png(str(truncated), [bytes(12)] * 4, 4, 4, 8, 2)
     data = truncated.read_bytes()

@@ -8,7 +8,8 @@ as ``tests/test_torch_native_data.py``. Both read one tree of PNG, JPEG and BMP 
 several sizes (an upper-case extension and a non-image file among them).
 
 Tolerances: the records, labels and error messages equal; decoded records byte-equal
-(JPEG through libjpeg on both sides, where the library was built with codecs); batches of
+(JPEG through the port's own decoder against the JAX side's OpenCV, with the library built
+with libpng and without); batches of
 ``load_batch`` bit-equal for the JPEG and PNG records, whose resize is the native
 library's on both sides, and within one pixel level (1/255/std after normalising) for the
 BMP records, which the JAX source resizes with OpenCV.
@@ -139,15 +140,43 @@ def test_native_source_batches_match_the_jax_source(tree):
             np.testing.assert_array_equal(batch["image"][p], ref["batch"][p], err_msg=path)
 
 
-def test_native_source_without_codecs_names_the_jpeg(tree, monkeypatch):
-    root, _, _, _ = tree
+@pytest.fixture(scope="module")
+def codec_free_library(tmp_path_factory):
+    """The native library as the card's machine builds it (without libpng), built once for
+    the module."""
+    library = tmp_path_factory.mktemp("codec_free") / "libdtp_native.so"
+    patch = pytest.MonkeyPatch()
+    try:
+        patch.setattr(native, "_codecs_installed", lambda workdir: False)
+        patch.setattr(native, "LIBRARY", library)
+        native._build()
+    finally:
+        patch.undo()
+    return library
+
+
+def test_native_source_without_codecs_decodes_the_jpeg(tree, monkeypatch, codec_free_library):
+    """On a library built without codecs the JPEG files decode through the port's own
+    decoder: the records as the JAX source's ``cv2.imread``, and ``load_batch`` bit-equal
+    to the JAX native source for the JPEG and PNG records (a BMP within a level)."""
+    root, _, ref, _ = tree
+    monkeypatch.setattr(native, "LIBRARY", codec_free_library)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", None)
+    assert native.available(), native.build_error()
+    assert not native.codecs_available()
     src = NativeImageFolderSource(root, LABELS, H, W)
-    png_rows = np.array([i for i, (p, _) in enumerate(src.records) if p.lower().endswith((".png", ".bmp"))])
-    with_codecs = src.load_batch(png_rows, 0)["image"]
-    monkeypatch.setattr(native, "codecs_available", lambda: False)
-    np.testing.assert_array_equal(src.load_batch(png_rows, 0)["image"], with_codecs)
-    with pytest.raises(native.DecodeError, match=r"1\.jpg.*no libjpeg"):
-        src.load_batch(np.arange(len(src)), 0)
+    jpeg = [i for i, (p, _) in enumerate(src.records) if p.lower().endswith(".jpg")]
+    assert jpeg and set(jpeg) & set(ROWS)
+    for i in jpeg:
+        np.testing.assert_array_equal(src[i]["image"], ref[f"record{i}"], err_msg=src.records[i][0])
+    batch = src.load_batch(np.asarray(ROWS), 0)["image"]
+    for p, i in enumerate(ROWS):
+        path = src.records[i][0]
+        if path.lower().endswith(".bmp"):
+            np.testing.assert_array_less(np.abs(batch[p] - ref["batch"][p]), 1 / 255 / IMAGENET_STD.min() + 1e-5)
+        else:
+            np.testing.assert_array_equal(batch[p], ref["batch"][p], err_msg=path)
 
 
 @pytest.mark.parametrize("num_workers", [0, 3])

@@ -194,9 +194,12 @@ def test_build_error_reports_a_broken_build(monkeypatch, tmp_path, fault):
         native.normalize(np.zeros((1, 4, 4, 3), np.uint8), np.zeros(3), np.ones(3))
 
 
-def test_a_build_without_codecs_augments_the_same_and_refuses_to_decode(monkeypatch, tmp_path):
-    """The card's machine has no libjpeg/libpng: there the library is built with
-    ``-DDTP_NO_CODECS``, and its crop/flip must still be the same bytes."""
+def test_a_build_without_codecs_augments_the_same_and_decodes_jpeg_but_not_png(monkeypatch, tmp_path):
+    """The card's machine has no libpng: there the library is built with
+    ``-DDTP_NO_CODECS``, and its crop/flip must still be the same bytes. Its decode entries
+    take a JPEG (the library's own decoder, in both builds) and refuse a PNG, naming the
+    missing libpng and its position in the batch."""
+    cv2 = pytest.importorskip("cv2")
     images = np.random.RandomState(1).randint(0, 256, size=(6, 32, 32, 3)).astype(np.uint8)
     with_codecs = native.augment_crop_flip_u8(images, np.arange(6), pad=4, seed=2, epoch=1)
     monkeypatch.setattr(native, "_codecs_installed", lambda workdir: False)
@@ -206,8 +209,12 @@ def test_a_build_without_codecs_augments_the_same_and_refuses_to_decode(monkeypa
     assert native.available(), native.build_error()
     assert not native.codecs_available()
     assert np.array_equal(native.augment_crop_flip_u8(images, np.arange(6), pad=4, seed=2, epoch=1), with_codecs)
-    with pytest.raises(RuntimeError, match="built without libjpeg/libpng"):
-        native.decode_resize_u8_bytes([b"\xff\xd8"], 8, 8)
+    jpeg = cv2.imencode(".jpg", images[0])[1].tobytes()
+    decoded = native.decode_resize_u8_bytes([jpeg], 32, 32)  # at its own size: no resampling
+    assert np.array_equal(decoded[0], cv2.imdecode(np.frombuffer(jpeg, np.uint8), cv2.IMREAD_COLOR)[..., ::-1])
+    png = cv2.imencode(".png", images[0])[1].tobytes()
+    with pytest.raises(native.DecodeError, match="#1: a PNG payload, and the library was built without libpng"):
+        native.decode_resize_u8_bytes([jpeg, png], 8, 8)
 
 
 def test_concurrent_first_calls_load_one_library(monkeypatch, tmp_path):

@@ -15,8 +15,9 @@ Tolerances:
 * shard files byte-equal; the record sources' batches bit-equal to the JAX sources'
   native path (the same C++ on the same decoded pixels; the decoders are byte-equal to
   OpenCV's); a BMP payload, which the JAX package resizes with OpenCV, within 1 level;
-* the codec-free route (a build without libjpeg/libpng, the card's machine) bit-equal to
-  the fused entries for PNG payloads;
+* the codec-free route (a build without libpng, the card's machine) bit-equal to the fused
+  entries for PNG payloads, and its JPEG payloads (the port's own decoder, in both builds)
+  bit-equal to the JAX sources';
 * the records entry (ResNet18Slim, f32, 2 epochs of 3 steps on 60 digits, validation on 30)
   per-epoch train and val CE within 1e-4 and accuracies equal; the ImageNet entry on
   record shards (``resnet50`` recipe on ResNet18Slim, 32x32, rrc) within 1e-5 and equal,
@@ -58,7 +59,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = ["a", "b", "c"]
 COUNTS = {"train": 8, "val": 3}
 SIZES = [(40, 30), (37, 52), (32, 32), (45, 45)]
-ROWS = [5, 0, 23, 11, 2, 17, 2, 9]  # a repeated row, as a padded batch has
+ROWS = [5, 0, 23, 11, 2, 17, 2, 9, 8, 21]  # a repeated row, as a padded batch has; 8 and 21 are JPEG
 DIGITS_COUNTS = {"train": 6, "test": 3}  # per label
 DIGITS_BATCH, INET_BATCH, EPOCHS = 16, 8, 2
 
@@ -244,8 +245,8 @@ def _unflatten(flat):
 
 @pytest.fixture(scope="module")
 def codec_free_library(tmp_path_factory):
-    """The native library as the card's machine builds it (without libjpeg/libpng), built
-    once for the module."""
+    """The native library as the card's machine builds it (without libpng), built once for
+    the module."""
     library = tmp_path_factory.mktemp("codec_free") / "libdtp_native.so"
     patch = pytest.MonkeyPatch()
     try:
@@ -349,14 +350,29 @@ def test_the_codec_free_route_is_bit_equal_to_the_fused_entries(sides, kind, mon
     assert np.array_equal(free, fused)
 
 
-def test_a_jpeg_payload_without_codecs_names_the_record(sides, codec_free):
-    src = NativeRecordTrainSource(os.path.join(sides["shards"], "train-*.rec"), 24, 24)
-    jpeg = next(i for i in range(len(src)) if src.read_record(i)[0][:2] == b"\xff\xd8")
-    src.skip_corrupt = True  # not a corrupt record: never skipped
-    with pytest.raises(native.MissingCodecError, match=rf"record {jpeg} \(.*\.rec #\d+\).*no libjpeg"):
-        src.load_batch(np.array([0, jpeg]), 0)
-    with pytest.raises(native.MissingCodecError, match="no libjpeg"):
-        RecordFileSource(os.path.join(sides["shards"], "train-*.rec"))[jpeg]
+def test_a_jpeg_payload_without_codecs_decodes_as_the_jax_sources(sides, codec_free):
+    """On the card's build (no libpng) the JPEG payloads take the fused entries, through
+    the port's own decoder: ``RecordFileSource`` as the JAX source's ``cv2.imdecode``, and
+    the native sources' batches bit-equal to the JAX native path for every JPEG and PNG
+    row."""
+    pattern = os.path.join(sides["shards"], "train-*.rec")
+    ref = sides["ref"]
+    src = RecordFileSource(pattern)
+    jpeg = [i for i in range(len(src)) if src.read_record(i)[0][:2] == b"\xff\xd8"]
+    assert jpeg and set(jpeg) & set(ROWS)
+    for i in jpeg:
+        assert np.array_equal(src[i]["image"], ref[f"record_{i}"]), i
+    rows = np.asarray(ROWS)
+    made = {
+        "val": lambda: NativeRecordFileSource(pattern, 20, 24).load_batch(rows, 0),
+        "pad_crop": lambda: NativeRecordTrainSource(pattern, 24, 24, seed=3).load_batch(rows, 2),
+        "no_aug": lambda: NativeRecordTrainSource(pattern, 24, 20, train=False).load_batch(rows, 2),
+        "rrc": lambda: NativeRecordTrainSource(pattern, 16, 16, aug="rrc", seed=5).load_batch(rows, 1),
+    }
+    bmp = _bmp_rows(src)
+    other = [p for p in range(len(ROWS)) if p not in bmp]
+    for kind, make in made.items():
+        assert np.array_equal(make()["image"][other], ref[kind][other]), kind
 
 
 def test_a_corrupt_payload_is_skipped_and_counted_or_named(sides):
@@ -405,7 +421,7 @@ def _c_signatures():
 _C_TYPES = {
     "const char*const*": "strs", "int64_t": "i64", "int": "i32", "uint64_t": "u64", "float": "f32",
     "double": "f64", "const float*": "fptr", "float*": "fptr", "const uint8_t*": "u8ptr", "uint8_t*": "u8ptr",
-    "const int64_t*": "i64ptr", "const uint8_t*const*": "ptrs",
+    "const int64_t*": "i64ptr", "int64_t*": "i64ptr", "const uint8_t*const*": "ptrs",
 }
 
 
