@@ -9,8 +9,9 @@ the mesh: the port serves from one device.
   first seen, the JAX engine's retrace guard: steady-state serving adds none. (PyTorch
   runs eagerly, so an entry holds nothing yet; a captured CUDA graph per entry is the
   later step.)
-* **Hot-swap by atomic reference flip.** ``swap_params`` places the new tensors on the
-  device, waits for the copies, then installs ``(version, params)`` with one assignment;
+* **Hot-swap by atomic reference flip.** ``swap_params`` copies the new tensors onto the
+  device (a snapshot: the caller's buffers stay its own), waits for the copies, then
+  installs ``(version, params)`` with one assignment;
   ``predict`` reads the pair once per call, so in-flight batches finish on the params
   they started with.
 
@@ -33,6 +34,12 @@ from distributed_training_pytorch_tpu_torch._device import resolve_device
 from distributed_training_pytorch_tpu_torch.serving.batcher import pick_bucket
 
 __all__ = ["InferEngine"]
+
+
+def _snapshot(value, device: torch.device) -> torch.Tensor:
+    """A copy of ``value`` (a tensor or an array) on ``device`` that shares no memory with it."""
+    t = value.detach() if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+    return t.to(device, copy=True)
 
 
 def _signature(params: Mapping) -> tuple:
@@ -71,10 +78,13 @@ class InferEngine:
         return cur[0] if cur is not None else None
 
     def swap_params(self, params: Mapping, *, version: str) -> None:
-        """Install ``params`` as the serving set: place them on the device, wait until
-        they are resident, then flip the current reference. One engine serves one model:
+        """Install ``params`` as the serving set: copy them onto the device, wait until
+        the copies are resident, then flip the current reference. One engine serves one model:
         a tree of other names, shapes or dtypes raises."""
-        placed = {k: torch.as_tensor(v).to(self.device) for k, v in params.items()}
+        # A snapshot the caller cannot reach: ``torch.as_tensor(v).to(device)`` would be
+        # the caller's own buffer for a tensor already on the device (or an array served
+        # from the CPU), and a later write to it would change the served version's answers.
+        placed = {k: _snapshot(v, self.device) for k, v in params.items()}
         sig = _signature(placed)
         if self._params_signature is None:
             self._params_signature = sig
