@@ -137,12 +137,29 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     native library: the committed fixtures (``tests/data/jpeg/``) bit-equal to what ``cv2``
     gave (their SHA-256 in ``manifest.json``), without and with the EXIF orientation; the
     decode's host ms for a 375x500 quality-90 4:2:0 image on one thread and the fused batch
-    entry's images/s on 8 threads.
+    entry's images/s on 8 threads;
+21. (lm_eval, run after phase 5 on its ``last`` checkpoint) LM evaluation and generation
+    through ``examples/eval_lm.py``: a 2 MB corpus from ``examples/make_lm_corpus.py`` (its
+    byte count and SHA-256: this machine has no jax, so its bytes differ from a host with
+    it); ``evaluate`` at ``EVAL_BATCH=64``, T=1024 (the NLL finite, exactly 12 K1 launches a
+    batch, all wgmma, no other kernel; the perplexity and window count); ``sample``, greedy
+    and t=0.8, each with the prompt as its prefix; ``decode_benchmark`` at batches 1, 8, 32
+    and 128 on the CUDA graph and the eager loop in turns (tok/s, tok/s a stream, new tok/s,
+    ms a step), with no hand-kernel launch on the decode path; in f32 at full width with
+    TF32 off, 64 greedy steps from 2 prompts: the graph's tokens equal the eager loop's and
+    the full forward's argmax at each step; a hot swap: ``last`` served through
+    ``InferEngine.restore_params`` behind the server's watcher, a new ``best`` committed,
+    ``/predict`` answering under the new version with bodies equal to a fresh engine's on
+    those weights, one ``hot_swap`` event; and K1 held and timed at eval_lm's default shape
+    ``[64, 256, 12, 64]`` on the LM's qkv views beside SDPA.
 
 The image-folder phase (``phase_folder``, run between 15 and 16: ``ExampleTrainer``'s
 ten-step train chain, a resume and ``eval.evaluate``) reads PNG, BMP and JPEG files, the
 JPEG ones from the port's encoder (4:2:0 at qualities 90 and 60, 4:4:4, grey, and one with
 an EXIF orientation of 6) and decoded by the port's own decoder.
+
+``launches_by_path`` in the kernels line has one key a path, ``eval_lm`` and ``decode``
+included, for every kernel entry.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -3180,10 +3197,269 @@ def phase_fp16(run_dir: str):
             "curve": [em["ce_loss"] for em in epoch_metrics]}
 
 
+# The lm_eval phase (21): eval_lm and make_lm_corpus on phase 5's checkpoint.
+LM_EVAL_BATCH = 64  # EVAL_BATCH
+LM_EVAL_CORPUS_MB = 2.0
+LM_EVAL_SHAPE = (64, 256, 12, 64)  # K1 at eval_lm's defaults (SEQ_LEN=256, EVAL_BATCH=64)
+DECODE_BATCHES = (1, 8, 32, 128)
+DECODE_PROMPT, DECODE_GEN = 32, 128  # decode_benchmark's window: 159 single-token steps
+SAMPLE_PROMPT, SAMPLE_STEPS = b"def ", 64
+F32_PROMPTS, F32_STEPS = 2, 64
+SWAP_ROWS = 4
+
+
+def _launch_counts() -> dict:
+    """Every hand kernel's launch count so far: K1-K3 and K4's two entries."""
+    fa_counts, k4_counts = _hand_kernel_counts()
+    return {**fa_counts, **k4_counts}
+
+
+def _reset_launch_counts() -> None:
+    from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    k4.reset_launches()
+
+
+def _k1_on_qkv_views(gen, b, t, h, d):
+    """K1 on the q, k, v views of a fused [B, T, 3, H, D] bf16 projection (the LM's), causal:
+    the wgmma variant read in place, against the plain version; returns max|o - plain|."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = fa.launches_by_variant[("fwd", "wgmma")]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    in_place = all(fa.tma_operand(x) is x for x in (q, k, v))
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=True)
+    err = (o.float() - o_ref.float()).abs().max().item()
+    atol, rtol = TOL["bfloat16"]
+    ok = (in_place and fa.launches_by_variant[("fwd", "wgmma")] == before + 1
+          and torch.allclose(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+          and torch.allclose(lse, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1]))
+    log(f"[lm_eval] K1 on qkv views B={b} T={t} H={h} D={d} causal bfloat16 (wgmma, read in place: {in_place}): "
+        f"max|o-plain|={err:.3e} (atol {atol}, rtol {rtol}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("K1 disagrees with its plain version at the eval_lm shape, or copied or skipped its views")
+    return err
+
+
+def _decode_step_ops(model) -> "int | None":
+    """Device operations (kernels, copies, fills) of one eager decode step at B=1, by the
+    profiler: a 2-step ``generate`` less a 1-step one. None when the profiler sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_pytorch_tpu_torch.models.transformer_lm import generate
+
+    prompt = torch.full((1, 1), 32, dtype=torch.long, device="cuda")
+    counts = []
+    for steps in (1, 2):
+        generate(model, prompt, steps, graph=False)  # warm
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            generate(model, prompt, steps, graph=False)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA))
+    return counts[1] - counts[0] if counts[0] else None
+
+
+def _post_json(port: int, payload: dict) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if resp.status != 200:
+            raise RuntimeError(f"/predict answered HTTP {resp.status}")
+        return json.loads(resp.read())
+
+
+def _lm_hot_swap(run_dir: str, model, seq: int) -> dict:
+    """Serve phase 5's ``last`` with the hot-swap watcher following ``best`` (pinned: the
+    newest-valid fallback would hash ``last``'s 0.5 GB on every poll), commit a new ``best``
+    (the same weights moved by seeded noise), and read ``/predict`` until it answers under
+    the new version; its bodies against a fresh engine on the new weights."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.examples import eval_lm
+    from distributed_training_pytorch_tpu_torch.serving import InferEngine, InferenceServer, MicroBatcher
+    from distributed_training_pytorch_tpu_torch.telemetry.events import resolve_events_path
+    from distributed_training_pytorch_tpu_torch.train import TrainState
+
+    serve_dir = os.path.join(run_dir, "serve")
+    shutil.copytree(os.path.join(run_dir, "weights", "last"), os.path.join(serve_dir, "last"))
+    manager = CheckpointManager(serve_dir)
+    served = eval_lm.build_model("small", seq).eval()
+
+    def next_token_logits(params, tokens):
+        hidden = torch.func.functional_call(served, params, (tokens,), {"return_hidden": True})
+        return hidden[:, -1].float() @ params["embed.weight"].float().T
+
+    def state_of(m):
+        return TrainState(model=m, optimizer=torch.optim.SGD(m.parameters(), lr=0.0))
+
+    target = state_of(eval_lm.build_model("small", seq))
+    engine = InferEngine(next_token_logits, device="cuda", buckets=(1, 2, 4, 8))
+    v0 = engine.restore_params(manager, target, name="last")
+    engine.warmup(np.zeros((seq,), np.int32))
+    rows = np.random.default_rng(21).integers(0, 256, size=(SWAP_ROWS, seq)).astype(np.int32)
+    server = InferenceServer(engine, batcher=MicroBatcher(buckets=engine.buckets, max_delay_s=0.005),
+                             run_dir=os.path.join(serve_dir, "run"), manager=manager, target_state=target,
+                             serve_name="best", swap_poll_s=0.1, input_dtype="int32", process_index=0).start()
+    if not server.enabled:
+        raise RuntimeError("inference server did not start")
+    try:
+        before = [_post_json(server.port, {"inputs": [r.tolist()]}) for r in rows]
+        moved = eval_lm.build_model("small", seq).eval()
+        moved.load_state_dict(model.state_dict())
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        with torch.no_grad():
+            for p in moved.parameters():
+                p.add_(torch.randn(p.shape, device="cuda", generator=gen), alpha=0.02)
+        t0 = time.perf_counter()
+        manager.save("best", state_of(moved), epoch=TRAIN_EPOCHS + 2)
+        v1 = f"best@e{TRAIN_EPOCHS + 2}"
+        seen = None
+        while time.perf_counter() - t0 < 60:
+            seen = _post_json(server.port, {"inputs": [rows[0].tolist()]})["params_version"]
+            if seen == v1:
+                break
+            time.sleep(0.05)
+        swap_s = time.perf_counter() - t0
+        after = [_post_json(server.port, {"inputs": [r.tolist()]}) for r in rows]
+    finally:
+        server.close()
+    if seen != v1 or any(b["params_version"] != v0 for b in before) or any(a["params_version"] != v1 for a in after):
+        raise RuntimeError(f"hot swap: versions before {[b['params_version'] for b in before]}, after "
+                           f"{[a['params_version'] for a in after]}, expected {v0} then {v1}")
+    fresh = InferEngine(next_token_logits, device="cuda", buckets=(1,))
+    fresh.swap_params(moved.state_dict(), version="fresh")
+    got = np.stack([np.asarray(a["outputs"][0], np.float32) for a in after])
+    ref = np.stack([fresh.predict(r[None])[0][0] for r in rows])
+    old = np.stack([np.asarray(b["outputs"][0], np.float32) for b in before])
+    err, moved_by = float(np.abs(got - ref).max()), float(np.abs(got - old).max())
+    with open(resolve_events_path(os.path.join(serve_dir, "run"))) as f:
+        swaps = [r for r in map(json.loads, f) if r["event"] == "hot_swap"]
+    log(f"[lm_eval] hot swap: served {v0}, committed best; /predict answered {v1} {swap_s:.2f} s after the commit "
+        f"(watcher poll 0.1 s); {len(swaps)} hot_swap event(s); bodies vs a fresh engine on the new weights "
+        f"max|diff|={err:.3e}; the answers moved by up to {moved_by:.3f}")
+    if err > 1e-3 or not np.isfinite(got).all() or moved_by == 0.0 or len(swaps) != 1:
+        raise RuntimeError("hot swap: bodies disagree with a fresh engine, did not change, or not one hot_swap event")
+    return {"from": v0, "to": v1, "swap_s": swap_s, "max_abs_err": err}
+
+
+def phase_lm_eval(run_dir: str, card: str) -> dict:
+    """Phase 21 on phase 5's checkpoint in ``run_dir``: see the module doc."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import eval_lm, make_lm_corpus, train_lm
+    from distributed_training_pytorch_tpu_torch.models.transformer_lm import generate
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    seq = int(TRAIN_ENV["SEQ_LEN"])
+    corpus_path = os.path.join(run_dir, "lm_corpus.txt")
+    t0 = time.perf_counter()
+    corpus = make_lm_corpus.main([corpus_path, str(LM_EVAL_CORPUS_MB)])
+    roots = [os.path.basename(r) for r, _ in make_lm_corpus._roots()]
+    log(f"[lm_eval] make_lm_corpus: {corpus['bytes']:,} bytes, sha256 {corpus['sha256']} in "
+        f"{time.perf_counter() - t0:.2f} s (roots on this machine: {roots})")
+    ckpt = os.path.join(run_dir, "weights", "last")
+    loaded = eval_lm.load_params(ckpt, "small", seq)
+    model = loaded[0]
+
+    # evaluate: the full forward, K1 once a layer a batch, all wgmma.
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = eval_lm.evaluate(ckpt, corpus_path, size="small", seq_len=seq, batch=LM_EVAL_BATCH, loaded=loaded)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches, wgmma = _launch_counts(), fa.launches_by_variant[("fwd", "wgmma")]
+    n_batches = -(-val["n_windows"] // LM_EVAL_BATCH)
+    log(f"[lm_eval] evaluate (GPT-2-small from phase 5's last, SEQ_LEN={seq}, EVAL_BATCH={LM_EVAL_BATCH}): "
+        f"nll {val['nll']:.4f}, ppl {val['ppl']:.2f} over {val['n_windows']} windows in {n_batches} batches, "
+        f"{eval_s:.2f} s; launches {eval_launches}, {wgmma} fwd on wgmma")
+    expected = {"fwd": DEPTH * n_batches, "bwd_dq": 0, "bwd_dkv": 0, "conv1x1_bn_act": 0, "conv1x1_bwd_dz": 0}
+    if not np.isfinite(val["nll"]) or eval_launches != expected or wgmma != DEPTH * n_batches:
+        raise RuntimeError(f"evaluate: nll {val['nll']}, launches {eval_launches} (expected {expected}), wgmma {wgmma}")
+
+    # sample and decode_benchmark: the decode path, through no hand kernel.
+    _reset_launch_counts()
+    timings: dict = {}
+    texts = eval_lm.sample(ckpt, SAMPLE_PROMPT, size="small", seq_len=seq, gen_steps=SAMPLE_STEPS, temperature=0.8,
+                           loaded=loaded, timings=timings)
+    for name, text in texts.items():
+        log(f"[lm_eval] --- {name} --- {text!r}")
+        if not text.startswith(SAMPLE_PROMPT) or len(text) != len(SAMPLE_PROMPT) + SAMPLE_STEPS:
+            raise RuntimeError(f"sample {name}: the prompt is not its prefix, or it is not {SAMPLE_STEPS} longer")
+    if set(texts) != {"greedy", "t=0.8"}:
+        raise RuntimeError(f"sample gave {sorted(texts)}")
+    log(f"[lm_eval] DECODE: {timings['decode_tok_per_s']:.1f} tok/s (greedy, batch 1, {timings['decode_steps']} "
+        f"single-token steps); DECODE_NEW: {timings['new_tok_per_s']:.1f} tok/s ({timings['gen_steps']} generated)")
+    rows = []
+    for b in DECODE_BATCHES:
+        for graph in (True, False, False, True):  # in turns
+            row = eval_lm.decode_benchmark(model, prompt_len=DECODE_PROMPT, gen_steps=DECODE_GEN, batches=(b,),
+                                           graph=graph)[0]
+            rows.append(row)
+            log(f"[lm_eval] DECODE_BATCH {b:4d} {'graph' if graph else 'eager'}: {row['tok_per_s']:9.1f} tok/s "
+                f"aggregate, {row['tok_per_s_per_stream']:7.1f} tok/s/stream, {row['new_tok_per_s']:9.1f} new tok/s, "
+                f"{row['step_ms']:.3f} ms/step")
+    decode_launches = _launch_counts()
+    if any(decode_launches.values()):
+        raise RuntimeError(f"the decode path launched hand kernels: {decode_launches}")
+    step_ops = _decode_step_ops(model)
+    log(f"[lm_eval] device operations in one decode step at B=1 (the profiler's count, 2 steps less 1): "
+        f"{'not measured' if step_ops is None else step_ops}")
+
+    # f32 at full width, TF32 off: the graph's greedy tokens equal the eager loop's and the
+    # full forward's argmax at each step.
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32 = eval_lm.build_model("small", seq, dtype=torch.float32).eval()
+        f32.load_state_dict(model.state_dict())
+        windows = train_lm.load_windows(seq, path=corpus_path)
+        prompt = torch.from_numpy(windows[-F32_PROMPTS:, :DECODE_PROMPT]).to("cuda")
+        graph_out = generate(f32, prompt, F32_STEPS)
+        eager_out = generate(f32, prompt, F32_STEPS, graph=False)
+        with torch.no_grad():
+            full = f32(graph_out[:, :-1])[:, DECODE_PROMPT - 1 :]
+        top2 = full.topk(2, dim=-1).values
+        margin = float((top2[..., 0] - top2[..., 1]).min())
+        same_eager = torch.equal(graph_out, eager_out)
+        same_full = torch.equal(full.argmax(-1), graph_out[:, DECODE_PROMPT:])
+        del f32, full
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    log(f"[lm_eval] f32, TF32 off, {F32_PROMPTS} prompts of {DECODE_PROMPT} + {F32_STEPS} greedy steps: graph == eager "
+        f"{same_eager}, graph == full-forward argmax {same_full} (smallest top-2 margin {margin:.3e})")
+    if not (same_eager and same_full):
+        raise RuntimeError("f32 greedy decode: the graph, the eager loop and the full forward's argmax disagree")
+
+    swap = _lm_hot_swap(run_dir, model, seq)
+    gen = torch.Generator(device="cuda").manual_seed(2121)
+    k1_err = _k1_on_qkv_views(gen, *LM_EVAL_SHAPE)
+    k1_row = _attention_times(card, *LM_EVAL_SHAPE, True, gen, "eval_lm ")["fwd"]
+    del loaded, model
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[lm_eval] phase wall {wall:.1f} s")
+    return {"val": val, "eval_s": eval_s, "launches": eval_launches["fwd"], "decode_launches": decode_launches,
+            "step_ops": step_ops,
+            "timings": timings, "texts": texts, "decode": rows, "margin": margin, "swap": swap,
+            "k1": {**k1_row, "max_abs_err": k1_err}, "corpus": corpus, "wall_s": wall}
+
+
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
-    ``vgg``, ...), each run phase in its own temporary directory; no kernels line and no
-    final line."""
+    ``vgg``, ...; ``lm`` is phase 5 then the lm_eval phase on its checkpoint), each run phase
+    in its own temporary directory; no kernels line and no final line."""
     phases = {"folder": phase_folder, "vgg": phase_vgg, "digits": phase_digits, "records": phase_records,
               "records_resnet50": phase_records_resnet50, "fp16": phase_fp16}
     try:
@@ -3195,7 +3471,11 @@ def run_only(names) -> int:
         os.makedirs(run_root, exist_ok=True)
         for name in names:
             with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
-                phases[name](run_dir)
+                if name == "lm":
+                    phase_train(run_dir)
+                    phase_lm_eval(run_dir, card)
+                else:
+                    phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -3235,6 +3515,7 @@ def main() -> int:
             serve_launches, serve = phase_slice(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             train_launches, train = phase_train(run_dir)
+            lm_eval = phase_lm_eval(run_dir, card)  # on phase 5's checkpoint
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             ring_launches, ring_train = phase_ring_train(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
@@ -3309,6 +3590,13 @@ def main() -> int:
             f"fused decode + crop entry on {JPEG_THREADS} threads; {jpeg['fixtures']} fixtures bit-equal to cv2")
         log(f"[times] {card} | VGG16 on the digits corpus, DTYPE=fp16 with dynamic loss scaling: step median "
             f"{fp16['step_ms']:.2f} ms")
+        val, dec = lm_eval["val"], {(r["batch"], r["graph"]): r for r in lm_eval["decode"]}
+        log(f"[times] {card} | eval_lm on phase 5's last (GPT-2-small, T={SEQ}, batch {LM_EVAL_BATCH}, bf16): nll "
+            f"{val['nll']:.4f}, ppl {val['ppl']:.2f} over {val['n_windows']} windows in {lm_eval['eval_s']:.2f} s, "
+            f"{lm_eval['launches']} K1 launches; decode tok/s (graph / eager, the later of each pair): " + ", ".join(
+                f"B={b} {dec[(b, True)]['tok_per_s']:.0f} / {dec[(b, False)]['tok_per_s']:.0f}" for b in DECODE_BATCHES)
+            + f"; hot swap answered {lm_eval['swap']['swap_s']:.2f} s after the commit; phase wall "
+            f"{lm_eval['wall_s']:.1f} s")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -3331,7 +3619,9 @@ def main() -> int:
                                  "serve": serve_launches if kind == "fwd" else 0,
                                  "train_vit_b16": vit_launches[launch_key], "train_convnext_l": 0,
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
-                                 "train_records_resnet50": 0, "train_digits_fp16": 0},
+                                 "train_records_resnet50": 0, "train_digits_fp16": 0,
+                                 "eval_lm": lm_eval["launches"] if kind == "fwd" else 0,
+                                 "decode": lm_eval["decode_launches"][launch_key]},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -3345,6 +3635,10 @@ def main() -> int:
             "vit_b16": {**{k: vit_times[kind][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                           "shape")}, "max_abs_err": vit_err},
         })
+        if kind == "fwd":
+            # eval_lm's forward at its defaults (SEQ_LEN=256, EVAL_BATCH=64), causal, the same keys.
+            kernels[-1]["eval_lm"] = {k: lm_eval["k1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                                     "library_ms", "shape", "max_abs_err")}
     for name, source, replaces, err, total, shapes in (
         ("conv1x1_bn_act", "conv1x1_wgmma.cu", ":550", conv_err, conv_total, conv_times),
         ("conv1x1_bwd_dz", "conv1x1_bwd_dz.cu", ":629", dz_err, dz_total, dz_times),
@@ -3359,7 +3653,8 @@ def main() -> int:
                                  "train_vgg16": 0, "serve": 0, "train_vit_b16": 0,
                                  "train_convnext_l": convnext_launches[name], "train_folder": 0,
                                  "train_digits": 0, "train_records": 0,
-                                 "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0},
+                                 "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0,
+                                 "eval_lm": 0, "decode": lm_eval["decode_launches"][name]},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -3394,7 +3689,8 @@ def main() -> int:
             "launches_by_path": {"train_ring": ring_launches[launch_key], "train": 0, "train_resnet50": 0,
                                  "train_vgg16": 0, "serve": 0, "train_vit_b16": 0, "train_convnext_l": 0,
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
-                                 "train_records_resnet50": 0, "train_digits_fp16": 0},
+                                 "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
+                                 "decode": lm_eval["decode_launches"][launch_key]},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

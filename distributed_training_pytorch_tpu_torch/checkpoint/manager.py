@@ -126,6 +126,11 @@ class CheckpointManager:
     def path(self, name: str) -> str:
         return os.path.join(self.directory, name)
 
+    def exists(self, name: str) -> bool:
+        """Whether ``name`` is committed: a save is visible under its name only once its
+        staging directory has been renamed onto it."""
+        return os.path.isdir(self.path(name))
+
     def checkpoint_names(self) -> "list[str]":
         """Committed checkpoint names, newest first (by directory mtime)."""
         try:
@@ -311,10 +316,11 @@ class CheckpointManager:
                 return name
         return None
 
-    def restore_latest_valid(self, state) -> "tuple[Any, int, str]":
-        """Restore the newest checkpoint that validates; ``(state, epoch, name)``."""
+    def restore_latest_valid(self, state, *, params_only: bool = False) -> "tuple[Any, int, str]":
+        """Restore the newest checkpoint that validates (a torn ``last`` falls back to the
+        one before it); ``(state, epoch, name)``. ``params_only`` as in :meth:`restore`."""
         name = self.latest_valid_name()
         if name is None:
             raise CheckpointError(f"no valid checkpoint under {self.directory}")
-        state, epoch = self.restore(name, state, validate=False)
+        state, epoch = self.restore(name, state, params_only=params_only, validate=False)
         return state, epoch, name

@@ -4,8 +4,19 @@ Counterpart of ``distributed_training_pytorch_tpu/models/transformer_lm.py``: pr
 blocks, learned positions, causal attention through the kernel dispatch policy
 (``ops/dispatch.py``) or, with ``attention_impl="ring"`` and a ``mesh`` with a ``seq``
 axis, ring attention over that axis (``parallel/ring_attention.py``), and logits tied to
-the token embedding, in f32. MoE blocks and the KV-cache decode step raise
-``NotImplementedError``: they come with the expert-parallel and decode slices.
+the token embedding, in f32. MoE blocks raise ``NotImplementedError``: they come with the
+expert-parallel slice.
+
+``forward(decode=True, cache=...)`` is the KV-cache step of the JAX model's
+``decode=True`` (``[B, 1]`` tokens; a :class:`KVCache` of ``[B, max_len, H, Dh]`` k and v
+per block and one position counter on the device, written in place at the position), and
+:func:`generate` its autoregressive loop. On the card ``generate`` replays the step as a
+captured CUDA graph, the counterpart of the JAX ``_generate_jit`` (one dispatch for the
+whole scan); on the CPU it runs the same step eagerly. The decode attention is the JAX
+block's ``einsum`` arithmetic (no Pallas kernel there, so no hand kernel here): q k^T in
+``dtype`` rounded to ``dtype`` before the f32 cast, the scale after that rounding, -1e30 at
+the positions not yet written, the softmax in f32 cast to ``dtype`` before the product
+with v.
 
 Parity with the flax model, where it is not the PyTorch default:
 
@@ -23,6 +34,8 @@ Parity with the flax model, where it is not the PyTorch default:
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -31,9 +44,11 @@ from distributed_training_pytorch_tpu_torch._device import resolve_device
 from distributed_training_pytorch_tpu_torch.ops import dispatch
 from distributed_training_pytorch_tpu_torch.ops.flash_attention import causal_attention_plain
 
-__all__ = ["DecoderBlock", "GPTSmall", "LMTiny", "TransformerLM", "make_fused_lm_loss"]
+__all__ = ["DecoderBlock", "GPTSmall", "KVCache", "LMTiny", "TransformerLM", "generate", "make_fused_lm_loss"]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
+MASKED = -1e30  # the JAX decode block's fill for positions not yet written
+DECODE_GRAPHS = 4  # captured generate loops kept on a model, the least recently used dropped
 
 
 def _causal_attention_fn(attention_impl: str, mesh=None):
@@ -112,9 +127,49 @@ class DecoderBlock(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         y = self.attn(q, k, v)
         x = x + self.attn_out(y.reshape(b, t, d))
+        return x + self._mlp(x)
+
+    def _mlp(self, x):
         # flax nn.gelu is the tanh approximation, not torch's exact default.
-        y = self.mlp_out(F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh"))
-        return x + y
+        return self.mlp_out(F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh"))
+
+    def decode(self, x, cache_k, cache_v, position):
+        """One token ``x`` ``[B, 1, d]`` against the cache: writes its k and v at
+        ``position`` (a device scalar) in place, attends over the written prefix."""
+        b, t, d = x.shape
+        if t != 1:
+            raise ValueError(f"decode mode consumes one token at a time, got T={t}")
+        qkv = self.qkv(self.ln1(x)).view(b, 1, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        cache_k.index_copy_(1, position.view(1), k)
+        cache_v.index_copy_(1, position.view(1), v)
+        # The cache is stored head-major ([B, H, max_len, Dh] under the [B, max_len, H, Dh]
+        # view), so both products are batched GEMMs over B * H with no copy of the cache.
+        keys, values = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+        logits = torch.matmul(q.transpose(1, 2), keys.transpose(2, 3)).float()  # [B, H, 1, L]
+        valid = torch.arange(keys.shape[2], device=x.device) <= position
+        logits = torch.where(valid, logits * self.head_dim**-0.5, MASKED)
+        weights = torch.softmax(logits, dim=-1).to(x.dtype)
+        y = torch.matmul(weights, values).transpose(1, 2)  # [B, 1, H, Dh]
+        x = x + self.attn_out(y.reshape(b, 1, d))
+        return x + self._mlp(x)
+
+
+class KVCache:
+    """The decode state of a :class:`TransformerLM`, the JAX model's ``'cache'``
+    collection: ``k[i]`` and ``v[i]`` of block ``i``, each ``[B, max_len, H, Dh]`` in the
+    model's dtype, zeros until written, and ``position``, one int64 counter on the device
+    for the whole model. ``steps`` counts the eager steps taken, on the host, so that a
+    step past ``max_len`` raises instead of writing outside the cache."""
+
+    def __init__(self, k: "list[torch.Tensor]", v: "list[torch.Tensor]", position: torch.Tensor):
+        self.k, self.v, self.position = k, v, position
+        self.steps = 0
+
+    def reset(self) -> None:
+        for t in (*self.k, *self.v, self.position):
+            t.zero_()
+        self.steps = 0
 
 
 class TransformerLM(nn.Module):
@@ -163,6 +218,7 @@ class TransformerLM(nn.Module):
         )
         self.ln_f = _LayerNorm(hidden_dim, dtype, device)
         self.init_weights(generator)
+        self._decode_runs: "OrderedDict[tuple, _DecodeRun]" = OrderedDict()  # generate's graphs
 
     @torch.no_grad()
     def init_weights(self, generator: "torch.Generator | None" = None) -> None:
@@ -181,11 +237,34 @@ class TransformerLM(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, tokens, *, return_hidden: bool = False, decode: bool = False):
+    def init_cache(self, batch: int) -> KVCache:
+        """A zeroed :class:`KVCache` for ``batch`` sequences, at full ``max_len``."""
+        dev = self.embed.weight.device
+        k, v = [], []
+        for block in self.blocks:
+            for store in (k, v):
+                # head-major storage under the [B, max_len, H, Dh] view (see DecoderBlock.decode)
+                store.append(
+                    torch.zeros(batch, block.num_heads, self.max_len, block.head_dim, dtype=self.dtype, device=dev)
+                    .transpose(1, 2)
+                )
+        return KVCache(k, v, torch.zeros((), dtype=torch.long, device=dev))
+
+    def forward(self, tokens, *, return_hidden: bool = False, decode: bool = False, cache: "KVCache | None" = None):
         """``tokens`` ``[B, T]`` -> f32 logits ``[B, T, V]``; ``return_hidden=True`` returns
-        the final-LN hidden states ``[B, T, d]`` in ``dtype`` instead."""
+        the final-LN hidden states ``[B, T, d]`` in ``dtype`` instead. ``decode=True`` takes
+        ``[B, 1]`` tokens at ``cache.position``, writes their keys and values into
+        ``cache`` and advances the position by one."""
         if decode:
-            raise NotImplementedError("decode=True (the KV-cache step) comes with the LM decode slice of the port")
+            if cache is None:
+                raise ValueError("decode=True needs cache= (TransformerLM.init_cache)")
+            if tokens.shape[1] != 1:
+                raise ValueError(f"decode mode consumes one token at a time, got T={tokens.shape[1]}")
+            if cache.steps >= self.max_len:
+                raise ValueError(f"the cache holds max_len {self.max_len} positions, all of them written")
+            cache.steps += 1
+            x = self._decode_hidden(tokens, cache)
+            return x if return_hidden else self.logits(x)
         t = tokens.shape[1]
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
@@ -198,9 +277,129 @@ class TransformerLM(nn.Module):
             return x
         return self.logits(x)
 
+    def _decode_hidden(self, tokens, cache: KVCache):
+        """The decode step with no host-side check: what a CUDA graph captures."""
+        position = cache.position
+        x = self.embed(tokens.long()).to(self.dtype)
+        x = x + self.pos_embed.index_select(1, position.view(1)).to(self.dtype)  # pos_embed[:, i]
+        for block, k, v in zip(self.blocks, cache.k, cache.v):
+            x = block.decode(x, k, v, position)
+        position.add_(1)
+        return self.ln_f(x)
+
     def logits(self, hidden):
         """Tied f32 logits of hidden states ``[..., d]``."""
         return hidden.float() @ self.embed.weight.float().T  # f32, as the flax model
+
+
+class _DecodeRun:
+    """The static buffers of one ``generate`` shape (batch, prompt length, steps, greedy or
+    sampled) and its step: feed a token, take the logits, pick the next token (the prompt's
+    while inside it, else argmax, or Gumbel-max over ``logits / temperature`` with noise
+    drawn outside the step), write it at its position of ``out``."""
+
+    def __init__(self, model: TransformerLM, prompt_shape: tuple, num_steps: int, sampled: bool):
+        b, p = prompt_shape
+        dev = model.embed.weight.device
+        self.model, self.p, self.sampled = model, p, sampled
+        self.cache = model.init_cache(b)
+        self.prompt = torch.zeros(b, p, dtype=torch.long, device=dev)
+        self.token = torch.zeros(b, 1, dtype=torch.long, device=dev)
+        self.out = torch.zeros(b, p + num_steps, dtype=torch.long, device=dev)
+        self.noise = torch.zeros(b, model.vocab_size, dtype=torch.float32, device=dev) if sampled else None
+        self.temperature = torch.ones((), dtype=torch.float32, device=dev)
+        self.graph = None
+
+    def load(self, prompt: torch.Tensor, temperature: float) -> None:
+        self.cache.reset()
+        self.prompt.copy_(prompt)
+        self.token.copy_(prompt[:, :1])
+        self.out.zero_()
+        self.out[:, :1].copy_(prompt[:, :1])
+        self.temperature.fill_(temperature if self.sampled else 1.0)
+
+    def step(self) -> None:
+        t = self.cache.position.clone()  # the position the fed token takes
+        logits = self.model.logits(self.model._decode_hidden(self.token, self.cache))[:, 0]  # [B, V] f32
+        if self.sampled:
+            gumbel = -torch.log(-torch.log(self.noise))
+            sampled = torch.argmax(logits / self.temperature + gumbel, dim=-1)
+        else:
+            sampled = torch.argmax(logits, dim=-1)
+        # While still inside the prompt, feed its next token.
+        nxt = t + 1
+        from_prompt = self.prompt.index_select(1, torch.clamp(nxt, max=self.p - 1).view(1))[:, 0]
+        token = torch.where(nxt < self.p, from_prompt, sampled)
+        self.out.index_copy_(1, nxt.view(1), token[:, None])
+        self.token.copy_(token[:, None])
+
+    def capture(self) -> None:
+        """Capture one step as a CUDA graph, after a warm-up on a side stream (``load``
+        resets what the warm-up and the capture wrote)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.step()
+        self.graph = graph
+
+
+@torch.no_grad()
+def generate(
+    model: TransformerLM,
+    prompt,
+    num_steps: int,
+    generator: "torch.Generator | None" = None,
+    *,
+    temperature: float = 0.0,
+    graph: bool = True,
+) -> torch.Tensor:
+    """Autoregressive sampling through the KV-cache decode step; counterpart of the JAX
+    ``models/transformer_lm.py::generate``.
+
+    ``prompt`` is ``[B, P]`` integer tokens; returns ``[B, P + num_steps]`` int64 on the
+    model's device, the prompt first. One loop of ``P - 1 + num_steps`` single-token steps
+    covers the prefill and the generation. ``temperature=0`` is greedy; above 0 it samples
+    by Gumbel-max from ``generator`` (on the model's device), one ``[B, V]`` draw a step,
+    the sampling of ``jax.random.categorical`` but not its bits. On the card each step is
+    one replay of a CUDA graph captured for this (B, P, num_steps, greedy or sampled) and
+    kept on the model; a failed capture raises. ``graph=False`` runs the same step
+    eagerly, op by op (to hold the graph against it), as the CPU always does."""
+    prompt = torch.as_tensor(prompt)
+    if prompt.dim() != 2 or prompt.shape[1] < 1:
+        raise ValueError(f"prompt must be [B, P] with P >= 1, got shape {tuple(prompt.shape)}")
+    b, p = prompt.shape
+    if p + num_steps > model.max_len:
+        raise ValueError(f"prompt {p} + steps {num_steps} exceeds max_len {model.max_len}")
+    sampled = temperature > 0.0
+    if sampled and generator is None:
+        raise ValueError("temperature > 0 samples: pass generator= (a torch.Generator on the model's device)")
+    dev = model.embed.weight.device
+    use_graph = graph and dev.type == "cuda"
+    if use_graph:
+        # The graph reads the weights where they were at capture: their addresses key it too.
+        key = (b, p, num_steps, sampled, tuple(t.data_ptr() for t in model.parameters()))
+        run = model._decode_runs.pop(key, None)
+        if run is None:
+            run = _DecodeRun(model, (b, p), num_steps, sampled)
+            run.capture()
+        model._decode_runs[key] = run  # the most recently used last
+        while len(model._decode_runs) > DECODE_GRAPHS:
+            model._decode_runs.popitem(last=False)
+    else:
+        run = _DecodeRun(model, (b, p), num_steps, sampled)
+    run.load(prompt.to(dev, torch.long), temperature)
+    for _ in range(p - 1 + num_steps):
+        if sampled:
+            run.noise.uniform_(generator=generator)
+        if use_graph:
+            run.graph.replay()
+        else:
+            run.step()
+    return run.out.clone()
 
 
 def GPTSmall(vocab_size: int = 50257, dtype: torch.dtype = torch.float32, **kw) -> TransformerLM:

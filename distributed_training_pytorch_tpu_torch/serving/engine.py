@@ -15,14 +15,19 @@ the mesh: the port serves from one device.
   ``predict`` reads the pair once per call, so in-flight batches finish on the params
   they started with.
 
+* **Params from a checkpoint.** ``restore_params`` reads a named checkpoint (``best`` /
+  ``last``) or the newest valid one through the port's ``CheckpointManager``
+  (``restore(..., params_only=True)`` / ``restore_latest_valid``), which validates the
+  manifest first, so a torn commit is never served; then it swaps them in.
+
 ``params`` is a mapping of parameter names to tensors (or numpy arrays), and ``apply_fn``
 runs the forward with them, e.g. ``lambda p, x: torch.func.functional_call(model, p, (x,))``.
-Loading params from a checkpoint (``restore_params``) and re-planning onto other devices
-(``replan_onto``) come with later slices of the port.
+Re-planning onto other devices (``replan_onto``) comes with the elastic slice of the port.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import Counter
 from typing import Any, Callable, Mapping
@@ -33,7 +38,12 @@ import torch
 from distributed_training_pytorch_tpu_torch._device import resolve_device
 from distributed_training_pytorch_tpu_torch.serving.batcher import pick_bucket
 
-__all__ = ["InferEngine"]
+__all__ = ["InferEngine", "REPLAN_DEFERRED"]
+
+REPLAN_DEFERRED = (
+    "re-planning a served model onto another device set comes with the elastic slice of the port "
+    "(Queue 1 item 8, P12: parallel/sharding.py and parallel/elastic.py)"
+)
 
 
 def _snapshot(value, device: torch.device) -> torch.Tensor:
@@ -71,6 +81,8 @@ class InferEngine:
         self._entries: set = set()  # (bucket, row signature) pairs seen
         self.trace_counts: Counter = Counter()
         self.swap_count = 0
+        self.replan_count = 0
+        self._swap_lock = threading.Lock()  # one restore-and-flip at a time
 
     @property
     def params_version(self) -> "str | None":
@@ -99,6 +111,27 @@ class InferEngine:
             torch.cuda.synchronize(self.device)
         self._current = (str(version), placed)
         self.swap_count += 1
+
+    def restore_params(self, manager, target_state, *, name: "str | None" = None) -> str:
+        """Load serving params from ``manager`` (the port's ``CheckpointManager``): the named
+        checkpoint when given, else the newest valid one. Only the params are restored,
+        into ``target_state`` (a ``TrainState`` whose model has the served structure), then
+        swapped in: the engine serves its own copy, so the next restore into the same
+        target cannot reach it. Returns the installed version ``"<name>@e<epoch>"``."""
+        with self._swap_lock:
+            if name is None:
+                state, epoch, used = manager.restore_latest_valid(target_state, params_only=True)
+            else:
+                state, epoch = manager.restore(name, target_state, params_only=True)
+                used = name
+            version = f"{used}@e{epoch}"
+            self.swap_params(state.params, version=version)
+            return version
+
+    def replan_onto(self, mesh) -> None:
+        """Rebind the engine to another device set: not in the port yet, so it raises and
+        leaves the engine serving as it was."""
+        raise NotImplementedError(REPLAN_DEFERRED)
 
     def predict(self, inputs: np.ndarray) -> "tuple[np.ndarray, str]":
         """Run the forward on ``inputs`` (``[n, ...]`` host array): pads ``n`` up to the

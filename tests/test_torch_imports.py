@@ -35,6 +35,8 @@ PORT_MODULES = [
     # real data: the digits corpus, record files, fp16 with dynamic loss scaling
     "data.png", "data.records", "precision.loss_scale", "examples.digits_data", "examples.train_digits",
     "examples.train_records",
+    # LM generation and offline LM evaluation
+    "examples.eval_lm", "examples.make_lm_corpus",
 ]
 # The card's machine has neither OpenCV nor PIL, nor scikit-learn: the port decodes and
 # transforms images without them, and ships the digits corpus as an array of its own.

@@ -80,7 +80,7 @@ def test_unported_paths_raise_not_implemented():
         LMTiny(moe_every=2, device="cpu")
     with pytest.raises(ValueError, match='attention_impl="ring" needs mesh='):
         LMTiny(attention_impl="ring", device="cpu")  # the ring runs over a mesh's seq axis
-    with pytest.raises(NotImplementedError, match="decode"):
+    with pytest.raises(ValueError, match="decode=True needs cache="):  # the decode step is ported
         LMTiny(device="cpu")(torch.zeros(1, 1, dtype=torch.long), decode=True)
     with pytest.raises(ValueError, match="max_len"):
         LMTiny(device="cpu", max_len=8)(torch.zeros(1, 9, dtype=torch.long))
