@@ -145,7 +145,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     batch, all wgmma, no other kernel; the perplexity and window count); ``sample``, greedy
     and t=0.8, each with the prompt as its prefix; ``decode_benchmark`` at batches 1, 8, 32
     and 128 on the CUDA graph and the eager loop in turns (tok/s, tok/s a stream, new tok/s,
-    ms a step), with no hand-kernel launch on the decode path; in f32 at full width with
+    ms a step), with no hand-kernel launch on the decode path, and the device operations of
+    one eager decode step by the profiler; in f32 at full width with
     TF32 off, 64 greedy steps from 2 prompts: the graph's tokens equal the eager loop's and
     the full forward's argmax at each step; a hot swap: ``last`` served through
     ``InferEngine.restore_params`` behind the server's watcher, a new ``best`` committed,
