@@ -102,11 +102,18 @@ def _rows(n, seed=0):
     return np.random.RandomState(seed).randint(0, VOCAB, size=(n, SEQ)).astype(np.int32)
 
 
-def test_manager_exists_and_restore_latest_valid_params_only(tmp_path):
+def test_manager_exists_names_committed_checkpoints_only(tmp_path):
     manager = CheckpointManager(tmp_path)
     assert not manager.exists("best")
     manager.save("best", _state(1), epoch=1)
     assert manager.exists("best") and not manager.exists("last")
+    os.makedirs(os.path.join(tmp_path, ".staging", "last.1"))  # a save not yet committed
+    assert not manager.exists("last")
+
+
+def test_manager_restore_latest_valid_params_only(tmp_path):
+    manager = CheckpointManager(tmp_path)
+    manager.save("best", _state(1), epoch=1)
     target = _state(7)
     target.step = 5
     target.optimizer.state[next(target.model.parameters())]["momentum_buffer"] = torch.ones(1)
