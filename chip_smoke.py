@@ -170,6 +170,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -3362,6 +3363,7 @@ def phase_lm_eval(run_dir: str, card: str) -> dict:
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    found_gb = torch.cuda.memory_allocated() / 1e9
     seq = int(TRAIN_ENV["SEQ_LEN"])
     corpus_path = os.path.join(run_dir, "lm_corpus.txt")
     t0 = time.perf_counter()
@@ -3447,10 +3449,18 @@ def phase_lm_eval(run_dir: str, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2121)
     k1_err = _k1_on_qkv_views(gen, *LM_EVAL_SHAPE)
     k1_row = _attention_times(card, *LM_EVAL_SHAPE, True, gen, "eval_lm ")["fwd"]
+    # The phases after this one read their peak memory: leave no more allocated than was
+    # found. The graphs' static caches go with the model (4.8 GB at B=128); the hot swap's
+    # stopped server keeps its engine and models in reference cycles until a collection.
     del loaded, model
+    gc.collect()
     torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
     wall = time.perf_counter() - t_phase
-    log(f"[lm_eval] phase wall {wall:.1f} s")
+    log(f"[lm_eval] phase wall {wall:.1f} s; device memory allocated {found_gb:.2f} GB before the phase, "
+        f"{left_gb:.2f} GB after it")
+    if left_gb > found_gb + 0.25:
+        raise RuntimeError(f"lm_eval left {left_gb - found_gb:.2f} GB allocated for the phases after it")
     return {"val": val, "eval_s": eval_s, "launches": eval_launches["fwd"], "decode_launches": decode_launches,
             "step_ops": step_ops,
             "timings": timings, "texts": texts, "decode": rows, "margin": margin, "swap": swap,

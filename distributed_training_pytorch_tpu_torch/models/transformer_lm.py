@@ -143,16 +143,24 @@ class DecoderBlock(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         cache_k.index_copy_(1, position.view(1), k)
         cache_v.index_copy_(1, position.view(1), v)
-        # The cache is stored head-major ([B, H, max_len, Dh] under the [B, max_len, H, Dh]
-        # view), so both products are batched GEMMs over B * H with no copy of the cache.
-        keys, values = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
-        logits = torch.matmul(q.transpose(1, 2), keys.transpose(2, 3)).float()  # [B, H, 1, L]
-        valid = torch.arange(keys.shape[2], device=x.device) <= position
-        logits = torch.where(valid, logits * self.head_dim**-0.5, MASKED)
-        weights = torch.softmax(logits, dim=-1).to(x.dtype)
-        y = torch.matmul(weights, values).transpose(1, 2)  # [B, 1, H, Dh]
+        y = decode_attention(q, cache_k, cache_v, position)
         x = x + self.attn_out(y.reshape(b, 1, d))
         return x + self._mlp(x)
+
+
+def decode_attention(q, cache_k, cache_v, position):
+    """``q`` ``[B, 1, H, Dh]`` against the cache ``[B, max_len, H, Dh]`` up to ``position``
+    -> ``[B, 1, H, Dh]`` in ``q``'s dtype, with the JAX decode block's roundings: q·kᵀ
+    rounded to the dtype, then cast to f32 and scaled; -1e30 past ``position``; the f32
+    softmax cast to the dtype before the product with v."""
+    # The cache is stored head-major ([B, H, max_len, Dh] under the [B, max_len, H, Dh]
+    # view), so both products are batched GEMMs over B * H with no copy of the cache.
+    keys, values = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    logits = torch.matmul(q.transpose(1, 2), keys.transpose(2, 3)).float()  # [B, H, 1, L]
+    valid = torch.arange(keys.shape[2], device=q.device) <= position
+    logits = torch.where(valid, logits * q.shape[-1] ** -0.5, MASKED)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(weights, values).transpose(1, 2)
 
 
 class KVCache:
@@ -296,12 +304,14 @@ class _DecodeRun:
     """The static buffers of one ``generate`` shape (batch, prompt length, steps, greedy or
     sampled) and its step: feed a token, take the logits, pick the next token (the prompt's
     while inside it, else argmax, or Gumbel-max over ``logits / temperature`` with noise
-    drawn outside the step), write it at its position of ``out``."""
+    drawn outside the step), write it at its position of ``out``. It holds no reference to
+    the model, which keeps it in ``_decode_runs``: so dropping the model frees its graphs and
+    caches at once, with no cycle for the garbage collector to find."""
 
     def __init__(self, model: TransformerLM, prompt_shape: tuple, num_steps: int, sampled: bool):
         b, p = prompt_shape
         dev = model.embed.weight.device
-        self.model, self.p, self.sampled = model, p, sampled
+        self.p, self.sampled = p, sampled
         self.cache = model.init_cache(b)
         self.prompt = torch.zeros(b, p, dtype=torch.long, device=dev)
         self.token = torch.zeros(b, 1, dtype=torch.long, device=dev)
@@ -318,9 +328,9 @@ class _DecodeRun:
         self.out[:, :1].copy_(prompt[:, :1])
         self.temperature.fill_(temperature if self.sampled else 1.0)
 
-    def step(self) -> None:
+    def step(self, model: TransformerLM) -> None:
         t = self.cache.position.clone()  # the position the fed token takes
-        logits = self.model.logits(self.model._decode_hidden(self.token, self.cache))[:, 0]  # [B, V] f32
+        logits = model.logits(model._decode_hidden(self.token, self.cache))[:, 0]  # [B, V] f32
         if self.sampled:
             gumbel = -torch.log(-torch.log(self.noise))
             sampled = torch.argmax(logits / self.temperature + gumbel, dim=-1)
@@ -333,17 +343,17 @@ class _DecodeRun:
         self.out.index_copy_(1, nxt.view(1), token[:, None])
         self.token.copy_(token[:, None])
 
-    def capture(self) -> None:
+    def capture(self, model: TransformerLM) -> None:
         """Capture one step as a CUDA graph, after a warm-up on a side stream (``load``
         resets what the warm-up and the capture wrote)."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self.step()
+            self.step(model)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.step()
+            self.step(model)
         self.graph = graph
 
 
@@ -385,7 +395,7 @@ def generate(
         run = model._decode_runs.pop(key, None)
         if run is None:
             run = _DecodeRun(model, (b, p), num_steps, sampled)
-            run.capture()
+            run.capture(model)
         model._decode_runs[key] = run  # the most recently used last
         while len(model._decode_runs) > DECODE_GRAPHS:
             model._decode_runs.popitem(last=False)
@@ -398,7 +408,7 @@ def generate(
         if use_graph:
             run.graph.replay()
         else:
-            run.step()
+            run.step(model)
     return run.out.clone()
 
 

@@ -461,12 +461,8 @@ class InferenceServer:
 
     def drain_and_replan(self, device_ids, *, deadline_s: float = 10.0) -> dict:
         """Drain, re-plan the engine onto ``device_ids``, warm it and resume: the JAX
-        server's actuated offer. Its feasibility is checked before admission stops, and
-        the port has no re-plan yet (``engine.REPLAN_DEFERRED``): it raises with the
-        replica still serving."""
-        ids = sorted({int(d) for d in device_ids})
-        if not ids:
-            raise ValueError("replan target names no devices")
+        server's actuated offer. The port has no re-plan yet (``engine.REPLAN_DEFERRED``):
+        it raises before admission stops, with the replica still serving."""
         raise NotImplementedError(REPLAN_DEFERRED)
 
     def handle_offer(self, body: dict) -> "tuple[int, str, dict | None]":
@@ -497,8 +493,9 @@ class InferenceServer:
 
     def handle_replan(self, body: dict) -> "tuple[int, str, dict | None]":
         """``POST /admin/replan``: drain and re-plan onto ``body["device_ids"]``. 409 while
-        a drain is in progress; 400 ``replan_failed`` (still serving the old plan) when the
-        re-plan is refused, which in the port is every time until the elastic slice."""
+        a drain is in progress; else 400 ``replan_failed`` (still serving the old plan): the
+        re-plan is refused every time until the elastic slice, whose success answer (200
+        with the re-plan's summary) comes with it."""
         device_ids = body.get("device_ids")
         if not isinstance(device_ids, (list, tuple)) or not device_ids:
             return 400, json.dumps({"error": "bad_request", "detail": "device_ids required"}) + "\n", None
@@ -508,12 +505,11 @@ class InferenceServer:
                 {"error": "busy", "state": self.state, "retry_after_s": ra}
             ) + "\n", {"Retry-After": str(ra)}
         try:
-            summary = self.drain_and_replan(device_ids, deadline_s=float(body.get("deadline_s", 10.0)))
+            self.drain_and_replan(device_ids, deadline_s=float(body.get("deadline_s", 10.0)))
         except Exception as e:  # noqa: BLE001 — a typed refusal, the old plan serving
             return 400, json.dumps(
                 {"error": "replan_failed", "detail": f"{type(e).__name__}: {e}", "state": self.state}
             ) + "\n", None
-        return 200, json.dumps(_jsonable(summary)) + "\n", None
 
     # -- dispatch loop -----------------------------------------------------
 
