@@ -102,8 +102,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     all on the wgmma variant; the trained weights through ``PALLAS=0``
     (``dot_product_attention``) and through ``pad_seq_to=256`` (K1–K3 with 197 valid keys of
     256: logits and every parameter's gradient against the unpadded model); step time,
-    images/s, peak memory, the saves' time; the same steps with ``PALLAS`` unset and
-    ``PALLAS=0`` in turns. Phases 2, 3 and 6 hold and time K1–K3 at its attention shape
+    images/s, peak memory, the saves' snapshot and flush times; the same steps with
+    ``PALLAS`` unset and ``PALLAS=0`` in turns. Phases 2, 3 and 6 hold and time K1–K3 at its attention shape
     (``[256, 197, 12, 64]``, and 256 with 197 valid), on the q, k, v views of its fused qkv
     projection, with SDPA non-causal as the yardstick;
 15. (convnext) ConvNeXt-L through the same entry (``MODEL=convnext_l``, ``PALLAS=1``: K4's
@@ -111,7 +111,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     micro-batches of 64 (``ACCUM=4``), otherwise as phase 14; exactly 36 K4 launches a
     micro-batch forward (6 on the wgmma variant, 30 on the CUDA cores), so 144 a train step
     and 36 a val forward, and no dz pass; the trained weights through ``PALLAS=0``; step
-    time, images/s, peak memory, the saves' time; ``PALLAS=1`` and ``PALLAS=0`` in turns.
+    time, images/s, peak memory, the saves' snapshot and flush times; ``PALLAS=1`` and
+    ``PALLAS=0`` in turns.
     Phase 7 holds K4 at its four expand shapes with gelu (and one row fewer) and its autograd
     route against the plain version's; the last phase times K4 there beside ``F.linear``
     then ``F.gelu(approximate="tanh")``;
@@ -154,13 +155,35 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     those weights, one ``hot_swap`` event; and K1 held and timed at eval_lm's default shape
     ``[64, 256, 12, 64]`` on the LM's qkv views beside SDPA.
 
+22. (chained, run after phase 19) chained steps, one captured CUDA graph a window
+    (``TrainEngine.train_steps_chained``): GPT-2-small (bf16, B=64, T=1024) 8 steps in
+    windows of 4 against 8 eager steps from the same weights and batches, under
+    deterministic algorithms (params within ``CHAIN_BF16_ATOL``, 0 so far), and the same in
+    f32 with TF32 off at 2 blocks (bit-equal); ms a step chained and eager in turns; K1–K3
+    12 each a step in a profile of one replay; ResNet-50 with ``PALLAS=1`` chained, K4 and
+    its dz pass 9 each a step in a profile of one replay; VGG16/CIFAR-10 through its entry
+    (batch 1024) with ``chain_steps`` 2 and 1 in turns on one warm trainer: each epoch's
+    busy share. A failed capture fails the phase;
+23. (resilience) ``scripts/torch_chaos_soak.py`` on the card: the digits entry with
+    ``CHAIN_STEPS=2`` and background saves, killed by a graceful SIGTERM, a SIGKILL
+    mid-commit, a SIGKILL mid-window and a hung step past ``step_timeout``, each resumed
+    from ``latest_valid`` with a valid checkpoint left; the final params bit-exact against
+    an uninterrupted run; the async save's stall against the sync save's wall on
+    GPT-2-small's state (below 0.25).
+
+The vit and convnext phases (14, 15) save in the background (the ``Trainer``'s default
+``async_checkpoint``): they print each save's snapshot time and the flushes that wait for
+the commits.
+
 The image-folder phase (``phase_folder``, run between 15 and 16: ``ExampleTrainer``'s
 ten-step train chain, a resume and ``eval.evaluate``) reads PNG, BMP and JPEG files, the
 JPEG ones from the port's encoder (4:2:0 at qualities 90 and 60, 4:4:4, grey, and one with
 an EXIF orientation of 6) and decoded by the port's own decoder.
 
 ``launches_by_path`` in the kernels line has one key a path, ``eval_lm`` and ``decode``
-included, for every kernel entry.
+included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
+the launches in the profile of one replay (4 and 2 steps): the Python counters count a
+graph's launches once, at its capture.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and outside a
@@ -2177,22 +2200,31 @@ def _entry_run(tag, env, run_dir, batch):
     from distributed_training_pytorch_tpu_torch.ops import conv1x1 as k4
     from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
 
-    step_ms, epoch_metrics, val_metrics, saves = [], [], [], []
+    step_ms, epoch_metrics, val_metrics, saves, flushes = [], [], [], [], []
     counts = {"steps": 0, "evals": 0}
 
     def build():
         trainer = train_imagenet.build_trainer(
             "cuda", synthetic_records=ENTRY_STEPS * batch, synthetic_val_records=batch
         )
-        save = trainer.checkpoints.save
+        # Saves are background saves (async_checkpoint): the loop pays each one's host
+        # snapshot, timed after a sync; the commits are waited for at the saver's flushes.
+        save_async, flush = trainer.saver.save_async, trainer.saver.flush
 
-        def timed_save(*args, **kw):
+        def timed_snapshot(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            save(*args, **kw)
+            out = save_async(*args, **kw)
             saves.append(time.perf_counter() - t0)
+            return out
 
-        trainer.checkpoints.save = timed_save
+        def timed_flush(*args, **kw):
+            t0 = time.perf_counter()
+            out = flush(*args, **kw)
+            flushes.append(time.perf_counter() - t0)
+            return out
+
+        trainer.saver.save_async, trainer.saver.flush = timed_snapshot, timed_flush
         return _instrument(trainer, step_ms, counts, epoch_metrics, val_metrics)
 
     torch.cuda.empty_cache()
@@ -2234,7 +2266,8 @@ def _entry_run(tag, env, run_dir, batch):
     log(f"{tag} {counts['steps']} steps, {counts['evals']} validation forwards in {wall:.1f} s (data, validation and "
         f"saves included); step time median {median_ms:.2f} ms (min {steady[0]:.2f}, max {steady[-1]:.2f}; all "
         f"{[round(t, 2) for t in times]}); {_images_per_s(batch, median_ms):.0f} images/s; peak memory {peak_gb:.2f} GB; "
-        f"{len(saves)} checkpoint saves took {sum(saves):.1f} s ({', '.join(f'{t:.1f}' for t in saves)} s)")
+        f"{len(saves)} checkpoint snapshots took {sum(saves):.1f} s ({', '.join(f'{t:.2f}' for t in saves)} s), the "
+        f"flushes of their background commits {sum(flushes):.1f} s ({', '.join(f'{t:.2f}' for t in flushes)} s)")
 
     losses = [m["ce_loss"] for m in epoch_metrics] + [m["ce_loss"] for m in val_metrics]
     if not all(np.isfinite(losses)):
@@ -2252,7 +2285,7 @@ def _entry_run(tag, env, run_dir, batch):
     log(f"{tag} best and last valid; resumed at step {resumed_at[0]}, epoch {resumed_at[1]}; last = epoch "
         f"{meta['epoch']}, step {meta['step']}")
     figures = {"step_ms": median_ms, "images_per_s": _images_per_s(batch, median_ms), "peak_gb": peak_gb,
-               "wall_s": wall, "save_s": sum(saves), "saves": len(saves), "n_params": n_params}
+               "wall_s": wall, "save_s": sum(saves), "flush_s": sum(flushes), "saves": len(saves), "n_params": n_params}
     return figures, launches, counts, model, val_batch
 
 
@@ -3199,6 +3232,333 @@ def phase_fp16(run_dir: str):
             "curve": [em["ce_loss"] for em in epoch_metrics]}
 
 
+# The chained phase: training steps as one captured CUDA graph a window
+# (TrainEngine.train_steps_chained).
+CHAIN_WINDOW = 4  # GPT-2-small's window
+CHAIN_STEPS_COMPARED = 8  # chained against eager from the same state and batches
+CHAIN_F32_DEPTH = 2  # the f32 check at GPT-2's width, 2 blocks
+CHAIN_F32_BATCH = 8
+CHAIN_TURN_WINDOWS = 3  # windows a turn in the LM's timing
+CHAIN_RESNET_BATCH, CHAIN_RESNET_WINDOW = 128, 2
+CHAIN_VGG_STEPS = 2  # CHAIN_STEPS of the CIFAR entry (its log_every of 50 is a multiple)
+# The bf16 chained params against eager after 8 steps, both under deterministic
+# algorithms: zero unless cuBLAS or cuDNN picks another algorithm under capture, whose sums
+# round differently; a bf16 ulp of the largest weights moved by 8 AdamW steps is below this.
+# (Without deterministic algorithms two eager runs differ already: the embedding's backward
+# adds with atomics, 7e-9 on the first step.)
+CHAIN_BF16_ATOL = 1e-2
+# A kernel's launches in a profile of one replay, by the names of its two variants.
+PROFILED_KERNELS = {
+    "fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
+    "bwd_dq": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel"),
+    "bwd_dkv": ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel"),
+    "conv1x1_bn_act": ("conv1x1_bn_act_wgmma_kernel", "conv1x1_bn_act_kernel"),
+    "conv1x1_bwd_dz": ("conv1x1_bwd_dz_kernel",),
+}
+
+
+def _profiled_kernels(fn):
+    """Run ``fn`` twice under the profiler, the first call a warm-up cycle whose events are
+    dropped (the trace missed the first 31 or so kernels after it started in a run of the
+    whole script); the launches of each hand kernel in the second (by the kernel's name on
+    the device) and all its device kernels, or None when the profiler saw no device kernel
+    at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {k: sum(1 for n in names if any(v in n for v in variants)) for k, variants in PROFILED_KERNELS.items()}
+    counts["all"] = len(names)
+    return counts if names else None
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` (with ``CUBLAS_WORKSPACE_CONFIG``) and
+    cuDNN's deterministic mode for the block, restored after it."""
+    import torch
+
+    saved = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"), torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        if saved[0] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        torch.use_deterministic_algorithms(saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
+
+
+def _lm_windows(n_steps, batch, seq, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, 256, (n_steps, batch, seq + 1), device="cuda", generator=gen)
+    return {"image": tokens[..., :-1].contiguous(), "label": tokens[..., 1:].contiguous()}
+
+
+def _lm_chained_against_eager(make_model, batches, window, tag, eager_first=True):
+    """The same initial weights and batches through ``train_step`` one at a time and
+    through ``train_steps_chained`` a window at a time (the first window runs eagerly on
+    the capture stream, then the graph is captured and replayed); the largest difference
+    of any parameter and of any step's loss, and the chained side's engine and state.
+    ``eager_first=False`` runs the chained side alone (the differences are None)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models.transformer_lm import make_fused_lm_loss
+    from distributed_training_pytorch_tpu_torch.ops.schedules import warmup_cosine_lr
+    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+
+    n = next(iter(batches.values())).shape[0]
+    schedule = warmup_cosine_lr(3e-4, 1, 64, warmup_epochs=0)
+
+    def build():
+        model = make_model()
+        opt = torch.optim.AdamW(model.parameters(), lr=schedule(0), betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
+        return TrainEngine(make_fused_lm_loss(model), schedule=schedule), TrainState(model=model, optimizer=opt)
+
+    eager, metrics_e = None, []
+    if eager_first:
+        engine, state = build()
+        for i in range(n):
+            state, m = engine.train_step(state, {k: v[i] for k, v in batches.items()})
+            metrics_e.append(m["loss"])
+        eager = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+        del engine, state
+        torch.cuda.empty_cache()
+    engine, state = build()
+    metrics_c = []
+    for w in range(n // window):
+        state, m = engine.train_steps_chained(state, {k: v[w * window:(w + 1) * window] for k, v in batches.items()},
+                                              window)
+        metrics_c.extend(m["loss"].unbind(0))
+    torch.cuda.synchronize()
+    diff = loss_diff = None
+    if eager is not None:
+        diff = max(float((v.detach().float().cpu() - eager[k]).abs().max()) for k, v in state.model.state_dict().items())
+        loss_diff = max(abs(float(a) - float(b)) for a, b in zip(metrics_c, metrics_e, strict=True))
+    if engine.captures != 1:
+        raise RuntimeError(f"{tag} expected one capture, got {engine.captures}")
+    return diff, loss_diff, engine, state
+
+
+def phase_chained(run_dir: str, card: str) -> dict:
+    """Chained steps on the card: GPT-2-small (bf16, B=64, T=1024) 8 steps in windows of 4
+    against 8 eager steps, and the same in f32 with TF32 off at 2 blocks (bit-equal); ms a
+    step chained against eager in turns; K1–K3's launches a step from a profile of one
+    replay; ResNet-50 with ``PALLAS=1`` chained (K4 and its dz pass from a profile of one
+    replay); VGG16/CIFAR-10 through its entry at batch 1024, the busy share of a train
+    epoch with ``chain_steps`` 2 and 1 in turns on one warm trainer."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_cifar10
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall, TransformerLM, create_model
+    from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
+    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    b, t = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    batches = _lm_windows(CHAIN_STEPS_COMPARED, b, t, seed=1)
+
+    def gpt2():
+        return GPTSmall(vocab_size=256, dtype=torch.bfloat16, max_len=SEQ, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+    # Parity, under deterministic algorithms (two eager runs differ without them).
+    with _deterministic_algorithms():
+        bf16_diff, bf16_loss_diff, engine, state = _lm_chained_against_eager(gpt2, batches, CHAIN_WINDOW,
+                                                                             "[chained]")
+    log(f"[chained] GPT-2-small bf16, B={b}, T={t}, deterministic algorithms: {CHAIN_STEPS_COMPARED} steps in "
+        f"windows of {CHAIN_WINDOW} (one capture) against {CHAIN_STEPS_COMPARED} eager steps from the same weights "
+        f"and batches: params differ by at most {bf16_diff!r} (tolerance {CHAIN_BF16_ATOL}), losses by "
+        f"{bf16_loss_diff!r}")
+    del engine, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32, TF32 off, GPT-2's width at 2 blocks: bit-equal.
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        def gpt2_f32():
+            return TransformerLM(256, hidden_dim=768, depth=CHAIN_F32_DEPTH, num_heads=12, mlp_dim=3072, max_len=SEQ,
+                                 dtype=torch.float32, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+
+        with _deterministic_algorithms():
+            f32_diff, f32_loss_diff, engine, state = _lm_chained_against_eager(
+                gpt2_f32, _lm_windows(CHAIN_STEPS_COMPARED, CHAIN_F32_BATCH, t, seed=3), CHAIN_WINDOW,
+                "[chained f32]")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"[chained] f32, TF32 off, deterministic algorithms, GPT-2 width at {CHAIN_F32_DEPTH} blocks, "
+        f"B={CHAIN_F32_BATCH}: chained against eager params differ by {f32_diff!r}, losses by {f32_loss_diff!r} "
+        f"(must be 0)")
+    if f32_diff != 0.0 or f32_loss_diff != 0.0:
+        raise RuntimeError(f"f32 chained steps are not bit-equal to eager: params {f32_diff}, losses {f32_loss_diff}")
+    if not bf16_diff <= CHAIN_BF16_ATOL:
+        raise RuntimeError(f"bf16 chained params differ from eager by {bf16_diff} > {CHAIN_BF16_ATOL}")
+    del engine, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Timing and the profile, as the trainer runs (no deterministic algorithms): a fresh
+    # model, its first window real, then the capture.
+    engine, state = _lm_chained_against_eager(gpt2, _lm_windows(CHAIN_WINDOW, b, t, seed=5), CHAIN_WINDOW,
+                                              "[chained timing]", eager_first=False)[2:]
+    # ms a step, chained against eager, in turns on the chained side's state.
+    turn_batches = _lm_windows(CHAIN_WINDOW * CHAIN_TURN_WINDOWS, b, t, seed=2)
+
+    def windows():
+        for w in range(CHAIN_TURN_WINDOWS):
+            yield {k: v[w * CHAIN_WINDOW:(w + 1) * CHAIN_WINDOW] for k, v in turn_batches.items()}
+
+    def run(chained):
+        nonlocal state
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for win in windows():
+            if chained:
+                state, _ = engine.train_steps_chained(state, win, CHAIN_WINDOW)
+            else:
+                for i in range(CHAIN_WINDOW):
+                    state, _ = engine.train_step(state, {k: v[i] for k, v in win.items()})
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (CHAIN_WINDOW * CHAIN_TURN_WINDOWS)
+
+    lm_turns = {"eager": [], "chained": []}
+    for mode in ("eager", "chained", "chained", "eager"):
+        lm_turns[mode].append(run(mode == "chained"))
+    replay = _profiled_kernels(lambda: engine.train_steps_chained(state, next(windows()), CHAIN_WINDOW))
+    eager_ops = _profiled_kernels(lambda: engine.train_step(state, {k: v[0] for k, v in next(windows()).items()}))
+    if engine.captures != 1:
+        raise RuntimeError(f"the timing and profile captured again: {engine.captures} captures")
+    lm_per_step = None if replay is None else {k: replay[k] / CHAIN_WINDOW for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    log(f"[chained] {card} | GPT-2-small ms a step (CUDA events, {CHAIN_TURN_WINDOWS} windows of {CHAIN_WINDOW} a "
+        f"turn), in turns: eager {', '.join(f'{x:.2f}' for x in lm_turns['eager'])}; chained "
+        f"{', '.join(f'{x:.2f}' for x in lm_turns['chained'])}")
+    log(f"[chained] profile of one replay ({CHAIN_WINDOW} steps): {replay}; of one eager step: {eager_ops}; "
+        f"K1-K3 a step on the chained path: {lm_per_step}")
+    if lm_per_step != {"fwd": DEPTH, "bwd_dq": DEPTH, "bwd_dkv": DEPTH}:
+        raise RuntimeError(f"expected {DEPTH} launches of each of K1-K3 a step in the replay, got {replay}")
+    del engine, state, batches, turn_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ResNet-50, PALLAS=1: K4 and its dz pass inside the graph.
+    model = create_model("resnet50", num_classes=1000, dtype=torch.bfloat16, pallas=True, device="cuda")
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, weight_decay=5e-5)
+
+    def resnet_loss(net, batch, train):
+        loss = cross_entropy_loss(net(batch["image"].permute(0, 3, 1, 2)), batch["label"])
+        return loss, {"ce_loss": loss}
+
+    r_engine, r_state = TrainEngine(resnet_loss, schedule=lambda step: 0.1), TrainState(model=model, optimizer=opt)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    w, rb = CHAIN_RESNET_WINDOW, CHAIN_RESNET_BATCH
+    r_window = {"image": torch.randn(w, rb, 224, 224, 3, device="cuda", generator=gen),
+                "label": torch.randint(0, 1000, (w, rb), device="cuda", generator=gen)}
+    r_state, m = r_engine.train_steps_chained(r_state, r_window, w)  # real steps, then the capture
+    r_replay = _profiled_kernels(lambda: r_engine.train_steps_chained(r_state, r_window, w))
+    if r_engine.captures != 1:
+        raise RuntimeError(f"ResNet-50's replays captured again: {r_engine.captures} captures")
+    resnet_per_step = None if r_replay is None else {k: r_replay[k] / w for k in ("conv1x1_bn_act", "conv1x1_bwd_dz")}
+    log(f"[chained] ResNet-50 PALLAS=1, B={rb}, windows of {w}: losses {[round(float(x), 4) for x in m['ce_loss']]}; "
+        f"profile of one replay: {r_replay}; K4 and dz a step: {resnet_per_step}")
+    if resnet_per_step != {"conv1x1_bn_act": 9, "conv1x1_bwd_dz": 9} or not torch.isfinite(m["ce_loss"]).all():
+        raise RuntimeError(f"expected 9 K4 and 9 dz launches a step in the replay and finite losses, got {r_replay}")
+    del r_engine, r_state, model, opt, r_window
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # VGG16/CIFAR-10 through the entry: busy share of a train epoch, chained against not.
+    keys = ("BATCH", "EPOCHS", "SAVE_DIR", "SNAPSHOT", "DTYPE", "CIFAR10_DIR", "PALLAS", "BASE_LR", "MESH",
+            "CHAIN_STEPS", "TUNED", "TELEMETRY")
+    saved_env = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(VGG_ENV, SAVE_DIR=os.path.join(run_dir, "vgg"), CIFAR10_DIR=os.path.join(run_dir, "none"),
+                      EPOCHS="1", CHAIN_STEPS=str(CHAIN_VGG_STEPS))
+    real_load = train_cifar10.load_cifar10
+    try:
+        data = real_load(os.environ["CIFAR10_DIR"])
+        train_cifar10.load_cifar10 = lambda data_dir: data
+        trainer = train_cifar10.build_trainer("cuda")
+    finally:
+        train_cifar10.load_cifar10 = real_load
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    trainer.chain_steps = CHAIN_VGG_STEPS
+    _profiled_epoch(trainer, 0)  # warm: the first window's real steps and the capture
+    vgg_turns = {"chained": [], "eager": []}
+    for mode in ("eager", "chained", "chained", "eager"):
+        trainer.chain_steps = CHAIN_VGG_STEPS if mode == "chained" else 1
+        metrics, fig = _profiled_epoch(trainer, 0)
+        fig["ce_loss"] = metrics["ce_loss"]
+        vgg_turns[mode].append(fig)
+    steps = len(trainer.train_dataloader)
+    captures = trainer.engine.captures
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode, runs in vgg_turns.items():
+        log(f"[chained] {card} | VGG16/CIFAR-10 (B={VGG_BATCH}, {steps} steps an epoch, the entry's host path), "
+            f"chain_steps {CHAIN_VGG_STEPS if mode == 'chained' else 1}: busy "
+            + ", ".join(f"{_fmt_busy(r['busy'])} (wall {r['wall_ms']:.1f} ms, {r['wall_ms'] / steps:.2f} ms a step, "
+                        f"device {r['busy_ms']:.1f} ms)" for r in runs))
+    if captures != 1 or not all(np.isfinite(r["ce_loss"]) for rs in vgg_turns.values() for r in rs):
+        raise RuntimeError(f"VGG16 chained: {captures} captures, losses {vgg_turns}")
+    wall = time.perf_counter() - t_phase
+    log(f"[chained] phase wall {wall:.1f} s")
+    return {"bf16_diff": bf16_diff, "f32_diff": f32_diff, "lm_turns": lm_turns, "lm_replay": replay,
+            "lm_per_step": lm_per_step, "resnet_replay": r_replay, "resnet_per_step": resnet_per_step,
+            "vgg_turns": vgg_turns, "wall_s": wall}
+
+
+def phase_resilience(run_dir: str) -> dict:
+    """The port's chaos soak (``scripts/torch_chaos_soak.py``) on the card: digits through
+    the entry with ``CHAIN_STEPS=2`` and background saves, killed by a graceful SIGTERM, a
+    SIGKILL mid-commit, a SIGKILL mid-window and a hung step past ``step_timeout``, each
+    resumed from ``latest_valid``; the final params bit-exact against an uninterrupted run;
+    the async save's stall against the sync save's wall on GPT-2-small's state."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_chaos_soak.py"), "--device", "cuda",
+                           "--workdir", os.path.join(run_dir, "soak")], capture_output=True, text=True, timeout=900,
+                          cwd=REPO)
+    wall = time.perf_counter() - t0
+    lines = done.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[resilience] {line}")
+    result = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {"ok": False}
+    if done.returncode != 0 or not result.get("ok"):
+        raise RuntimeError(f"the chaos soak failed (exit {done.returncode}): {done.stdout[-3000:]} {done.stderr[-3000:]}")
+    st = result["stall"]
+    log(f"[resilience] kills: {[(k['kill'], k['rc'], k['valid']) for k in result['kills']]}; hung step at "
+        f"{result['hang']}; final params SHA-256 {result['params_sha256']['soak'][:16]}… equal to the uninterrupted "
+        f"run's; soak wall {result['wall_s']:.1f} s ({wall:.1f} s with the script's start)")
+    log(f"[resilience] save stall on {st['model']}'s state ({st['state_bytes'] / 1e9:.2f} GB: f32 params and AdamW "
+        f"moments): synchronous save {st['sync_ms']:.1f} ms; async snapshot {st['stall_ms']:.1f} ms until its copies "
+        f"landed ({st['stall_ratio']:.4f} of the sync wall; bound 0.25); its background commit {st['commit_ms']:.1f} ms")
+    return {**result, "script_wall_s": wall}
+
+
 # The lm_eval phase (21): eval_lm and make_lm_corpus on phase 5's checkpoint.
 LM_EVAL_BATCH = 64  # EVAL_BATCH
 LM_EVAL_CORPUS_MB = 2.0
@@ -3469,10 +3829,11 @@ def phase_lm_eval(run_dir: str, card: str) -> dict:
 
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
-    ``vgg``, ...; ``lm`` is phase 5 then the lm_eval phase on its checkpoint), each run phase
+    ``vgg``, ``chained``, ``resilience``, ...; ``lm`` is phase 5 then the lm_eval phase on its
+    checkpoint), each run phase
     in its own temporary directory; no kernels line and no final line."""
     phases = {"folder": phase_folder, "vgg": phase_vgg, "digits": phase_digits, "records": phase_records,
-              "records_resnet50": phase_records_resnet50, "fp16": phase_fp16}
+              "records_resnet50": phase_records_resnet50, "fp16": phase_fp16, "resilience": phase_resilience}
     try:
         card = phase_device()
         if "jpeg" in names:
@@ -3485,6 +3846,8 @@ def run_only(names) -> int:
                 if name == "lm":
                     phase_train(run_dir)
                     phase_lm_eval(run_dir, card)
+                elif name == "chained":
+                    phase_chained(run_dir, card)
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -3549,6 +3912,10 @@ def main() -> int:
             r50, r50_launches = phase_records_resnet50(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             fp16 = phase_fp16(run_dir)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            chained = phase_chained(run_dir, card)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            resilience = phase_resilience(run_dir)
         times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         convnext_times, convnext_total = phase_convnext_times(card)
@@ -3578,7 +3945,8 @@ def main() -> int:
                             convnext)):
             log(f"[times] {card} | {label} training step through the entry: median {fig['step_ms']:.2f} ms, "
                 f"{fig['images_per_s']:.0f} images/s, peak memory {fig['peak_gb']:.2f} GB; the phase's "
-                f"{fig['saves']} checkpoint saves {fig['save_s']:.1f} s of its {fig['wall_s']:.1f} s; on batches on the "
+                f"{fig['saves']} checkpoint snapshots {fig['save_s']:.1f} s and the flushes of their background commits "
+                f"{fig['flush_s']:.1f} s of its {fig['wall_s']:.1f} s; on batches on the "
                 f"card, in turns: " + ", ".join(f"{k} {v:.2f} ms" for k, v in fig["turns"].items()))
         log(f"[times] {card} | VGG16 training step (image folders, B={FOLDER_BATCH}, {FOLDER_SIZE}x{FOLDER_SIZE}, f32, "
             f"the ten-step train chain on 8 loader workers, through ExampleTrainer): median {folder['step_ms']:.2f} ms, "
@@ -3608,6 +3976,17 @@ def main() -> int:
                 f"B={b} {dec[(b, True)]['tok_per_s']:.0f} / {dec[(b, False)]['tok_per_s']:.0f}" for b in DECODE_BATCHES)
             + f"; hot swap answered {lm_eval['swap']['swap_s']:.2f} s after the commit; phase wall "
             f"{lm_eval['wall_s']:.1f} s")
+        lm_t, vgg_t = chained["lm_turns"], chained["vgg_turns"]
+        log(f"[times] {card} | chained steps (one CUDA graph a window): GPT-2-small (B=64, T=1024, bf16, windows of "
+            f"{CHAIN_WINDOW}) ms a step in turns, eager {', '.join(f'{x:.2f}' for x in lm_t['eager'])}, chained "
+            f"{', '.join(f'{x:.2f}' for x in lm_t['chained'])}; params after 8 steps chained vs eager: bf16 "
+            f"{chained['bf16_diff']:.3e}, f32 (TF32 off) {chained['f32_diff']!r}; VGG16/CIFAR-10 busy share of an "
+            f"epoch in turns, chain 1: {', '.join(_fmt_busy(r['busy']) for r in vgg_t['eager'])}, chain "
+            f"{CHAIN_VGG_STEPS}: {', '.join(_fmt_busy(r['busy']) for r in vgg_t['chained'])}")
+        st = resilience["stall"]
+        log(f"[times] {card} | chaos soak: 4 kills resumed bit-exact in {resilience['wall_s']:.1f} s; save of "
+            f"{st['model']}'s state ({st['state_bytes'] / 1e9:.2f} GB): sync wall {st['sync_ms']:.1f} ms, async stall "
+            f"{st['stall_ms']:.1f} ms ({st['stall_ratio']:.4f})")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -3632,7 +4011,9 @@ def main() -> int:
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": 0, "train_digits_fp16": 0,
                                  "eval_lm": lm_eval["launches"] if kind == "fwd" else 0,
-                                 "decode": lm_eval["decode_launches"][launch_key]},
+                                 "decode": lm_eval["decode_launches"][launch_key],
+                                 "train_lm_chained": chained["lm_replay"][launch_key],
+                                 "train_resnet50_chained": 0},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -3665,7 +4046,8 @@ def main() -> int:
                                  "train_convnext_l": convnext_launches[name], "train_folder": 0,
                                  "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0,
-                                 "eval_lm": 0, "decode": lm_eval["decode_launches"][name]},
+                                 "eval_lm": 0, "decode": lm_eval["decode_launches"][name],
+                                 "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name]},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -3701,7 +4083,9 @@ def main() -> int:
                                  "train_vgg16": 0, "serve": 0, "train_vit_b16": 0, "train_convnext_l": 0,
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
-                                 "decode": lm_eval["decode_launches"][launch_key]},
+                                 "decode": lm_eval["decode_launches"][launch_key],
+                                 "train_lm_chained": chained["lm_replay"][launch_key],
+                                 "train_resnet50_chained": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

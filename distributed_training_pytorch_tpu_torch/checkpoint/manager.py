@@ -24,9 +24,21 @@ CheckpointManager``, on ``torch.save`` instead of Orbax:
   param tree's top level (``checkpoint/manager.py:271``), so an evaluator can rebuild
   the wrapper the run trained.
 
-Saves are synchronous; the JAX trainer's background saver (``resilience/
-async_saver.py``) comes with a later slice. Only rank 0 writes; with a process group,
-every rank waits at a barrier until the commit is done.
+* a transient write failure (an ``OSError``, the ``checkpoint_write`` fault of
+  ``fault.FaultPlan`` included) is retried ``save_retries`` times with exponential backoff
+  from ``retry_backoff`` seconds before the save raises :class:`CheckpointError`
+  (``checkpoint/manager.py:100-124``, ``:345-380``); a plan's ``corrupt_checkpoint`` event
+  damages the checkpoint just committed (``:435-442``);
+* ``loop_state`` (a mid-epoch save's ``step_in_epoch``) rides in ``meta.json`` under
+  ``loop``, and ``data_state`` in ``data.json``; :meth:`read_meta` and
+  :meth:`read_data_state` read them back (``:849-880``). A checkpoint without
+  ``data.json`` has no data state (None).
+
+Saves here are synchronous: each is committed when ``save`` returns. The trainer's
+background saver (``resilience/async_saver.py``) commits through this manager from its
+worker thread. ``save`` also takes that saver's host snapshot in place of a ``TrainState``
+(anything with ``state_dict()``). Only rank 0 writes; with a process group, every rank
+waits at a barrier until the commit is done.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import hashlib
 import json
 import os
 import shutil
+import time
 from typing import Any, Mapping
 
 import torch
@@ -58,13 +71,14 @@ LAST = "last"
 MANIFEST_NAME = "manifest.dtp.json"
 STATE_NAME = "state.pt"
 META_NAME = "meta.json"
+DATA_NAME = "data.json"
 _STAGING_DIR = ".staging"
 _OLD_SUFFIX = ".old"
 _PERIODIC_PREFIX = "checkpoint_epoch_"
 
 
 class CheckpointError(RuntimeError):
-    """No checkpoint could be saved or restored."""
+    """No checkpoint could be saved (every retry exhausted) or restored."""
 
 
 class CorruptCheckpointError(CheckpointError):
@@ -100,7 +114,10 @@ class CheckpointManager:
     """Save and restore named checkpoints of a ``TrainState`` under ``directory``.
 
     ``save_best_for=(metric, mode)``: ``geq`` saves ``best`` when the new value is >= the
-    best seen, ``leq`` when <=. ``max_to_keep`` bounds the periodic checkpoints only."""
+    best seen, ``leq`` when <=. ``max_to_keep`` bounds the periodic checkpoints only.
+    ``save_retries``/``retry_backoff`` bound the recovery from transient write failures;
+    ``fault_plan`` (a ``fault.FaultPlan``, for tests; None in production) is queried at the
+    write and at the commit."""
 
     def __init__(
         self,
@@ -108,12 +125,18 @@ class CheckpointManager:
         *,
         save_best_for: "tuple[str, str] | None" = None,
         max_to_keep: "int | None" = None,
+        save_retries: int = 2,
+        retry_backoff: float = 0.25,
+        fault_plan=None,
     ):
         self.directory = os.path.abspath(os.fspath(directory))
         if save_best_for is not None and save_best_for[1] not in ("geq", "leq"):
             raise ValueError(f"save_best_for mode must be 'geq' or 'leq', got {save_best_for[1]!r}")
         self.save_best_for = save_best_for
         self.max_to_keep = max_to_keep
+        self.save_retries = int(save_retries)
+        self.retry_backoff = float(retry_backoff)
+        self.fault_plan = fault_plan
         self._best_value: "float | None" = None
         self._staging_seq = 0
         if process_index() == 0:
@@ -167,26 +190,68 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------
 
-    def save(self, name: str, state, epoch: int, metrics: "Mapping | None" = None) -> None:
-        """Save ``state`` (a ``TrainState``) under ``name`` with the *resume* epoch
-        ``epoch`` (the caller's policy: ``epoch + 1`` for ``last``, ``epoch`` for ``best``)."""
+    def save(
+        self,
+        name: str,
+        state,
+        epoch: int,
+        metrics: "Mapping | None" = None,
+        *,
+        loop_state: "Mapping | None" = None,
+        data_state: "Mapping | None" = None,
+    ) -> None:
+        """Save ``state`` (a ``TrainState``, or the async saver's host snapshot) under
+        ``name`` with the *resume* epoch ``epoch`` (the caller's policy: ``epoch + 1`` for
+        ``last``, ``epoch`` for ``best``). ``loop_state`` (``{"step_in_epoch": k}`` for a
+        mid-epoch save) goes into ``meta.json`` under ``loop``; ``data_state`` into
+        ``data.json``. A write that raises ``OSError`` is retried ``save_retries`` times,
+        ``retry_backoff`` seconds apart and doubling; then :class:`CheckpointError`."""
         payload = state.state_dict()  # every rank takes part (a DDP module's state is local)
+        failed = None
         if process_index() == 0:
             meta = {"epoch": int(epoch), "step": int(payload["step"]), "best_value": self._best_value,
                     "params_top_level": sorted({k.split(".", 1)[0] for k in payload["params"]})}
             if metrics is not None:
                 meta["metrics"] = {k: float(v) for k, v in metrics.items()}
+            if loop_state is not None:
+                meta["loop"] = {k: int(v) for k, v in loop_state.items()}
             if "loss_scale" in payload:  # the JAX manager's meta names the scale's type (:330)
-                meta["loss_scale"] = type(state.loss_scale).__name__
+                meta["loss_scale"] = getattr(state, "loss_scale_name", None) or type(state.loss_scale).__name__
+            failed = self._write_with_retries(name, payload, meta, data_state)
+        _barrier()
+        if failed is not None:
+            raise CheckpointError(
+                f"checkpoint save of {name!r} failed after {self.save_retries + 1} attempts"
+            ) from failed
+
+    def _write_with_retries(self, name, payload, meta, data_state) -> "BaseException | None":
+        """Write, manifest and commit ``name``; on an ``OSError`` drop the staging dir and
+        try again after the backoff. Returns the last error when every attempt failed."""
+        err: "BaseException | None" = None
+        delay = self.retry_backoff
+        for attempt in range(self.save_retries + 1):
+            if attempt:
+                time.sleep(delay)
+                delay *= 2
             self._staging_seq += 1
             staging = os.path.join(self.directory, _STAGING_DIR, f"{name}.{self._staging_seq}")
-            os.makedirs(staging)
-            torch.save(payload, os.path.join(staging, STATE_NAME))
-            _fsync_write_json(os.path.join(staging, META_NAME), meta)
-            self._write_manifest(staging)
+            try:
+                if self.fault_plan is not None:
+                    self.fault_plan.maybe_raise("checkpoint_write")
+                os.makedirs(staging)
+                torch.save(payload, os.path.join(staging, STATE_NAME))
+                _fsync_write_json(os.path.join(staging, META_NAME), meta)
+                if data_state:
+                    _fsync_write_json(os.path.join(staging, DATA_NAME), dict(data_state))
+                self._write_manifest(staging)
+            except OSError as e:
+                shutil.rmtree(staging, ignore_errors=True)
+                err = e
+                continue
             self._commit(staging, name)
             self._gc_periodic()
-        _barrier()
+            return None
+        return err
 
     def _write_manifest(self, staging: str) -> None:
         files = {
@@ -211,6 +276,12 @@ class CheckpointManager:
         finally:
             os.close(dirfd)
         shutil.rmtree(old, ignore_errors=True)
+        if self.fault_plan is not None:
+            ev = self.fault_plan.fires("corrupt_checkpoint")
+            if ev is not None:
+                from distributed_training_pytorch_tpu_torch.fault.inject import corrupt_checkpoint
+
+                corrupt_checkpoint(final, mode=ev.payload or "truncate")
 
     def _gc_periodic(self) -> None:
         if self.max_to_keep is None:
@@ -285,8 +356,19 @@ class CheckpointManager:
             return False
 
     def read_meta(self, name_or_path: str) -> dict:
+        """The checkpoint's ``meta.json`` alone (epoch, step, best value, metrics,
+        ``params_top_level``, the ``loop`` state), read before any restore target exists."""
         with open(os.path.join(self._resolve(name_or_path), META_NAME), encoding="utf-8") as f:
             return json.load(f)
+
+    def read_data_state(self, name_or_path: str) -> "dict | None":
+        """The checkpoint's data state (``data.json``), or None when it has none: a missing
+        item means a fresh cursor."""
+        path = os.path.join(self._resolve(name_or_path), DATA_NAME)
+        if not os.path.isfile(path):
+            return None
+        with open(path, encoding="utf-8") as f:
+            return dict(json.load(f))
 
     def restore(
         self, name_or_path: str, state, *, params_only: bool = False, validate: bool = True

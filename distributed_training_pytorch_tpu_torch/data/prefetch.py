@@ -14,12 +14,19 @@ caching allocator does not hand its memory back to the side stream while the ste
 reads it. The producer thread sets its device before its first copy. On the CPU the
 batches are yielded as tensors over the same arrays, in the same order, with no stream.
 
-The chained form (``device_prefetch_chained``) comes with chained steps, which the port's
-``Trainer`` does not have yet.
+``device_prefetch_chained`` (``data/prefetch.py:115``) yields execution units ``(n,
+batch)`` for chained steps: ``n == chain_steps`` with the window's batches stacked on a
+new leading axis (one pinned host tensor a field, one copy on the side stream, one event
+the compute stream waits on), or ``n == 1`` with a plain batch, for the first
+``lead_singles`` batches (a mid-epoch resume realigned to a window boundary) and the
+epoch's tail shorter than a window. The engine copies a window into its CUDA graph's
+static inputs on the compute stream, after the replay that last read them: a copy into
+them on the side stream could land while that replay still reads them.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterable, Iterator, Mapping
@@ -27,7 +34,7 @@ from typing import Iterable, Iterator, Mapping
 import numpy as np
 import torch
 
-__all__ = ["device_prefetch"]
+__all__ = ["device_prefetch", "device_prefetch_chained"]
 
 
 def _prefetched(items: Iterable, depth: int) -> Iterator:
@@ -99,32 +106,76 @@ def _host_tensors(batch: Mapping) -> dict:
 def device_prefetch(batches: Iterable[Mapping], device, *, depth: int = 2) -> Iterator[dict]:
     """Yield each host batch ``{field: array}`` as ``{field: tensor on device}``, with up
     to ``depth`` batches copied ahead on a side stream (see the module docstring)."""
+    units = _staged_units(((1, _host_tensors(b)) for b in batches), device, depth)
+
+    def singles():
+        try:
+            for _, batch in units:
+                yield batch
+        finally:
+            units.close()
+
+    return singles()
+
+
+def device_prefetch_chained(
+    batches: Iterable[Mapping], device, chain_steps: int, *, depth: int = 2, lead_singles: int = 0
+) -> Iterator["tuple[int, dict]"]:
+    """Yield ``(n, batch)`` execution units for chained steps (see the module docstring):
+    the first ``lead_singles`` batches and a short tail as ``(1, batch)``, every full
+    window of ``chain_steps`` batches as ``(chain_steps, stacked)``, each field
+    ``[chain_steps, ...]``. ``chain_steps == 1`` yields singles only."""
+    if chain_steps < 1:
+        raise ValueError(f"chain_steps must be >= 1, got {chain_steps}")
+
+    def host_units():
+        it = iter(batches)
+        for host_batch in itertools.islice(it, max(0, int(lead_singles))):
+            yield 1, _host_tensors(host_batch)
+        while True:
+            window = [_host_tensors(b) for b in itertools.islice(it, chain_steps)]
+            if not window:
+                return
+            if len(window) < chain_steps or chain_steps == 1:
+                for host_batch in window:
+                    yield 1, host_batch
+                if len(window) < chain_steps:
+                    return
+                continue
+            yield chain_steps, {k: torch.stack([b[k] for b in window]) for k in window[0]}
+
+    return _staged_units(host_units(), device, depth)
+
+
+def _staged_units(units, device, depth: int) -> Iterator["tuple[int, dict]"]:
+    """``(n, host tensors)`` units as ``(n, device tensors)``, ``depth`` ahead: on the
+    card through pinned memory, a side stream and an event the compute stream waits on."""
     device = torch.device(device)
     if device.type != "cuda":
-        return _prefetched((_host_tensors(b) for b in batches), depth)
+        return _prefetched(units, depth)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
 
     def staged():
         torch.cuda.set_device(device)  # this thread's device, before its first copy
         stream = torch.cuda.Stream(device=device)
-        for batch in batches:
-            pinned = {k: t.pin_memory() for k, t in _host_tensors(batch).items()}
+        for n, batch in units:
+            pinned = {k: t.pin_memory() for k, t in batch.items()}
             with torch.cuda.stream(stream):
                 on_device = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
                 ready = torch.cuda.Event()
                 ready.record(stream)
-            yield on_device, ready
+            yield n, on_device, ready
 
     def consumed():
         items = _prefetched(staged(), depth)
         try:
-            for on_device, ready in items:
+            for n, on_device, ready in items:
                 compute = torch.cuda.current_stream(device)
                 compute.wait_event(ready)
                 for t in on_device.values():
                     t.record_stream(compute)
-                yield on_device
+                yield n, on_device
         finally:
             items.close()  # an abandoned consumer stops the producer now, not at collection
 

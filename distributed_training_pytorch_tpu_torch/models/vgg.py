@@ -11,7 +11,11 @@ The API is NCHW, and activations are kept ``channels_last`` in memory (a uint8 N
 loader batch permuted to NCHW already is), the layout cuDNN's bf16 convolutions take.
 Params stay f32 whatever ``dtype`` is and are cast to ``dtype`` where they are used; the
 logits are f32. The JAX model's adaptive pool is two pooling matrices that implement
-``nn.AdaptiveAvgPool2d``'s bins, so here it is that module. The JAX model flattens NHWC,
+``nn.AdaptiveAvgPool2d``'s bins, so here it is that module, but for a 1x1 map (32x32
+inputs, after five halvings), which every bin copies: there it is a broadcast, the same
+numbers forward, whose backward is a sum (the CUDA adaptive pool's backward adds with
+atomics and has no deterministic form, so a run under ``torch.use_deterministic_algorithms``
+could not train at 32x32). The JAX model flattens NHWC,
 (h, w, c), where this one flattens NCHW, (c, h, w): ``models/convert.py::
 vgg_params_from_jax`` permutes the first classifier weight's columns to match.
 
@@ -118,7 +122,7 @@ class VGG16(nn.Module):
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
         for block in self.blocks:
             x = block(x)
-        x = self.pool(x).flatten(1)  # (c, h, w) order
+        x = (x.expand(-1, -1, 7, 7) if x.shape[2:] == (1, 1) else self.pool(x)).flatten(1)  # (c, h, w) order
         for dense in self.classifier:
             x = self.dropout(F.relu(F.linear(x, dense.weight.to(dt), dense.bias.to(dt))))
         return F.linear(x, self.head.weight.to(dt), self.head.bias.to(dt)).float()

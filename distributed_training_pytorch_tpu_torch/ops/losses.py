@@ -96,8 +96,10 @@ def tied_cross_entropy(
     tgt_logit = torch.zeros((n,), dtype=torch.float32, device=x.device)
     for base in range(0, v, chunk_size):
         emb_c = embedding[base : base + chunk_size]
+        # The chunk draws no random numbers: no RNG state to keep (reading it is not
+        # allowed while a CUDA graph is being captured).
         m, l, tgt_logit = checkpoint(
-            _chunk_step, x, emb_c, m, l, tgt_logit, tgt, base, use_reentrant=False
+            _chunk_step, x, emb_c, m, l, tgt_logit, tgt, base, use_reentrant=False, preserve_rng_state=False
         )
     nll = m + torch.log(torch.clamp(l, min=1e-30)) - tgt_logit
     return nll.reshape(lead)

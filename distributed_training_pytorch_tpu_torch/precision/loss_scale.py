@@ -14,7 +14,8 @@ gradient distribution into range, and dividing the gradients by S afterwards rec
 
 The state is three 0-d tensors on the model's device (the scale in f32, the growth counter
 and the skipped-step count in int32). :meth:`DynamicScale.adjust` computes the next state
-there: nothing here reads a value back to the host. A checkpoint carries the three tensors
+there, in place: nothing here reads a value back to the host, and a captured CUDA graph
+of the step keeps updating the same three tensors. A checkpoint carries the three tensors
 (``train/state.py``), so a resumed run goes on with the same scale and counter.
 """
 
@@ -101,18 +102,18 @@ class DynamicScale:
 
     def adjust(self, grads_finite: torch.Tensor) -> "DynamicScale":
         """One step of the protocol, on the device: grow after ``growth_interval`` finite
-        steps in a row; on an overflow back off, reset the counter and count the skip."""
+        steps in a row; on an overflow back off, reset the counter and count the skip. The
+        three tensors are updated in place (a captured CUDA graph holds their addresses),
+        and the scale itself is returned."""
         finite = grads_finite.to(torch.bool)
         counter = self.growth_counter + 1
         grow = finite & (counter >= self.growth_interval)
         grown = torch.where(grow, torch.clamp(self.scale * self.growth_factor, max=self.max_scale), self.scale)
         backed_off = torch.clamp(self.scale * self.backoff_factor, min=self.min_scale)
-        return dataclasses.replace(
-            self,
-            scale=torch.where(finite, grown, backed_off),
-            growth_counter=torch.where(grow | ~finite, torch.zeros_like(counter), counter),
-            skipped_steps=self.skipped_steps + (~finite).to(torch.int32),
-        )
+        self.scale.copy_(torch.where(finite, grown, backed_off))
+        self.growth_counter.copy_(torch.where(grow | ~finite, torch.zeros_like(counter), counter))
+        self.skipped_steps.add_((~finite).to(torch.int32))
+        return self
 
     def state_dict(self) -> dict:
         return {k: getattr(self, k) for k in _STATE}

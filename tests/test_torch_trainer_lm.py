@@ -280,11 +280,14 @@ def test_two_rank_gloo_step_equals_the_one_rank_step(monkeypatch, tmp_path):
 
 
 def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="chain_steps"):
-        _trainer(tmp_path).__class__(
-            seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1, batch_size=BATCH,
-            save_folder=str(tmp_path), device="cpu", chain_steps=4,
-        )
+    # chain_steps > 1 is ported: a chained epoch trains (windows of 4 and a tail single).
+    chained = _trainer(tmp_path).__class__(
+        seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1, batch_size=BATCH,
+        save_folder=str(tmp_path / "chained"), device="cpu", chain_steps=4, log_every=4,
+    )
+    chained.train()
+    assert chained.state.step == len(chained.train_dataloader) == 23
+    assert np.isfinite(chained.record["train"][0]["loss"])
     with pytest.raises(NotImplementedError, match="expert-parallel"):
         _trainer(tmp_path).__class__(
             seq_len=SEQ, base_lr=LR, size="tiny", moe_every=2, max_epoch=1, batch_size=BATCH,
