@@ -158,8 +158,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 22. (chained, run after phase 19) chained steps, one captured CUDA graph a window
     (``TrainEngine.train_steps_chained``): GPT-2-small (bf16, B=64, T=1024) 8 steps in
     windows of 4 against 8 eager steps from the same weights and batches, under
-    deterministic algorithms (params within ``CHAIN_BF16_ATOL``, 0 so far), and the same in
-    f32 with TF32 off at 2 blocks (bit-equal); ms a step chained and eager in turns; K1–K3
+    deterministic algorithms (params and losses bit-equal), and the same in f32 with TF32
+    off at 2 blocks (bit-equal); ms a step chained and eager in turns; K1–K3
     12 each a step in a profile of one replay; ResNet-50 with ``PALLAS=1`` chained, K4 and
     its dz pass 9 each a step in a profile of one replay; VGG16/CIFAR-10 through its entry
     (batch 1024) with ``chain_steps`` 2 and 1 in turns on one warm trainer: each epoch's
@@ -3241,12 +3241,10 @@ CHAIN_F32_BATCH = 8
 CHAIN_TURN_WINDOWS = 3  # windows a turn in the LM's timing
 CHAIN_RESNET_BATCH, CHAIN_RESNET_WINDOW = 128, 2
 CHAIN_VGG_STEPS = 2  # CHAIN_STEPS of the CIFAR entry (its log_every of 50 is a multiple)
-# The bf16 chained params against eager after 8 steps, both under deterministic
-# algorithms: zero unless cuBLAS or cuDNN picks another algorithm under capture, whose sums
-# round differently; a bf16 ulp of the largest weights moved by 8 AdamW steps is below this.
-# (Without deterministic algorithms two eager runs differ already: the embedding's backward
-# adds with atomics, 7e-9 on the first step.)
-CHAIN_BF16_ATOL = 1e-2
+# The chained params and losses against eager after 8 steps are bit-equal in bf16 as in
+# f32, both sides under deterministic algorithms: a replay runs the kernels the eager
+# steps ran, on the same inputs. (Without deterministic algorithms two eager runs differ
+# already: the embedding's backward adds with atomics, 7e-9 on the first step.)
 # A kernel's launches in a profile of one replay, by the names of its two variants.
 PROFILED_KERNELS = {
     "fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -3381,8 +3379,7 @@ def phase_chained(run_dir: str, card: str) -> dict:
                                                                              "[chained]")
     log(f"[chained] GPT-2-small bf16, B={b}, T={t}, deterministic algorithms: {CHAIN_STEPS_COMPARED} steps in "
         f"windows of {CHAIN_WINDOW} (one capture) against {CHAIN_STEPS_COMPARED} eager steps from the same weights "
-        f"and batches: params differ by at most {bf16_diff!r} (tolerance {CHAIN_BF16_ATOL}), losses by "
-        f"{bf16_loss_diff!r}")
+        f"and batches: params differ by at most {bf16_diff!r}, losses by {bf16_loss_diff!r} (must be 0)")
     del engine, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3407,8 +3404,8 @@ def phase_chained(run_dir: str, card: str) -> dict:
         f"(must be 0)")
     if f32_diff != 0.0 or f32_loss_diff != 0.0:
         raise RuntimeError(f"f32 chained steps are not bit-equal to eager: params {f32_diff}, losses {f32_loss_diff}")
-    if not bf16_diff <= CHAIN_BF16_ATOL:
-        raise RuntimeError(f"bf16 chained params differ from eager by {bf16_diff} > {CHAIN_BF16_ATOL}")
+    if bf16_diff != 0.0 or bf16_loss_diff != 0.0:
+        raise RuntimeError(f"bf16 chained steps are not bit-equal to eager: params {bf16_diff}, losses {bf16_loss_diff}")
     del engine, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3552,7 +3549,9 @@ def phase_resilience(run_dir: str) -> dict:
     st = result["stall"]
     log(f"[resilience] kills: {[(k['kill'], k['rc'], k['valid']) for k in result['kills']]}; hung step at "
         f"{result['hang']}; final params SHA-256 {result['params_sha256']['soak'][:16]}… equal to the uninterrupted "
-        f"run's; soak wall {result['wall_s']:.1f} s ({wall:.1f} s with the script's start)")
+        f"run's; soak wall {result['wall_s']:.1f} s ({wall:.1f} s with the script's start); seconds from each "
+        f"child's go to its resume and to its end (its start-up overlapped the child before): "
+        f"{[(k['kill'], k['resumed_s'], k['wall_s']) for k in result['kills']]}, finish {result['finish']}")
     log(f"[resilience] save stall on {st['model']}'s state ({st['state_bytes'] / 1e9:.2f} GB: f32 params and AdamW "
         f"moments): synchronous save {st['sync_ms']:.1f} ms; async snapshot {st['stall_ms']:.1f} ms until its copies "
         f"landed ({st['stall_ratio']:.4f} of the sync wall; bound 0.25); its background commit {st['commit_ms']:.1f} ms")
@@ -4084,8 +4083,7 @@ def main() -> int:
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
                                  "decode": lm_eval["decode_launches"][launch_key],
-                                 "train_lm_chained": chained["lm_replay"][launch_key],
-                                 "train_resnet50_chained": 0},
+                                 "train_lm_chained": 0, "train_resnet50_chained": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

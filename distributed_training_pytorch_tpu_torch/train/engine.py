@@ -64,6 +64,7 @@ update (``parallel.mesh.broadcast_over_seq``), so every seq rank takes the same 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Callable, Mapping
 
 import torch
@@ -176,6 +177,10 @@ class TrainEngine:
         if not self._fused:
             return
         for group in opt.param_groups:
+            if group.get("fused") is not True and (group.get("foreach") is not None or group.get("fused") is not None):
+                warnings.warn(f"{type(opt).__name__}(foreach={group.get('foreach')}, fused={group.get('fused')}): "
+                              "the engine runs the fused form (fused=True, foreach=False), so that the single step "
+                              "and the chained window run one implementation", stacklevel=3)
             group["fused"], group["foreach"] = True, False
             for p in group["params"]:
                 st = opt.state[p]

@@ -211,6 +211,31 @@ def test_window_is_bit_equal_to_sequential_steps(kind, poison_at):
         eng_b.train_steps_chained(chained, window, 3)
 
 
+@pytest.mark.parametrize("choice", [{}, {"fused": True}, {"foreach": True}, {"foreach": False}, {"fused": False}])
+def test_an_explicit_optimizer_form_is_overridden_with_a_warning(choice):
+    """The engine runs SGD's fused form whatever the caller chose; overriding an explicit
+    ``foreach``/``fused`` warns once, and the steps equal those of a default SGD."""
+    import warnings
+
+    eng_ref, ref = _net_engine("sgd")
+    window = _window()
+    ref, _ = eng_ref.train_steps_chained(ref, window, WINDOW)
+    torch.manual_seed(0)
+    model = _Net()
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, weight_decay=1e-4, **choice)
+    engine = TrainEngine(lambda m, b, t: _criterion(m(b["image"]), b), nan_guard=True,
+                         schedule=lambda step: 0.1 * 0.9**step)
+    state = TrainState(model=model, optimizer=opt)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(WINDOW):
+            state, _ = engine.train_step(state, {k: v[i] for k, v in window.items()})
+    overridden = [w for w in caught if "runs the fused form" in str(w.message)]
+    assert len(overridden) == (0 if choice.get("fused") is True or not choice else 1), caught
+    assert all(g["fused"] is True and g["foreach"] is False for g in opt.param_groups)
+    _assert_same(_snapshot(state), _snapshot(ref))
+
+
 def test_a_nan_step_inside_a_window_is_skipped_and_counted():
     eng, state = _net_engine("sgd")
     clean = _window(seed=1)
