@@ -108,9 +108,9 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     projection, with SDPA non-causal as the yardstick;
 15. (convnext) ConvNeXt-L through the same entry (``MODEL=convnext_l``, ``PALLAS=1``: K4's
     gelu epilogue in every block's expand Dense): 21,841 classes, global batch 256 in 4
-    micro-batches of 64 (``ACCUM=4``), otherwise as phase 14; exactly 36 K4 launches a
-    micro-batch forward (6 on the wgmma variant, 30 on the CUDA cores), so 144 a train step
-    and 36 a val forward, and no dz pass; the trained weights through ``PALLAS=0``; step
+    micro-batches of 64 (``ACCUM=4``), stage 3 cut from 27 blocks to 3, otherwise as phase
+    14; exactly 12 K4 launches a micro-batch forward (6 on the wgmma variant, 6 on the CUDA
+    cores), so 48 a train step and 12 a val forward, and no dz pass; the trained weights through ``PALLAS=0``; step
     time, images/s, peak memory, the saves' snapshot and flush times; ``PALLAS=1`` and
     ``PALLAS=0`` in turns.
     Phase 7 holds K4 at its four expand shapes with gelu (and one row fewer) and its autograd
@@ -169,7 +169,17 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     mid-commit, a SIGKILL mid-window and a hung step past ``step_timeout``, each resumed
     from ``latest_valid`` with a valid checkpoint left; the final params bit-exact against
     an uninterrupted run; the async save's stall against the sync save's wall on
-    GPT-2-small's state (below 0.25).
+    GPT-2-small's state (below 0.25);
+24. (telemetry, run after phase 22) GPT-2-small (bf16, B=64, T=1024) through the LM entry
+    with ``TELEMETRY=1``, a ``ProfileConfig`` and ``tensorboard_dir``: one epoch of 8 steps
+    eager and with ``CHAIN_STEPS=4``, each against a telemetry-off run of the same steps
+    under deterministic algorithms (params bit-equal); the window and epoch records'
+    ``step_ms`` and MFU (in (0, 1)) from a FLOP count equal to the CPU's for the same
+    shapes; the profile's categories (summing to 1) and top ops (K1-K3 at 12 a step, in
+    ``matmul``); the goodput fractions; the doctor's verdict; readable TensorBoard files;
+    the provenance's card and power limit; the epoch on the warm trainers off and on in
+    turns (the chained graphs captured under deterministic algorithms, as their parity
+    run needs).
 
 The vit and convnext phases (14, 15) save in the background (the ``Trainer``'s default
 ``async_checkpoint``): they print each save's snapshot time and the flushes that wait for
@@ -300,18 +310,43 @@ VIT_FLOP_PER_IMAGE = 3 * 35.127656448e9
 CONVNEXT_BATCH, CONVNEXT_ACCUM = 256, 4  # 4 micro-batches of 64 a step (the recipe's ACCUM)
 CONVNEXT_ENV = {"MODEL": "convnext_l", "IMAGE_SIZE": "224", "BATCH": str(CONVNEXT_BATCH),
                 "STEPS_PER_EPOCH": str(ENTRY_STEPS), "SHIP_UINT8": "1", "PALLAS": "1"}
-CONVNEXT_FLOP_PER_IMAGE = 3 * 68.786890752e9  # with the 21,841-class head
+# ConvNeXt-L at full width with its stage 3 cut from 27 blocks to 3 (the script's time; every
+# shape and both K4 variants stay on the path).
+CONVNEXT_STAGE3 = 3
+CONVNEXT_DEPTHS = (3, 3, CONVNEXT_STAGE3, 3)
+# Forward FLOPs of one image with the 21,841-class head: 68.786890752e9 at full depth, less
+# 2 * 14 * 14 * (768 * 49 + 2 * 768 * 3072) for each stage-3 block cut; three times that trained.
+CONVNEXT_FLOP_PER_IMAGE = 3 * (68.786890752e9 - (27 - CONVNEXT_STAGE3) * 1.864439808e9)
 # ConvNeXt-L's expand Dense + GELU (K4 with the gelu epilogue, Cin -> 4 Cin) at micro-batch
 # 64: (stage, rows, Cin, Cout, blocks). Stages 1-2 take the wgmma variant; 3-4 exceed
 # WGMMA_MAX_CIN and take the CUDA cores.
 CONVNEXT_K4_SHAPES = [
     ("stage1", 64 * 56 * 56, 192, 768, 3),
     ("stage2", 64 * 28 * 28, 384, 1536, 3),
-    ("stage3", 64 * 14 * 14, 768, 3072, 27),
+    ("stage3", 64 * 14 * 14, 768, 3072, CONVNEXT_STAGE3),
     ("stage4", 64 * 7 * 7, 1536, 6144, 3),
 ]
-CONVNEXT_BLOCKS = sum(s[4] for s in CONVNEXT_K4_SHAPES)  # 36 K4 launches a forward
+CONVNEXT_BLOCKS = sum(s[4] for s in CONVNEXT_K4_SHAPES)  # 12 K4 launches a forward
 CONVNEXT_WGMMA_BLOCKS = sum(s[4] for s in CONVNEXT_K4_SHAPES if s[2] <= 512)  # 6 of them on wgmma
+
+
+@contextlib.contextmanager
+def _convnext_l_cut():
+    """``create_model("convnext_l")`` builds ConvNeXt-L with :data:`CONVNEXT_DEPTHS` for the
+    block (the entry's model, its widths and its head as they are)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch import models
+    from distributed_training_pytorch_tpu_torch.models.convnext import ConvNeXt
+
+    key = next(k for k in models._FACTORIES if "convnext_l" in k)
+    full = models._FACTORIES[key]
+    models._FACTORIES[key] = lambda num_classes=21841, dtype=torch.float32, **kw: ConvNeXt(
+        num_classes=num_classes, depths=CONVNEXT_DEPTHS, dims=(192, 384, 768, 1536), dtype=dtype, **kw)
+    try:
+        yield
+    finally:
+        models._FACTORIES[key] = full
 
 
 def conv1x1_bound(rows, cin, cout, dtype_name="bfloat16", itemsize=2):
@@ -1403,7 +1438,10 @@ def phase_resnet(run_dir: str):
             else:
                 os.environ[k] = v
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    busy_us, busy = _busy_share(prof, epoch_wall_us)
+    from distributed_training_pytorch_tpu_torch.profiling import busy_us as union_us, profile_events
+
+    busy_us = union_us(profile_events(prof))
+    busy = busy_us / epoch_wall_us if busy_us else None
     times = [s.elapsed_time(e) for s, e in step_ms]
     # The first step of each epoch follows validation and a save: cold caches and allocator.
     steady = sorted(t for i, t in enumerate(times) if i % steps_per_epoch)
@@ -1489,27 +1527,10 @@ VGG_PARENT_PYTHON_STEPS = 8  # the per-record Python path takes about 0.3 s a st
 VGG_FLOP_PER_IMAGE = 3 * 2 * 433e6
 
 
-def _busy_share(prof, wall_us):
-    """The device's busy time in a profiled window (the union of its kernels', copies'
-    and sets' intervals, so a copy on the side stream under a kernel counts once) and
-    that time over the window's wall time (the device's busy share)."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, covered = 0, None
-    for start, end in spans:
-        if covered is None or start > covered:
-            busy_us += end - start
-            covered = end
-        elif end > covered:
-            busy_us += end - covered
-            covered = end
-    return busy_us, (busy_us / wall_us if busy_us else None)
-
-
 def _profiled_epoch(trainer, epoch):
     """One train epoch of ``trainer`` under the profiler: its wall (ms), the device's busy
-    time (ms) and busy share."""
+    time (ms: the union of its kernel, copy and set intervals, ``profiling/report.py``) and
+    busy share (that over the wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1520,8 +1541,10 @@ def _profiled_epoch(trainer, epoch):
         metrics = trainer.train_epoch(epoch)  # ends in one read-back of the epoch's metrics
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, busy = _busy_share(prof, wall_us)
-    return metrics, {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "busy": busy}
+    from distributed_training_pytorch_tpu_torch.profiling import busy_us as union_us, profile_events
+
+    busy_us = union_us(profile_events(prof))
+    return metrics, {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "busy": busy_us / wall_us if busy_us else None}
 
 
 def _fmt_busy(busy):
@@ -2441,27 +2464,33 @@ def phase_vit(run_dir: str):
 
 
 # The trained ConvNeXt through PALLAS=0 (cuBLAS's Dense, then the tanh GELU on the bf16
-# output) against K4 (f32 sums, the GELU on the f32 pre-activation, one rounding): 36 blocks
+# output) against K4 (f32 sums, the GELU on the f32 pre-activation, one rounding): its blocks
 # carry the per-block rounding differences to the logits; held to 5e-2 of their largest
 # magnitude, as the ResNet phase holds its kernel path against cuDNN's.
 CONVNEXT_PLAIN_REL = 5e-2
 
 
 def phase_convnext(run_dir: str):
-    """ConvNeXt-L through the port's ImageNet entry (``MODEL=convnext_l``, PALLAS=1: K4's
-    gelu epilogue; ACCUM=4, 21,841 classes): 2 epochs and a resumed third; exactly 36 K4
-    launches a micro-batch forward (6 wgmma, 30 CUDA cores), so 144 a train step and 36 a
-    val forward, and no dz pass; the trained weights through PALLAS=0; then the same steps
-    with PALLAS=1 and PALLAS=0 in turns. Returns the launches and the figures."""
+    """ConvNeXt-L (stage 3 cut to :data:`CONVNEXT_STAGE3` blocks) through the port's ImageNet
+    entry (``MODEL=convnext_l``, PALLAS=1: K4's gelu epilogue; ACCUM=4, 21,841 classes): 2
+    epochs and a resumed third; exactly :data:`CONVNEXT_BLOCKS` K4 launches a micro-batch
+    forward (6 wgmma, the rest on the CUDA cores), 4 times that a train step and once a val
+    forward, and no dz pass; the trained weights through PALLAS=0; then the same steps with
+    PALLAS=1 and PALLAS=0 in turns. Returns the launches and the figures."""
+    with _convnext_l_cut():
+        return _phase_convnext(run_dir)
+
+
+def _phase_convnext(run_dir: str):
     import torch
 
-    from distributed_training_pytorch_tpu_torch.models import ConvNeXtL
+    from distributed_training_pytorch_tpu_torch.models.convnext import ConvNeXt
 
     torch.backends.cudnn.allow_tf32 = True
     figures, launches, counts, model, val_batch = _entry_run("[convnext]", CONVNEXT_ENV, run_dir, CONVNEXT_BATCH)
     steps, evals = counts["steps"], counts["evals"]
     k4l, by_variant = launches["k4"], launches["k4_variant"]
-    log(f"[convnext] ConvNeXt-L, 224x224, 21841 classes, bf16 compute, f32 params, AdamW(0.9, 0.999, wd 0.05), "
+    log(f"[convnext] ConvNeXt-L (stage 3 at {CONVNEXT_STAGE3} of 27 blocks), 224x224, 21841 classes, bf16 compute, f32 params, AdamW(0.9, 0.999, wd 0.05), "
         f"warmup-cosine, ACCUM={CONVNEXT_ACCUM}, PALLAS=1; "
         f"{CONVNEXT_FLOP_PER_IMAGE * CONVNEXT_BATCH / figures['step_ms'] / 1e9:.1f} TFLOP/s; conv1x1 launches {k4l} "
         f"by variant {({v: c for (_, v), c in by_variant.items()})} over {steps} steps and {evals} validation "
@@ -2472,15 +2501,16 @@ def phase_convnext(run_dir: str):
     launched = {"conv1x1_bn_act": k4l["conv1x1_bn_act"], "wgmma": by_variant[("conv1x1_bn_act", "wgmma")],
                 "cuda_cores": by_variant[("conv1x1_bn_act", "cuda_cores")], "conv1x1_bwd_dz": k4l["conv1x1_bwd_dz"]}
     if launched != want:
-        raise RuntimeError(f"expected conv1x1 launches {want} (36 a micro-batch forward: 6 wgmma, 30 CUDA cores), "
-                           f"got {launched}")
+        raise RuntimeError(f"expected conv1x1 launches {want} ({CONVNEXT_BLOCKS} a micro-batch forward: "
+                           f"{CONVNEXT_WGMMA_BLOCKS} wgmma, the rest CUDA cores), got {launched}")
     if any(launches["fa"].values()):
         raise RuntimeError(f"flash kernels launched on the ConvNeXt path: {launches['fa']}")
 
     model.eval()
     x, _ = _normalised(model, val_batch)
     with torch.no_grad():
-        plain = ConvNeXtL(21841, dtype=torch.bfloat16, pallas=False, device="cuda").eval()
+        plain = ConvNeXt(21841, depths=CONVNEXT_DEPTHS, dims=(192, 384, 768, 1536), dtype=torch.bfloat16,
+                         pallas=False, device="cuda").eval()
         plain.load_state_dict(model.inner.state_dict())
         got, ref = model.inner(x), plain(x)
     plain_rel = _agreement("[convnext]", "trained model, 32 val images, K4's gelu epilogue vs PALLAS=0: logits", got, ref,
@@ -2784,7 +2814,8 @@ def phase_convnext_times(card: str):
     k4.launches_by_variant.update(counts[1])
     total = {k: sum(r[k] * r["blocks"] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     total["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes"
-    log(f"[times] {card} | conv1x1 gelu, the 36 launches of one ConvNeXt-L micro-batch forward (64 images): kernel "
+    log(f"[times] {card} | conv1x1 gelu, the {CONVNEXT_BLOCKS} launches of one micro-batch forward of the phase's "
+        f"ConvNeXt-L (64 images): kernel "
         f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, bound "
         f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / total['ms']:.4f} of it); x{CONVNEXT_ACCUM} a train step")
     return rows, total
@@ -3526,6 +3557,188 @@ def phase_chained(run_dir: str, card: str) -> dict:
             "vgg_turns": vgg_turns, "wall_s": wall}
 
 
+TELEMETRY_STEPS = 8  # the phase's epoch: 8 steps of 64 (two windows of CHAIN_WINDOW when chained)
+TELEMETRY_WINDOWS = 560  # 95 % train (532: 8 steps of 64), 28 in one padded val batch
+TELEMETRY_TOP_K = 24  # op rows of the profile: K1-K3 must be among them
+TELEMETRY_KERNELS = {"fwd": "flash_fwd_wgmma_kernel", "bwd_dq": "flash_bwd_dq_wgmma_kernel",
+                     "bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+TELEMETRY_TAGS = ("train/loss", "goodput/productive_step", "telemetry/step_ms", "telemetry/mfu", "doctor/healthy")
+
+
+def phase_telemetry(run_dir: str, card: str) -> dict:
+    """Observability on the main path: byte-level GPT-2-small (T=1024, batch 64, bf16)
+    through the LM entry with ``TELEMETRY=1``, a ``ProfileConfig`` (the epoch's second
+    window of 4 steps) and ``tensorboard_dir``, one epoch of 8 steps eager and then with
+    ``CHAIN_STEPS=4``, each against a telemetry-off run of the same steps under
+    deterministic algorithms (params must be bit-equal); then the same epoch on the two
+    warm trainers in turns (off, on, on, off) for the step time. Checks the window and epoch
+    records' ``step_ms`` and MFU, the FLOP count against the same shapes' count on the CPU,
+    the profile (categories summing to 1, K1-K3 among the top ops at 12 a step, in
+    ``matmul``), the TensorBoard files, the provenance's card and power limit, the doctor's
+    verdict. The chained runs' graphs are captured under deterministic algorithms, so their
+    turns replay deterministic kernels (both sides alike)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+    from distributed_training_pytorch_tpu_torch.models.transformer_lm import make_fused_lm_loss
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.profiling import ProfileConfig
+    from distributed_training_pytorch_tpu_torch.telemetry import doctor, load_run_events
+    from distributed_training_pytorch_tpu_torch.utils.flops import step_flops
+    from distributed_training_pytorch_tpu_torch.utils.tensorboard import read_scalars
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = train_lm.load_windows(SEQ)
+    windows = np.concatenate([base] * -(-TELEMETRY_WINDOWS // len(base)))[:TELEMETRY_WINDOWS]
+    keys = (*TRAIN_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "LM_CORPUS", "TELEMETRY", "PROFILE_DIR", "CHAIN_STEPS")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    real_load = train_lm.load_windows
+
+    def build(tag, telemetry, chain):
+        os.environ.update(TRAIN_ENV, EPOCHS="1", SAVE_DIR=os.path.join(run_dir, tag), CHAIN_STEPS=str(chain))
+        for k in ("SNAPSHOT", "LM_CORPUS", "PROFILE_DIR", "TELEMETRY"):
+            os.environ.pop(k, None)
+        extra = {"log_every": CHAIN_WINDOW}
+        if telemetry:
+            os.environ["TELEMETRY"] = "1"
+            extra.update(profile=ProfileConfig(steps=CHAIN_WINDOW, skip_steps=CHAIN_WINDOW, top_k=TELEMETRY_TOP_K),
+                         tensorboard_dir=os.path.join(run_dir, tag, "tb"))
+
+        class Observed(train_lm.LMTrainer):
+            def __init__(self, **kw):
+                super().__init__(**kw, **extra)
+
+        return train_lm.build_trainer("cuda", trainer_cls=Observed)
+
+    def timed_epoch(trainer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(0)  # ends in one read-back of the epoch's metrics
+        return (time.perf_counter() - t0) * 1e3 / TELEMETRY_STEPS
+
+    runs, launches, stats_ms = {}, None, None
+    try:
+        train_lm.load_windows = lambda seq_len, path=None: windows
+        for chain in (1, CHAIN_WINDOW):
+            with _deterministic_algorithms():
+                off = build(f"off{chain}", False, chain)
+                off.train()
+                fa.reset_launches()  # the telemetry-on run's launches alone
+                on = build(f"on{chain}", True, chain)
+                on.train()
+                if chain == 1:
+                    launches = {"launches": dict(fa.launches), "steps": int(on.state.step),
+                                "evals": len(on.val_dataloader)}
+                ref = off.model.state_dict()
+                diff = max(float((v.float() - ref[k].float()).abs().max()) for k, v in on.model.state_dict().items())
+            events = load_run_events(on.save_folder)
+            if chain == 1:
+                # The stats' own cost a step: snapshot copy, the three foreach norms, the
+                # in-place subtraction, on the trainer's params and last gradients.
+                health, params = on.engine._health, list(on.model.parameters())
+                loss = torch.zeros((), device="cuda")
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(20):
+                    health.before_update(params, loss)
+                    health.after_update()
+                end.record()
+                end.synchronize()
+                stats_ms = start.elapsed_time(end) / 20
+            turns = {"off": [], "on": []}
+            for mode in ("off", "on", "on", "off"):
+                turns[mode].append(timed_epoch(off if mode == "off" else on))
+            later = [e for e in load_run_events(on.save_folder)[len(events):] if e["event"] == "window"]
+            runs[chain] = {"diff": diff, "turns": turns, "events": events, "later_windows": later,
+                           "report": on._profile_capture.report, "flops": on._flops_per_step,
+                           "peak": on._peak_flops, "tb": os.path.join(on.save_folder, "tb"),
+                           "snapshot_bytes": on.engine._health.snapshot_bytes, "captures": on.engine.captures}
+            del off, on, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        train_lm.load_windows = real_load
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # The FLOP count on the CPU for the same shapes (meta tensors either way).
+    cpu_model = GPTSmall(vocab_size=256, dtype=torch.bfloat16, max_len=SEQ, device="cpu")
+    b, t = int(TRAIN_ENV["BATCH"]), SEQ
+    cpu_batch = {"image": torch.zeros(b, t, dtype=torch.long), "label": torch.zeros(b, t, dtype=torch.long)}
+    cpu_flops = step_flops(cpu_model, make_fused_lm_loss(cpu_model), cpu_batch)
+    del cpu_model
+    for chain, r in runs.items():
+        tag = f"[telemetry chain={chain}]"
+        kinds = [e["event"] for e in r["events"]]
+        start = next(e for e in r["events"] if e["event"] == "run_start")
+        prov = start["provenance"]
+        windows_ = [e for e in r["events"] if e["event"] == "window"] + r["later_windows"]
+        epoch = next(e for e in r["events"] if e["event"] == "epoch_end")
+        end = next(e for e in r["events"] if e["event"] == "run_end")
+        verdict = doctor.diagnose(r["events"]).to_dict()
+        report = r["report"]
+        log(f"{tag} {card} | provenance: card {prov.get('card')!r}, power limit {prov.get('power_limit')!r}, torch "
+            f"{prov['torch']}, CUDA {prov.get('cuda')}, nvcc {prov.get('nvcc')}, git {prov['git_sha']}")
+        log(f"{tag} events: {len(kinds)} records, kinds {sorted(set(kinds))}; compiles "
+            f"{[(e.get('kind'), e.get('executables'), round(e.get('seconds', 0.0), 3)) for e in r['events'] if e['event'] == 'compile']}")
+        log(f"{tag} window records (step_ms, mfu): "
+            + ", ".join(f"({w['step_ms']:.2f}, {w.get('mfu', float('nan')):.4f})" for w in windows_)
+            + f"; epoch_end step_ms {epoch['step_ms']:.2f}, mfu {epoch.get('mfu')}, grad_norm {epoch.get('grad_norm')}, "
+              f"update_ratio {epoch.get('update_ratio')}")
+        log(f"{tag} FLOPs a step {r['flops']:.6e} (utils/flops.py on the meta device; the CPU's count for the same "
+            f"shapes {cpu_flops:.6e}) against a peak of {r['peak']} FLOP/s")
+        log(f"{tag} goodput fractions {end['goodput_fractions']}; doctor: {verdict['verdict']} "
+            f"({[(v['kind'], round(v['score'], 3)) for v in verdict['verdicts']]})")
+        log(f"{tag} profile: {report.summary()}; categories {({k: round(v, 6) for k, v in report.categories.items()})}")
+        for row in report.top_ops[:12]:
+            log(f"{tag}   {row.total_us / report.steps / 1e3:8.3f} ms a step, {row.count / report.steps:6.1f} a step, "
+                f"{row.category:20s} {row.name[:110]}")
+        log(f"{tag} {card} | ms a step over the epoch (host clock), in turns: telemetry off "
+            f"{', '.join(f'{x:.2f}' for x in r['turns']['off'])}; on {', '.join(f'{x:.2f}' for x in r['turns']['on'])}; "
+            f"params on vs off after the epoch differ by {r['diff']!r} (must be 0)")
+        if r["diff"] != 0.0:
+            raise RuntimeError(f"{tag} telemetry changed the params: {r['diff']}")
+        need = {"run_start", "window", "epoch_end", "compile", "profile_capture", "checkpoint_save", "run_end"}
+        if not need <= set(kinds) or kinds[0] != "run_start" or kinds[-1] != "run_end":
+            raise RuntimeError(f"{tag} event kinds {kinds}")
+        if not prov.get("card") or not prov.get("power_limit"):
+            raise RuntimeError(f"{tag} provenance without the card: {prov}")
+        mfus = [w.get("mfu") for w in r["later_windows"]] + [epoch.get("mfu")]
+        if not all(m is not None and np.isfinite(m) and 0.0 < m < 1.0 for m in mfus):
+            raise RuntimeError(f"{tag} MFU not in (0, 1): {mfus}")
+        if r["flops"] != cpu_flops:
+            raise RuntimeError(f"{tag} FLOPs a step {r['flops']} on the card, {cpu_flops} on the CPU")
+        if abs(sum(report.categories.values()) - 1.0) > 1e-6:
+            raise RuntimeError(f"{tag} categories sum to {sum(report.categories.values())}")
+        rows = {k: [row for row in report.top_ops if name in row.name] for k, name in TELEMETRY_KERNELS.items()}
+        for k, found in rows.items():
+            if len(found) != 1 or found[0].count != DEPTH * report.steps or found[0].category != "matmul":
+                raise RuntimeError(f"{tag} {k} in the profile's top ops: {[r_.to_dict() for r_ in found]}")
+        (tb,) = [os.path.join(r["tb"], f) for f in os.listdir(r["tb"])]
+        scalars = read_scalars(tb)
+        if not set(TELEMETRY_TAGS) <= set(scalars):
+            raise RuntimeError(f"{tag} TensorBoard tags {sorted(scalars)}")
+        log(f"{tag} TensorBoard file {os.path.basename(tb)}: {len(scalars)} tags, checksums good; "
+            + ", ".join(f"{k} {scalars[k][-1][1]:.4f}" for k in TELEMETRY_TAGS))
+    if runs[CHAIN_WINDOW]["captures"] != 1:
+        raise RuntimeError(f"the chained telemetry run captured {runs[CHAIN_WINDOW]['captures']} graphs")
+    counts = launches["launches"]
+    want = {"fwd": DEPTH * (launches["steps"] + launches["evals"]), "bwd_dq": DEPTH * launches["steps"],
+            "bwd_dkv": DEPTH * launches["steps"]}
+    if counts != want:
+        raise RuntimeError(f"[telemetry] expected launches {want} on the eager telemetry run, got {counts}")
+    wall = time.perf_counter() - t_phase
+    log(f"[telemetry] {card} | the health stats: a snapshot of {runs[1]['snapshot_bytes'] / 1e6:.1f} MB, "
+        f"{stats_ms:.3f} ms a step (CUDA events, 20 calls); phase wall {wall:.1f} s")
+    return {"launches": counts, "runs": runs, "flops": cpu_flops, "stats_ms": stats_ms, "wall_s": wall}
+
+
 def phase_resilience(run_dir: str) -> dict:
     """The port's chaos soak (``scripts/torch_chaos_soak.py``) on the card: digits through
     the entry with ``CHAIN_STEPS=2`` and background saves, killed by a graceful SIGTERM, a
@@ -3832,7 +4045,8 @@ def run_only(names) -> int:
     checkpoint), each run phase
     in its own temporary directory; no kernels line and no final line."""
     phases = {"folder": phase_folder, "vgg": phase_vgg, "digits": phase_digits, "records": phase_records,
-              "records_resnet50": phase_records_resnet50, "fp16": phase_fp16, "resilience": phase_resilience}
+              "records_resnet50": phase_records_resnet50, "fp16": phase_fp16, "resilience": phase_resilience,
+              "convnext": phase_convnext}
     try:
         card = phase_device()
         if "jpeg" in names:
@@ -3847,6 +4061,8 @@ def run_only(names) -> int:
                     phase_lm_eval(run_dir, card)
                 elif name == "chained":
                     phase_chained(run_dir, card)
+                elif name == "telemetry":
+                    phase_telemetry(run_dir, card)
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -3913,6 +4129,8 @@ def main() -> int:
             fp16 = phase_fp16(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             chained = phase_chained(run_dir, card)
+        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
+            telemetry = phase_telemetry(run_dir, card)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resilience = phase_resilience(run_dir)
         times, vit_times = phase_times(card)
@@ -3982,6 +4200,13 @@ def main() -> int:
             f"{chained['bf16_diff']:.3e}, f32 (TF32 off) {chained['f32_diff']!r}; VGG16/CIFAR-10 busy share of an "
             f"epoch in turns, chain 1: {', '.join(_fmt_busy(r['busy']) for r in vgg_t['eager'])}, chain "
             f"{CHAIN_VGG_STEPS}: {', '.join(_fmt_busy(r['busy']) for r in vgg_t['chained'])}")
+        tel = telemetry["runs"]
+        log(f"[times] {card} | telemetry on GPT-2-small (B=64, T=1024, bf16): ms a step off / on in turns, eager "
+            f"{', '.join(f'{x:.2f}' for x in tel[1]['turns']['off'])} / "
+            f"{', '.join(f'{x:.2f}' for x in tel[1]['turns']['on'])}, chained "
+            f"{', '.join(f'{x:.2f}' for x in tel[CHAIN_WINDOW]['turns']['off'])} / "
+            f"{', '.join(f'{x:.2f}' for x in tel[CHAIN_WINDOW]['turns']['on'])}; {telemetry['flops']:.4e} FLOPs a step; "
+            f"the stats {telemetry['stats_ms']:.3f} ms a step; phase wall {telemetry['wall_s']:.1f} s")
         st = resilience["stall"]
         log(f"[times] {card} | chaos soak: 4 kills resumed bit-exact in {resilience['wall_s']:.1f} s; save of "
             f"{st['model']}'s state ({st['state_bytes'] / 1e9:.2f} GB): sync wall {st['sync_ms']:.1f} ms, async stall "
@@ -4012,7 +4237,8 @@ def main() -> int:
                                  "eval_lm": lm_eval["launches"] if kind == "fwd" else 0,
                                  "decode": lm_eval["decode_launches"][launch_key],
                                  "train_lm_chained": chained["lm_replay"][launch_key],
-                                 "train_resnet50_chained": 0},
+                                 "train_resnet50_chained": 0,
+                                 "train_lm_telemetry": telemetry["launches"][launch_key]},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -4046,7 +4272,8 @@ def main() -> int:
                                  "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0,
                                  "eval_lm": 0, "decode": lm_eval["decode_launches"][name],
-                                 "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name]},
+                                 "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name],
+                                 "train_lm_telemetry": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -4061,7 +4288,7 @@ def main() -> int:
             "design": DESIGN[name],
         })
         if name == "conv1x1_bn_act":
-            # ConvNeXt-L's expand + gelu: the 36 launches of a micro-batch forward, summed
+            # ConvNeXt-L's expand + gelu: the CONVNEXT_BLOCKS launches of a micro-batch forward, summed
             # (each shape times its blocks), and each shape alone; by variant on the path.
             kernels[-1]["convnext_l"] = {**convnext_total, "max_abs_err": convnext_err, "shapes": convnext_times,
                                          "launches_by_variant": {v: convnext_launches[v] for v in ("wgmma", "cuda_cores")},
@@ -4083,7 +4310,7 @@ def main() -> int:
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
                                  "decode": lm_eval["decode_launches"][launch_key],
-                                 "train_lm_chained": 0, "train_resnet50_chained": 0},
+                                 "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

@@ -199,12 +199,15 @@ class CheckpointManager:
         *,
         loop_state: "Mapping | None" = None,
         data_state: "Mapping | None" = None,
+        telemetry: "Mapping | None" = None,
     ) -> None:
         """Save ``state`` (a ``TrainState``, or the async saver's host snapshot) under
         ``name`` with the *resume* epoch ``epoch`` (the caller's policy: ``epoch + 1`` for
         ``last``, ``epoch`` for ``best``). ``loop_state`` (``{"step_in_epoch": k}`` for a
         mid-epoch save) goes into ``meta.json`` under ``loop``; ``data_state`` into
-        ``data.json``. A write that raises ``OSError`` is retried ``save_retries`` times,
+        ``data.json``; ``telemetry`` (the trainer's cumulative goodput counters and the
+        attempt id) into ``meta.json`` under ``telemetry``, the attempt also as
+        ``meta["attempt"]``, as the JAX manager writes it. A write that raises ``OSError`` is retried ``save_retries`` times,
         ``retry_backoff`` seconds apart and doubling; then :class:`CheckpointError`."""
         payload = state.state_dict()  # every rank takes part (a DDP module's state is local)
         failed = None
@@ -215,6 +218,10 @@ class CheckpointManager:
                 meta["metrics"] = {k: float(v) for k, v in metrics.items()}
             if loop_state is not None:
                 meta["loop"] = {k: int(v) for k, v in loop_state.items()}
+            if telemetry is not None:
+                meta["telemetry"] = dict(telemetry)
+                if "attempt" in meta["telemetry"]:
+                    meta["attempt"] = int(meta["telemetry"].pop("attempt"))
             if "loss_scale" in payload:  # the JAX manager's meta names the scale's type (:330)
                 meta["loss_scale"] = getattr(state, "loss_scale_name", None) or type(state.loss_scale).__name__
             failed = self._write_with_retries(name, payload, meta, data_state)

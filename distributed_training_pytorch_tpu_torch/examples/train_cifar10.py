@@ -21,8 +21,8 @@ Env knobs, as the JAX entry reads them: ``CIFAR10_DIR`` (``./data/cifar-10-batch
 ``EPOCHS`` (100), ``BATCH`` (1024, global), ``BASE_LR`` (0.1), ``SAVE_DIR``
 (``./runs/cifar10``), ``SNAPSHOT``, ``DTYPE`` (``fp32`` | ``bf16``; unset keeps the entry's
 historical program, a bf16 model under the f32 policy), ``PALLAS`` (consumed; VGG16 runs
-no kernel of the port), ``CHAIN_STEPS`` (1) and ``MESH`` (``dpN``). ``TUNED=1`` and
-``TELEMETRY=1`` raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
+no kernel of the port), ``CHAIN_STEPS`` (1) and ``MESH`` (``dpN``). ``TUNED=1`` raises
+until its slice; ``TELEMETRY=1`` turns on the telemetry of ``telemetry/``. The port adds ``DEVICE`` (``cuda`` unless set to
 ``cpu``). Under ``torchrun`` each process is one data-parallel rank.
 """
 
@@ -174,8 +174,6 @@ def build_trainer(device: "str | None" = None) -> Cifar10Trainer:
     """The entry's trainer, configured from the env knobs."""
     if os.environ.get("TUNED") == "1":
         raise NotImplementedError("TUNED=1 (the TUNED.json autotuner's knobs) comes with the tooling slice (P17)")
-    if os.environ.get("TELEMETRY") == "1":
-        raise NotImplementedError("TELEMETRY comes with the observability slice of the port")
     save_dir = os.environ.get("SAVE_DIR", "./runs/cifar10")
     return Cifar10Trainer(
         data_dir=os.environ.get("CIFAR10_DIR", "./data/cifar-10-batches-py"),
@@ -191,6 +189,7 @@ def build_trainer(device: "str | None" = None) -> Cifar10Trainer:
         snapshot_path=os.environ.get("SNAPSHOT") or None,
         logger=Logger("cifar10-vgg16", os.path.join(save_dir, "logfile.log")),
         device=device or os.environ.get("DEVICE", "cuda"),
+        telemetry=os.environ.get("TELEMETRY") == "1" or None,
     )
 
 

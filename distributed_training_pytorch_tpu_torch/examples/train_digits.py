@@ -18,8 +18,8 @@ Env knobs, as the JAX entry reads them: ``DIGITS_DIR`` (``./data/digits``), ``EP
 (150), ``BATCH`` (128, global), ``DIGITS_LR`` (0.02), ``SAVE_DIR`` (``./runs/digits``),
 ``SAVE_PERIOD`` (25: validation and ``last``), ``SNAPSHOT``, ``DTYPE`` (``fp32`` | ``bf16``
 | ``fp16``, default fp32; fp16 trains with dynamic loss scaling), ``PALLAS`` (consumed:
-VGG16 runs no kernel), ``CHAIN_STEPS`` (1) and ``MESH`` (``dpN``). ``TELEMETRY=1`` raises
-until the observability slice. The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``).
+VGG16 runs no kernel), ``CHAIN_STEPS`` (1) and ``MESH`` (``dpN``). ``TELEMETRY=1`` turns on
+the telemetry of ``telemetry/``. The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``).
 """
 
 from __future__ import annotations
@@ -96,8 +96,6 @@ def parse_curve(logfile: str) -> "list[dict]":
 def build_trainer(data_dir: str, save_dir: str, device: "str | None" = None, **overrides) -> DigitsTrainer:
     """``DigitsTrainer`` on ``data_dir``'s tree with the entry's configuration from the env
     knobs; ``overrides`` replace any of its arguments."""
-    if os.environ.get("TELEMETRY") == "1":
-        raise NotImplementedError("TELEMETRY comes with the observability slice of the port")
     save_period = int(os.environ.get("SAVE_PERIOD", "25"))
     kwargs = dict(
         train_path=os.path.join(data_dir, "train"),
@@ -117,6 +115,7 @@ def build_trainer(data_dir: str, save_dir: str, device: "str | None" = None, **o
         save_folder=save_dir,
         snapshot_path=os.environ.get("SNAPSHOT") or None,
         device=device or os.environ.get("DEVICE", "cuda"),
+        telemetry=os.environ.get("TELEMETRY") == "1" or None,
     )
     kwargs.update(overrides)
     if "logger" not in kwargs:

@@ -34,8 +34,9 @@ instead. ``STEPS_PER_EPOCH`` caps an epoch of either. Env knobs, as the JAX entr
 kernel with 1, cuDNN/cuBLAS with 0 or unset; ViT's attention takes the flash kernels
 unset or with 1, the plain softmax with 0), ``CHAIN_STEPS`` (1), ``MESH`` (the grammar of
 ``parallel/mesh.py``; ``dpN`` for these models).
-``IMAGENET_RECORDS``, ``VAL_RECORDS``, ``RECORDS_NATIVE`` (1). ``TELEMETRY`` and
-``PROFILE_DIR`` raise until their slices. The port adds ``DEVICE`` (``cuda`` unless set to
+``IMAGENET_RECORDS``, ``VAL_RECORDS``, ``RECORDS_NATIVE`` (1), ``TELEMETRY`` (1: the
+telemetry of ``telemetry/``) and ``PROFILE_DIR`` (a raw trace of the first epoch's steps 1
+to 5). The port adds ``DEVICE`` (``cuda`` unless set to
 ``cpu``). Under ``torchrun`` each process is one data-parallel rank.
 """
 
@@ -247,9 +248,6 @@ def build_trainer(
     device: "str | None" = None, *, synthetic_records: int = 8192, synthetic_val_records: int = 1024
 ) -> ImageNetTrainer:
     """The entry's trainer, configured from the env knobs."""
-    for knob in ("TELEMETRY", "PROFILE_DIR"):
-        if os.environ.get(knob):
-            raise NotImplementedError(f"{knob} comes with the observability slice of the port")
     model_name = os.environ.get("MODEL", "resnet50").lower()
     if model_name not in RECIPES:
         raise SystemExit(f"MODEL={model_name!r}: choose from {sorted(RECIPES)}")
@@ -273,6 +271,8 @@ def build_trainer(
         snapshot_path=os.environ.get("SNAPSHOT") or None,
         logger=Logger(f"imagenet-{model_name}", os.path.join(save_dir, "logfile.log")),
         device=device or os.environ.get("DEVICE", "cuda"),
+        telemetry=os.environ.get("TELEMETRY") == "1" or None,
+        profile_dir=os.environ.get("PROFILE_DIR") or None,
     )
 
 

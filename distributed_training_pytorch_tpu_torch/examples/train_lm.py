@@ -15,7 +15,9 @@ the expert-parallel slice), ``SAVE_DIR`` (``./runs/lm``), ``SNAPSHOT``, ``LM_SIZ
 ``PALLAS`` (1 | 0 | unset = auto), ``FUSED_CE`` (1; 0 = the plain logits criterion),
 ``CHAIN_STEPS`` (1), ``MESH`` (the mesh grammar of ``parallel/mesh.py``: ``dpN``,
 ``spN``, ``dpNspM``, ``spNxM``; ``fsdp``/``tp``/``pp``/``ep`` raise until their slices)
-and ``TELEMETRY``/``PROFILE_DIR`` (unset; both raise until their slices). The port adds
+``TELEMETRY`` (1: the event log under ``SAVE_DIR/telemetry``, goodput, the on-device
+health stats, MFU, anomalies; ``telemetry/``) and ``PROFILE_DIR`` (a raw trace of the first
+epoch's steps 1 to 5, ``profiling/trace.py``). The port adds
 ``DEVICE`` (``cuda`` unless set to ``cpu``). Under ``torchrun`` each process is one rank
 of the mesh. As in the JAX entry, the model's attention does not switch to ring with a
 seq axis: a subclass's ``build_model`` asks for ``attention_impl="ring"``,
@@ -162,9 +164,6 @@ def build_trainer(device: "str | None" = None, trainer_cls: type = LMTrainer) ->
     """The entry's trainer, configured from the env knobs; ``trainer_cls`` is
     :class:`LMTrainer` or a subclass with other hooks (for example a ``build_model`` with
     ring attention over the mesh's seq axis)."""
-    for knob in ("TELEMETRY", "PROFILE_DIR"):
-        if os.environ.get(knob):
-            raise NotImplementedError(f"{knob} comes with the observability slice of the port")
     save_dir = os.environ.get("SAVE_DIR", "./runs/lm")
     kw = dict(
         seq_len=int(os.environ.get("SEQ_LEN", "256")),
@@ -183,6 +182,8 @@ def build_trainer(device: "str | None" = None, trainer_cls: type = LMTrainer) ->
         snapshot_path=os.environ.get("SNAPSHOT") or None,
         logger=Logger("lm", os.path.join(save_dir, "logfile.log")),
         device=device or os.environ.get("DEVICE", "cuda"),
+        telemetry=os.environ.get("TELEMETRY") == "1" or None,
+        profile_dir=os.environ.get("PROFILE_DIR") or None,
     )
     return trainer_cls(**kw)
 

@@ -18,8 +18,8 @@ Env knobs, as the JAX entry reads them: ``DIGITS_DIR`` (``./data/digits``), ``RE
 ``SAVE_DIR`` (``./runs/records_digits``), ``SAVE_PERIOD`` (10), ``SNAPSHOT``, ``DTYPE``
 (``fp32`` | ``bf16`` | ``fp16``; unset keeps a bf16 model under the f32 policy), ``PALLAS``
 (the 1x1 kernel for ResNet's stage-1 1x1s with 1; at 32x32 no 1x1 reaches the kernel's
-56-pixel minimum), ``CHAIN_STEPS`` (1) and ``MESH`` (``dpN``). ``TELEMETRY=1`` raises until
-the observability slice. The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``).
+56-pixel minimum), ``CHAIN_STEPS`` (1) and ``MESH`` (``dpN``). ``TELEMETRY=1`` turns on the
+telemetry of ``telemetry/``. The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``).
 """
 
 from __future__ import annotations
@@ -127,8 +127,6 @@ class RecordsDigitsTrainer(Trainer):
 def build_trainer(patterns: dict, save_dir: str, device: "str | None" = None, **overrides) -> RecordsDigitsTrainer:
     """The entry's trainer over ``patterns`` (``pack_digits``'s), from the env knobs;
     ``overrides`` replace any of its arguments."""
-    if os.environ.get("TELEMETRY") == "1":
-        raise NotImplementedError("TELEMETRY comes with the observability slice of the port")
     save_period = int(os.environ.get("SAVE_PERIOD", "10"))
     kwargs = dict(
         train_pattern=patterns["train"],
@@ -145,6 +143,7 @@ def build_trainer(patterns: dict, save_dir: str, device: "str | None" = None, **
         save_folder=save_dir,
         snapshot_path=os.environ.get("SNAPSHOT") or None,
         device=device or os.environ.get("DEVICE", "cuda"),
+        telemetry=os.environ.get("TELEMETRY") == "1" or None,
     )
     kwargs.update(overrides)
     if "logger" not in kwargs:

@@ -38,8 +38,9 @@ class StepWatchdog:
                 step(batch)
                 dog.pat()
 
-    The JAX watchdog's ``on_patrol`` hook (the telemetry heartbeat) comes with the
-    observability slice.
+    ``on_patrol(since_progress_s)``, when given, is called on every poll of the thread
+    with the seconds since the last ``pat()`` (the trainer's telemetry heartbeat while the
+    loop is stuck inside a step); an exception in it is swallowed.
     """
 
     def __init__(
@@ -50,6 +51,7 @@ class StepWatchdog:
         poll_interval: "float | None" = None,
         max_fires: int = 1,
         escalation_factor: float = 5.0,
+        on_patrol: "Optional[Callable[[float], None]]" = None,
     ):
         if timeout <= 0:
             raise ValueError(f"timeout must be positive, got {timeout}")
@@ -58,6 +60,7 @@ class StepWatchdog:
         self.poll_interval = poll_interval if poll_interval is not None else min(1.0, self.timeout / 4)
         self.max_fires = max_fires
         self.escalation_factor = float(escalation_factor)
+        self.on_patrol = on_patrol
         self.fired = 0
         self._pats = 0
         # _last_pat is re-armed by a fire (the escalated window starts then);
@@ -105,6 +108,11 @@ class StepWatchdog:
         window = self.timeout
         pats_at_fire = -1
         while not self._stop.wait(self.poll_interval):
+            if self.on_patrol is not None:
+                try:
+                    self.on_patrol(self.progress_elapsed)
+                except Exception:  # noqa: BLE001 — a heartbeat must never take the watchdog down
+                    pass
             fire = False
             with self._lock:
                 if self.fired >= self.max_fires:

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 __all__ = ["ARGTYPES", "SOURCES", "LIBRARY", "library", "build_log"]
@@ -35,6 +36,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
+# The wall seconds of each build this process ran (the telemetry's ``compile`` bucket
+# and ``compile`` events with ``kind="nvcc_build"`` read it).
+builds: "list[float]" = []
 build_log = ""
 
 _c = ctypes
@@ -154,7 +158,9 @@ def library(*, rebuild: bool = False) -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             if rebuild or _stale():
+                t0 = time.perf_counter()
                 build_log = _build()
+                builds.append(time.perf_counter() - t0)
             lib = ctypes.CDLL(str(LIBRARY))
             for name, argtypes in ARGTYPES.items():
                 getattr(lib, name).argtypes = argtypes

@@ -231,11 +231,11 @@ def _launch_kernel(x, w, scale, bias, act: "str | None", out_dtype):
 def conv1x1_bn_act(x, w, scale, bias, *, act: "str | None" = None, out_dtype=None):
     """``act((x @ w^T) * scale + bias)`` for x ``[..., Cin]``, w ``[Cout, Cin]``,
     scale/bias ``[Cout]`` (the folded BN apply; identity: ones/zeros); output
-    ``[..., Cout]`` in ``out_dtype`` (default x's), contiguous. CPU tensors take the plain
+    ``[..., Cout]`` in ``out_dtype`` (default x's), contiguous. CPU (and meta) tensors take the plain
     version; CUDA tensors launch the kernel."""
     _check(x, w, scale, bias, act)
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return conv1x1_bn_act_plain(x, w, scale, bias, act=act, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv1x1_bn_act runs on cpu or cuda tensors, got {x.device}")
@@ -290,7 +290,7 @@ def conv1x1_bwd_dz(g, y, scale, *, act: "str | None" = None, out_dtype=None):
     out_dtype = out_dtype or g.dtype
     if g.ndim != 2 or tuple(scale.shape) != (g.shape[1],) or (act == "relu" and y.shape != g.shape):
         raise ValueError(f"g {tuple(g.shape)} must be [N, Cout], y the same, scale [Cout] (got {tuple(scale.shape)})")
-    if g.device.type == "cpu":
+    if g.device.type in ("cpu", "meta"):
         return conv1x1_bwd_dz_plain(g, y, scale, act=act, out_dtype=out_dtype)
     if g.device.type != "cuda":
         raise ValueError(f"conv1x1_bwd_dz runs on cpu or cuda tensors, got {g.device}")

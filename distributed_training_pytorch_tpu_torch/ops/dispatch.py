@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "attention_fn",
+    "clear_event_sink",
     "conv1x1_policy",
     "lm_attention_impl",
     "pallas_from_env",
@@ -86,6 +87,13 @@ def set_event_sink(emit: Callable[..., Any]) -> None:
         emit(_EVENT, **fields)
 
 
+def clear_event_sink() -> None:
+    """Uninstall the sink (later decisions buffer again until the next sink)."""
+    global _sink
+    with _lock:
+        _sink = None
+
+
 def reset() -> None:
     """Testing hook: forget all decisions, buffers, and the sink."""
     global _sink
@@ -118,7 +126,8 @@ def attention_fn(model: str, use_flash: Optional[bool], *, causal: bool = False)
         else:
             path = "plain"
             reason = f"auto: {q.device.type} tensors -> the kernel's plain version"
-        record(model, "attention", path, reason=reason, seq_len=seq)
+        if q.device.type != "meta":  # a FLOP count (utils/flops.py) runs no path
+            record(model, "attention", path, reason=reason, seq_len=seq)
         return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
 
     return dispatching_attention

@@ -218,10 +218,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, valid_len: "int | None
     """``(o, lse)`` for ``q`` ``[B, Tq, H, D]`` against ``k``/``v`` ``[B, Tk, H, D]``.
 
     Keys at or past ``valid_len`` (default ``Tk``) are masked; ``causal`` masks keys after
-    the query by absolute index, as the JAX kernel does. CPU tensors take the plain
+    the query by absolute index, as the JAX kernel does. CPU (and meta) tensors take the plain
     version; CUDA tensors launch the kernel."""
     _check_shapes(q, k, v, valid_len)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
@@ -351,10 +351,10 @@ def flash_attention_bwd(
     and the output gradient ``do``; ``Tq`` and ``Tk`` may differ. ``lse`` (and ``delta``,
     when given) are ``[B, H, Tq]`` f32 and may come from outside, as the ring path's global
     statistics do; ``delta`` defaults to ``rowsum(do * o)``, and ``o`` may be None when
-    ``delta`` is given. CPU tensors take the plain version; CUDA tensors launch the dq
+    ``delta`` is given. CPU (and meta) tensors take the plain version; CUDA tensors launch the dq
     kernel and the dk/dv kernel."""
     _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta
         )
@@ -419,7 +419,9 @@ def flash_attention(q, k, v, *, causal: bool = False, valid_len: "int | None" = 
     """Fused attention on ``[B, T, H, D]`` tensors (scale ``D**-0.5``); ``valid_len`` masks
     key positions at or past it, for caller-padded sequences (non-causal only).
     Differentiable: the backward runs the flash backward kernels on CUDA tensors and
-    their plain version on CPU tensors."""
+    their plain version on CPU tensors. Meta tensors (the FLOP count of
+    ``utils/flops.py``) take the plain version through autograd, whose backward does not
+    recompute the scores as the flash backward does."""
     if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected matching [B,T,H,D] q/k/v, got {q.shape}/{k.shape}/{v.shape}")
     if valid_len is not None:
@@ -427,4 +429,6 @@ def flash_attention(q, k, v, *, causal: bool = False, valid_len: "int | None" = 
             raise ValueError("valid_len composes with non-causal attention only")
         if not 0 < valid_len <= q.shape[1]:
             raise ValueError(f"valid_len {valid_len} out of range for T={q.shape[1]}")
+    if q.device.type == "meta":
+        return flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)[0]
     return _FlashAttention.apply(q, k, v, causal, valid_len)

@@ -96,6 +96,9 @@ def tied_cross_entropy(
     tgt_logit = torch.zeros((n,), dtype=torch.float32, device=x.device)
     for base in range(0, v, chunk_size):
         emb_c = embedding[base : base + chunk_size]
+        if x.device.type == "meta":  # the FLOP count (utils/flops.py): no recomputation
+            m, l, tgt_logit = _chunk_step(x, emb_c, m, l, tgt_logit, tgt, base)
+            continue
         # The chunk draws no random numbers: no RNG state to keep (reading it is not
         # allowed while a CUDA graph is being captured).
         m, l, tgt_logit = checkpoint(

@@ -156,11 +156,14 @@ def measure_save_stall(manager, state, *, repeats: int = 1) -> dict:
 
 class AsyncCheckpointSaver:
     """Decouple checkpoint saves from the training hot loop, around a synchronous
-    ``CheckpointManager`` (see the module docstring). The JAX saver's ``on_commit`` hook
-    (the goodput meter's) comes with the observability slice."""
+    ``CheckpointManager`` (see the module docstring). ``on_commit(name, seconds)`` is
+    called on the committer's thread after each background commit (the trainer books it
+    to the ``checkpoint_async`` goodput bucket and emits ``checkpoint_commit``); an
+    exception in it is swallowed."""
 
-    def __init__(self, manager):
+    def __init__(self, manager, on_commit=None):
         self._manager = manager
+        self.on_commit = on_commit
         self.commit_delay_s = 0.0
         self._cond = threading.Condition()  # guards every field below
         self._queue: "list[SaveRequest]" = []
@@ -181,6 +184,7 @@ class AsyncCheckpointSaver:
         metrics: "Mapping | None" = None,
         loop_state: "Mapping | None" = None,
         data_state: "Mapping | None" = None,
+        telemetry: "Mapping | None" = None,
     ) -> float:
         """Snapshot ``state`` and queue its commit; returns the snapshot's host wall in
         seconds. A prior background commit's error is raised first."""
@@ -188,7 +192,7 @@ class AsyncCheckpointSaver:
         t0 = time.perf_counter()
         snap = snapshot_state(state)
         req = SaveRequest(name, snap, int(epoch), dict(metrics=metrics, loop_state=loop_state,
-                                                       data_state=data_state))
+                                                       data_state=data_state, telemetry=telemetry))
         req.snapshot_s = time.perf_counter() - t0
         with self._cond:
             self._ensure_worker()
@@ -213,6 +217,7 @@ class AsyncCheckpointSaver:
         metrics: "Mapping | None" = None,
         loop_state: "Mapping | None" = None,
         data_state: "Mapping | None" = None,
+        telemetry: "Mapping | None" = None,
     ) -> float:
         """The emergency save: complete (never abandon) the queued saves, then commit
         ``state`` on this thread; returns the wall seconds. A prior background error is
@@ -221,7 +226,8 @@ class AsyncCheckpointSaver:
         t0 = time.perf_counter()
         prior_err = self.flush(raise_errors=False)
         try:
-            self._manager.save(name, state, epoch, metrics=metrics, loop_state=loop_state, data_state=data_state)
+            self._manager.save(name, state, epoch, metrics=metrics, loop_state=loop_state, data_state=data_state,
+                               telemetry=telemetry)
         finally:
             if prior_err is not None:
                 with self._cond:
@@ -229,13 +235,13 @@ class AsyncCheckpointSaver:
                         self._error = prior_err
         return time.perf_counter() - t0
 
-    def maybe_save_best(self, metrics: Mapping, state: Any, epoch: int, *,
-                        loop_state: "Mapping | None" = None) -> "tuple[bool, float]":
+    def maybe_save_best(self, metrics: Mapping, state: Any, epoch: int, *, loop_state: "Mapping | None" = None,
+                        telemetry: "Mapping | None" = None) -> "tuple[bool, float]":
         """The manager's best-value rule on this thread, and on an improvement an async
         save of ``best``; ``(saved, snapshot_seconds)``."""
         if not self._manager.best_improved(metrics):
             return False, 0.0
-        return True, self.save_async(BEST, state, epoch, metrics=metrics, loop_state=loop_state)
+        return True, self.save_async(BEST, state, epoch, metrics=metrics, loop_state=loop_state, telemetry=telemetry)
 
     def flush(self, raise_errors: bool = True) -> "BaseException | None":
         """Block until every queued save is committed; raise (or return, with
@@ -302,6 +308,11 @@ class AsyncCheckpointSaver:
                     req.status = COMMITTED
                     self.committed += 1
                     self.last_commit_s = req.commit_s
+                if self.on_commit is not None:
+                    try:
+                        self.on_commit(req.name, req.commit_s)
+                    except Exception:  # noqa: BLE001 — telemetry must never fail a commit
+                        pass
             except BaseException as e:  # noqa: BLE001 — surfaced on the training thread
                 req.status = FAILED
                 with self._cond:

@@ -1,8 +1,9 @@
-"""Structured JSONL event log: the run's flight recorder (the subset serving needs).
+"""Structured JSONL event log: the run's flight recorder, and its readers.
 
 Counterpart of ``distributed_training_pytorch_tpu/telemetry/events.py``: the same record
 layout, field names and :data:`SCHEMA_VERSION`, so the JAX package's readers
-(``load_run_events``, the run monitor) read a port run directory as they read their own.
+(``load_run_events``, the run doctor, the timeline, the run monitor) read a port run
+directory as they read their own, and this module's readers read either.
 Each record carries ``event``, ``t_wall``, ``t_mono``, ``process``, ``host``, ``pid``,
 ``chips`` and ``schema``, then the event's own fields, one JSON object per line.
 
@@ -16,6 +17,19 @@ Conventions kept from the JAX package:
 
 The process index comes from ``torch.distributed`` (0 when no process group is up), and
 ``chips`` lists the CUDA device indices this process sees.
+
+The vocabulary the port's trainer writes (``trainer/trainer.py``) is the JAX Trainer's:
+``run_start`` (with ``attempt`` and ``provenance``), ``compile`` (a unit that paid the
+port's stand-ins for an XLA compile: the first-use ``nvcc`` build of the kernels, a CUDA
+graph's warm-up window and capture, each with its ``kind``, and the FLOP probe,
+``kind="mfu_probe"``), ``window``, ``epoch_end``, ``heartbeat``, ``checkpoint_save``,
+``checkpoint_commit``, ``checkpoint_restore``, ``preemption``, ``hung_step``,
+``fault_injection``, ``anomaly``, ``loss_scale_backoff``, ``profile_capture`` and
+``run_end``; serving writes its own (``serving/server.py``).
+
+Readers: :class:`EventFollower` (incremental, torn-line tolerant: the one parser),
+:func:`load_run_events` (the follower run to the end, for post-mortems) and
+:func:`read_events` (strict by default, for tests and gates).
 """
 
 from __future__ import annotations
@@ -26,13 +40,16 @@ import os
 import socket
 import threading
 import time
-from typing import Any
+from typing import Any, Iterator
 
 __all__ = [
+    "EventFollower",
     "EventLog",
     "SCHEMA_VERSION",
     "claim_attempt",
+    "load_run_events",
     "peek_attempt",
+    "read_events",
     "resolve_events_path",
 ]
 
@@ -180,3 +197,120 @@ def claim_attempt(run_dir: str) -> int:
         f.write(f"{attempt}\n")
     os.replace(tmp, sidecar)
     return attempt
+
+
+def _parse_tolerant(raw: "bytes | str", lineno: int, path: str) -> "dict | None":
+    """One event-log line, the tolerant way: a blank line is skipped silently, malformed
+    JSON (a torn fragment from a hard kill) and a non-object line with a warning naming the
+    file line; only dict records come back."""
+    import warnings
+
+    if isinstance(raw, bytes):
+        try:
+            raw = raw.decode("utf-8")
+        except UnicodeDecodeError as e:
+            warnings.warn(f"{path}:{lineno}: skipping undecodable event line: {e}")
+            return None
+    line = raw.strip()
+    if not line:
+        return None
+    try:
+        record = json.loads(line)
+    except json.JSONDecodeError as e:
+        warnings.warn(f"{path}:{lineno}: skipping malformed event line: {e}")
+        return None
+    if not isinstance(record, dict):
+        warnings.warn(f"{path}:{lineno}: skipping non-object event line ({type(record).__name__})")
+        return None
+    return record
+
+
+class EventFollower:
+    """Incremental, torn-line tolerant reader over one events.jsonl file.
+
+    Each :meth:`poll` returns the records whose lines became complete (newline-terminated)
+    since the last poll, each stamped with ``_line`` (the 1-based file line; blank and
+    malformed lines still advance it). A trailing fragment without a newline is withheld:
+    a live writer may still be writing it. ``poll(final=True)`` also parses that tail
+    without consuming it, and remembers it so that its newline's later arrival does not
+    yield it twice. A file that does not exist yet yields ``[]``; a file that shrank
+    resets the cursor (``generation`` counts the resets)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._offset = 0
+        self._lineno = 0
+        self._partial = b""
+        self._tail_emitted: "bytes | None" = None
+        self.generation = 0
+
+    def poll(self, *, final: bool = False) -> "list[dict]":
+        try:
+            size = os.path.getsize(self.path)
+        except OSError:
+            return []
+        if size < self._offset:
+            self._offset = self._lineno = 0
+            self._partial = b""
+            self._tail_emitted = None
+            self.generation += 1
+        try:
+            with open(self.path, "rb") as f:
+                f.seek(self._offset)
+                data = f.read()
+        except OSError:
+            return []
+        self._offset += len(data)
+        chunks = (self._partial + data).split(b"\n")
+        self._partial = chunks.pop()
+        records = []
+        for raw in chunks:
+            self._lineno += 1
+            if self._tail_emitted is not None:
+                already, self._tail_emitted = raw == self._tail_emitted, None
+                if already:
+                    continue
+            rec = _parse_tolerant(raw, self._lineno, self.path)
+            if rec is not None:
+                rec["_line"] = self._lineno
+                records.append(rec)
+        if final and self._partial.strip() and self._partial != self._tail_emitted:
+            rec = _parse_tolerant(self._partial, self._lineno + 1, self.path)
+            if rec is not None:
+                rec["_line"] = self._lineno + 1
+                records.append(rec)
+                self._tail_emitted = self._partial
+        return records
+
+
+def load_run_events(run_dir: str) -> "list[dict]":
+    """A run directory's (or a ``.jsonl`` path's) records, each with ``_line``, through
+    one final poll of :class:`EventFollower`; raises ``FileNotFoundError`` without a log."""
+    path = resolve_events_path(run_dir)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"no event log at {path} — was the run telemetry-off? "
+            "(Trainer(telemetry='on') writes <save_folder>/telemetry/events.jsonl)"
+        )
+    return EventFollower(path).poll(final=True)
+
+
+def read_events(path: str, *, strict: bool = True, with_lineno: bool = False) -> Iterator:
+    """Parse an event log back into dicts. ``strict`` raises ``ValueError`` naming the
+    line on malformed JSON; ``strict=False`` skips it with a warning. ``with_lineno``
+    yields ``(lineno, record)`` with the 1-based file line."""
+    with open(path, encoding="utf-8") as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            if not strict:
+                record = _parse_tolerant(line, lineno, path)
+                if record is not None:
+                    yield (lineno, record) if with_lineno else record
+                continue
+            try:
+                record = json.loads(line)
+            except json.JSONDecodeError as e:
+                raise ValueError(f"{path}:{lineno}: malformed event line: {e}") from e
+            yield (lineno, record) if with_lineno else record

@@ -54,6 +54,13 @@ captured again after one. A failed capture raises; there is no fallback to eager
 more than one data rank on the card chaining raises ``NotImplementedError`` (DDP inside a
 graph is not checked yet); off the card a window runs its steps as a loop.
 
+``stats=True`` (telemetry) adds the health statistics of ``telemetry/stats.py`` to every
+train step's metrics (``grad_norm``, ``param_norm``, ``update_ratio``, ``nonfinite``; the
+guard's ``nonfinite`` wins), computed in ``_step_body``, so a window's graph captures them;
+they read no value back to the host and leave the params bit-equal to a stats-off run.
+The update's norm comes from one persistent snapshot of the params (``HealthStats``), as
+many bytes as the params.
+
 Metrics stay on the device as tensors; with more than one data shard they are averaged
 over the mesh's data group, weighted by each shard's real rows (the seq ranks of one data
 shard hold the same metrics, and take no part). With one sequence shard per rank, the
@@ -123,6 +130,7 @@ class TrainEngine:
         nan_guard: bool = False,
         precision=None,
         mesh=None,
+        stats: bool = False,
     ):
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -138,6 +146,15 @@ class TrainEngine:
         self._window: "_Window | None" = None
         self._stream = None  # the capture stream
         self.captures = 0
+        self.stats = bool(stats)
+        self._health = None
+        if self.stats:
+            from distributed_training_pytorch_tpu_torch.telemetry.stats import HealthStats
+
+            self._health = HealthStats()
+        # This rank's last window wall (ms) for the straggler fields: set by the trainer at
+        # a sync point, carried by every train step's metrics all-reduce until the next.
+        self.arrival_ms: "float | None" = None
 
     # -- metrics ----------------------------------------------------------
 
@@ -152,17 +169,28 @@ class TrainEngine:
     def _data_shards(self) -> int:
         return process_count() if self.mesh is None else self.mesh.shape[DATA_AXIS]
 
-    def _reduce(self, metrics: dict, batch) -> dict:
+    def _reduce(self, metrics: dict, batch, *, arrivals: bool = False) -> dict:
         """Across data shards: each metric's mean weighted by the shards' real rows (a no-op
-        with one data shard)."""
-        if self._data_shards() == 1:
+        with one data shard). ``arrivals`` (train steps) also sums one slot a data rank,
+        each rank writing its ``arrival_ms``, into ``metrics["_arrivals"]``: every rank's
+        figure, on the same all-reduce (``telemetry/straggler.py``)."""
+        shards = self._data_shards()
+        if shards == 1:
             return metrics
         keys = sorted(metrics)
         rows = self._rows(batch)
         packed = torch.stack([metrics[k].detach().float() * rows for k in keys] + [rows])
+        slots = arrivals and self.arrival_ms is not None
+        if slots:
+            own = torch.zeros(shards, dtype=packed.dtype, device=packed.device)
+            own[dist.get_rank() if self.mesh is None else self.mesh.data_index] = float(self.arrival_ms)
+            packed = torch.cat([packed, own])
         dist.all_reduce(packed, group=None if self.mesh is None else self.mesh.data_group)
-        total = torch.clamp(packed[-1], min=1.0)
-        return {k: packed[i] / total for i, k in enumerate(keys)}
+        total = torch.clamp(packed[len(keys)], min=1.0)
+        out = {k: packed[i] / total for i, k in enumerate(keys)}
+        if slots:
+            out["_arrivals"] = packed[len(keys) + 1:]
+        return out
 
     # -- the optimizer's form -----------------------------------------------
 
@@ -252,8 +280,10 @@ class TrainEngine:
         # loss) of the first of them, so their model copies stay bit-equal.
         broadcast_over_seq([p.grad for p in unwrap(model).parameters()] + [loss], self.mesh)
         metrics.setdefault("loss", loss)
-        metrics = self._reduce({**metrics, "_objective": loss}, batch)
+        metrics = self._reduce({**metrics, "_objective": loss}, batch, arrivals=True)
         loss = metrics.pop("_objective")  # the differentiated loss, as the guard reads it
+        if self._health is not None:
+            self._health.before_update(unwrap(model).parameters(), loss)
         if guard:
             ok = torch.isfinite(loss)
             for p in unwrap(model).parameters():
@@ -280,6 +310,9 @@ class TrainEngine:
                 state.loss_scale.adjust(ok)
         else:
             opt.step()
+        if self._health is not None:
+            for k, v in self._health.after_update().items():
+                metrics.setdefault(k, v)  # the guard's nonfinite wins, as JAX's setdefault gives
         if lr is not None:
             metrics["lr"] = lr.clone() if torch.is_tensor(lr) else torch.tensor(lr)
         return metrics

@@ -78,14 +78,35 @@ which a ``fault_plan`` step event could fire. ``log_every`` must be a multiple o
 ``chain_steps``, ``preemption_check_every`` is rounded up to one (with JAX's warning), and a
 ``train_step`` override refuses ``chain_steps > 1``.
 
-What the JAX Trainer has and this one does not yet (each raises when asked for):
-telemetry, the profiler, the memory preflight, elastic resume and ``TUNED``.
+Observability (``trainer.py:333-515``, ``:750-800``, ``:1139-1460``, ``:1755-1930``, the
+JAX Trainer's wiring, with its knobs and record vocabulary):
+
+* ``telemetry`` (``None``/``"on"``/a ``telemetry.Telemetry``): the event log
+  (``<save_folder>/telemetry/events.jsonl``), goodput buckets carried in checkpoint meta,
+  the on-device health stats in every step's metrics (``TrainEngine(stats=True)``),
+  per-window ``step_ms`` and MFU (one FLOP probe on the meta device at the end of the
+  first trained epoch), live memory and per-rank straggler fields, anomaly detection,
+  heartbeats (also from the watchdog's thread), the ``doctor/*`` scalars and a status
+  exporter. Everything reads values at the loop's existing sync points (``log_every``,
+  the epoch's end); off, the loop and the step are as without it;
+* ``profile`` (a ``profiling.ProfileConfig`` or a trace directory): one traced window of
+  real steps (chained windows whole), analysed into a ``profile_capture`` event;
+  ``profile_dir``/``profile_steps``: a raw trace of the first epoch's steps
+  ``[1, 1 + profile_steps)`` on the single-step path. Passing both raises;
+* ``tensorboard_dir``: the ``train/*``, ``precision/*``, ``goodput/*``, ``telemetry/*``,
+  ``straggler/*`` and ``doctor/*`` scalars at each epoch's end
+  (``utils/tensorboard.py``, which writes the event files itself).
+
+What the JAX Trainer has and this one does not yet (each raises when asked for): the
+memory preflight, elastic resume and ``TUNED``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
+import threading
 import time
 from typing import Any, Iterator, Mapping
 
@@ -103,18 +124,25 @@ from distributed_training_pytorch_tpu_torch.checkpoint import (
 from distributed_training_pytorch_tpu_torch.data import ShardedLoader
 from distributed_training_pytorch_tpu_torch.data.prefetch import device_prefetch, device_prefetch_chained
 from distributed_training_pytorch_tpu_torch.fault import StepWatchdog
+from distributed_training_pytorch_tpu_torch.memory import window_memory_fields
+from distributed_training_pytorch_tpu_torch.ops import _build
 from distributed_training_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic, resolve_loss_scale
+from distributed_training_pytorch_tpu_torch.profiling import StepTraceCapture, resolve_profile
+from distributed_training_pytorch_tpu_torch.profiling.trace import start_session, stop_session
 from distributed_training_pytorch_tpu_torch.resilience import AsyncCheckpointSaver
+from distributed_training_pytorch_tpu_torch.telemetry import EventLog, GoodputMeter, resolve_telemetry
+from distributed_training_pytorch_tpu_torch.telemetry import doctor as telemetry_doctor
+from distributed_training_pytorch_tpu_torch.telemetry import mfu as telemetry_mfu
+from distributed_training_pytorch_tpu_torch.telemetry import straggler as straggler_lib
+from distributed_training_pytorch_tpu_torch.telemetry.events import claim_attempt
 from distributed_training_pytorch_tpu_torch.train import NonFiniteLossError, TrainEngine, TrainState
+from distributed_training_pytorch_tpu_torch.utils.tensorboard import MetricsWriter
 
 __all__ = ["Trainer"]
 
 _UNPORTED = {
-    "telemetry": "telemetry (the observability slice)",
-    "profile": "the profiling capture (the observability slice)",
-    "profile_dir": "the profiler trace (the observability slice)",
-    "preflight": "the memory preflight (the observability slice)",
+    "preflight": "the memory preflight (memory/preflight.py, deferred from the observability slice)",
 }
 
 
@@ -152,6 +180,11 @@ class Trainer:
         precision=None,
         loss_scale=None,
         device="cuda",
+        profile_dir: "str | None" = None,
+        profile_steps: int = 5,
+        tensorboard_dir: "str | None" = None,
+        telemetry=None,
+        profile=None,
         **unported,
     ):
         for name, value in unported.items():
@@ -213,6 +246,20 @@ class Trainer:
         self._watchdog_timeout = step_timeout
         self._hung_once = False
         self.fault_plan = fault_plan
+        # Tracing: `profile=` is the analysed capture, `profile_dir=` the raw trace of the
+        # first epoch's steps; both would drive the one profiler session.
+        self.profile = resolve_profile(profile)
+        if self.profile is not None and profile_dir is not None:
+            raise ValueError(
+                "pass either profile= (ProfileConfig; analyzed capture) or profile_dir= (legacy raw trace), not "
+                "both — they would race the one profiler session"
+            )
+        if self.profile is not None and self.profile.dir is None:
+            self.profile = dataclasses.replace(self.profile, dir=os.path.join(save_folder, "profile"))
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._profiled = False
+        self.metrics_writer = MetricsWriter(tensorboard_dir)
         self.chain_steps = int(chain_steps)
         self._validate_chain_config()
 
@@ -243,7 +290,8 @@ class Trainer:
         if async_checkpoint and self.world_size > 1:
             self.log(f"async_checkpoint with {self.world_size} processes: saves commit synchronously (each ends at "
                      "a barrier every rank reaches on the loop)")
-        self.saver = AsyncCheckpointSaver(self.checkpoints)
+        self.saver = AsyncCheckpointSaver(self.checkpoints, on_commit=self._on_async_commit)
+        self._init_telemetry(telemetry, save_folder)
 
         torch.manual_seed(seed)
         self.model = self.build_model().to(self.device)
@@ -276,11 +324,17 @@ class Trainer:
             nan_guard=nan_policy in ("skip", "restore_last_good"),
             precision=self.precision,
             mesh=self.mesh,
+            stats=self.telemetry.stats if self.telemetry is not None else False,
+        )
+        self._profile_capture = (
+            StepTraceCapture(self.profile, device=self.device, log=self.log, events=self.events)
+            if self.profile is not None else None
         )
         scale = self._initial_loss_scale
         self.state = TrainState(model=self.model, optimizer=self.optimizer,
                                 loss_scale=scale.to(self.device) if is_dynamic(scale) else scale)
 
+        t_restore = time.perf_counter()
         if snapshot_path is not None:
             if snapshot_path == "latest_valid" and not self.checkpoints.checkpoint_names():
                 snapshot_path = None  # the first launch of an automatic restart: nothing to resume
@@ -292,6 +346,15 @@ class Trainer:
         if snapshot_path is not None:
             meta = self.checkpoints.read_meta(snapshot_path)
             self._resume_step_in_epoch = int((meta.get("loop") or {}).get("step_in_epoch", 0))
+            if self.goodput is not None:
+                # The interrupted run's counters go on (JSON round-trips floats exactly); the
+                # restore itself is resume overhead.
+                saved = (meta.get("telemetry") or {}).get("goodput")
+                if saved:
+                    self.goodput.load_state(saved)
+                self.goodput.account("restart_rollback", time.perf_counter() - t_restore)
+            self.events.emit("checkpoint_restore", name=os.path.basename(str(snapshot_path)), epoch=self.cur_epoch,
+                             step_in_epoch=self._resume_step_in_epoch)
             self.log(
                 f"Resumed from {snapshot_path} at epoch {self.cur_epoch}, step {self.state.step}"
                 + (f", step {self._resume_step_in_epoch} of the epoch (mid-epoch)" if self._resume_step_in_epoch else "")
@@ -360,14 +423,50 @@ class Trainer:
 
     def train(self) -> None:
         """The epoch loop; the SIGTERM handler is installed for its duration, and every
-        background save is committed (or its error logged) before it returns."""
+        background save is committed (or its error logged) before it returns. With
+        telemetry, ``run_start`` opens the attempt and ``run_end`` closes it."""
         self._install_sigterm()
+        self.metrics_writer.reopen()
+        self._start_epoch = self.cur_epoch
+        if self.goodput is not None:
+            self.goodput.start()
+        if self.events.enabled:
+            self._emit_run_start()
+        if self.telemetry is not None and self.telemetry.export_port is not None and self.rank == 0:
+            from distributed_training_pytorch_tpu_torch.telemetry.exporter import StatusExporter
+
+            self.exporter = StatusExporter(lambda: self._status, self.telemetry.export_port,
+                                           log=lambda msg: self.log(msg, "warning"))
+        self._attempt_units = 0
+        self._note_heartbeat_progress(epoch=self.cur_epoch, step_in_epoch=self._resume_step_in_epoch, units=0)
+        self._emit_heartbeat("loop")
+        self._update_status(step_in_epoch=self._resume_step_in_epoch, units=0)
         try:
             self._train_loop()
         finally:
             self._restore_sigterm()
             self._flush_saver_logged()
             self.saver.close()
+            if self.goodput is not None:
+                self.goodput.stop()
+            if self.events.enabled:
+                from distributed_training_pytorch_tpu_torch.ops import dispatch
+
+                dispatch.clear_event_sink()
+                fields = {"step": int(self.state.step), "epoch": self.cur_epoch, "preempted": self._preempted,
+                          "nonfinite_steps": self.nonfinite_steps}
+                if self.goodput is not None:
+                    fields.update(goodput=self.goodput.goodput, goodput_seconds=self.goodput.to_state(),
+                                  goodput_fractions=self.goodput.fractions())
+                if self.anomaly_detector is not None:
+                    fields["anomalies"] = self.anomaly_detector.total_fired
+                self.events.emit("run_end", **fields)
+            self._update_status(phase="finished")
+            if self.exporter is not None:
+                self.exporter.close()
+                self.exporter = None
+            self.events.close()
+            self.metrics_writer.close()
 
     def _train_loop(self) -> None:
         best_banner = None
@@ -379,7 +478,7 @@ class Trainer:
                 # it: `best` records them, or a resume from it would train them twice
                 # (the JAX Trainer labels this save as the epoch's start).
                 skip = self._resume_step_in_epoch
-                if self._save_checkpoint(BEST, epoch, metrics=metrics, best=True,
+                if self._save_checkpoint(BEST, epoch, metrics=metrics, best=True, reason="best",
                                          loop_state={"step_in_epoch": skip} if skip else None):
                     best_banner = {"epoch": epoch, "metrics": dict(metrics)}
                 if best_banner is not None:
@@ -400,7 +499,9 @@ class Trainer:
                 self._preempted = True
                 resume_epoch = epoch if self._epoch_interrupted else epoch + 1
                 loop_state = {"step_in_epoch": self._interrupted_at_step} if self._epoch_interrupted else None
-                self._save_checkpoint(LAST, resume_epoch, loop_state=loop_state, wait=True)
+                self.events.emit("preemption", epoch=epoch, resume_epoch=resume_epoch,
+                                 step_in_epoch=self._interrupted_at_step if self._epoch_interrupted else 0)
+                self._save_checkpoint(LAST, resume_epoch, loop_state=loop_state, wait=True, reason="preemption")
                 self.log(
                     f"SIGTERM received — saved resumable snapshot (epoch {resume_epoch}"
                     + (f", step {self._interrupted_at_step}" if self._epoch_interrupted else "")
@@ -421,7 +522,16 @@ class Trainer:
             for k, v in epoch_metrics.items():
                 msg += f" | {k} = {v} | "
             self.log(msg)
-        self.saver.flush()  # every background commit on disk, its error raised, before "Finished"
+            self.metrics_writer.write(int(self.state.step), epoch_metrics, prefix="train")
+            self._write_precision_scalars()
+            self._write_telemetry_scalars()
+        # Every background commit on disk, its error raised, before "Finished"; the wait is
+        # checkpoint stall.
+        if self.goodput is not None:
+            self.goodput.tick("other")
+        self.saver.flush()
+        if self.goodput is not None:
+            self.goodput.tick("checkpoint")
         self.log("Finished!")
 
     @property
@@ -442,24 +552,46 @@ class Trainer:
             self.log(f"background checkpoint commit failed: {err}", "error")
 
     def _save_checkpoint(self, name: str, epoch: int, *, loop_state: "Mapping | None" = None, wait: bool = False,
-                         metrics: "Mapping | None" = None, best: bool = False) -> bool:
+                         metrics: "Mapping | None" = None, best: bool = False, reason: str = "epoch") -> bool:
         """Every save site's one implementation: with ``async_checkpoint`` and not
         ``wait``, a snapshot here and the commit on the saver's thread; else (the
         preemption and watchdog saves) a flush of the saver and a commit here.
-        ``best=True`` applies the manager's best-value rule; returns whether it saved."""
-        if self._async_saves and not wait:
+        ``best=True`` applies the manager's best-value rule; returns whether it saved.
+        With telemetry: the goodput counters and the attempt ride the meta, the loop's
+        stall goes to the ``checkpoint`` bucket, and a ``checkpoint_save`` is emitted."""
+        if self.goodput is not None:
+            self.goodput.tick("other")  # close the epoch glue
+        meta = self._telemetry_meta()
+        mode = "async" if (self._async_saves and not wait) else "sync"
+        snapshot_s = save_s = None
+        if mode == "async":
             if best:
-                return self.saver.maybe_save_best(metrics, self.state, epoch, loop_state=loop_state)[0]
-            self.saver.save_async(name, self.state, epoch, metrics=metrics, loop_state=loop_state)
-            return True
-        if best:
-            if not self.checkpoints.best_improved(metrics):
-                return False
-            name = BEST
-        self.saver.save_sync(name, self.state, epoch, metrics=metrics, loop_state=loop_state)
-        if wait:
-            self._flush_saver_logged()  # a prior background failure is reported, not raised
-        return True
+                saved, snapshot_s = self.saver.maybe_save_best(metrics, self.state, epoch, loop_state=loop_state,
+                                                               telemetry=meta)
+            else:
+                snapshot_s = self.saver.save_async(name, self.state, epoch, metrics=metrics, loop_state=loop_state,
+                                                   telemetry=meta)
+                saved = True
+        else:
+            saved = not best or self.checkpoints.best_improved(metrics)
+            if saved:
+                name = BEST if best else name
+                save_s = self.saver.save_sync(name, self.state, epoch, metrics=metrics, loop_state=loop_state,
+                                              telemetry=meta)
+            if wait:
+                self._flush_saver_logged()  # a prior background failure is reported, not raised
+        if self.goodput is not None:
+            self.goodput.tick("checkpoint" if saved else "other")
+        if saved:
+            fields = {"name": name, "epoch": epoch, "reason": reason, "mode": mode}
+            if snapshot_s is not None:
+                fields["snapshot_ms"] = snapshot_s * 1e3
+            elif save_s is not None:
+                fields["save_ms"] = save_s * 1e3
+            if loop_state:
+                fields["step_in_epoch"] = int(loop_state.get("step_in_epoch", 0))
+            self.events.emit("checkpoint_save", **fields)
+        return saved
 
     # ------------------------------------------------------------------
     # Chained windows, faults, the watchdog and preemption.
@@ -503,8 +635,12 @@ class Trainer:
     def _chain_lead_singles(self, skip_steps: int) -> int:
         """Single steps before an epoch's first window: a mid-epoch resume at step k runs
         up to the next multiple of ``chain_steps`` singly, so windows sit where an
-        uninterrupted run has them."""
-        return -(-skip_steps // self.chain_steps) * self.chain_steps - skip_steps
+        uninterrupted run has them; with ``profile_dir`` the first epoch's traced steps
+        ``[1, 1 + profile_steps)`` run singly too."""
+        first_window_step = skip_steps
+        if self.profile_dir is not None and not self._profiled and skip_steps <= 1:
+            first_window_step = max(first_window_step, 2 + self.profile_steps)
+        return -(-first_window_step // self.chain_steps) * self.chain_steps - skip_steps
 
     def _fault_active_in_window(self, epoch: int, start: int, stop: int) -> bool:
         return self.fault_plan is not None and self.fault_plan.active_in_window(epoch, start, stop)
@@ -515,20 +651,27 @@ class Trainer:
         if not timeout:
             return watchdog
         if watchdog is None:
-            # Fire 1: a SIGTERM and a preemption save; fire 2: the thread is wedged.
-            watchdog = StepWatchdog(timeout, self._on_hung_step, max_fires=2).start()
+            # Fire 1: a SIGTERM and a preemption save; fire 2: the thread is wedged. The
+            # patrol keeps heartbeats coming while the loop is stuck in a step.
+            patrol = self._heartbeat_patrol if self._heartbeat_every_s and self.events.enabled else None
+            watchdog = StepWatchdog(timeout, self._on_hung_step, max_fires=2, on_patrol=patrol).start()
         watchdog.pat()
         return watchdog
 
     def _inject_step_faults(self, batch, epoch: int, step: int):
         """The step seams of ``fault_plan``: a real SIGTERM, a hung step (a sleep of
-        ``payload`` seconds), or a batch whose floating tensors are NaN."""
+        ``payload`` seconds), or a batch whose floating tensors are NaN; each firing is a
+        ``fault_injection`` event."""
+        fired_before = len(self.fault_plan.fired)
         self.fault_plan.maybe_sigterm(epoch=epoch, step=step)
         hang = self.fault_plan.fires("hang", epoch=epoch, step=step)
         if hang is not None:
             time.sleep(float(hang.payload or 0.0))
         if self.fault_plan.fires("nan_loss", epoch=epoch, step=step) is not None:
             batch = {k: torch.full_like(v, float("nan")) if v.is_floating_point() else v for k, v in batch.items()}
+        if self.events.enabled:
+            for kind, ctx in self.fault_plan.fired[fired_before:]:
+                self.events.emit("fault_injection", kind=kind, **ctx)
         return batch
 
     def _on_hung_step(self) -> None:
@@ -541,8 +684,10 @@ class Trainer:
                      "hard-exiting for scheduler restart (resume from the last checkpoint)", "error")
             os._exit(75)  # EX_TEMPFAIL
         self._hung_once = True
+        self._hung_steps += 1
         self.log(f"watchdog: no step completed in {timeout}s — forcing a preemption-style resumable save",
                  "warning")
+        self.events.emit("hung_step", timeout_s=timeout)
         os.kill(os.getpid(), signal.SIGTERM)
 
     def _on_preemption_signal(self, signum, frame) -> None:
@@ -611,7 +756,8 @@ class Trainer:
         """One pass over the train loader (from a mid-epoch resume's step on); metrics stay
         on the device until the epoch's end (and each ``log_every``-th step), where they
         are read back at once. With ``chain_steps`` > 1 the steps run in windows (see the
-        module docstring)."""
+        module docstring). With telemetry, the goodput meter attributes each unit's wall
+        at the unit's boundary, and the window records ride the ``log_every`` syncs."""
         collected: "list[tuple[int, dict]]" = []
         skip = self._resume_step_in_epoch
         self._resume_step_in_epoch = 0
@@ -621,6 +767,14 @@ class Trainer:
         t0 = time.perf_counter()
         num_batches = len(self.train_dataloader)
         chain = self.chain_steps
+        tm = self.goodput
+        if tm is not None:
+            tm.tick("other")  # the epoch's preamble (validation, logging)
+        rollback_fetch = skip > 0  # the first fetch after a mid-epoch resume skips trained batches
+        tele_sync = [t0, 0]  # (perf_counter, executed) at the last sync point
+        sync_compiles = [self._compile_count()]
+        epoch_compiles = sync_compiles[0]
+        arrivals = [None]  # the last step's per-rank window walls (telemetry/straggler.py)
         if chain > 1:
             units = device_prefetch_chained(self._train_host_batches(skip), self.device, chain,
                                             lead_singles=self._chain_lead_singles(skip))
@@ -629,12 +783,20 @@ class Trainer:
         else:
             units = ((1, b) for b in self.device_batches(self.train_dataloader))
         self._epoch_interrupted = False
+        cap = self._profile_capture
         watchdog = None
         watchdog_timeout = self.step_timeout * chain if self.step_timeout else None
         self._watchdog_timeout = watchdog_timeout
 
+        def keep(n, metrics):
+            arr = metrics.pop("_arrivals", None)
+            if arr is not None:
+                arrivals[0] = arr[-1] if n > 1 else arr
+            collected.append((n, metrics))
+
         def sync_log_point():
             nonlocal synced_entries, synced_steps
+            arrive = time.perf_counter()  # this rank reaches the sync: its window's host wall ends
             n_last, last = collected[-1]
             m = {k: float(v[-1]) if n_last > 1 else float(v) for k, v in last.items()}
             check = dict(m)
@@ -644,21 +806,67 @@ class Trainer:
             self._apply_nan_policy(check)
             rate = executed * self.batch_size / (time.perf_counter() - t0)
             self.log(f"  step {step_in_epoch}/{num_batches} {m} ({rate:.1f} rows/s)")
+            if self.telemetry is None:
+                return
+            now = time.perf_counter()
+            window_steps, window_s = executed - tele_sync[1], now - tele_sync[0]
+            strag = {}
+            if self._straggler_on and self.world_size > 1:
+                if arrivals[0] is not None:
+                    strag = straggler_lib.arrival_fields(arrivals[0].tolist())
+                self.engine.arrival_ms = (arrive - tele_sync[0]) * 1e3  # rides the next steps' all-reduce
+            tele_sync[0], tele_sync[1] = now, executed
+            compiles = self._compile_count()
+            compiled, sync_compiles[0] = compiles > sync_compiles[0], compiles
+            if window_steps > 0:
+                self._window_telemetry(epoch, step_in_epoch, executed, m, window_steps, window_s, compiled, strag)
+
+        def tick_unit(builds_before: int, captures_before: int):
+            # A unit that built the kernels or captured a graph paid the port's stand-in
+            # for a compile; every other unit is productive step time.
+            if self.telemetry is None:
+                return
+            builds = len(_build.builds) - builds_before
+            captures = self.engine.captures - captures_before
+            if tm is not None:
+                tm.tick("compile" if builds or captures else "productive_step")
+            if builds or captures:
+                if epoch > self._start_epoch:
+                    self._late_compiles += 1  # the steady state built or captured again
+                if builds:
+                    self.events.emit("compile", kind="nvcc_build", epoch=epoch, step_in_epoch=step_in_epoch,
+                                     executables=builds, seconds=sum(_build.builds[builds_before:]))
+                if captures:
+                    self.events.emit("compile", kind="cuda_graph", epoch=epoch, step_in_epoch=step_in_epoch,
+                                     executables=captures)
 
         try:
             interrupted = False
             for n, batch in units:
+                if tm is not None:
+                    tm.tick("restart_rollback" if rollback_fetch else "data_wait")
+                rollback_fetch = False
+                builds_before, captures_before = len(_build.builds), self.engine.captures
+                if self._probe_batch is None and self.telemetry is not None:
+                    # Shapes only (meta tensors): the one-time FLOP probe's input.
+                    self._probe_batch = {k: torch.empty(v.shape if n == 1 else v.shape[1:], dtype=v.dtype,
+                                                        device="meta") for k, v in batch.items()}
                 if n > 1 and not self._fault_active_in_window(epoch, step_in_epoch, step_in_epoch + n):
                     if self._preemption_requested(step_in_epoch):
                         interrupted = True
                         break
+                    if cap is not None:
+                        cap.maybe_start(step_in_epoch)
                     self.state, window_metrics = self.engine.train_steps_chained(self.state, batch, n)
-                    collected.append((n, window_metrics))
+                    keep(n, window_metrics)
                     step_in_epoch += n
                     executed += n
+                    if cap is not None:
+                        cap.maybe_stop(step_in_epoch)
                     watchdog = self._pat_watchdog(watchdog, watchdog_timeout)
                     if self.log_every and step_in_epoch % self.log_every == 0:
                         sync_log_point()
+                    tick_unit(builds_before, captures_before)
                     continue
                 singles = (batch,) if n == 1 else (self.engine.unstack_window(batch, i) for i in range(n))
                 for b in singles:
@@ -667,22 +875,43 @@ class Trainer:
                     if self._preemption_requested(step_in_epoch):
                         interrupted = True
                         break
+                    self._maybe_profile(step_in_epoch)
+                    if cap is not None:
+                        cap.maybe_start(step_in_epoch)
                     self.state, metrics = self.train_step(self.state, b)
-                    collected.append((1, metrics))
+                    keep(1, metrics)
                     step_in_epoch += 1
                     executed += 1
+                    if cap is not None:
+                        cap.maybe_stop(step_in_epoch)
                     watchdog = self._pat_watchdog(watchdog, watchdog_timeout)
                     if self.log_every and step_in_epoch % self.log_every == 0:
                         sync_log_point()
+                tick_unit(builds_before, captures_before)
                 if interrupted:
                     break
             if interrupted:
                 self._preempted = True
                 self._epoch_interrupted = True
                 self._interrupted_at_step = step_in_epoch
+        except BaseException:
+            # An open trace must be stopped (one profiler session a process), without its
+            # analysis and without waiting on possibly hung device work.
+            if cap is not None and cap.state == "tracing":
+                cap.maybe_stop(step_in_epoch, force=True, abort=True)
+            if self._profiled == "tracing":
+                try:
+                    stop_session(self._profile_session, None)
+                except (OSError, RuntimeError):
+                    pass
+                self._profiled = True
+            raise
         finally:
             if watchdog is not None:
                 watchdog.stop()
+        self._maybe_profile(step_in_epoch, end_of_epoch=True)
+        if cap is not None:  # close a capture still open (a short epoch); an interrupted
+            cap.maybe_stop(step_in_epoch, force=True, abort=self._epoch_interrupted)  # one skips the analysis
         if not collected:
             return {}
         keys = list(collected[0][1])
@@ -690,7 +919,315 @@ class Trainer:
         for n, m in collected:
             cols = [m[k].reshape(-1).float().cpu().tolist() for k in keys]
             host.extend(dict(zip(keys, row)) for row in zip(*cols))
-        return self._aggregate_epoch_metrics(host, synced_steps)
+        if tm is not None:
+            tm.tick("productive_step")  # the read-back waited for the steps in flight
+        epoch_wall = time.perf_counter() - t0
+        self._maybe_probe_mfu()  # once; books itself to `compile`
+        out = self._aggregate_epoch_metrics(host, synced_steps)
+        if self.telemetry is not None and executed:
+            self._epoch_telemetry(epoch, step_in_epoch, executed, epoch_wall, out,
+                                  compiled=self._compile_count() > epoch_compiles)
+        return out
+
+    # ------------------------------------------------------------------
+    # Telemetry (``trainer.py:1139-1560`` of the JAX Trainer). Off, none of it runs;
+    # on, it reads values at the existing sync points and never kills the run.
+    # ------------------------------------------------------------------
+
+    def _init_telemetry(self, telemetry, save_folder: str) -> None:
+        self.telemetry = resolve_telemetry(telemetry)
+        if self.telemetry is not None:
+            self.events = EventLog(self.telemetry.events_path or os.path.join(save_folder, "telemetry", "events.jsonl"),
+                                   process_index=self.rank)
+            self.goodput = GoodputMeter() if self.telemetry.goodput else None
+            self.anomaly_detector = self.telemetry.resolve_anomaly()
+            self._flops_per_step = self.telemetry.flops_per_step
+            self._peak_flops = telemetry_mfu.device_peak_flops(self.device)
+        else:
+            self.events = EventLog(None)
+            self.goodput = None
+            self.anomaly_detector = None
+            self._flops_per_step = None
+            self._peak_flops = None
+        self._straggler_on = self.telemetry is not None and self.telemetry.straggler
+        self._attempt = 0
+        self._last_straggler: "dict | None" = None
+        self._max_straggler_ratio: "float | None" = None
+        self._anomaly_counts: "dict[str, int]" = {}
+        self._hung_steps = 0
+        self._late_compiles = 0
+        self._start_epoch = 0
+        self._heartbeat_every_s = float(self.telemetry.heartbeat_every_s or 0.0) if self.telemetry is not None else 0.0
+        self._hb_lock = threading.Lock()
+        self._hb_last_emit = 0.0
+        self._hb_fields: dict = {}
+        self.exporter = None
+        self._status: dict = {}
+        self._mfu_probed = False
+        self._probe_batch = None
+        self._last_step_ms = None
+        self._last_scale_seen = None
+        self._attempt_units = 0
+        self._profile_session = None
+
+    def _emit_run_start(self) -> None:
+        self._attempt = claim_attempt(self.save_folder)
+        fields = dict(
+            attempt=self._attempt,
+            epoch=self.cur_epoch,
+            max_epoch=self.max_epoch,
+            step=int(self.state.step),
+            resumed_step_in_epoch=self._resume_step_in_epoch,
+            processes=self.world_size,
+            devices=self.world_size,
+            mesh={str(k): int(v) for k, v in self.mesh.shape.items()},
+            batch_replicas=self.batch_replicas,
+            chain_steps=self.chain_steps,
+            compute_dtype=str(self.precision.compute_dtype).replace("torch.", ""),
+        )
+        if self.goodput is not None:
+            fields["goodput_seconds"] = self.goodput.to_state()
+        from distributed_training_pytorch_tpu_torch.telemetry.provenance import provenance_fields
+
+        fields["provenance"] = provenance_fields(mesh=fields["mesh"], dtype=fields["compute_dtype"],
+                                                 chain_steps=self.chain_steps, batch=self.batch_size)
+        self.events.emit("run_start", **fields)
+        from distributed_training_pytorch_tpu_torch.ops import dispatch
+
+        dispatch.set_event_sink(self.events.emit)  # the kernel_dispatch decisions, buffered until now
+
+    def _compile_count(self) -> int:
+        """Builds of the kernels plus graph captures so far: what stands in for compiles."""
+        return len(_build.builds) + self.engine.captures
+
+    def _telemetry_meta(self) -> "dict | None":
+        """The cumulative counters a checkpoint's meta carries: goodput and the attempt."""
+        meta = {}
+        if self.goodput is not None:
+            meta["goodput"] = self.goodput.to_state()
+        if self._attempt:
+            meta["attempt"] = self._attempt
+        return meta or None
+
+    def _on_async_commit(self, name: str, seconds: float) -> None:
+        """The saver's thread, after a background commit: ``checkpoint_async`` and a
+        ``checkpoint_commit`` record."""
+        if self.goodput is not None:
+            self.goodput.account("checkpoint_async", seconds)
+        self.events.emit("checkpoint_commit", name=name, commit_ms=seconds * 1e3)
+
+    def _live_memory_fields(self) -> dict:
+        if self.telemetry is None or not self.telemetry.memory:
+            return {}
+        return window_memory_fields(self.device)
+
+    def _window_telemetry(self, epoch, step_in_epoch, executed, m, window_steps, window_s, compiled, strag) -> None:
+        """A ``log_every`` sync's records: ``window`` (step time, MFU, memory, straggler),
+        the heartbeat, the status snapshot, a loss-scale backoff, the anomaly checks."""
+        report = telemetry_mfu.window_report(window_steps, window_s, flops_per_step=self._flops_per_step,
+                                             peak_flops=self._peak_flops)
+        self._last_step_ms = report["step_ms"]
+        mem = self._live_memory_fields()
+        if strag:
+            strag["straggler_ratio"] = straggler_lib.ratio(strag["chip_skew_ms"], report["step_ms"])
+            self._last_straggler = strag
+            if self._max_straggler_ratio is None or strag["straggler_ratio"] > self._max_straggler_ratio:
+                self._max_straggler_ratio = strag["straggler_ratio"]
+        self.events.emit("window", epoch=epoch, step_in_epoch=step_in_epoch, **report, **mem, **strag)
+        hb = {"epoch": epoch, "step_in_epoch": step_in_epoch, "units": self._attempt_units + executed,
+              "step_ms": report["step_ms"]}
+        if mem.get("live_bytes") is not None:
+            hb["live_bytes"] = mem["live_bytes"]
+        self._note_heartbeat_progress(**hb)
+        self._emit_heartbeat("loop")
+        extra = dict(step_in_epoch=step_in_epoch, units=hb["units"], **mem)
+        for key, value in (("straggler_ratio", strag.get("straggler_ratio")), ("loss_scale", m.get("loss_scale")),
+                           ("loss", m.get("loss"))):
+            if value is not None:
+                extra[key] = value
+        self._update_status(**extra)
+        scale = m.get("loss_scale")
+        if scale is not None:
+            if self._last_scale_seen is not None and scale < self._last_scale_seen:
+                self.events.emit("loss_scale_backoff", epoch=epoch, step_in_epoch=step_in_epoch,
+                                 from_scale=self._last_scale_seen, to_scale=scale)
+            self._last_scale_seen = scale
+        if self.anomaly_detector is not None:
+            self._report_anomalies(
+                self.anomaly_detector.observe(
+                    step_in_epoch, loss=m.get("loss", m.get("ce_loss")), grad_norm=m.get("grad_norm"),
+                    step_time=None if compiled else report["step_ms"] / 1e3,  # a build or capture skews it
+                    live_bytes=mem.get("live_bytes"), straggler_ratio=strag.get("straggler_ratio"),
+                ),
+                epoch=epoch, step_in_epoch=step_in_epoch,
+            )
+
+    def _epoch_telemetry(self, epoch, step_in_epoch, executed, epoch_wall, out, *, compiled) -> None:
+        """The epoch's end: ``epoch_end``, the heartbeat, the status, the anomaly checks."""
+        report = telemetry_mfu.window_report(executed, epoch_wall, flops_per_step=self._flops_per_step,
+                                             peak_flops=self._peak_flops)
+        self._last_step_ms = report["step_ms"]
+        health = {k: out[k] for k in ("loss", "ce_loss", "grad_norm", "update_ratio", "nonfinite") if k in out}
+        mem = self._live_memory_fields()
+        fields = {}
+        if self.goodput is not None:
+            fields["goodput_seconds"] = self.goodput.to_state()
+        if self._last_straggler:
+            fields["chip_skew_ms"] = self._last_straggler["chip_skew_ms"]
+            fields["straggler_ratio"] = self._last_straggler["straggler_ratio"]
+        self.events.emit("epoch_end", epoch=epoch, wall_s=epoch_wall, interrupted=self._epoch_interrupted, **report,
+                         **health, **mem, **fields)
+        self._attempt_units += executed
+        self._note_heartbeat_progress(epoch=epoch, step_in_epoch=step_in_epoch, units=self._attempt_units,
+                                      step_ms=report["step_ms"])
+        self._emit_heartbeat("loop")
+        self._update_status(step_in_epoch=step_in_epoch, units=self._attempt_units, **mem)
+        if self.anomaly_detector is not None:
+            self._report_anomalies(
+                self.anomaly_detector.observe(
+                    step_in_epoch, loss=out.get("loss", out.get("ce_loss")), grad_norm=out.get("grad_norm"),
+                    step_time=None if compiled else report["step_ms"] / 1e3, live_bytes=mem.get("live_bytes"),
+                ),
+                epoch=epoch, step_in_epoch=step_in_epoch,
+            )
+
+    def _maybe_probe_mfu(self) -> None:
+        """Count one step's FLOPs once, at the end of the first trained epoch
+        (``utils/flops.py`` on the meta device: no work on the card, the same count on
+        the CPU); skipped with an explicit ``flops_per_step``, with MFU off, or under a
+        ``train_step`` override (the engine's step is then not what runs)."""
+        if (self.telemetry is None or not self.telemetry.mfu or self._mfu_probed or self._flops_per_step is not None
+                or self._probe_batch is None or type(self).train_step is not Trainer.train_step):
+            return
+        self._mfu_probed = True
+        t0 = time.perf_counter()
+        try:
+            from distributed_training_pytorch_tpu_torch.utils.flops import step_flops
+
+            flops = step_flops(self.state.model, self.engine.loss_fn, self._probe_batch)
+        except Exception as e:  # noqa: BLE001 - telemetry must never kill a run
+            self.log(f"telemetry: MFU probe failed ({e}) — per-window MFU disabled", "warning")
+            return
+        if self.goodput is not None:
+            self.goodput.tick("compile")
+        self._flops_per_step = flops or None
+        self.events.emit("compile", kind="mfu_probe", seconds=time.perf_counter() - t0,
+                         flops_per_step=self._flops_per_step)
+
+    def _report_anomalies(self, anomalies, *, epoch=None, step_in_epoch=None) -> None:
+        """Emit and log each finding; raise ``AnomalyError`` under ``action="raise"``."""
+        if not anomalies:
+            return
+        for a in anomalies:
+            self._anomaly_counts[a.kind] = self._anomaly_counts.get(a.kind, 0) + 1
+            self.events.emit("anomaly", kind=a.kind, value=a.value, baseline=a.baseline, factor=a.factor, epoch=epoch,
+                             step_in_epoch=step_in_epoch)
+            self.log(f"telemetry anomaly: {a.describe()}", "warning")
+        if self.anomaly_detector.action == "raise":
+            from distributed_training_pytorch_tpu_torch.telemetry import AnomalyError
+
+            raise AnomalyError("; ".join(a.describe() for a in anomalies))
+
+    def _write_precision_scalars(self) -> None:
+        """TensorBoard: a dynamic loss scale's scale and skipped steps."""
+        scale = getattr(self.state, "loss_scale", None)
+        if is_dynamic(scale):
+            self.metrics_writer.write(int(self.state.step), {"loss_scale": float(scale.scale),
+                                                             "skipped_steps": float(scale.skipped_steps)},
+                                      prefix="precision")
+
+    def _write_telemetry_scalars(self) -> None:
+        """TensorBoard: goodput fractions, step time and MFU, straggler, the live doctor."""
+        if self.telemetry is None:
+            return
+        step = int(self.state.step)
+        if self.goodput is not None:
+            self.metrics_writer.write(step, self.goodput.fractions(), prefix="goodput")
+        if self._last_step_ms is not None:
+            scalars = {"step_ms": self._last_step_ms}
+            mfu = telemetry_mfu.mfu_value(self._flops_per_step, self._last_step_ms / 1e3, self._peak_flops)
+            if mfu is not None:
+                scalars["mfu"] = mfu
+            self.metrics_writer.write(step, scalars, prefix="telemetry")
+        if self._last_straggler:
+            self.metrics_writer.write(step, {"skew_ms": self._last_straggler["chip_skew_ms"],
+                                             "ratio": self._last_straggler["straggler_ratio"]}, prefix="straggler")
+        self.metrics_writer.write(step, telemetry_doctor.scalar_fields(self._doctor_signals()), prefix="doctor")
+
+    def _doctor_signals(self) -> "telemetry_doctor.Signals":
+        """The doctor's inputs from this run's counters (what the event log would give)."""
+        return telemetry_doctor.Signals(
+            goodput_seconds=self.goodput.to_state() if self.goodput else None,
+            anomaly_counts=dict(self._anomaly_counts),
+            hung_steps=self._hung_steps,
+            max_straggler_ratio=self._max_straggler_ratio,
+            late_compiles=self._late_compiles,
+        )
+
+    def _emit_heartbeat(self, source: str, **extra) -> None:
+        """The liveness pulse, at most once a ``heartbeat_every_s`` across the loop and
+        the watchdog's thread: the last sync's progress and the goodput counters."""
+        if not self._heartbeat_every_s or not self.events.enabled:
+            return
+        now = time.monotonic()
+        with self._hb_lock:
+            if now - self._hb_last_emit < self._heartbeat_every_s:
+                return
+            self._hb_last_emit = now
+            fields = dict(self._hb_fields)
+        fields.update(extra)
+        if self._attempt:
+            fields["attempt"] = self._attempt
+        if self.goodput is not None:
+            fields["goodput_seconds"] = self.goodput.to_state()
+        self.events.emit("heartbeat", source=source, **fields)
+
+    def _note_heartbeat_progress(self, **fields) -> None:
+        with self._hb_lock:
+            self._hb_fields = dict(fields)
+
+    def _heartbeat_patrol(self, since_progress_s: float) -> None:
+        """The watchdog thread's hook: heartbeats while the loop is stuck in a step."""
+        self._emit_heartbeat("watchdog", since_progress_s=since_progress_s)
+
+    def _update_status(self, **extra) -> None:
+        """A fresh status snapshot for the exporter, swapped in by one assignment."""
+        if self.exporter is None or not self.exporter.enabled:
+            return
+        scores = telemetry_doctor.scalar_fields(self._doctor_signals())
+        verdict, worst = "healthy", 0.0
+        for kind, score in scores.items():
+            if kind != "healthy" and score >= 1.0 and score > worst:
+                verdict, worst = kind, score
+        snap = {"run_dir": self.save_folder, "pid": os.getpid(), "t_wall": time.time(), "phase": "training",
+                "epoch": self.cur_epoch, "nonfinite_steps": self.nonfinite_steps, "hung_steps": self._hung_steps,
+                "late_compiles": self._late_compiles, "anomaly_counts": dict(self._anomaly_counts),
+                "doctor_scores": scores, "verdict": verdict}
+        if self.goodput is not None:
+            snap["goodput_seconds"] = self.goodput.to_state()
+            snap["goodput_fractions"] = self.goodput.fractions()
+            snap["steady_fractions"] = telemetry_doctor.steady_fractions(snap["goodput_seconds"])
+        if self._last_step_ms is not None:
+            snap["step_ms"] = self._last_step_ms
+            mfu = telemetry_mfu.mfu_value(self._flops_per_step, self._last_step_ms / 1e3, self._peak_flops)
+            if mfu is not None:
+                snap["mfu"] = mfu
+        snap.update(extra)
+        self._status = snap
+
+    def _maybe_profile(self, step_in_epoch: int, end_of_epoch: bool = False) -> None:
+        """``profile_dir``: a raw trace of the first trained epoch's steps
+        ``[1, 1 + profile_steps)`` (step 0 builds and warms up, and stays out)."""
+        if self.profile_dir is None or self._profiled is True:
+            return
+        if self._profiled == "tracing" and (end_of_epoch or step_in_epoch >= 1 + self.profile_steps):
+            stop_session(self._profile_session, self.device)
+            self._profile_session = None
+            self._profiled = True
+            self.log(f"Profiler trace written to {self.profile_dir}")
+        elif self._profiled is False and not end_of_epoch and step_in_epoch == 1 and self.rank == 0:
+            self._profile_session = start_session(self.profile_dir, self.device)
+            self._profiled = "tracing"
 
     def _aggregate_epoch_metrics(self, host: "list[dict]", synced: int = 0) -> dict:
         """Per-epoch means; under the non-finite guard the skipped steps are left out and

@@ -16,15 +16,13 @@ warm-up steps through the trainer's ``train_step`` hook, then:
 
 * ``step_ms``: the median of 5 steps, with CUDA events;
 * ``--steps`` steps under ``torch.profiler``: device time per step summed over the
-  kernels of each family (``conv1x1_bn_act``: the port's forward kernel, either variant;
-  ``conv1x1_bwd_dz``: its backward's one-pass dz; ``flash_attention``: K1–K3;
-  ``convolution``: cuDNN's forward, data-gradient and weight-gradient kernels (the
-  depthwise ones too); ``matmul``: cuBLAS/CUTLASS GEMMs, the kernel's backward products
-  and the head; ``batchnorm``; ``layernorm``; ``softmax``; ``pooling``; ``elementwise``:
-  casts, activations, residual adds and the like; ``reduce``; ``optimizer``: SGD's or
-  AdamW's multi-tensor kernels; ``other``), the top kernels, the top kernels of the
-  elementwise family alone, the operators and kernels with the most device time of their
-  own (with their calls a step), and the device's busy share of the profiled wall time.
+  categories of ``profiling/categories.py`` (K1-K4 are ``matmul``, K4's dz pass
+  ``fusion(elementwise)``, cuDNN's convolutions ``convolution``, BatchNorm, LayerNorm and
+  softmax ``reduce(stats)``, the optimizers' multi-tensor kernels ``fusion(elementwise)``),
+  the top kernels, the top kernels of ``fusion(elementwise)`` alone, the operators and
+  kernels with the most device time of their own (with their calls a step), and the
+  device's busy share of the profiled wall time (the union of its kernel, copy and set
+  intervals, ``profiling/report.py``).
 
 The host's data path (random-resized-crop on the CPU) is outside these steps;
 ``chip_smoke.py`` phase B measures the entry's whole loop. Prints one JSON line a
@@ -49,35 +47,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 KNOBS = {"resnet50": ("1", "0"), "vit_b16": ("", "0"), "convnext_l": ("1", "0")}
 
 
-def _group(name: str) -> str:
-    low = name.lower()
-    if "conv1x1_bn_act" in low:
-        return "conv1x1_bn_act"
-    if "conv1x1_bwd_dz" in low:
-        return "conv1x1_bwd_dz"
-    if "flash_" in low:
-        return "flash_attention"
-    if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "implicit")):
-        return "convolution"
-    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
-        return "matmul"
-    if "batch_norm" in low or "batchnorm" in low or "bn_" in low:
-        return "batchnorm"
-    if "layer_norm" in low or "layernorm" in low:
-        return "layernorm"
-    if "softmax" in low:
-        return "softmax"
-    if "pool" in low:
-        return "pooling"
-    if "multi_tensor" in low or "sgd" in low or "adam" in low:
-        return "optimizer"
-    if "reduce" in low:
-        return "reduce"
-    if "elementwise" in low or "vectorized" in low or "unrolled" in low or "copy" in low:
-        return "elementwise"
-    return "other"
-
-
 def _top_ops(prof, steps: int, n: int = 20) -> list:
     """The entries of the profile (operators such as ``aten::copy_``, and kernels) with the
     most device time of their own per step, with their calls a step: which calls the kernel
@@ -94,8 +63,9 @@ def _top_ops(prof, steps: int, n: int = 20) -> list:
 
 def _profile(trainer, batches, steps: int) -> dict:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_pytorch_tpu_torch.profiling import busy_us, categorize, profile_events
 
     state = trainer.state
     for batch in batches[:2]:
@@ -115,23 +85,23 @@ def _profile(trainer, batches, steps: int) -> dict:
             state, _ = trainer.train_step(state, batches[i % len(batches)])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = profile_events(prof)
     groups: dict = {}
     by_name: dict = {}
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy_us = sum(groups.values())
+    for name, _, us in kernels:
+        groups[categorize(name)] = groups.get(categorize(name), 0.0) + us
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy = busy_us(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
-    elementwise = sorted(((n, us) for n, us in by_name.items() if _group(n) == "elementwise"), key=lambda kv: -kv[1])
+    elementwise = sorted(((n, us) for n, us in by_name.items() if categorize(n) == "fusion(elementwise)"),
+                         key=lambda kv: -kv[1])
     return {
         "step_ms_p50": statistics.median(times),
         "step_ms_all": times,
         "profiled_steps": steps,
         "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
         "device_ms_per_step": {k: v / 1e3 / steps for k, v in sorted(groups.items())} if kernels else "not measured",
-        "device_busy_share": busy_us / wall_us if kernels else "not measured",
+        "device_busy_share": busy / wall_us if kernels else "not measured",
         "kernels_per_step": len(kernels) / steps,
         "top_kernels_ms_per_step": [[name[:90], us / 1e3 / steps] for name, us in top],
         "top_elementwise_ms_per_step": [[name[:200], us / 1e3 / steps] for name, us in elementwise[:12]],

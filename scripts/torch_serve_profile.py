@@ -8,9 +8,10 @@ card, as ``chip_smoke.py`` serves it, and for each batch size of 1024-token rows
 
 * ``predict_ms``: the engine's ``predict`` (host rows in, f32 next-token logits out),
   median of 10 after warm-up, on the host clock (it ends in a device-to-host copy);
-* one ``predict`` under ``torch.profiler``: device time summed over the kernels of each
-  group (``flash_fwd``, the port's attention kernel; ``matmul``, cuBLAS/CUTLASS GEMMs;
-  ``other``), the top kernels, and the device's busy share of that predict's wall time;
+* one ``predict`` under ``torch.profiler``: device time summed over the categories of
+  ``profiling/categories.py`` (K1 is ``matmul`` with the GEMMs), the top kernels, and the
+  device's busy share of that predict's wall time (the union of its kernel, copy and set
+  intervals, ``profiling/report.py``);
 * ``json_ms``: the host time to encode one answer's logits as the server does (median
   of 5).
 
@@ -35,15 +36,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VOCAB, SEQ = 50257, 1024
 
 
-def _group(name: str) -> str:
-    low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd"
-    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
-        return "matmul"
-    return "other"
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 4, 8])
@@ -51,8 +43,9 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_pytorch_tpu_torch.profiling import busy_us, categorize, profile_events
 
     if not torch.cuda.is_available():
         print("torch_serve_profile: torch sees no CUDA device", file=sys.stderr)
@@ -88,14 +81,13 @@ def main() -> int:
             t0 = time.perf_counter()
             engine.predict(rows)
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = profile_events(prof)
         groups: dict = {}
         by_name: dict = {}
-        for e in kernels:
-            us = e.time_range.elapsed_us()
-            groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-        busy_us = sum(groups.values())
+        for name, _, us in kernels:
+            groups[categorize(name)] = groups.get(categorize(name), 0.0) + us
+            by_name[name] = by_name.get(name, 0.0) + us
+        busy = busy_us(kernels)
         encode = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -110,7 +102,7 @@ def main() -> int:
             "predict_ms_p50": statistics.median(times),
             "profiled_wall_ms": wall_us / 1e3,
             "device_ms": {k: v / 1e3 for k, v in sorted(groups.items())} if kernels else "not measured",
-            "device_busy_share": busy_us / wall_us if kernels else "not measured",
+            "device_busy_share": busy / wall_us if kernels else "not measured",
             "kernels": len(kernels),
             "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
             "json_ms": json_ms,

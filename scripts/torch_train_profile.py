@@ -14,12 +14,10 @@ configuration: ``MESH=spS`` with all S shards on the card and the entry's
 
 * ``step_ms``: the median of 5 steps, with CUDA events;
 * ``--steps`` steps under ``torch.profiler``: device time per step summed over the
-  kernels of each family (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``: the port's
-  kernels, each backward family holding both its wgmma and CUDA-core variants;
-  ``matmul``: cuBLAS/CUTLASS GEMMs; ``layernorm``; ``elementwise``: casts, GELU,
-  residual adds and the like; ``reduce``: reductions such as the backward's delta and the
-  loss; ``optimizer``: AdamW's multi-tensor kernels; ``other``), the top kernels, and the
-  device's busy share of the profiled wall time.
+  categories of ``profiling/categories.py`` (the port's K1-K3 are ``matmul`` with the
+  GEMMs; each kernel's own time is in the top kernels), the top kernels, and the device's
+  busy share of the profiled wall time (the union of its kernel, copy and set intervals,
+  ``profiling/report.py``).
 
 Prints one JSON line tagged with the card's name and power limit. Needs a CUDA card; exits
 non-zero without one.
@@ -30,7 +28,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -38,24 +35,6 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def _group(name: str) -> str:
-    low = name.lower()
-    flash = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(?:_wgmma)?_kernel", low)  # either backward variant
-    if flash:
-        return flash.group(1)
-    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")):
-        return "matmul"
-    if "multi_tensor" in low or "adam" in low:
-        return "optimizer"
-    if "layer_norm" in low or "layernorm" in low:
-        return "layernorm"
-    if "reduce" in low:
-        return "reduce"
-    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
-        return "elementwise"
-    return "other"
 
 
 def main() -> int:
@@ -67,8 +46,9 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from distributed_training_pytorch_tpu_torch.profiling import busy_us, categorize, profile_events
 
     if not torch.cuda.is_available():
         print("torch_train_profile: torch sees no CUDA device", file=sys.stderr)
@@ -110,14 +90,13 @@ def main() -> int:
                 state, _ = trainer.train_step(state, batch)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = profile_events(prof)
     groups: dict = {}
     by_name: dict = {}
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy_us = sum(groups.values())
+    for name, _, us in kernels:
+        groups[categorize(name)] = groups.get(categorize(name), 0.0) + us
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy = busy_us(kernels)
     n = len(batches[7:])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({
@@ -131,7 +110,7 @@ def main() -> int:
         "profiled_steps": n,
         "profiled_wall_ms_per_step": wall_us / 1e3 / n,
         "device_ms_per_step": {k: v / 1e3 / n for k, v in sorted(groups.items())} if kernels else "not measured",
-        "device_busy_share": busy_us / wall_us if kernels else "not measured",
+        "device_busy_share": busy / wall_us if kernels else "not measured",
         "kernels_per_step": len(kernels) / n,
         "top_kernels_ms_per_step": [[name[:90], us / 1e3 / n] for name, us in top],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,

@@ -272,10 +272,11 @@ def test_loss_scale_refusals_match_the_jax_trainer(sides, tmp_path, i):
     assert want is not None and [type(err.value).__name__, str(err.value)] == want
 
 
-def test_the_entry_refuses_what_is_not_ported(monkeypatch, tmp_path):
+def test_the_entry_refuses_what_is_not_ported(sides, monkeypatch, tmp_path):
+    # TELEMETRY=1 is ported: the entry's trainer runs with telemetry on
     monkeypatch.setenv("TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="observability"):
-        train_digits.build_trainer(str(tmp_path), str(tmp_path), "cpu")
+    telemetered = train_digits.build_trainer(sides["subset"], str(tmp_path), "cpu")
+    assert telemetered.telemetry is not None and telemetered.engine.stats
     monkeypatch.delenv("TELEMETRY")
     monkeypatch.setenv("MESH", "fsdp2x1")
     with pytest.raises(NotImplementedError, match="sharding slice"):

@@ -37,6 +37,10 @@ PORT_MODULES = [
     "examples.train_records",
     # LM generation and offline LM evaluation
     "examples.eval_lm", "examples.make_lm_corpus",
+    # observability: telemetry, live memory, profiling, FLOPs, TensorBoard scalars
+    "telemetry.anomaly", "telemetry.doctor", "telemetry.goodput", "telemetry.mfu", "telemetry.provenance",
+    "telemetry.stats", "telemetry.straggler", "memory.live", "profiling.capture", "profiling.categories",
+    "profiling.report", "profiling.trace", "utils.flops", "utils.tensorboard",
 ]
 # The card's machine has neither OpenCV nor PIL, nor scikit-learn: the port decodes and
 # transforms images without them, and ships the digits corpus as an array of its own.

@@ -287,7 +287,13 @@ def test_unported_knobs_raise(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="P17"):
         train_cifar10.build_trainer("cpu")
     monkeypatch.delenv("TUNED")
+    # TELEMETRY=1 is ported: the entry's trainer is built with telemetry on (a small
+    # stand-in data set: the synthetic one holds 60,000 images)
     monkeypatch.setenv("TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        train_cifar10.build_trainer("cpu")
+    rng = np.random.RandomState(0)
+    small = (rng.randint(0, 256, (16, 32, 32, 3)).astype(np.uint8), rng.randint(0, 10, 16).astype(np.int32),
+             rng.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8), rng.randint(0, 10, 8).astype(np.int32))
+    monkeypatch.setattr(train_cifar10, "load_cifar10", lambda data_dir: small)
+    trainer = train_cifar10.build_trainer("cpu")
+    assert trainer.telemetry is not None and trainer.engine.stats
 

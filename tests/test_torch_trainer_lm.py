@@ -293,9 +293,14 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
             seq_len=SEQ, base_lr=LR, size="tiny", moe_every=2, max_epoch=1, batch_size=BATCH,
             save_folder=str(tmp_path), device="cpu",
         )
-    with pytest.raises(NotImplementedError, match="observability"):
+    # telemetry is ported (it runs: the engine computes the health stats); the memory
+    # preflight still raises, naming its slice
+    telemetered = train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1,
+                                     batch_size=BATCH, save_folder=str(tmp_path), device="cpu", telemetry=True)
+    assert telemetered.engine.stats and telemetered.events.enabled
+    with pytest.raises(NotImplementedError, match="memory preflight"):
         train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1, batch_size=BATCH,
-                           save_folder=str(tmp_path), device="cpu", telemetry=True)
+                           save_folder=str(tmp_path), device="cpu", preflight=True)
     # DTYPE=fp16 trains with dynamic loss scaling; the flash kernels, which have no fp16
     # variant, refuse it by name where they would launch (here on the CPU the plain
     # attention runs, as for every dtype)
