@@ -73,7 +73,8 @@ def _build(entry, tmp_path, monkeypatch, subset):
         monkeypatch.setenv("BATCH", "8")
         return train_cifar10.build_trainer("cpu"), save
     if entry == "digits":
-        _narrow_vgg(example_trainer, monkeypatch)
+        real = example_trainer.VGG16
+        monkeypatch.setattr(example_trainer, "VGG16", lambda **kw: real(**{**kw, **NARROW}))
         return train_digits.build_trainer(subset, save, "cpu", max_epoch=1, batch_size=16), save
     patterns = train_records.pack_digits(subset, str(tmp_path / "records"))
     return train_records.build_trainer(patterns, save, "cpu", max_epoch=1, batch_size=16), save

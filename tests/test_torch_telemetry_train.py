@@ -5,8 +5,10 @@
   (relative) of the JAX ``TrainEngine(stats=True)``'s, and the loss as without stats;
 * the FLOP probe (``utils/flops.py``, the meta device) against the JAX step's
   ``hlo_flops.executed_matmul_flops`` (plain attention) for LMTiny and a narrow VGG16,
-  within 2 %. The residual is XLA's: it folds the LM's fused-CE chunks and the embedding
-  gradient differently from autograd's products (both are counted where they are GEMMs);
+  within 2 %. LMTiny's counts are equal (22,020,096). VGG16's differs by 1.4 %, in the
+  convolutions (32,292,864 counted here against XLA's 31,801,344: XLA lowers some of the
+  small-map convolutions of the last stages differently; the dots agree within the
+  adaptive pool's backward, which XLA writes as two small dots);
 * stats on leave the params bit-equal to stats off, single steps and chained windows (the
   loop form on the CPU), under the non-finite guard too;
 * the goodput counters ride a SIGTERM's mid-epoch save and come back bit-identical in the
