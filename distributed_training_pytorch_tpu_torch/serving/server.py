@@ -170,6 +170,7 @@ class InferenceServer:
         self.drain_count = 0
         self.shed_total = 0  # requests answered a drain-window 503
         self._swap_identity = None  # (name, manifest mtime) the engine serves
+        self.swap_polls = 0  # the watcher's completed reads of the checkpoint directory
         self._reject_debounce: dict = {}  # tenant -> (last_emit_t, count_since)
         self._pulse_state = {"t": 0.0, "requests": 0, "batches": 0}
         self._lock = threading.Lock()
@@ -647,7 +648,8 @@ class InferenceServer:
             try:
                 cand = self._swap_candidate()
             except Exception:  # noqa: BLE001 — a racing commit: retried next poll
-                continue
+                cand = None
+            self.swap_polls += 1
             if cand is None or cand == self._swap_identity:
                 continue
             before = self.engine.params_version

@@ -198,11 +198,13 @@ def test_hot_swap_under_concurrent_predict(tmp_path):
     try:
         for t in threads:
             t.start()
-        time.sleep(0.2)  # several polls: the preloaded version is adopted, not restored again
+        # Two of the watcher's polls, and an answer under the preloaded version: it is
+        # adopted, not restored again.
+        assert _wait(lambda: server.swap_polls >= 2 and any(b.get("params_version") == "best@e1"
+                                                             for _, _, b in answers), timeout=120)
         assert eng.swap_count == 1
         manager.save("best", _state(2), epoch=2)
-        assert _wait(lambda: any(b.get("params_version") == "best@e2" for _, _, b in answers))
-        time.sleep(0.1)
+        assert _wait(lambda: any(b.get("params_version") == "best@e2" for _, _, b in answers), timeout=120)
     finally:
         stop.set()
         for t in threads:
