@@ -36,11 +36,14 @@ pytest.importorskip("sklearn")
 
 from distributed_training_pytorch_tpu_torch.examples import digits_data, train_digits  # noqa: E402
 from distributed_training_pytorch_tpu_torch.models import create_model  # noqa: E402
-from distributed_training_pytorch_tpu_torch.telemetry import doctor, load_run_events  # noqa: E402
+from distributed_training_pytorch_tpu_torch.telemetry import Telemetry, doctor, load_run_events  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = dict(stage_features=[8, 8, 16, 16, 16], classifier_widths=[32, 32], dropout_rate=0.0)
 SUBSET, BATCH, EPOCHS = 8, 16, 2
+# A heartbeat at every log_every sync on both sides: under the default 30 s debounce, which
+# heartbeats a run writes (the first carries no step_ms) depends on how long it runs.
+HEARTBEAT_EVERY_S = 1e-9
 
 _JAX_SIDE = textwrap.dedent(
     """
@@ -53,9 +56,11 @@ _JAX_SIDE = textwrap.dedent(
         setattr(stub, name, _unavailable)
     sys.modules[stub.__name__] = stub
 
-    out, subset, jax_dir, port_dir, batch, epochs, narrow = sys.argv[1:8]
+    out, subset, jax_dir, port_dir, batch, epochs, narrow, hb = sys.argv[1:9]
+    HEARTBEAT_EVERY_S = float(hb)
     import jax.numpy as jnp
     from distributed_training_pytorch_tpu.models import VGG16
+    from distributed_training_pytorch_tpu.telemetry import Telemetry
     from examples import digits_data
     from examples.train_digits import DigitsTrainer
 
@@ -67,7 +72,7 @@ _JAX_SIDE = textwrap.dedent(
                      labels=digits_data.LABELS, height=digits_data.SIZE, width=digits_data.SIZE,
                      max_epoch=int(epochs), batch_size=int(batch), have_validate=True, save_period=1,
                      last_save_period=1, save_folder=jax_dir, progress=False, async_checkpoint=False,
-                     telemetry="on", num_workers=0, log_every=2)
+                     telemetry=Telemetry(heartbeat_every_s=HEARTBEAT_EVERY_S), num_workers=0, log_every=2)
     trainer.train()
     import time
     deadline = time.monotonic() + 600
@@ -127,14 +132,15 @@ def runs(tmp_path_factory):
     for knob in ("PYTHONPATH", "PALLAS", "DTYPE", "MESH", "TELEMETRY", "CHAIN_STEPS", "DIGITS_LR"):
         env.pop(knob, None)
     proc = subprocess.Popen([sys.executable, "-c", _JAX_SIDE, out, subset, jax_dir, port_dir, str(BATCH), str(EPOCHS),
-                             json.dumps(NARROW)], cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                             json.dumps(NARROW), repr(HEARTBEAT_EVERY_S)], cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                             text=True)
     saved = {k: os.environ.pop(k, None) for k in ("DTYPE", "MESH", "TELEMETRY", "SNAPSHOT", "CHAIN_STEPS")}
     try:
         trainer = _Narrow(train_path=os.path.join(subset, "train"), val_path=os.path.join(subset, "test"),
                           labels=digits_data.LABELS, height=digits_data.SIZE, width=digits_data.SIZE,
                           max_epoch=EPOCHS, batch_size=BATCH, have_validate=True, save_period=1, last_save_period=1,
-                          save_folder=port_dir, async_checkpoint=False, telemetry="on", num_workers=0, device="cpu", log_every=2,
+                          save_folder=port_dir, async_checkpoint=False,
+                          telemetry=Telemetry(heartbeat_every_s=HEARTBEAT_EVERY_S), num_workers=0, device="cpu", log_every=2,
                           tensorboard_dir=str(base / "tb"))
         trainer.train()
     finally:
