@@ -179,7 +179,26 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     ``matmul``); the goodput fractions; the doctor's verdict; readable TensorBoard files;
     the provenance's card and power limit; the epoch on the warm trainers off and on in
     turns (the chained graphs captured under deterministic algorithms, as their parity
-    run needs).
+    run needs);
+25. (preflight, run after phase 24 in its directory) the memory preflight through the LM
+    entry's ``Trainer(preflight="on")`` at GPT-2-small's width (bf16, T=1024, AdamW,
+    ``TELEMETRY=1``): the predicted peak and its six classes against
+    ``torch.cuda.max_memory_allocated`` of the steps that follow, eager at batch 64 and
+    with ``CHAIN_STEPS=4`` (within 15 %; K1–K3 12 a step each in the eager run, all wgmma:
+    ``train_lm_preflight`` in the kernels line); batch 512 refused with ``PreflightOOMError`` before
+    any step, ``memory_allocated`` the same before and after the preflight, with a
+    recommended batch and accumulation factor, each then run for 2 steps at a measured
+    peak at or under the usable bytes; then the port's readers on this machine, which has
+    no JAX: ``scripts/torch_run_monitor.py`` following a live run from ``waiting`` through
+    ``training`` to ``finished``, that run's timeline (the goodput spans per bucket equal to
+    the meter's fractions within 1e-9, through ``scripts/torch_run_doctor.py --timeline``
+    too), ``scripts/torch_run_compare.py`` on phase 24's eager and chained profile captures
+    (the category deltas sum to the step's delta within 1e-9 of the step), and
+    ``scripts/torch_perf_gate.py --quick`` passing against ``TORCH_PERF_BASELINE.json``'s
+    ``quick-cuda`` entry and failing with ``--inject-slowdown 3``.
+
+The chaos soak (phase 23) runs in a process of its own beside the kernel checks (phases
+2, 3, 10 and 7), which time nothing, and is read after them.
 
 The vit and convnext phases (14, 15) save in the background (the ``Trainer``'s default
 ``async_checkpoint``): they print each save's snapshot time and the flushes that wait for
@@ -3739,19 +3758,36 @@ def phase_telemetry(run_dir: str, card: str) -> dict:
     return {"launches": counts, "runs": runs, "flops": cpu_flops, "stats_ms": stats_ms, "wall_s": wall}
 
 
-def phase_resilience(run_dir: str) -> dict:
+def start_soak(run_dir: str):
+    """Start the chaos soak (``scripts/torch_chaos_soak.py``) in a process of its own;
+    ``(process, start time)`` for :func:`phase_resilience`."""
+    proc = subprocess.Popen([sys.executable, os.path.join(REPO, "scripts", "torch_chaos_soak.py"), "--device", "cuda",
+                             "--workdir", os.path.join(run_dir, "soak")], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO)
+    return proc, time.perf_counter()
+
+
+def phase_resilience(run_dir: str, soak=None) -> dict:
     """The port's chaos soak (``scripts/torch_chaos_soak.py``) on the card: digits through
     the entry with ``CHAIN_STEPS=2`` and background saves, killed by a graceful SIGTERM, a
     SIGKILL mid-commit, a SIGKILL mid-window and a hung step past ``step_timeout``, each
     resumed from ``latest_valid``; the final params bit-exact against an uninterrupted run;
-    the async save's stall against the sync save's wall on GPT-2-small's state."""
+    the async save's stall against the sync save's wall on GPT-2-small's state. ``soak``:
+    the ``(process, start time)`` of a soak :func:`start_soak` started (None: start it
+    now)."""
     import torch
 
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    done = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_chaos_soak.py"), "--device", "cuda",
-                           "--workdir", os.path.join(run_dir, "soak")], capture_output=True, text=True, timeout=900,
-                          cwd=REPO)
+    if soak is None:
+        torch.cuda.empty_cache()
+        soak = start_soak(run_dir)
+    proc, t0 = soak
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    done = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
     wall = time.perf_counter() - t0
     lines = done.stdout.strip().splitlines()
     for line in lines[:-1]:
@@ -3769,6 +3805,287 @@ def phase_resilience(run_dir: str) -> dict:
         f"moments): synchronous save {st['sync_ms']:.1f} ms; async snapshot {st['stall_ms']:.1f} ms until its copies "
         f"landed ({st['stall_ratio']:.4f} of the sync wall; bound 0.25); its background commit {st['commit_ms']:.1f} ms")
     return {**result, "script_wall_s": wall}
+
+
+PREFLIGHT_BATCH = 64
+PREFLIGHT_STEPS = 3  # eager: the 2nd and 3rd steps carry AdamW's moments, as every later step
+PREFLIGHT_CHAIN_STEPS = 8  # two windows of CHAIN_WINDOW
+PREFLIGHT_OVERSIZE = 512  # predicted above the card's usable bytes (a trace on the CPU: 181 GB)
+PREFLIGHT_FIT_STEPS = 2
+PREFLIGHT_REL = 0.15  # prediction against the measured peak
+PREFLIGHT_MONITOR_STEPS = 16
+READERS_REL = 1e-9
+
+
+def _preflight_windows(batch: int, steps: int) -> int:
+    """The LM entry's window count whose 95 % train split is ``steps`` batches exactly."""
+    n = -(-(steps * batch) * 100 // 95)
+    while int(n * 0.95) // batch != steps or n - int(n * 0.95) < 1:
+        n += 1
+    return n
+
+
+def _preflight_trainer(run_dir, tag, *, batch, steps, chain=1, accum=1, telemetry=True):
+    """The LM entry's trainer (GPT-2-small, bf16, T=1024, AdamW) with ``preflight="on"``:
+    one epoch of ``steps`` steps of ``batch`` rows, no validation."""
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+
+    base = train_lm.load_windows(SEQ)
+    n = _preflight_windows(batch, steps)
+    windows = np.concatenate([base] * -(-n // len(base)))[:n]
+    os.environ.update(TRAIN_ENV, BATCH=str(batch), EPOCHS="1", SAVE_DIR=os.path.join(run_dir, tag),
+                      CHAIN_STEPS=str(chain), SAVE_PERIOD="0")
+    for k in ("SNAPSHOT", "LM_CORPUS", "PROFILE_DIR", "TELEMETRY"):
+        os.environ.pop(k, None)
+    if telemetry:
+        os.environ["TELEMETRY"] = "1"
+
+    class Preflighted(train_lm.LMTrainer):
+        def __init__(self, **kw):
+            super().__init__(**kw, preflight="on", accum_steps=accum, log_every=4)
+
+    real_load = train_lm.load_windows
+    train_lm.load_windows = lambda seq_len, path=None: windows
+    try:
+        return train_lm.build_trainer("cuda", trainer_cls=Preflighted)
+    finally:
+        train_lm.load_windows = real_load
+
+
+def _measured_peak(run_dir, tag, **kw) -> dict:
+    """Build the trainer, train its epoch; the report and the measured peak: the
+    allocator's high-water mark from the build on, less what was allocated before it."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    trainer = _preflight_trainer(run_dir, tag, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    report = trainer.memory_report
+    out = {"report": report, "measured": int(peak), "before": int(before), "steps": int(trainer.state.step),
+           "captures": trainer.engine.captures, "save_folder": trainer.save_folder}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fmt_gb(n) -> str:
+    return "none" if n is None else f"{n / 1e9:.3f} GB"
+
+
+def _script_json(args, *, timeout=300):
+    """Run a port script (``python3 scripts/...``); its exit code and the JSON object it
+    printed after its header lines (None when it printed none)."""
+    done = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=timeout, cwd=REPO)
+    lines = done.stdout.splitlines()
+    start = next((i for i, line in enumerate(lines) if line.startswith("{")), None)
+    obj = None if start is None else json.loads("\n".join(lines[start:]))
+    return done.returncode, obj, done
+
+
+def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
+    """The memory preflight on the main path, then the readers (see phase 25 in the module
+    docstring). ``telemetry`` is phase 24's result, whose run directories (in ``run_dir``)
+    hold the profile captures the compare reads."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.memory import BUFFER_CLASSES, PreflightOOMError
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.telemetry import load_run_events
+    from distributed_training_pytorch_tpu_torch.telemetry.timeline import build_timeline, span_bucket_seconds
+
+    t_phase = time.perf_counter()
+    keys = (*TRAIN_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "LM_CORPUS", "TELEMETRY", "PROFILE_DIR", "CHAIN_STEPS",
+            "SAVE_PERIOD")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    free, total = torch.cuda.mem_get_info()
+    log(f"[preflight] {card} | the card: {total} B total ({total / 2**30:.2f} GiB), {free} B free now")
+    fits = {}
+    try:
+        # -- the prediction against the measured peak, eager and chained -----------------
+        for chain, steps in ((1, PREFLIGHT_STEPS), (CHAIN_WINDOW, PREFLIGHT_CHAIN_STEPS)):
+            fa.reset_launches()
+            r = _measured_peak(run_dir, f"pf{chain}", batch=PREFLIGHT_BATCH, steps=steps, chain=chain)
+            if chain == 1:  # the eager run's launches (a graph's count once, at its capture)
+                launches = dict(fa.launches)
+                want = {k: DEPTH * steps for k in launches}
+                if launches != want or any(fa.launches_by_variant[(k, "cuda_core")] for k in launches):
+                    raise RuntimeError(f"[preflight] launches {launches} ({dict(fa.launches_by_variant)}), want {want} "
+                                       "on wgmma")
+            rep = r["report"]
+            if rep is None or rep.fits is not True or r["steps"] != steps:
+                raise RuntimeError(f"[preflight chain={chain}] report {rep}, {r['steps']} steps")
+            events = [e for e in load_run_events(r["save_folder"]) if e["event"] == "memory_preflight"]
+            pred, meas = rep.predicted_peak_bytes, r["measured"]
+            rel = abs(pred - meas) / meas
+            log(f"[preflight chain={chain}] {card} | GPT-2-small B={PREFLIGHT_BATCH} T={SEQ} bf16 AdamW telemetry on: "
+                f"predicted peak {pred} B ({_fmt_gb(pred)}; chain_length {rep.chain_length}), by class "
+                + ", ".join(f"{c} {_fmt_gb(rep.profile.bytes_by_class[c])}" for c in BUFFER_CLASSES)
+                + f"; measured max_memory_allocated over {r['steps']} steps {meas} B ({_fmt_gb(meas)}; "
+                f"{_fmt_gb(r['before'])} allocated before the build); prediction - measured {pred - meas:+d} B "
+                f"({rel:.4f} apart, bound {PREFLIGHT_REL}); capacity {rep.capacity_bytes}, usable {rep.usable_bytes}, "
+                f"free {rep.free_bytes}; {rep.trials} trials, {rep.seconds:.2f} s; trace {rep.profile.stats}")
+            for row in rep.profile.top_buffers[:4]:
+                log(f"[preflight chain={chain}]   top buffer {row}")
+            if len(events) != 1 or events[0].get("predicted_peak_bytes") != pred:
+                raise RuntimeError(f"[preflight chain={chain}] memory_preflight events {events}")
+            if chain > 1 and (rep.chain_length != chain or r["captures"] != 1):
+                raise RuntimeError(f"[preflight chain={chain}] chain_length {rep.chain_length}, {r['captures']} captures")
+            if rel > PREFLIGHT_REL:
+                raise RuntimeError(f"[preflight chain={chain}] predicted {pred} B, measured {meas} B: {rel:.4f} apart")
+            fits[chain] = {"predicted": pred, "measured": meas, "rel": rel, "classes": dict(rep.profile.bytes_by_class),
+                           "capacity": rep.capacity_bytes, "usable": rep.usable_bytes, "free": rep.free_bytes}
+
+        # -- an oversized batch: refused before any step, with what fits ----------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.reset_launches()
+        big = _preflight_trainer(run_dir, "pf_oversize", batch=PREFLIGHT_OVERSIZE, steps=PREFLIGHT_FIT_STEPS)
+        # The trainer's preflight alone first, before train() starts the prefetcher (whose
+        # thread copies batches to the card meanwhile): nothing may be allocated.
+        unit = {k: torch.empty((PREFLIGHT_OVERSIZE, SEQ), dtype=torch.int32, device="meta") for k in ("image", "label")}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            big._run_memory_preflight(1, unit, can_chain=False)
+            raise RuntimeError(f"[preflight] batch {PREFLIGHT_OVERSIZE}: the preflight let it through")
+        except PreflightOOMError as e:
+            alone = e.report
+        torch.cuda.synchronize()
+        around = (before, torch.cuda.memory_allocated())
+        big._preflight_done = False
+        try:
+            big.train()
+            raise RuntimeError(f"[preflight] batch {PREFLIGHT_OVERSIZE} trained: the preflight let it through")
+        except PreflightOOMError as e:
+            oom = e.report
+            message = str(e)
+        step, launches = int(big.state.step), dict(fa.launches)
+        del big
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[preflight oversize] {card} | batch {PREFLIGHT_OVERSIZE}: PreflightOOMError before step {step} "
+            f"(launches {launches}); memory_allocated before / after the preflight {around}; predicted "
+            f"{oom.predicted_peak_bytes} B ({_fmt_gb(oom.predicted_peak_bytes)}) > usable {oom.usable_bytes} B; "
+            f"recommended batch {oom.recommended_batch}, accum {oom.recommended_accum} ({oom.trials} traces, "
+            f"{oom.seconds:.2f} s)")
+        for line in message.splitlines():
+            log(f"[preflight oversize]   {line}")
+        if (step != 0 or any(launches.values()) or around[0] != around[1]
+                or alone.predicted_peak_bytes != oom.predicted_peak_bytes):
+            raise RuntimeError(f"[preflight oversize] step {step}, launches {launches}, allocated {around}, predicted "
+                               f"{alone.predicted_peak_bytes} alone and {oom.predicted_peak_bytes} in train()")
+        if oom.recommended_batch is None or oom.recommended_accum is None:
+            raise RuntimeError(f"[preflight oversize] no recommendation: {oom.to_fields()}")
+        for tag, kw in (("rec_batch", dict(batch=oom.recommended_batch)),
+                        ("rec_accum", dict(batch=PREFLIGHT_OVERSIZE, accum=oom.recommended_accum))):
+            r = _measured_peak(run_dir, f"pf_{tag}", steps=PREFLIGHT_FIT_STEPS, **kw)
+            rep = r["report"]
+            log(f"[preflight {tag}] {card} | {kw}: {r['steps']} steps, measured peak {r['measured']} B "
+                f"({_fmt_gb(r['measured'])}) against usable {oom.usable_bytes} B; its own prediction "
+                f"{rep.predicted_peak_bytes} B ({(rep.predicted_peak_bytes - r['measured']) / r['measured']:+.4f})")
+            if r["steps"] != PREFLIGHT_FIT_STEPS or rep.fits is not True or r["measured"] > oom.usable_bytes:
+                raise RuntimeError(f"[preflight {tag}] {r['steps']} steps, fits {rep.fits}, measured {r['measured']} "
+                                   f"> usable {oom.usable_bytes}")
+            fits[tag] = {"batch": kw["batch"], "accum": kw.get("accum", 1), "predicted": rep.predicted_peak_bytes,
+                         "measured": r["measured"]}
+        fits["oversize"] = {"batch": PREFLIGHT_OVERSIZE, "predicted": oom.predicted_peak_bytes,
+                            "usable": oom.usable_bytes, "recommended_batch": oom.recommended_batch,
+                            "recommended_accum": oom.recommended_accum, "trials": oom.trials}
+
+        # -- the readers on this machine: monitor, timeline, compare, perf gate ---------
+        live = _preflight_trainer(run_dir, "monitored", batch=PREFLIGHT_BATCH, steps=PREFLIGHT_MONITOR_STEPS)
+        monitor = subprocess.Popen([sys.executable, os.path.join("scripts", "torch_run_monitor.py"), live.save_folder,
+                                    "--json", "--interval", "0.2", "--exit-on-end"], stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True, cwd=REPO)
+        statuses = []
+        try:
+            first = monitor.stdout.readline()  # the monitor is up (waiting) before the run starts
+            statuses.append(json.loads(first)["status"])
+            done = threading.Event()
+            errors = []
+
+            def train():
+                try:
+                    live.train()
+                except BaseException as e:  # noqa: BLE001 — re-raised below, in the phase's thread
+                    errors.append(e)
+                finally:
+                    done.set()
+
+            worker = threading.Thread(target=train)
+            worker.start()
+            for line in monitor.stdout:
+                statuses.append(json.loads(line)["status"])
+            monitor.wait(timeout=300)
+            worker.join(timeout=300)
+            if errors:
+                raise errors[0]
+        finally:
+            if monitor.poll() is None:
+                monitor.kill()
+            monitor.communicate()
+        seen = [s for i, s in enumerate(statuses) if i == 0 or s != statuses[i - 1]]
+        log(f"[readers] torch_run_monitor.py followed the live run: {len(statuses)} polls, statuses {seen}, exit "
+            f"{monitor.returncode}")
+        if "training" not in seen or seen[-1] != "finished" or seen.index("training") > seen.index("finished"):
+            raise RuntimeError(f"[readers] the monitor saw {seen}")
+        events = load_run_events(live.save_folder)
+        end = next(e for e in events if e["event"] == "run_end")
+        spans = span_bucket_seconds(build_timeline(events))
+        span_total = sum(spans.values())
+        gaps = {b: spans[b] / span_total - end["goodput_fractions"][b] for b in spans}
+        code, doc, _ = _script_json([os.path.join("scripts", "torch_run_doctor.py"), live.save_folder, "--timeline",
+                                     "--json"])
+        with open(os.path.join(live.save_folder, "telemetry", "timeline.json")) as f:
+            exported = span_bucket_seconds(json.load(f))
+        log(f"[readers] timeline of the live run: spans per bucket {({b: round(v, 6) for b, v in spans.items()})} s, "
+            f"fractions minus the meter's: largest {max(abs(g) for g in gaps.values()):.3e}; "
+            f"torch_run_doctor.py --timeline exit {code}, verdict {doc and doc.get('verdict')}")
+        if max(abs(g) for g in gaps.values()) > READERS_REL or code != 0 or exported != spans:
+            raise RuntimeError(f"[readers] timeline spans {spans} against the meter {end['goodput_fractions']}")
+        del live
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        captures = [os.path.join(run_dir, f"on{chain}", "profile") for chain in (1, CHAIN_WINDOW)]
+        code, cmp, done = _script_json([os.path.join("scripts", "torch_run_compare.py"), *captures, "--steps",
+                                        str(CHAIN_WINDOW), "--json"])
+        if code != 0 or cmp is None:
+            raise RuntimeError(f"[readers] torch_run_compare.py exit {code}: {done.stdout[-2000:]} {done.stderr[-2000:]}")
+        slack = abs(cmp["rows_delta_sum_ms"] - cmp["step_delta_ms"])
+        log(f"[readers] torch_run_compare.py on phase 24's captures (eager -> chained, {CHAIN_WINDOW} steps each): step "
+            f"{cmp['step_before_ms']:.4f} -> {cmp['step_after_ms']:.4f} ms ({cmp['step_delta_ms']:+.4f}); category "
+            f"deltas sum {cmp['rows_delta_sum_ms']:+.6f} ms ({slack:.3e} ms off); rows {cmp['top_rows']}")
+        if slack > READERS_REL * max(cmp["step_before_ms"], cmp["step_after_ms"]):
+            raise RuntimeError(f"[readers] the category deltas sum to {cmp['rows_delta_sum_ms']} ms, the step's delta "
+                               f"is {cmp['step_delta_ms']} ms")
+
+        gate = {}
+        for label, extra in (("quick", ()), ("slowed x3", ("--inject-slowdown", "3"))):
+            done = subprocess.run([sys.executable, os.path.join("scripts", "torch_perf_gate.py"), "--quick", *extra],
+                                  capture_output=True, text=True, timeout=300, cwd=REPO)
+            verdict = [line for line in done.stdout.splitlines() if "[PASS]" in line or "[FAIL]" in line]
+            log(f"[readers] torch_perf_gate.py --quick {' '.join(extra)}: exit {done.returncode}; "
+                f"{verdict[-1] if verdict else done.stdout[-1500:] + done.stderr[-1500:]}")
+            gate[label] = {"rc": done.returncode, "verdict": verdict[-1] if verdict else None}
+        if gate["quick"]["rc"] != 0 or gate["slowed x3"]["rc"] != 1:
+            raise RuntimeError(f"[readers] the perf gate: {gate}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t_phase
+    log(f"[preflight] phase wall {wall:.1f} s")
+    return {"fits": fits, "gate": gate, "monitor": seen, "launches": launches, "wall_s": wall}
 
 
 # The lm_eval phase (21): eval_lm and make_lm_corpus on phase 5's checkpoint.
@@ -4042,7 +4359,7 @@ def phase_lm_eval(run_dir: str, card: str) -> dict:
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
     ``vgg``, ``chained``, ``resilience``, ...; ``lm`` is phase 5 then the lm_eval phase on its
-    checkpoint), each run phase
+    checkpoint; ``preflight`` is phase 24 then phase 25 in its directory), each run phase
     in its own temporary directory; no kernels line and no final line."""
     phases = {"folder": phase_folder, "vgg": phase_vgg, "digits": phase_digits, "records": phase_records,
               "records_resnet50": phase_records_resnet50, "fp16": phase_fp16, "resilience": phase_resilience,
@@ -4063,6 +4380,8 @@ def run_only(names) -> int:
                     phase_chained(run_dir, card)
                 elif name == "telemetry":
                     phase_telemetry(run_dir, card)
+                elif name == "preflight":  # on phase 24's captures
+                    phase_preflight(run_dir, card, phase_telemetry(run_dir, card))
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -4089,17 +4408,20 @@ def main() -> int:
         return 2
     if "--only" in sys.argv:
         return run_only(sys.argv[sys.argv.index("--only") + 1].split(","))
+    run_root = os.path.join(REPO, "build")
+    os.makedirs(run_root, exist_ok=True)
+    soak_dir, soak = tempfile.mkdtemp(dir=run_root), None
     try:
         t_start = time.perf_counter()
         card = phase_device()
+        soak = start_soak(soak_dir)  # beside the kernel checks, which time nothing
         fwd_err, vit_fwd_err = phase_kernels()
         bwd_err, vit_bwd_err = phase_bwd_kernels()
         k5_err = phase_k5()
-        ring = phase_ring(card)
         conv_err, dz_err, convnext_err = phase_conv1x1()
+        resilience = phase_resilience(soak_dir, soak)
+        ring = phase_ring(card)
         jpeg = phase_jpeg(card)
-        run_root = os.path.join(REPO, "build")
-        os.makedirs(run_root, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             serve_launches, serve = phase_slice(run_dir)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
@@ -4131,8 +4453,7 @@ def main() -> int:
             chained = phase_chained(run_dir, card)
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             telemetry = phase_telemetry(run_dir, card)
-        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
-            resilience = phase_resilience(run_dir)
+            preflight = phase_preflight(run_dir, card, telemetry)  # on phase 24's captures
         times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         convnext_times, convnext_total = phase_convnext_times(card)
@@ -4211,10 +4532,24 @@ def main() -> int:
         log(f"[times] {card} | chaos soak: 4 kills resumed bit-exact in {resilience['wall_s']:.1f} s; save of "
             f"{st['model']}'s state ({st['state_bytes'] / 1e9:.2f} GB): sync wall {st['sync_ms']:.1f} ms, async stall "
             f"{st['stall_ms']:.1f} ms ({st['stall_ratio']:.4f})")
+        pf = preflight["fits"]
+        log(f"[times] {card} | memory preflight on GPT-2-small (T={SEQ}, bf16, AdamW, telemetry on): predicted / "
+            f"measured peak at B={PREFLIGHT_BATCH} eager {_fmt_gb(pf[1]['predicted'])} / {_fmt_gb(pf[1]['measured'])}, "
+            f"chained x{CHAIN_WINDOW} {_fmt_gb(pf[CHAIN_WINDOW]['predicted'])} / "
+            f"{_fmt_gb(pf[CHAIN_WINDOW]['measured'])}; B={PREFLIGHT_OVERSIZE} refused "
+            f"({_fmt_gb(pf['oversize']['predicted'])} > {_fmt_gb(pf['oversize']['usable'])} usable), recommended "
+            f"B={pf['rec_batch']['batch']} (measured {_fmt_gb(pf['rec_batch']['measured'])}) or accum "
+            f"{pf['rec_accum']['accum']} (measured {_fmt_gb(pf['rec_accum']['measured'])}); phase wall "
+            f"{preflight['wall_s']:.1f} s")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
+    finally:
+        if soak is not None and soak[0].poll() is None:
+            soak[0].kill()
+            soak[0].communicate()
+        shutil.rmtree(soak_dir, ignore_errors=True)
     kernels = []
     for name, kind, launch_key, replaces, err, vit_err, source in (
         ("flash_fwd", "fwd", "fwd", ":81", fwd_err, vit_fwd_err, "flash_fwd_wgmma.cu"),
@@ -4238,7 +4573,8 @@ def main() -> int:
                                  "decode": lm_eval["decode_launches"][launch_key],
                                  "train_lm_chained": chained["lm_replay"][launch_key],
                                  "train_resnet50_chained": 0,
-                                 "train_lm_telemetry": telemetry["launches"][launch_key]},
+                                 "train_lm_telemetry": telemetry["launches"][launch_key],
+                                 "train_lm_preflight": preflight["launches"][launch_key]},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -4273,7 +4609,7 @@ def main() -> int:
                                  "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0,
                                  "eval_lm": 0, "decode": lm_eval["decode_launches"][name],
                                  "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name],
-                                 "train_lm_telemetry": 0},
+                                 "train_lm_telemetry": 0, "train_lm_preflight": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -4310,7 +4646,8 @@ def main() -> int:
                                  "train_folder": 0, "train_digits": 0, "train_records": 0,
                                  "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
                                  "decode": lm_eval["decode_launches"][launch_key],
-                                 "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0},
+                                 "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0,
+                                 "train_lm_preflight": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

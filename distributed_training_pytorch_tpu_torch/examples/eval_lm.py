@@ -22,7 +22,7 @@ prefill steps included, as the JAX entry does) and ``DECODE_BATCH`` rows. The po
 are not counted as tokens (``examples/eval_lm.py:146`` counts them; ``ROADMAP.md`` R3).
 
 An Orbax checkpoint of the JAX package is not read here: that comes with the Orbax
-importer (``ROADMAP.md`` Queue 1 item 5), and ``load_params`` raises
+importer (``ROADMAP.md`` Queue 1 item 7), and ``load_params`` raises
 ``NotImplementedError`` naming it.
 """
 
@@ -58,7 +58,7 @@ def load_params(checkpoint_dir: str, size: str, seq_len: int, moe_every: int = 0
     if os.path.isdir(os.path.join(path, "params")) and not os.path.isfile(os.path.join(path, STATE_NAME)):
         raise NotImplementedError(
             f"{path} is an Orbax checkpoint of the JAX package; reading one comes with the Orbax importer "
-            "(ROADMAP.md Queue 1 item 5)"
+            "(ROADMAP.md Queue 1 item 7)"
         )
     model = build_model(size, seq_len, moe_every, device=device)
     state = TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.0))

@@ -42,6 +42,8 @@ import threading
 
 import torch
 
+from distributed_training_pytorch_tpu_torch.ops.dispatch import allocation_route_active, plain_route
+
 __all__ = [
     "conv1x1_bn_act",
     "conv1x1_bn_act_diff",
@@ -204,6 +206,10 @@ def _launch_kernel(x, w, scale, bias, act: "str | None", out_dtype):
     wk = w.to(x.dtype).contiguous()  # once per call, as resnet.py casts the kernel
     sk = scale.float().contiguous()
     bk = bias.float().contiguous()
+    if x.device.type == "meta":  # the allocation twin: the copies the launch would read, no launch
+        if variant == "wgmma" and tma_rows(x4) is None:
+            x4 = x4.contiguous()
+        return out.reshape(*lead, cout)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -231,13 +237,14 @@ def _launch_kernel(x, w, scale, bias, act: "str | None", out_dtype):
 def conv1x1_bn_act(x, w, scale, bias, *, act: "str | None" = None, out_dtype=None):
     """``act((x @ w^T) * scale + bias)`` for x ``[..., Cin]``, w ``[Cout, Cin]``,
     scale/bias ``[Cout]`` (the folded BN apply; identity: ones/zeros); output
-    ``[..., Cout]`` in ``out_dtype`` (default x's), contiguous. CPU (and meta) tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    ``[..., Cout]`` in ``out_dtype`` (default x's), contiguous. CPU tensors (and meta tensors
+    outside ``ops.dispatch.allocation_route``) take the plain version; CUDA tensors launch the
+    kernel."""
     _check(x, w, scale, bias, act)
     out_dtype = out_dtype or x.dtype
-    if x.device.type in ("cpu", "meta"):
+    if plain_route(x.device):
         return conv1x1_bn_act_plain(x, w, scale, bias, act=act, out_dtype=out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"conv1x1_bn_act runs on cpu or cuda tensors, got {x.device}")
     return _launch_kernel(x, w, scale, bias, act, out_dtype)
 
@@ -265,6 +272,8 @@ def _launch_bwd_dz(g, y, scale, act: "str | None", out_dtype):
     if rows == 0:
         return dz
     sk = scale.to(device=g.device, dtype=torch.float32).contiguous()
+    if g.device.type == "meta":  # the allocation twin
+        return dz
     lib = _build.library()
     with torch.cuda.device(g.device):
         err = lib.dtp_conv1x1_bwd_dz(
@@ -290,9 +299,9 @@ def conv1x1_bwd_dz(g, y, scale, *, act: "str | None" = None, out_dtype=None):
     out_dtype = out_dtype or g.dtype
     if g.ndim != 2 or tuple(scale.shape) != (g.shape[1],) or (act == "relu" and y.shape != g.shape):
         raise ValueError(f"g {tuple(g.shape)} must be [N, Cout], y the same, scale [Cout] (got {tuple(scale.shape)})")
-    if g.device.type in ("cpu", "meta"):
+    if plain_route(g.device):
         return conv1x1_bwd_dz_plain(g, y, scale, act=act, out_dtype=out_dtype)
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"conv1x1_bwd_dz runs on cpu or cuda tensors, got {g.device}")
     return _launch_bwd_dz(g, y, scale, act, out_dtype)
 
@@ -331,7 +340,8 @@ def _f32_sums(a, b):
     bf16 ``torch.matmul`` may reduce cuBLAS's split-K partials in bf16 (PyTorch's default
     ``allow_bf16_reduced_precision_reduction``), which the weight gradient's reduction over
     every pixel triggers (F5)."""
-    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+    on_card = a.device.type == "cuda" or (a.device.type == "meta" and allocation_route_active())
+    if on_card and a.dtype == torch.bfloat16:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
 

@@ -23,19 +23,32 @@ card's own evidence is each model's step with and without the kernel (``PERF.md`
 
 ViT records its plain resolution itself when ``pallas``/``use_flash`` is False, with the JAX
 model's reason, and otherwise takes :func:`attention_fn`.
+
+**Meta tensors** run no kernel. By default the hand kernels' wrappers (K1 to K4 and the
+tied cross-entropy's checkpoint) take their plain versions on them, which is what the FLOP
+count (``utils/flops.py``) needs: the products those kernels compute, without
+recomputation. Under :func:`allocation_route` they take an allocation twin of the CUDA
+route instead: the same wrapper code up to the launch, so the same outputs, copies and
+saved tensors are allocated as on the card and no kernel runs (the memory trace of
+``memory/analysis.py``). :func:`plain_route` is the one test of which a tensor's device
+takes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
+    "allocation_route",
+    "allocation_route_active",
     "attention_fn",
     "clear_event_sink",
     "conv1x1_policy",
     "lm_attention_impl",
     "pallas_from_env",
+    "plain_route",
     "record",
     "records",
     "reset",
@@ -50,6 +63,31 @@ _lock = threading.Lock()
 _seen: Dict[Tuple[str, str, str, str], Dict[str, Any]] = {}
 _pending: List[Dict[str, Any]] = []
 _sink: Optional[Callable[..., Any]] = None
+_allocation_depth = 0  # open allocation_route() contexts, in any thread
+
+
+@contextlib.contextmanager
+def allocation_route():
+    """While open, meta tensors take the kernels' allocation twins, not their plain
+    versions (see the module docstring)."""
+    global _allocation_depth
+    with _lock:
+        _allocation_depth += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _allocation_depth -= 1
+
+
+def allocation_route_active() -> bool:
+    return _allocation_depth > 0
+
+
+def plain_route(device) -> bool:
+    """Whether a hand kernel's wrapper takes its plain version for tensors on ``device``:
+    on the CPU, and on the meta device outside :func:`allocation_route`."""
+    return device.type == "cpu" or (device.type == "meta" and not allocation_route_active())
 
 
 def record(model: str, op: str, path: str, *, reason: str = "", **detail) -> bool:

@@ -43,6 +43,8 @@ import threading
 
 import torch
 
+from distributed_training_pytorch_tpu_torch.ops.dispatch import allocation_route_active, plain_route
+
 __all__ = [
     "NEG_INF",
     "causal_attention_plain",
@@ -198,6 +200,8 @@ def _launch_kernel(q, k, v, causal: bool, seq_len: int):
     variant = kernel_variant(q.dtype, d)
     if variant == "wgmma":
         q, k, v = (tma_operand(x) for x in (q, k, v))
+    if q.device.type == "meta":  # the allocation twin: everything up to the launch
+        return o, lse
     lib = _build.library()
     fn = lib.dtp_flash_fwd_wgmma if variant == "wgmma" else lib.dtp_flash_fwd
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -218,12 +222,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, valid_len: "int | None
     """``(o, lse)`` for ``q`` ``[B, Tq, H, D]`` against ``k``/``v`` ``[B, Tk, H, D]``.
 
     Keys at or past ``valid_len`` (default ``Tk``) are masked; ``causal`` masks keys after
-    the query by absolute index, as the JAX kernel does. CPU (and meta) tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    the query by absolute index, as the JAX kernel does. CPU tensors (and meta tensors
+    outside ``ops.dispatch.allocation_route``) take the plain version; CUDA tensors launch
+    the kernel."""
     _check_shapes(q, k, v, valid_len)
-    if q.device.type in ("cpu", "meta"):
+    if plain_route(q.device):
         return flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
     seq_len = k.shape[1] if valid_len is None else int(valid_len)
     return _launch_kernel(q, k, v, causal, seq_len)
@@ -297,8 +302,11 @@ def _bwd_launch_args(q, k, v, do, lse, delta, seq_len: int):
         KERNEL_DTYPES[q.dtype], b, h, tq, k.shape[1], seq_len, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
     )
+    inputs = (q, k, v, do, lse.contiguous(), delta.contiguous())
+    if q.device.type == "meta":  # the allocation twin: no library, no stream
+        return None, None, variant, inputs, sizes_strides
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return _build.library(), stream, variant, (q, k, v, do, lse.contiguous(), delta.contiguous()), sizes_strides
+    return _build.library(), stream, variant, inputs, sizes_strides
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
@@ -310,7 +318,7 @@ def launch_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
     # ``inputs`` holds any contiguous copies alive until the launch is queued.
     lib, stream, variant, inputs, sizes_strides = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    if q.shape[1] == 0:
+    if q.shape[1] == 0 or lib is None:
         return dq
     fn = lib.dtp_flash_bwd_dq_wgmma if variant == "wgmma" else lib.dtp_flash_bwd_dq
     with torch.cuda.device(q.device):
@@ -330,7 +338,7 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, seq_len: int):
     lib, stream, variant, inputs, sizes_strides = _bwd_launch_args(q, k, v, do, lse, delta, seq_len)
     dk = torch.empty(k.shape, device=q.device, dtype=q.dtype)
     dv = torch.empty(k.shape, device=q.device, dtype=q.dtype)
-    if k.shape[1] == 0:
+    if k.shape[1] == 0 or lib is None:
         return dk, dv
     fn = lib.dtp_flash_bwd_dkv_wgmma if variant == "wgmma" else lib.dtp_flash_bwd_dkv
     with torch.cuda.device(q.device):
@@ -351,14 +359,14 @@ def flash_attention_bwd(
     and the output gradient ``do``; ``Tq`` and ``Tk`` may differ. ``lse`` (and ``delta``,
     when given) are ``[B, H, Tq]`` f32 and may come from outside, as the ring path's global
     statistics do; ``delta`` defaults to ``rowsum(do * o)``, and ``o`` may be None when
-    ``delta`` is given. CPU (and meta) tensors take the plain version; CUDA tensors launch the dq
-    kernel and the dk/dv kernel."""
+    ``delta`` is given. CPU tensors (and meta tensors outside the allocation route) take the
+    plain version; CUDA tensors launch the dq kernel and the dk/dv kernel."""
     _check_bwd_shapes(q, k, v, o, lse, do, delta, valid_len)
-    if q.device.type in ("cpu", "meta"):
+    if plain_route(q.device):
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, valid_len=valid_len, delta=delta
         )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {q.device}")
     if delta is None:
         delta = _attention_delta(o, do)
@@ -421,7 +429,8 @@ def flash_attention(q, k, v, *, causal: bool = False, valid_len: "int | None" = 
     Differentiable: the backward runs the flash backward kernels on CUDA tensors and
     their plain version on CPU tensors. Meta tensors (the FLOP count of
     ``utils/flops.py``) take the plain version through autograd, whose backward does not
-    recompute the scores as the flash backward does."""
+    recompute the scores as the flash backward does; under ``ops.dispatch.allocation_route``
+    they take the kernels' allocation twins instead (the memory trace)."""
     if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected matching [B,T,H,D] q/k/v, got {q.shape}/{k.shape}/{v.shape}")
     if valid_len is not None:
@@ -429,6 +438,6 @@ def flash_attention(q, k, v, *, causal: bool = False, valid_len: "int | None" = 
             raise ValueError("valid_len composes with non-causal attention only")
         if not 0 < valid_len <= q.shape[1]:
             raise ValueError(f"valid_len {valid_len} out of range for T={q.shape[1]}")
-    if q.device.type == "meta":
+    if q.device.type == "meta" and not allocation_route_active():
         return flash_attention_plain(q, k, v, causal=causal, valid_len=valid_len)[0]
     return _FlashAttention.apply(q, k, v, causal, valid_len)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from distributed_training_pytorch_tpu_torch.ops.dispatch import plain_route
+
 __all__ = [
     "cross_entropy_loss",
     "softmax_cross_entropy_with_integer_labels",
@@ -96,7 +98,7 @@ def tied_cross_entropy(
     tgt_logit = torch.zeros((n,), dtype=torch.float32, device=x.device)
     for base in range(0, v, chunk_size):
         emb_c = embedding[base : base + chunk_size]
-        if x.device.type == "meta":  # the FLOP count (utils/flops.py): no recomputation
+        if x.device.type == "meta" and plain_route(x.device):  # the FLOP count (utils/flops.py): no recomputation
             m, l, tgt_logit = _chunk_step(x, emb_c, m, l, tgt_logit, tgt, base)
             continue
         # The chunk draws no random numbers: no RNG state to keep (reading it is not

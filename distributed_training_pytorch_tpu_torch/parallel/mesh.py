@@ -202,7 +202,8 @@ def broadcast_over_seq(tensors, mesh: "Mesh | None") -> None:
     with torch.no_grad():
         for group in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.broadcast(flat, src=mesh.seq_ranks[0], group=mesh.seq_group)
+            if flat.device.type != "meta":  # the memory trace allocates, it sends nothing
+                dist.broadcast(flat, src=mesh.seq_ranks[0], group=mesh.seq_group)
             for t, part in zip(group, flat.split([t.numel() for t in group]), strict=True):
                 t.copy_(part.view_as(t))
 

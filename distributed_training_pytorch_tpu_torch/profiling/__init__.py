@@ -9,10 +9,12 @@ Counterpart of ``distributed_training_pytorch_tpu/profiling/``:
 * :mod:`~.report`: ``analyze_trace``/``analyze_events`` -> :class:`StepProfile` (device
   wall across categories plus ``idle``, summing to 1; the top ops);
 * :mod:`~.capture`: ``Trainer(profile=ProfileConfig(...))``, a traced window of real
-  steps and its ``profile_capture`` event.
+  steps and its ``profile_capture`` event;
+* :mod:`~.diff`: two step profiles' per-category and per-op deltas, the one delta
+  attribution of ``scripts/torch_run_compare.py`` and ``scripts/torch_perf_gate.py``;
+* :mod:`~.gate`: the perf gate's rule against ``TORCH_PERF_BASELINE.json``.
 
-The JAX package's ``diff`` and ``gate`` (across-runs comparison, the perf gate) come with
-a later slice; its ``xplane`` codec has no counterpart (the traces are JSON).
+The JAX package's ``xplane`` codec has no counterpart (the traces are JSON).
 """
 
 from distributed_training_pytorch_tpu_torch.profiling.capture import ProfileConfig, StepTraceCapture, resolve_profile

@@ -42,7 +42,7 @@ __all__ = ["InferEngine", "REPLAN_DEFERRED"]
 
 REPLAN_DEFERRED = (
     "re-planning a served model onto another device set comes with the elastic slice of the port "
-    "(Queue 1 item 8, P12: parallel/sharding.py and parallel/elastic.py)"
+    "(Queue 1 item 4, P12: parallel/sharding.py and parallel/elastic.py)"
 )
 
 

@@ -10,12 +10,14 @@
 * :mod:`~.straggler`: per-rank window walls riding the metrics all-reduce;
 * :mod:`~.provenance`: git SHA, torch/CUDA/nvcc versions, the card's name and power limit;
 * :mod:`~.doctor`: the ranked diagnosis and the epoch-end ``doctor/*`` scalars;
-* :mod:`~.exporter`: ``/status`` and ``/metrics`` on rank 0.
+* :mod:`~.exporter`: ``/status`` and ``/metrics`` on rank 0;
+* the readers, which import the port alone: :mod:`~.timeline` (a run's trace-event
+  timeline), :mod:`~.monitor` (the doctor live, with liveness and alert rules) and
+  :mod:`~.history` (the bench rounds' trajectories).
 
 ``Trainer(telemetry="on")`` (or a :class:`Telemetry`) wires them; the entries honour
 ``TELEMETRY=1``. Off (the default) is the program without telemetry: no work is added to
-the step and no sync to the loop. The JAX package's timeline, monitor, history and
-controller come with later slices; its readers run on a port run directory as they are.
+the step and no sync to the loop. The JAX package's controller comes with a later slice.
 """
 
 from __future__ import annotations

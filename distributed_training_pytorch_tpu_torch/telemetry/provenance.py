@@ -8,6 +8,10 @@ card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
 load). A field the machine cannot give (no ``nvcc``, no ``nvidia-smi``, not a checkout)
 is left out, never guessed. The program's identity is the caller's: mesh, compute dtype,
 chain length and global batch.
+
+:data:`COMPARE_KEYS` are the configuration keys on which two records must agree to
+measure one program on one kind of card (:func:`differing_keys`); ``git_sha`` is not one:
+differing code is what a comparison compares.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import re
 import shutil
 import subprocess
 
-__all__ = ["provenance_fields"]
+__all__ = ["COMPARE_KEYS", "differing_keys", "provenance_fields"]
+
+COMPARE_KEYS = ("torch", "cuda", "nvcc", "card", "power_limit", "mesh", "dtype", "chain_steps", "batch")
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CACHE: dict = {}
@@ -62,4 +68,20 @@ def provenance_fields(*, mesh=None, dtype: "str | None" = None, chain_steps: "in
     out = _environment()
     out.update(mesh=mesh if mesh is None or isinstance(mesh, (str, dict)) else str(mesh), dtype=dtype,
                chain_steps=chain_steps, batch=batch)
+    return out
+
+
+def differing_keys(a: "dict | None", b: "dict | None") -> "list[str]":
+    """The :data:`COMPARE_KEYS` on which two provenance records disagree (empty: they are
+    comparable). A key absent or None on either side never disagrees, and a record
+    without provenance compares with anything."""
+    if not a or not b:
+        return []
+    out = []
+    for key in COMPARE_KEYS:
+        va, vb = a.get(key), b.get(key)
+        if va is None or vb is None:
+            continue
+        if va != vb:
+            out.append(key)
     return out

@@ -54,6 +54,13 @@ captured again after one. A failed capture raises; there is no fallback to eager
 more than one data rank on the card chaining raises ``NotImplementedError`` (DDP inside a
 graph is not checked yet); off the card a window runs its steps as a loop.
 
+**On meta tensors** (the memory trace of ``memory/analysis.py``, under
+``ops.dispatch.allocation_route``) a step runs the same body, with what the card's route
+allocates and nothing it computes: a fused optimizer's step is its allocation twin (the
+state the fused kernel creates at its first step, nothing else), the collectives are
+skipped, and a chained window runs as the card runs it: the warm window's steps, the
+graph's static inputs, then the captured bodies once more, eagerly.
+
 ``stats=True`` (telemetry) adds the health statistics of ``telemetry/stats.py`` to every
 train step's metrics (``grad_norm``, ``param_norm``, ``update_ratio``, ``nonfinite``; the
 guard's ``nonfinite`` wins), computed in ``_step_body``, so a window's graph captures them;
@@ -77,6 +84,7 @@ from typing import Callable, Mapping
 import torch
 import torch.distributed as dist
 
+from distributed_training_pytorch_tpu_torch.ops.dispatch import allocation_route_active
 from distributed_training_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, broadcast_over_seq, process_count
 from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic
 from distributed_training_pytorch_tpu_torch.train.state import TrainState, unwrap
@@ -142,6 +150,7 @@ class TrainEngine:
         self.mesh = mesh
         self._prepared = None  # (optimizer, generation) the fused form was set up for
         self._fused = False
+        self._meta = False  # the params are meta tensors: the memory trace
         self._lr = None  # the single step's device learning rate
         self._window: "_Window | None" = None
         self._stream = None  # the capture stream
@@ -185,7 +194,8 @@ class TrainEngine:
             own = torch.zeros(shards, dtype=packed.dtype, device=packed.device)
             own[dist.get_rank() if self.mesh is None else self.mesh.data_index] = float(self.arrival_ms)
             packed = torch.cat([packed, own])
-        dist.all_reduce(packed, group=None if self.mesh is None else self.mesh.data_group)
+        if packed.device.type != "meta":  # the memory trace allocates, it sends nothing
+            dist.all_reduce(packed, group=None if self.mesh is None else self.mesh.data_group)
         total = torch.clamp(packed[len(keys)], min=1.0)
         out = {k: packed[i] / total for i, k in enumerate(keys)}
         if slots:
@@ -201,6 +211,7 @@ class TrainEngine:
         if self._prepared == (opt, state.generation):
             return
         self._prepared = (opt, state.generation)
+        self._meta = any(p.device.type == "meta" for g in opt.param_groups for p in g["params"])
         self._fused = type(opt) in _FUSED_FORM and not any(g.get("differentiable") for g in opt.param_groups)
         if not self._fused:
             return
@@ -220,6 +231,28 @@ class TrainEngine:
         device = next(p.device for g in opt.param_groups for p in g["params"])
         if self._lr is None or self._lr.device != device:
             self._lr = torch.zeros((), dtype=torch.float32, device=device)
+
+    def _optimizer_step(self, opt) -> None:
+        """``opt.step()``; on meta params, a fused optimizer's allocation twin: the state
+        its first fused step creates (Adam's f32 step count and moments, SGD's momentum
+        buffer), and nothing else, as the fused kernels allocate no temporaries."""
+        if not (self._meta and self._fused):
+            opt.step()
+            return
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = opt.state[p]
+                if isinstance(opt, torch.optim.SGD):
+                    if group["momentum"] and st.get("momentum_buffer") is None:
+                        st["momentum_buffer"] = torch.empty_like(p, memory_format=torch.preserve_format)
+                elif not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    if group.get("amsgrad"):
+                        st["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
     def _set_lr(self, opt, lr) -> None:
         for group in opt.param_groups:
@@ -292,13 +325,13 @@ class TrainEngine:
             if self._fused:
                 opt.found_inf = (~ok).float()  # the fused kernels skip on it
                 try:
-                    opt.step()
+                    self._optimizer_step(opt)
                 finally:
                     opt.found_inf = None
                 with torch.no_grad():
                     for b, before in zip(buffers, saved, strict=True):
                         b.copy_(torch.where(ok, b, before))
-            elif bool(ok):  # an optimizer without a fused form: one host read
+            elif self._meta or bool(ok):  # an optimizer without a fused form: one host read
                 opt.step()
             else:
                 with torch.no_grad():
@@ -309,7 +342,7 @@ class TrainEngine:
                 metrics["loss_scale"] = state.loss_scale.scale.clone()  # the scale this step used
                 state.loss_scale.adjust(ok)
         else:
-            opt.step()
+            self._optimizer_step(opt)
         if self._health is not None:
             for k, v in self._health.after_update().items():
                 metrics.setdefault(k, v)  # the guard's nonfinite wins, as JAX's setdefault gives
@@ -347,12 +380,14 @@ class TrainEngine:
         first = next(iter(stacked_batch.values()))
         if first.shape[0] != length:
             raise ValueError(f"the window's batch has {first.shape[0]} steps, not {length}")
+        if first.device.type == "meta" and allocation_route_active():
+            return self._trace_window(state, stacked_batch, length)
         if first.device.type != "cuda":
             return self._loop(state, stacked_batch, length)
         if self._data_shards() > 1:
             raise NotImplementedError(
                 "chained steps with more than one data rank on the card (DDP inside a CUDA graph) are not "
-                "checked yet: ROADMAP.md Queue 1, 'chained steps with DDP on 4 cards'"
+                "checked yet: ROADMAP.md Queue 1 item 7, 'chained steps with DDP on 4 cards'"
             )
         self._prepare(state)
         if not self._fused:
@@ -383,6 +418,25 @@ class TrainEngine:
             state, m = self.train_step(state, self.unstack_window(stacked_batch, i))
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    def _trace_window(self, state, stacked_batch, length):
+        """The card's first window of a shape on meta tensors (the memory trace): the warm
+        window's steps, the static inputs, then the captured bodies run once more, eagerly;
+        what the graph keeps (its static inputs and outputs) stays alive as the graph
+        would keep it."""
+        self._prepare(state)
+        lrs = [self._host_lr(state.step + i) for i in range(length)]
+        per_step = [self._step_body(state, self.unstack_window(stacked_batch, i),
+                                    self._lr if lr is not None and self._fused else lr) for i, lr in enumerate(lrs)]
+        metrics = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        static = {k: torch.empty_like(v) for k, v in stacked_batch.items()}
+        static_lrs = torch.zeros(length, dtype=torch.float32, device=next(iter(stacked_batch.values())).device)
+        body = [self._step_body(state, self.unstack_window(static, i), static_lrs[i] if lrs[0] is not None else None)
+                for i in range(length)]
+        out = {k: torch.stack([m[k] for m in body]) for k in body[0]}
+        self._window = _Window(None, None, static, static_lrs, out)
+        state.step += length
+        return state, metrics
 
     def _warm_window_and_capture(self, state, stacked_batch, length, lrs, key) -> dict:
         """The window's steps run for real on the capture stream (lazy initialisations
@@ -422,6 +476,15 @@ class TrainEngine:
         self._window = _Window(key, graph, static, static_lrs, out)
         self.captures += 1
         return metrics
+
+    def with_accum(self, accum_steps: int) -> "TrainEngine":
+        """A twin of this engine at another ``accum_steps``: the same loss function,
+        schedule, guard, precision, mesh and stats, and none of this engine's state (no
+        captured window, no prepared optimizer, its own health snapshot), so a trace of
+        the twin leaves this engine's dispatch path as it was. The memory preflight's
+        trials run these."""
+        return TrainEngine(self.loss_fn, accum_steps=accum_steps, schedule=self.schedule, nan_guard=self.nan_guard,
+                           precision=self.precision, mesh=self.mesh, stats=self.stats)
 
     def drop_graphs(self) -> None:
         """Forget the captured window (the next window is warmed and captured again)."""

@@ -97,8 +97,19 @@ JAX Trainer's wiring, with its knobs and record vocabulary):
   ``straggler/*`` and ``doctor/*`` scalars at each epoch's end
   (``utils/tensorboard.py``, which writes the event files itself).
 
-What the JAX Trainer has and this one does not yet (each raises when asked for): the
-memory preflight, elastic resume and ``TUNED``.
+The memory preflight (``trainer.py:493-500``, ``:1461-1500``, ``:1941-1960`` of the JAX
+Trainer): ``preflight`` (``None``/``"on"``/a ``memory.Preflight``) predicts the peak device
+memory of the first execution unit's program before its dispatch (``memory/preflight.py``:
+a trace on meta tensors, nothing allocated on the card), the chained window when a full one
+can still run this epoch, else the single step, against the card's capacity less its
+headroom; it emits one ``memory_preflight`` event, keeps the report in
+``memory_report``, books its time to the goodput ``compile`` bucket, and on a predicted
+OOM raises ``memory.PreflightOOMError`` with the largest batch and the smallest
+accumulation factor that fit, before any step. A ``train_step`` override skips it with a
+warning (the engine's step is not the one dispatched). ``None`` (the default) runs none of
+it.
+
+What the JAX Trainer has and this one does not yet: elastic resume and ``TUNED``.
 """
 
 from __future__ import annotations
@@ -124,7 +135,7 @@ from distributed_training_pytorch_tpu_torch.checkpoint import (
 from distributed_training_pytorch_tpu_torch.data import ShardedLoader
 from distributed_training_pytorch_tpu_torch.data.prefetch import device_prefetch, device_prefetch_chained
 from distributed_training_pytorch_tpu_torch.fault import StepWatchdog
-from distributed_training_pytorch_tpu_torch.memory import window_memory_fields
+from distributed_training_pytorch_tpu_torch.memory import resolve_preflight, run_preflight, window_memory_fields
 from distributed_training_pytorch_tpu_torch.ops import _build
 from distributed_training_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic, resolve_loss_scale
@@ -141,9 +152,9 @@ from distributed_training_pytorch_tpu_torch.utils.tensorboard import MetricsWrit
 
 __all__ = ["Trainer"]
 
-_UNPORTED = {
-    "preflight": "the memory preflight (memory/preflight.py, deferred from the observability slice)",
-}
+# The device prefetcher's units in flight beside the one a step runs: its queue's depth (2)
+# and the one its producer has copied and waits to queue.
+_STAGED_UNITS = 3
 
 
 class Trainer:
@@ -185,13 +196,8 @@ class Trainer:
         tensorboard_dir: "str | None" = None,
         telemetry=None,
         profile=None,
-        **unported,
+        preflight=None,
     ):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"Trainer() got an unexpected keyword argument {name!r}")
-            if value:
-                raise NotImplementedError(f"{name}={value!r}: {_UNPORTED[name]} comes with a later slice of the port")
         self.log = (
             (lambda msg, log_type="info": logger.log(msg, log_type))
             if logger is not None
@@ -278,7 +284,7 @@ class Trainer:
         if self.chain_steps > 1 and self.device.type == "cuda" and self.batch_replicas > 1:
             raise NotImplementedError(
                 "chained steps with more than one data rank on the card (DDP inside a CUDA graph) are not checked "
-                "yet: ROADMAP.md Queue 1, 'chained steps with DDP on 4 cards'"
+                "yet: ROADMAP.md Queue 1 item 7, 'chained steps with DDP on 4 cards'"
             )
         self.save_folder = save_folder
         self.save_weight_folder = os.path.join(save_folder, "weights")
@@ -330,6 +336,9 @@ class Trainer:
             StepTraceCapture(self.profile, device=self.device, log=self.log, events=self.events)
             if self.profile is not None else None
         )
+        self.preflight = resolve_preflight(preflight)
+        self._preflight_done = False
+        self.memory_report = None  # the last PreflightReport
         scale = self._initial_loss_scale
         self.state = TrainState(model=self.model, optimizer=self.optimizer,
                                 loss_scale=scale.to(self.device) if is_dynamic(scale) else scale)
@@ -846,6 +855,13 @@ class Trainer:
                 if tm is not None:
                     tm.tick("restart_rollback" if rollback_fetch else "data_wait")
                 rollback_fetch = False
+                if self.preflight is not None and not self._preflight_done:
+                    # Before the first dispatch, on the unit's exact shapes: the window when a
+                    # full one can still run this epoch (an epoch shorter than one runs singles
+                    # only). A predicted OOM raises out of the loop.
+                    self._run_memory_preflight(n, batch, can_chain=chain > 1 and num_batches - step_in_epoch >= chain)
+                    if tm is not None:
+                        tm.tick("compile")
                 builds_before, captures_before = len(_build.builds), self.engine.captures
                 if self._probe_batch is None and self.telemetry is not None:
                     # Shapes only (meta tensors): the one-time FLOP probe's input.
@@ -1015,6 +1031,22 @@ class Trainer:
         if self.goodput is not None:
             self.goodput.account("checkpoint_async", seconds)
         self.events.emit("checkpoint_commit", name=name, commit_ms=seconds * 1e3)
+
+    def _run_memory_preflight(self, n: int, batch, *, can_chain: bool) -> None:
+        """The one-shot preflight on the first unit's shapes (``memory.run_preflight``),
+        skipped with a warning under a ``train_step`` override."""
+        self._preflight_done = True
+        if type(self).train_step is not Trainer.train_step:
+            self.log("memory preflight skipped: custom train_step override — the engine program the preflight "
+                     "would trace is not the one this trainer dispatches", "warning")
+            return
+        per_step = {k: torch.empty(v.shape if n == 1 else v.shape[1:], dtype=v.dtype, device="meta")
+                    for k, v in batch.items()}
+        self.memory_report = run_preflight(
+            self.engine, self.state, per_step, self.preflight, chain_length=self.chain_steps if can_chain else None,
+            log=self.log, events=self.events, device=self.device,
+            staged_units=_STAGED_UNITS if self.device.type == "cuda" else 0,
+        )
 
     def _live_memory_fields(self) -> dict:
         if self.telemetry is None or not self.telemetry.memory:

@@ -121,7 +121,7 @@ def test_load_params_restores_a_train_lm_checkpoint(tmp_path, corpus):
                                device="cpu")
     assert by_path == eval_lm.evaluate("", corpus, size="tiny", seq_len=SEQ, batch=BATCH, loaded=(model, None))
     (tmp_path / "orbax" / "params").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         eval_lm.load_params(str(tmp_path / "orbax"), "tiny", SEQ, device="cpu")
     with pytest.raises(NotImplementedError, match="expert-parallel"):
         eval_lm.build_model("tiny", SEQ, moe_every=2, device="cpu")

@@ -1,10 +1,11 @@
 """Import hygiene of the PyTorch/CUDA port: it imports neither JAX nor any module of the
 JAX package ``distributed_training_pytorch_tpu`` (whose name is a prefix of the port's,
 so module names are matched exactly or by ``name + "."``), and importing it initialises
-no CUDA context and builds nothing (neither the kernels nor the native data runtime). ``chip_smoke.py``, ``scripts/torch_serve_profile.py``,
-``scripts/torch_train_profile.py``, ``scripts/torch_resnet_profile.py`` and
-``scripts/torch_flash_fwd_times.py`` run where the card is, beside the port, and are held
-to the same rule."""
+no CUDA context and builds nothing (neither the kernels nor the native data runtime).
+``chip_smoke.py`` and every ``scripts/torch_*.py`` (the profiles, the chaos soak, the
+readers, the perf gate, the memory probe) run where the card is, beside the port, and are
+held to the same rule; each reader script also runs there in a process that imports it
+(``--help``)."""
 
 import ast
 import os
@@ -41,6 +42,9 @@ PORT_MODULES = [
     "telemetry.anomaly", "telemetry.doctor", "telemetry.goodput", "telemetry.mfu", "telemetry.provenance",
     "telemetry.stats", "telemetry.straggler", "memory.live", "profiling.capture", "profiling.categories",
     "profiling.report", "profiling.trace", "utils.flops", "utils.tensorboard",
+    # the memory preflight and observability's readers
+    "memory.analysis", "memory.preflight", "profiling.diff", "profiling.gate", "telemetry.timeline",
+    "telemetry.monitor", "telemetry.history",
 ]
 # The card's machine has neither OpenCV nor PIL, nor scikit-learn: the port decodes and
 # transforms images without them, and ships the digits corpus as an array of its own.
@@ -92,11 +96,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "scripts", "torch_serve_profile.py")
-    yield os.path.join(REPO, "scripts", "torch_train_profile.py")
-    yield os.path.join(REPO, "scripts", "torch_resnet_profile.py")
-    yield os.path.join(REPO, "scripts", "torch_flash_fwd_times.py")
-    yield os.path.join(REPO, "scripts", "torch_phase_in_turns.py")
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def _imports(path):
@@ -130,3 +133,30 @@ def test_no_source_of_the_port_imports_jax():
                 continue
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names if _forbidden(n)]
     assert offenders == []
+
+
+READER_SCRIPTS = ("torch_run_doctor.py", "torch_run_monitor.py", "torch_run_compare.py", "torch_bench_history.py",
+                  "torch_perf_gate.py", "torch_memory_probe.py")
+
+_SCRIPT_PROBE = """
+import json, runpy, sys
+for path in sys.argv[1:]:
+    sys.argv = [path, "--help"]
+    try:
+        runpy.run_path(path, run_name="__main__")
+    except SystemExit:
+        pass
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_the_reader_scripts_import_no_jax():
+    import json
+
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, *(os.path.join(REPO, "scripts", n) for n in READER_SCRIPTS)],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300, check=True)
+    modules = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in modules if _forbidden(m) or m.split(".")[0] in IMAGE_LIBRARIES] == []
+    assert all(f"usage: {n}" in out.stdout for n in READER_SCRIPTS)

@@ -21,6 +21,10 @@ the port's run directory: ``scripts/run_doctor.py --json``, ``telemetry.timeline
 * The goodput buckets are the same; ``run_end``'s fractions sum to 1.
 * JAX's doctor gives the port's run a verdict, and the port's doctor the same verdict and
   ``Diagnosis.to_dict()`` on the same events; the timeline builds; the monitor reads it.
+* The port's own readers on the port's run: its timeline and its monitor's status (one
+  fake clock) byte-equal to the JAX package's in this process, the timeline's goodput
+  spans re-deriving the meter's fractions, and ``scripts/torch_run_doctor.py --json`` and
+  ``scripts/torch_run_monitor.py --once --json`` saying what the JAX scripts said.
 """
 
 import json
@@ -36,6 +40,7 @@ pytest.importorskip("sklearn")
 
 from distributed_training_pytorch_tpu_torch.examples import digits_data, train_digits  # noqa: E402
 from distributed_training_pytorch_tpu_torch.models import create_model  # noqa: E402
+from distributed_training_pytorch_tpu_torch.ops import dispatch  # noqa: E402
 from distributed_training_pytorch_tpu_torch.telemetry import Telemetry, doctor, load_run_events  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -135,6 +140,9 @@ def runs(tmp_path_factory):
                              json.dumps(NARROW), repr(HEARTBEAT_EVERY_S)], cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                             text=True)
     saved = {k: os.environ.pop(k, None) for k in ("DTYPE", "MESH", "TELEMETRY", "SNAPSHOT", "CHAIN_STEPS")}
+    # The dispatch records of this process start afresh, as the JAX subprocess's do: a
+    # decision another test recorded before any event log existed would flush into this run's.
+    dispatch.reset()
     try:
         trainer = _Narrow(train_path=os.path.join(subset, "train"), val_path=os.path.join(subset, "test"),
                           labels=digits_data.LABELS, height=digits_data.SIZE, width=digits_data.SIZE,
@@ -157,7 +165,7 @@ def runs(tmp_path_factory):
     with open(out) as f:
         readers = json.load(f)
     return {"port": load_run_events(port_dir), "jax": load_run_events(jax_dir), "readers": readers,
-            "tb": str(base / "tb"), "trainer": trainer}
+            "tb": str(base / "tb"), "trainer": trainer, "port_dir": port_dir}
 
 
 def _kinds(evs):
@@ -226,3 +234,41 @@ def test_tensorboard_dir_holds_the_run_scalars(runs):
             scalars.setdefault(value.tag, []).append((event.step, value.simple_value))
     assert {"train/loss", "goodput/productive_step", "telemetry/step_ms", "doctor/healthy"} <= set(scalars)
     assert len(scalars["train/loss"]) == EPOCHS
+
+
+def _script(monkeypatch, capsys, name, *argv):
+    import runpy
+
+    monkeypatch.setattr(sys, "argv", [name, *argv])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(os.path.join(REPO, "scripts", name), run_name="__main__")
+    return done.value.code, capsys.readouterr().out
+
+
+def test_the_port_readers_match_the_jax_readers_on_the_port_run(runs, monkeypatch, capsys):
+    import time
+
+    from distributed_training_pytorch_tpu.telemetry import monitor as jax_monitor
+    from distributed_training_pytorch_tpu.telemetry import timeline as jax_timeline
+    from distributed_training_pytorch_tpu.telemetry.events import load_run_events as jax_load
+    from distributed_training_pytorch_tpu_torch.telemetry import monitor, timeline
+
+    port_dir = runs["port_dir"]
+    ours = timeline.build_timeline(load_run_events(port_dir))
+    assert json.dumps(ours, sort_keys=True) == json.dumps(jax_timeline.build_timeline(jax_load(port_dir)), sort_keys=True)
+    spans = timeline.span_bucket_seconds(ours)
+    end = next(e for e in runs["port"] if e["event"] == "run_end")
+    for bucket, fraction in end["goodput_fractions"].items():
+        assert abs(spans[bucket] / sum(spans.values()) - fraction) < 1e-9, bucket
+    now = time.time() + 5.0
+    statuses = [mod.RunMonitor(port_dir, clock=lambda: now).poll() for mod in (monitor, jax_monitor)]
+    assert json.dumps(statuses[0].to_dict(), sort_keys=True) == json.dumps(statuses[1].to_dict(), sort_keys=True)
+    assert statuses[0].status == "finished"
+    code, out = _script(monkeypatch, capsys, "torch_run_doctor.py", port_dir, "--json")
+    assert code == 0 and json.loads(out) == runs["readers"]["doctor"]["out"]
+    code, out = _script(monkeypatch, capsys, "torch_run_monitor.py", port_dir, "--once", "--json")
+    theirs = json.loads(runs["readers"]["monitor"]["out"])
+    ours = json.loads(out)
+    assert code == runs["readers"]["monitor"]["code"]
+    assert {k: ours[k] for k in ("status", "verdict", "exit_code", "diagnosis")} == {
+        k: theirs[k] for k in ("status", "verdict", "exit_code", "diagnosis")}

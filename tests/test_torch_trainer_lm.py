@@ -293,14 +293,18 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
             seq_len=SEQ, base_lr=LR, size="tiny", moe_every=2, max_epoch=1, batch_size=BATCH,
             save_folder=str(tmp_path), device="cpu",
         )
-    # telemetry is ported (it runs: the engine computes the health stats); the memory
-    # preflight still raises, naming its slice
+    # telemetry is ported (it runs: the engine computes the health stats), and so is the
+    # memory preflight: it runs before the first step and records its prediction
     telemetered = train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1,
                                      batch_size=BATCH, save_folder=str(tmp_path), device="cpu", telemetry=True)
     assert telemetered.engine.stats and telemetered.events.enabled
-    with pytest.raises(NotImplementedError, match="memory preflight"):
-        train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1, batch_size=BATCH,
-                           save_folder=str(tmp_path), device="cpu", preflight=True)
+    preflighted = train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1,
+                                     batch_size=BATCH, save_folder=str(tmp_path / "preflight"), device="cpu",
+                                     preflight=True)
+    preflighted.train()
+    report = preflighted.memory_report
+    assert report.predicted_peak_bytes > 0 and report.batch_size == BATCH and report.fits is None
+    assert preflighted.state.step == len(preflighted.train_dataloader)
     # DTYPE=fp16 trains with dynamic loss scaling; the flash kernels, which have no fp16
     # variant, refuse it by name where they would launch (here on the CPU the plain
     # attention runs, as for every dtype)
