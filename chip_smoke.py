@@ -3913,11 +3913,11 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
             fa.reset_launches()
             r = _measured_peak(run_dir, f"pf{chain}", batch=PREFLIGHT_BATCH, steps=steps, chain=chain)
             if chain == 1:  # the eager run's launches (a graph's count once, at its capture)
-                launches = dict(fa.launches)
-                want = {k: DEPTH * steps for k in launches}
-                if launches != want or any(fa.launches_by_variant[(k, "cuda_core")] for k in launches):
-                    raise RuntimeError(f"[preflight] launches {launches} ({dict(fa.launches_by_variant)}), want {want} "
-                                       "on wgmma")
+                eager_launches = dict(fa.launches)
+                want = {k: DEPTH * steps for k in eager_launches}
+                if eager_launches != want or any(fa.launches_by_variant[(k, "cuda_core")] for k in eager_launches):
+                    raise RuntimeError(f"[preflight] launches {eager_launches} ({dict(fa.launches_by_variant)}), want "
+                                       f"{want} on wgmma")
             rep = r["report"]
             if rep is None or rep.fits is not True or r["steps"] != steps:
                 raise RuntimeError(f"[preflight chain={chain}] report {rep}, {r['steps']} steps")
@@ -4085,7 +4085,7 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
                 os.environ[k] = v
     wall = time.perf_counter() - t_phase
     log(f"[preflight] phase wall {wall:.1f} s")
-    return {"fits": fits, "gate": gate, "monitor": seen, "launches": launches, "wall_s": wall}
+    return {"fits": fits, "gate": gate, "monitor": seen, "launches": eager_launches, "wall_s": wall}
 
 
 # The lm_eval phase (21): eval_lm and make_lm_corpus on phase 5's checkpoint.
@@ -4413,50 +4413,80 @@ def main() -> int:
     soak_dir, soak = tempfile.mkdtemp(dir=run_root), None
     try:
         t_start = time.perf_counter()
+
+        def mark(name):  # where the script's time goes, phase by phase
+            log(f"[phases] {name} done at {time.perf_counter() - t_start:.1f} s")
+
         card = phase_device()
+        mark("device")
         soak = start_soak(soak_dir)  # beside the kernel checks, which time nothing
         fwd_err, vit_fwd_err = phase_kernels()
+        mark("kernels")
         bwd_err, vit_bwd_err = phase_bwd_kernels()
+        mark("bwd_kernels")
         k5_err = phase_k5()
+        mark("k5")
         conv_err, dz_err, convnext_err = phase_conv1x1()
+        mark("conv1x1")
         resilience = phase_resilience(soak_dir, soak)
+        mark("resilience")
         ring = phase_ring(card)
+        mark("ring")
         jpeg = phase_jpeg(card)
+        mark("jpeg")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             serve_launches, serve = phase_slice(run_dir)
+            mark("slice")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             train_launches, train = phase_train(run_dir)
+            mark("train")
             lm_eval = phase_lm_eval(run_dir, card)  # on phase 5's checkpoint
+            mark("lm_eval")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             ring_launches, ring_train = phase_ring_train(run_dir)
+            mark("ring_train")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resnet_launches, resnet = phase_resnet(run_dir)
+            mark("resnet")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             resnet_ab = _knobs_in_turns("[resnet-ab]", RESNET_ENV, run_dir, RESNET_BATCH, ("1", "0"), n_steps=5)
+            mark("resnet-ab")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             vgg = phase_vgg(run_dir)
+            mark("vgg")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             vit_launches, vit = phase_vit(run_dir)
+            mark("vit")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             convnext_launches, convnext = phase_convnext(run_dir)
+            mark("convnext")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             folder = phase_folder(run_dir)
+            mark("folder")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             digits = phase_digits(run_dir)
+            mark("digits")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             records = phase_records(run_dir)
+            mark("records")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             r50, r50_launches = phase_records_resnet50(run_dir)
+            mark("records_resnet50")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             fp16 = phase_fp16(run_dir)
+            mark("fp16")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             chained = phase_chained(run_dir, card)
+            mark("chained")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             telemetry = phase_telemetry(run_dir, card)
+            mark("telemetry")
             preflight = phase_preflight(run_dir, card, telemetry)  # on phase 24's captures
+            mark("preflight")
         times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         convnext_times, convnext_total = phase_convnext_times(card)
+        mark("times")
         log(f"[times] {card} | served requests: p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms "
             f"over {serve['n']} requests (client clock, HTTP included; p99 is the slowest of so few)")
         log(f"[times] {card} | training step (B=64, T=1024, bf16): median {train['step_ms']:.2f} ms, "
