@@ -10,7 +10,10 @@ the host's operators. It opens in Perfetto or ``chrome://tracing``;
 Every session starts with one warm-up cycle of the profiler's schedule: the profiler is
 prepared, a tiny operation runs and the device is synchronised, and only then does the
 recorded cycle begin. A trace started in the middle of a long program otherwise missed its
-first kernels (about 31 of them in one run on the card).
+first kernels (about 31 of them in one run on the card). Even so, one run in five of a
+traced GPT-2-small window missed the first 10 to 30 kernels launched right after the
+recorded cycle began: the session settles ``SETTLE_S`` after that before it returns, so the
+traced work starts well after the cycle's start.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 __all__ = ["annotate", "latest_trace_file", "load_device_events", "start_session", "stop_session", "trace"]
 
 TRACE_SUFFIX = ".pt.trace.json"
+SETTLE_S = 0.05  # between the recorded cycle's start and the traced work
 
 
 def _activities(device) -> list:
@@ -62,6 +66,7 @@ def start_session(log_dir: str, device="cpu"):
     torch.ones(1, device=device).add_(1)
     _sync(device)
     prof.step()  # the warm-up cycle ends: record from here
+    time.sleep(SETTLE_S)
     return prof
 
 
