@@ -10,10 +10,14 @@ the host's operators. It opens in Perfetto or ``chrome://tracing``;
 Every session starts with one warm-up cycle of the profiler's schedule: the profiler is
 prepared, a tiny operation runs and the device is synchronised, and only then does the
 recorded cycle begin. A trace started in the middle of a long program otherwise missed its
-first kernels (about 31 of them in one run on the card). Even so, one run in five of a
-traced GPT-2-small window missed the first 10 to 30 kernels launched right after the
-recorded cycle began: the session settles ``SETTLE_S`` after that before it returns, so the
-traced work starts well after the cycle's start.
+first kernels (about 31 of them in one run on the card). The card's profiler still drops
+the kernel records of the first launches of a recorded cycle, more of them as the process
+ages (none in a young process, 20 to 24 after five minutes of GPT-2-small steps; waiting
+before the traced work does not help). So on the card the session launches
+``LEAD_KERNELS`` tiny kernels once the recorded cycle has begun, waits for them, then
+marks the start of the traced work with the host annotation ``TRACE_START``;
+:func:`load_device_events` keeps the device events launched after it (by CUPTI's
+correlation id), so the lead kernels absorb the drop and are left out of the analysis.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 __all__ = ["annotate", "latest_trace_file", "load_device_events", "start_session", "stop_session", "trace"]
 
 TRACE_SUFFIX = ".pt.trace.json"
-SETTLE_S = 0.05  # between the recorded cycle's start and the traced work
+LEAD_KERNELS = 512
+TRACE_START = "dtp_trace_start"
 
 
 def _activities(device) -> list:
@@ -66,7 +71,13 @@ def start_session(log_dir: str, device="cpu"):
     torch.ones(1, device=device).add_(1)
     _sync(device)
     prof.step()  # the warm-up cycle ends: record from here
-    time.sleep(SETTLE_S)
+    if torch.device(device).type == "cuda":
+        lead = torch.zeros(1, device=device)
+        for _ in range(LEAD_KERNELS):
+            lead.add_(1)
+        _sync(device)
+    with torch.profiler.record_function(TRACE_START):
+        pass
     return prof
 
 
@@ -105,10 +116,17 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 def load_device_events(path: str) -> "tuple[str, list[tuple[str, float, float]]]":
     """``(source, [(name, start_us, dur_us), ...])`` of one trace: the device's kernels,
     copies and sets (``"device"``; with events on several cards, those of the busiest),
-    or, in a trace without device activity, the host's operators (``"host"``)."""
+    or, in a trace without device activity, the host's operators (``"host"``). In a trace
+    of :func:`start_session`, the device events launched before its ``TRACE_START`` mark
+    (the lead kernels) are left out."""
     with open(path, encoding="utf-8") as f:
         raw = json.load(f)
     events = raw["traceEvents"] if isinstance(raw, dict) else raw
+    marks = [float(e["ts"]) for e in events if e.get("name") == TRACE_START and "ts" in e]
+    launched = [((e.get("args") or {}).get("correlation"), float(e["ts"])) for e in events
+                if str(e.get("cat", "")).lower() == "cuda_runtime" and "ts" in e]
+    after = [c for c, ts in launched if c is not None and marks and ts >= marks[0]]
+    first = min(after) if after else None  # correlation ids grow with every launch
     by_device: "dict[object, list]" = {}
     host = []
     for e in events:
@@ -117,6 +135,9 @@ def load_device_events(path: str) -> "tuple[str, list[tuple[str, float, float]]]
         cat = str(e.get("cat", "")).lower()
         row = (str(e.get("name", "")), float(e["ts"]), float(e["dur"]))
         if cat in _DEVICE_CATS:
+            correlation = (e.get("args") or {}).get("correlation")
+            if first is not None and correlation is not None and correlation < first:
+                continue
             by_device.setdefault((e.get("args") or {}).get("device", e.get("pid")), []).append(row)
         elif cat == "cpu_op":
             host.append(row)

@@ -296,3 +296,30 @@ def test_bench_history_self_test_on_the_committed_rounds(monkeypatch, capsys):
     assert done.value.code == 0, out
     ledger = json.loads(out[: out.index("\n}\n") + 2])
     assert dumps(ledger) == dumps(jax_history.analyze_history(REPO).to_dict())
+
+
+def test_a_trace_leaves_out_the_lead_kernels_before_its_start_mark(tmp_path):
+    """The card's profiler drops the first kernel records of a recorded cycle: the session
+    launches lead kernels, marks the traced work's start, and the reader keeps what was
+    launched after the mark (by correlation id)."""
+    from distributed_training_pytorch_tpu_torch.profiling.report import analyze_trace
+    from distributed_training_pytorch_tpu_torch.profiling.trace import TRACE_START, load_device_events
+
+    events = [{"ph": "X", "cat": "user_annotation", "name": TRACE_START, "ts": 100.0, "dur": 1.0}]
+    for i, (ts, name) in enumerate([(10.0, "lead_add"), (20.0, "lead_add"), (110.0, "gemm"), (130.0, "add"),
+                                    (150.0, "gemm")]):
+        events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts, "dur": 2.0,
+                       "args": {"correlation": 7 + i}})
+        events.append({"ph": "X", "cat": "kernel", "name": name, "ts": ts + 500.0, "dur": 5.0,
+                       "args": {"correlation": 7 + i, "device": 0}})
+    events.append({"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 700.0, "dur": 3.0,
+                   "args": {"device": 0}})
+    path = tmp_path / "h_1.1.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    source, rows = load_device_events(str(path))
+    assert source == "device" and [r[0] for r in rows] == ["gemm", "add", "gemm", "Memcpy HtoD"]
+    report = analyze_trace(str(path), steps=1)
+    assert {row.name for row in report.top_ops} == {"gemm", "add", "Memcpy HtoD"}
+    unmarked = tmp_path / "u_1.1.pt.trace.json"
+    unmarked.write_text(json.dumps({"traceEvents": events[1:]}))
+    assert len(load_device_events(str(unmarked))[1]) == 6  # no mark: every device event
