@@ -61,7 +61,7 @@ def device_capacity_bytes(device=None) -> "int | None":
 
 
 def device_free_bytes(device=None) -> "int | None":
-    """The card's free memory now (the driver's count, all processes), or None off it."""
+    """The card's free memory now (``cudaMemGetInfo``'s count, every process's), or None off it."""
     import torch
 
     dev = _card(device)
