@@ -195,10 +195,27 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     too), ``scripts/torch_run_compare.py`` on phase 24's eager and chained profile captures
     (the category deltas sum to the step's delta within 1e-9 of the step), and
     ``scripts/torch_perf_gate.py --quick`` passing against ``TORCH_PERF_BASELINE.json``'s
-    ``quick-cuda`` entry and failing with ``--inject-slowdown 3``.
+    ``quick-cuda`` entry and failing with ``--inject-slowdown 3``;
+26. (elastic) sharded state and elastic resume: ``scripts/torch_sharded_ranks.py`` trains
+    the LM entry as 4 gloo ranks on this machine's CPU (GPT-2-small at full width and depth,
+    vocab 256, T=256, global batch 8, f32): ``MESH=fsdp4`` 3 steps with ``last`` saved after
+    the 2nd and ``after`` after the 3rd, ``MESH=fsdp2tp2`` 1 step and a save. Meanwhile
+    GPT-2-small is served on ``cuda:0``: ``/admin/replan {"device_ids": [0]}`` under 4
+    concurrent ``/predict`` clients answers 200 with a ``replan_done``, no request lost (a
+    drain's 503 is retried) and every answer bit-identical to the one before;
+    ``{"device_ids": [1]}`` answers 400 and the replica keeps serving; once the ranks are
+    joined, one more re-plan with no client is timed on its own. Then the LM entry resumes
+    the fsdp4 checkpoint on the card with ``MESH`` unset (f32, TF32 off): re-planned to
+    ``{"data": 1}`` with ``accum_steps=4``, every restored tensor bit-equal to the
+    checkpoint's, one ``elastic_restore``, the first step's loss within 1e-4 of the ranks'
+    third, that step's update (params after it minus the restored ones) within a relative
+    L2 error of 1e-2 of the ranks' (``after``), and K1–K3 48 launches each in it
+    (``train_lm_elastic`` in the kernels line, by variant); the fsdp2tp2 checkpoint raises
+    ``ElasticReplanError`` naming both topologies before any restore.
 
-The chaos soak (phase 23) runs in a process of its own beside the kernel checks (phases
-2, 3, 10 and 7), which time nothing, and is read after them.
+The chaos soak (phase 23) and phase 26's CPU ranks run in processes of their own beside
+the kernel checks (phases 2, 3, 10 and 7), which time nothing; phase 26 then runs while
+the soak does (it times nothing against a bound either), and the soak is read after it.
 
 The vit and convnext phases (14, 15) save in the background (the ``Trainer``'s default
 ``async_checkpoint``): they print each save's snapshot time and the flushes that wait for
@@ -209,8 +226,8 @@ ten-step train chain, a resume and ``eval.evaluate``) reads PNG, BMP and JPEG fi
 JPEG ones from the port's encoder (4:2:0 at qualities 90 and 60, 4:4:4, grey, and one with
 an EXIF orientation of 6) and decoded by the port's own decoder.
 
-``launches_by_path`` in the kernels line has one key a path, ``eval_lm`` and ``decode``
-included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
+``launches_by_path`` in the kernels line has one key a path, ``eval_lm``, ``decode`` and
+``train_lm_elastic`` included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
 the launches in the profile of one replay (4 and 2 steps): the Python counters count a
 graph's launches once, at its capture.
 
@@ -225,6 +242,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -234,6 +252,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -4088,6 +4107,284 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
     return {"fits": fits, "gate": gate, "monitor": seen, "launches": eager_launches, "wall_s": wall}
 
 
+# The elastic phase (26): sharded ranks on the card machine's CPU, their checkpoint
+# resumed on the card, and the serving re-plan.
+# The ranks' settings (GPT-2-small, vocab 256, T=256, global batch 8, f32) are
+# scripts/torch_sharded_ranks.py's, read back from its JSON line.
+ELASTIC_ACCUM = 4  # the re-plan of {"data": 1, "fsdp": 4} onto one card at BATCH 8
+ELASTIC_LOSS_ATOL = 1e-4  # f32, TF32 off: the card's step (4 micro-batches) against 4 CPU ranks
+# The same step's update (params after it minus the restored ones) against the ranks': the
+# relative L2 error over every float tensor. A wrong accumulation scale, backward or fused
+# update is an error of order 1.
+ELASTIC_UPDATE_RTOL = 1e-2
+ELASTIC_SERVE_ROWS, ELASTIC_SERVE_SEQ, ELASTIC_SERVE_CLIENTS = 4, 256, 4
+
+
+@contextlib.contextmanager
+def _env(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def start_sharded_ranks(run_dir: str):
+    """Start ``scripts/torch_sharded_ranks.py`` (4 gloo ranks on the CPU): ``(process, start
+    time)`` for :func:`phase_elastic`."""
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_sharded_ranks.py"), "--workdir",
+           os.path.join(run_dir, "ranks")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO), \
+        time.perf_counter()
+
+
+def _join_sharded_ranks(ranks) -> dict:
+    """Wait for :func:`start_sharded_ranks`' process; its JSON line, or an error."""
+    proc, t0 = ranks
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    result = json.loads(out.strip().splitlines()[-1]) if out.strip() else {"ok": False}
+    if proc.returncode != 0 or not result.get("ok"):
+        raise RuntimeError(f"[elastic] the sharded ranks failed (exit {proc.returncode}): {out[-3000:]} {err[-3000:]}")
+    result["joined_s"] = time.perf_counter() - t0
+    return result
+
+
+def _elastic_serve(run_dir: str, card: str, join_ranks) -> dict:
+    """GPT-2-small served on cuda:0; ``/admin/replan {"device_ids": [0]}`` under concurrent
+    ``/predict`` (clients retry a drain's 503), then ``{"device_ids": [1]}`` refused. Every
+    request is one batch of ``ELASTIC_SERVE_ROWS`` rows (one bucket), so its answer is one
+    program's: bit-identical before, during and after the re-plan. Then ``join_ranks()``
+    (the CPU ranks that ran beside it until now), and one more re-plan with no client and
+    no rank beside it, timed on its own; its result is ``"ranks"``."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+    from distributed_training_pytorch_tpu_torch.serving import InferEngine, InferenceServer, MicroBatcher
+    from distributed_training_pytorch_tpu_torch.telemetry import load_run_events
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTSmall(vocab_size=256, dtype=torch.bfloat16, device="cuda", generator=gen).eval()
+
+    def next_token_logits(params, tokens):
+        hidden = torch.func.functional_call(model, params, (tokens,), {"return_hidden": True})
+        return hidden[:, -1].float() @ params["embed.weight"].float().T
+
+    buckets = (ELASTIC_SERVE_ROWS,)
+    engine = InferEngine(next_token_logits, device="cuda:0", buckets=buckets)
+    engine.swap_params(model.state_dict(), version="seed0")
+    engine.warmup(np.zeros((ELASTIC_SERVE_SEQ,), np.int32))
+    server = InferenceServer(engine, batcher=MicroBatcher(buckets=buckets, max_delay_s=0.002), run_dir=run_dir,
+                             input_dtype="int32", process_index=0)
+    rng = np.random.default_rng(26)
+    rows = [rng.integers(0, 256, size=(ELASTIC_SERVE_ROWS, ELASTIC_SERVE_SEQ)).tolist()
+            for _ in range(ELASTIC_SERVE_CLIENTS)]
+
+    def post(route, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}{route}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    answers, failures, stop = [], [], threading.Event()
+
+    def client(i):
+        while not stop.is_set():
+            code, body = post("/predict", {"tenant": f"c{i}", "inputs": rows[i]})
+            retries = 0
+            while code == 503 and retries < 2000:  # the drain's typed refusal: come back
+                retries += 1
+                time.sleep(0.005)
+                code, body = post("/predict", {"tenant": f"c{i}", "inputs": rows[i]})
+            if code != 200:
+                failures.append((i, code, body))
+                return
+            answers.append((i, body["outputs"], body["params_version"], retries))
+
+    server.start()
+    try:
+        before = [post("/predict", {"inputs": r})[1]["outputs"] for r in rows]
+        threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(ELASTIC_SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        code, summary = post("/admin/replan", {"device_ids": [0]})
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        after = [post("/predict", {"inputs": r})[1]["outputs"] for r in rows]
+        refused = post("/admin/replan", {"device_ids": [1]})
+        still = post("/predict", {"inputs": rows[0]})
+        ranks = join_ranks()
+        quiet_code, quiet = post("/admin/replan", {"device_ids": [0]})
+        last = post("/predict", {"inputs": rows[0]})
+    finally:
+        server.close()
+    done = [e for e in load_run_events(run_dir) if e["event"] == "replan_done"]
+    differ = (sum(1 for i, out, _, _ in answers if out != before[i]) + sum(a != b for a, b in zip(after, before))
+              + (last[1].get("outputs") != before[0]))
+    retried = sum(1 for *_, r in answers if r)
+    log(f"[elastic serve] {card} | GPT-2-small (bf16, T={ELASTIC_SERVE_SEQ}) on cuda:0: /admin/replan "
+        f"{{'device_ids': [0]}} -> {code} {summary}; {len(answers)} concurrent answers ({retried} after a drain's "
+        f"503), {len(failures)} lost, {differ} differing from the answers before; replan_done events "
+        f"{[{k: e[k] for k in ('from_mesh', 'to_mesh', 'device_ids', 'shed', 'replans', 'plan_reason')} for e in done]}; "
+        f"{{'device_ids': [1]}} -> {refused[0]} {refused[1].get('detail')}; /predict after it -> {still[0]}; "
+        f"after the ranks were joined, with no client: /admin/replan -> {quiet_code}, "
+        f"{quiet.get('replan_ms')} ms; /predict after it -> {last[0]}")
+    if (code != 200 or summary.get("state") != "serving" or summary.get("mesh_axes") != {"data": 1} or failures
+            or differ or len(answers) < ELASTIC_SERVE_CLIENTS or len(done) != 2 or refused[0] != 400
+            or refused[1].get("error") != "replan_failed" or refused[1].get("state") != "serving" or still[0] != 200
+            or quiet_code != 200 or last[0] != 200 or engine.replan_count != 2):
+        raise RuntimeError(f"[elastic serve] replan {code} {summary}, failures {failures[:3]}, {differ} differ, "
+                           f"events {done}, refusal {refused}, after {still[0]}, quiet {quiet_code} {quiet}")
+    return {"answers": len(answers), "retried": retried, "replan_ms": summary["replan_ms"], "shed": summary["shed"],
+            "quiet_replan_ms": quiet["replan_ms"], "ranks": ranks}
+
+
+def _elastic_resume_step(trainer, fsdp: dict, batch_size: int) -> dict:
+    """The resumed trainer's restored tensors against the checkpoint's, then its first step
+    on the global batch the CPU ranks took after their save, its launches counted, and that
+    step's update against the ranks' (their ``after`` checkpoint)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    saved = torch.load(os.path.join(fsdp["checkpoint"], "state.pt"), map_location="cuda", weights_only=True)["params"]
+    restored = trainer.state.params
+    unequal = [k for k, v in saved.items() if not torch.equal(restored[k], v)]
+    rows = trainer.train_dataset.arrays
+    lo = fsdp["saved_after"] * batch_size
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[lo:lo + batch_size])).cuda() for k, v in rows.items()}
+    _reset_launch_counts()
+    trainer.state, metrics = trainer.train_step(trainer.state, batch)
+    launches = {k: fa.launches[k] for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    torch.cuda.synchronize()
+    want = torch.load(os.path.join(fsdp["after"], "state.pt"), map_location="cuda", weights_only=True)["params"]
+    got = trainer.state.params
+    err_sq = upd_sq = max_err = max_upd = 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        d_want, d_got = w.double() - saved[k].double(), got[k].double() - saved[k].double()
+        err_sq += float((d_got - d_want).square().sum())
+        upd_sq += float(d_want.square().sum())
+        max_err = max(max_err, float((got[k] - w).abs().max()))
+        max_upd = max(max_upd, float(d_want.abs().max()))
+    return {"unequal": unequal, "n_saved": len(saved), "loss": float(metrics["loss"]), "launches": launches,
+            "update_rel_err": math.sqrt(err_sq / upd_sq) if upd_sq else float("inf"), "max_param_err": max_err,
+            "max_update": max_upd,
+            "by_variant": {f"{k}/{v}": fa.launches_by_variant[(k, v)] for k in launches for v in ("wgmma", "cuda_core")}}
+
+
+def phase_elastic(run_dir: str, card: str, ranks=None) -> dict:
+    """Sharded state and elastic resume (phase 26). ``ranks``: the ``(process, start time)``
+    of :func:`start_sharded_ranks` (None: start it now). While the ranks train on the CPU,
+    the card serves and re-plans; then the fsdp4 checkpoint is resumed on the card and the
+    fsdp2tp2 one refused."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+    from distributed_training_pytorch_tpu_torch.parallel.elastic import ElasticReplanError
+    from distributed_training_pytorch_tpu_torch.telemetry import load_run_events
+
+    t_phase = time.perf_counter()
+    if ranks is None:
+        ranks = start_sharded_ranks(run_dir)
+    serve = _elastic_serve(os.path.join(run_dir, "serve"), card, lambda: _join_sharded_ranks(ranks))
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = serve.pop("ranks")
+    runs, env, n_ranks = result["runs"], result["env"], result["ranks"]
+    for spec, r in runs.items():
+        log(f"[elastic ranks] {n_ranks} gloo ranks on the CPU, GPT-2-small (12 x 768, 12 heads, vocab 256, "
+            f"T={env['SEQ_LEN']}, global batch {env['BATCH']}, f32) MESH={spec}: {r['layout']}; "
+            f"losses {r['losses']}; saved after step {r['saved_after']}; {r['wall_s']:.1f} s")
+    log(f"[elastic ranks] the ranks' wall {result['wall_s']:.1f} s ({result['joined_s']:.1f} s to the join)")
+    fsdp, tp = runs["fsdp4"], runs["fsdp2tp2"]
+    if fsdp["record"] is None or fsdp["record"]["mesh"] != {"data": 1, "fsdp": 4} or len(fsdp["losses"]) != 3 \
+            or not all(np.isfinite(fsdp["losses"])) or tp["record"]["mesh"] != {"data": 1, "fsdp": 2, "tensor": 2} \
+            or fsdp["after"] is None:
+        raise RuntimeError(f"[elastic ranks] {runs}")
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resume_dir = os.path.join(run_dir, "resume")
+    try:
+        with _env(**env, SAVE_DIR=resume_dir, SNAPSHOT=fsdp["checkpoint"], MESH=None, TELEMETRY="1",
+                  DEVICE=None, CHAIN_STEPS=None):
+            trainer = train_lm.build_trainer()
+        resumed = _elastic_resume_step(trainer, fsdp, int(env["BATCH"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    launches, by_variant, loss = resumed["launches"], resumed["by_variant"], resumed["loss"]
+    unequal, plan, n_saved = resumed["unequal"], trainer._elastic_plan, resumed["n_saved"]
+    events = load_run_events(resume_dir)
+    elastic_events = [e for e in events if e["event"] == "elastic_restore"]
+    reshard = [e for e in events if e["event"] == "checkpoint_reshard"]
+    want_loss = fsdp["losses"][fsdp["saved_after"]]
+    log(f"[elastic resume] {card} | the fsdp4 checkpoint on one card, MESH unset, f32 (TF32 off): mesh "
+        f"{plan and plan.new_axes} accum_steps {trainer.accum_steps} (engine {trainer.engine.accum_steps}); "
+        f"{n_saved - len(unequal)}/{n_saved} restored tensors bit-equal to the "
+        f"checkpoint's; first resumed step's loss {loss!r} against the CPU ranks' {want_loss!r} "
+        f"(|diff| {abs(loss - want_loss):.3e}, bound {ELASTIC_LOSS_ATOL}); its update against the ranks': "
+        f"relative L2 error {resumed['update_rel_err']:.3e} (bound {ELASTIC_UPDATE_RTOL}), params' max |diff| "
+        f"{resumed['max_param_err']:.3e}, the update's max |step| {resumed['max_update']:.3e}; launches {launches} "
+        f"by variant {by_variant}; elastic_restore events {elastic_events}; checkpoint_reshard {len(reshard)}")
+    want = DEPTH * ELASTIC_ACCUM
+    if (plan is None or plan.new_axes != {"data": 1} or trainer.accum_steps != ELASTIC_ACCUM or unequal
+            or abs(loss - want_loss) > ELASTIC_LOSS_ATOL or not resumed["update_rel_err"] <= ELASTIC_UPDATE_RTOL
+            or launches != {k: want for k in launches}
+            or len(elastic_events) != 1 or elastic_events[0].get("accum_steps") != ELASTIC_ACCUM
+            or elastic_events[0].get("to_mesh") != {"data": 1}):
+        raise RuntimeError(f"[elastic resume] plan {plan}, accum {trainer.accum_steps}, unequal {unequal[:5]}, loss "
+                           f"{loss} vs {want_loss}, update error {resumed['update_rel_err']}, launches {launches}, "
+                           f"events {elastic_events}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    restores = []
+    original = CheckpointManager.restore
+    CheckpointManager.restore = lambda *a, **k: restores.append(a) or original(*a, **k)
+    try:
+        with _env(**env, SAVE_DIR=os.path.join(run_dir, "refused"), SNAPSHOT=tp["checkpoint"], MESH=None,
+                  DEVICE=None, CHAIN_STEPS=None, TELEMETRY=None):
+            train_lm.build_trainer()
+        raise RuntimeError("[elastic refuse] the fsdp2tp2 checkpoint was resumed on one card")
+    except ElasticReplanError as e:
+        message = str(e)
+    finally:
+        CheckpointManager.restore = original
+    log(f"[elastic refuse] the fsdp2tp2 checkpoint on one card: ElasticReplanError before any restore "
+        f"({len(restores)} restores): {message}")
+    if restores or "{'data': 1, 'fsdp': 2, 'tensor': 2}" not in message or "onto 1 devices" not in message:
+        raise RuntimeError(f"[elastic refuse] {len(restores)} restores; {message}")
+    wall = time.perf_counter() - t_phase
+    log(f"[elastic] phase wall {wall:.1f} s")
+    return {"launches": launches, "by_variant": by_variant, "loss": loss, "cpu_loss": want_loss, "serve": serve,
+            "update_rel_err": resumed["update_rel_err"], "ranks": n_ranks, "env": env,
+            "ranks_wall_s": result["wall_s"], "wall_s": wall}
+
+
 # The lm_eval phase (21): eval_lm and make_lm_corpus on phase 5's checkpoint.
 LM_EVAL_BATCH = 64  # EVAL_BATCH
 LM_EVAL_CORPUS_MB = 2.0
@@ -4382,6 +4679,8 @@ def run_only(names) -> int:
                     phase_telemetry(run_dir, card)
                 elif name == "preflight":  # on phase 24's captures
                     phase_preflight(run_dir, card, phase_telemetry(run_dir, card))
+                elif name == "elastic":
+                    phase_elastic(run_dir, card)
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -4411,6 +4710,7 @@ def main() -> int:
     run_root = os.path.join(REPO, "build")
     os.makedirs(run_root, exist_ok=True)
     soak_dir, soak = tempfile.mkdtemp(dir=run_root), None
+    elastic_dir, ranks = tempfile.mkdtemp(dir=run_root), None
     try:
         t_start = time.perf_counter()
 
@@ -4420,6 +4720,7 @@ def main() -> int:
         card = phase_device()
         mark("device")
         soak = start_soak(soak_dir)  # beside the kernel checks, which time nothing
+        ranks = start_sharded_ranks(elastic_dir)  # phase 26's CPU ranks, in the soak's wait too
         fwd_err, vit_fwd_err = phase_kernels()
         mark("kernels")
         bwd_err, vit_bwd_err = phase_bwd_kernels()
@@ -4428,6 +4729,8 @@ def main() -> int:
         mark("k5")
         conv_err, dz_err, convnext_err = phase_conv1x1()
         mark("conv1x1")
+        elastic = phase_elastic(elastic_dir, card, ranks)  # while the soak runs: nothing here is timed
+        mark("elastic")
         resilience = phase_resilience(soak_dir, soak)
         mark("resilience")
         ring = phase_ring(card)
@@ -4571,15 +4874,25 @@ def main() -> int:
             f"B={pf['rec_batch']['batch']} (measured {_fmt_gb(pf['rec_batch']['measured'])}) or accum "
             f"{pf['rec_accum']['accum']} (measured {_fmt_gb(pf['rec_accum']['measured'])}); phase wall "
             f"{preflight['wall_s']:.1f} s")
+        es = elastic["serve"]
+        log(f"[times] {card} | elastic: {elastic['ranks']} gloo ranks on the CPU (GPT-2-small, "
+            f"T={elastic['env']['SEQ_LEN']}, B={elastic['env']['BATCH']}, f32) {elastic['ranks_wall_s']:.1f} s; the "
+            f"fsdp4 checkpoint's first step on the card (accum {ELASTIC_ACCUM}) loss {elastic['loss']!r} vs the ranks' "
+            f"{elastic['cpu_loss']!r}, its update's relative error {elastic['update_rel_err']:.3e}; serving "
+            f"re-plan {es['replan_ms']} ms under {es['answers']} concurrent answers ({es['retried']} retried a 503), "
+            f"{es['quiet_replan_ms']} ms after the ranks' join; "
+            f"phase wall {elastic['wall_s']:.1f} s")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
     finally:
-        if soak is not None and soak[0].poll() is None:
-            soak[0].kill()
-            soak[0].communicate()
+        for started in (soak, ranks):
+            if started is not None and started[0].poll() is None:
+                started[0].kill()
+                started[0].communicate()
         shutil.rmtree(soak_dir, ignore_errors=True)
+        shutil.rmtree(elastic_dir, ignore_errors=True)
     kernels = []
     for name, kind, launch_key, replaces, err, vit_err, source in (
         ("flash_fwd", "fwd", "fwd", ":81", fwd_err, vit_fwd_err, "flash_fwd_wgmma.cu"),
@@ -4604,7 +4917,11 @@ def main() -> int:
                                  "train_lm_chained": chained["lm_replay"][launch_key],
                                  "train_resnet50_chained": 0,
                                  "train_lm_telemetry": telemetry["launches"][launch_key],
-                                 "train_lm_preflight": preflight["launches"][launch_key]},
+                                 "train_lm_preflight": preflight["launches"][launch_key],
+                                 "train_lm_elastic": elastic["launches"][launch_key]},
+            # the elastic resume's step (f32: the CUDA-core variant) by variant
+            "train_lm_elastic_by_variant": {v: elastic["by_variant"][f"{launch_key}/{v}"]
+                                            for v in ("wgmma", "cuda_core")},
             "max_abs_err": err,
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -4639,7 +4956,7 @@ def main() -> int:
                                  "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0,
                                  "eval_lm": 0, "decode": lm_eval["decode_launches"][name],
                                  "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name],
-                                 "train_lm_telemetry": 0, "train_lm_preflight": 0},
+                                 "train_lm_telemetry": 0, "train_lm_preflight": 0, "train_lm_elastic": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -4677,7 +4994,7 @@ def main() -> int:
                                  "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
                                  "decode": lm_eval["decode_launches"][launch_key],
                                  "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0,
-                                 "train_lm_preflight": 0},
+                                 "train_lm_preflight": 0, "train_lm_elastic": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

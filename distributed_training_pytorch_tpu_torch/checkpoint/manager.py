@@ -34,6 +34,16 @@ CheckpointManager``, on ``torch.save`` instead of Orbax:
   :meth:`read_data_state` read them back (``:849-880``). A checkpoint without
   ``data.json`` has no data state (None).
 
+* **Sharded state** (JAX ``checkpoint/manager.py:215-295``, ``:555-670``, ``:725-752``): a
+  state laid out over an ``fsdp`` or ``tensor`` axis is saved as global tensors (its
+  ``state_dict`` gathers the shards) with its sharding record in ``meta.json`` under
+  ``sharding`` (``parallel.sharding.sharding_record``; none for a replicated state). A
+  restore first checks the record's device count against this world and raises
+  ``parallel.elastic.TopologyMismatchError`` naming both topologies unless
+  ``allow_topology_change=True``; the global tensors are then cut into the target's
+  layout, whatever the writer's, and a restore whose record differs from the target's
+  emits ``checkpoint_reshard`` on ``event_log`` (an ``EventLog``, or None).
+
 Saves here are synchronous: each is committed when ``save`` returns. The trainer's
 background saver (``resilience/async_saver.py``) commits through this manager from its
 worker thread. ``save`` also takes that saver's host snapshot in place of a ``TrainState``
@@ -90,6 +100,11 @@ def epoch_checkpoint_name(epoch: int) -> str:
     return f"{_PERIODIC_PREFIX}{epoch}"
 
 
+def _model_device(model) -> torch.device:
+    first = next(unwrap(model).parameters(), None)
+    return torch.device("cpu") if first is None else first.device
+
+
 def _barrier() -> None:
     if process_count() > 1:
         dist.barrier()
@@ -128,6 +143,7 @@ class CheckpointManager:
         save_retries: int = 2,
         retry_backoff: float = 0.25,
         fault_plan=None,
+        event_log=None,
     ):
         self.directory = os.path.abspath(os.fspath(directory))
         if save_best_for is not None and save_best_for[1] not in ("geq", "leq"):
@@ -137,6 +153,7 @@ class CheckpointManager:
         self.save_retries = int(save_retries)
         self.retry_backoff = float(retry_backoff)
         self.fault_plan = fault_plan
+        self.event_log = event_log
         self._best_value: "float | None" = None
         self._staging_seq = 0
         if process_index() == 0:
@@ -200,6 +217,7 @@ class CheckpointManager:
         loop_state: "Mapping | None" = None,
         data_state: "Mapping | None" = None,
         telemetry: "Mapping | None" = None,
+        sharding: "Mapping | None" = None,
     ) -> None:
         """Save ``state`` (a ``TrainState``, or the async saver's host snapshot) under
         ``name`` with the *resume* epoch ``epoch`` (the caller's policy: ``epoch + 1`` for
@@ -207,9 +225,13 @@ class CheckpointManager:
         mid-epoch save) goes into ``meta.json`` under ``loop``; ``data_state`` into
         ``data.json``; ``telemetry`` (the trainer's cumulative goodput counters and the
         attempt id) into ``meta.json`` under ``telemetry``, the attempt also as
-        ``meta["attempt"]``, as the JAX manager writes it. A write that raises ``OSError`` is retried ``save_retries`` times,
+        ``meta["attempt"]``, as the JAX manager writes it; ``sharding`` the state's sharding
+        record (None: the state's own, ``state.sharding``, which the async saver's snapshot
+        took from the live state). A write that raises ``OSError`` is retried ``save_retries`` times,
         ``retry_backoff`` seconds apart and doubling; then :class:`CheckpointError`."""
-        payload = state.state_dict()  # every rank takes part (a DDP module's state is local)
+        payload = state.state_dict()  # every rank takes part (the shards of a sharded state are gathered)
+        if sharding is None:
+            sharding = getattr(state, "sharding", None)
         failed = None
         if process_index() == 0:
             meta = {"epoch": int(epoch), "step": int(payload["step"]), "best_value": self._best_value,
@@ -222,6 +244,8 @@ class CheckpointManager:
                 meta["telemetry"] = dict(telemetry)
                 if "attempt" in meta["telemetry"]:
                     meta["attempt"] = int(meta["telemetry"].pop("attempt"))
+            if sharding is not None:
+                meta["sharding"] = dict(sharding)
             if "loss_scale" in payload:  # the JAX manager's meta names the scale's type (:330)
                 meta["loss_scale"] = getattr(state, "loss_scale_name", None) or type(state.loss_scale).__name__
             failed = self._write_with_retries(name, payload, meta, data_state)
@@ -378,25 +402,52 @@ class CheckpointManager:
             return dict(json.load(f))
 
     def restore(
-        self, name_or_path: str, state, *, params_only: bool = False, validate: bool = True
+        self, name_or_path: str, state, *, params_only: bool = False, validate: bool = True,
+        allow_topology_change: bool = False,
     ) -> "tuple[Any, int]":
         """Load a checkpoint into ``state`` (its model and optimizer, in place) and return
         ``(state, resume_epoch)``. The best value seen so far comes back with it.
         ``params_only=True`` loads the model's weights and buffers alone, keeping the
-        target's optimizer state and step."""
+        target's optimizer state and step. A checkpoint whose sharding record covers
+        another device count than this world's ranks raises ``TopologyMismatchError``
+        before anything is read, unless ``allow_topology_change``."""
         path = self._resolve(name_or_path)
         if validate:
             self.validate(path)
         meta = self.read_meta(path)
-        device = next(iter(state.params.values())).device
+        record = meta.get("sharding")
+        if record and not allow_topology_change:
+            from distributed_training_pytorch_tpu_torch.parallel.elastic import validate_topology
+
+            validate_topology(record, process_count(), name=f"checkpoint {os.path.basename(path)!r}")
+        self._note_reshard(path, meta, state)
+        device = _model_device(state.model)
         payload = torch.load(os.path.join(path, STATE_NAME), map_location=device, weights_only=True)
         if params_only:
-            unwrap(state.model).load_state_dict(payload["params"])
+            state.load_params(payload["params"])
         else:
             state.load_state_dict(payload)
         if meta.get("best_value") is not None:
             self._best_value = float(meta["best_value"])
         return state, int(meta.get("epoch", 0))
+
+    def _note_reshard(self, path: str, meta: Mapping, state) -> None:
+        """A restore whose recorded layout differs from the target's (a missing record is
+        a replicated state) emits ``checkpoint_reshard``, with the JAX manager's fields."""
+        if self.event_log is None:
+            return
+        stored = meta.get("sharding")
+        target = getattr(state, "sharding", None)
+        if stored == target:
+            return
+        self.event_log.emit(
+            "checkpoint_reshard",
+            name=os.path.basename(str(path)),
+            from_mesh=(stored or {}).get("mesh"),
+            to_mesh=(target or {}).get("mesh"),
+            from_sharded_leaves=len((stored or {}).get("specs", {})),
+            to_sharded_leaves=len((target or {}).get("specs", {})),
+        )
 
     def latest_valid_name(self) -> "str | None":
         """The newest committed checkpoint that passes validation, or None."""
@@ -405,11 +456,15 @@ class CheckpointManager:
                 return name
         return None
 
-    def restore_latest_valid(self, state, *, params_only: bool = False) -> "tuple[Any, int, str]":
+    def restore_latest_valid(
+        self, state, *, params_only: bool = False, allow_topology_change: bool = False
+    ) -> "tuple[Any, int, str]":
         """Restore the newest checkpoint that validates (a torn ``last`` falls back to the
-        one before it); ``(state, epoch, name)``. ``params_only`` as in :meth:`restore`."""
+        one before it); ``(state, epoch, name)``. ``params_only`` and
+        ``allow_topology_change`` as in :meth:`restore`."""
         name = self.latest_valid_name()
         if name is None:
             raise CheckpointError(f"no valid checkpoint under {self.directory}")
-        state, epoch = self.restore(name, state, params_only=params_only, validate=False)
+        state, epoch = self.restore(name, state, params_only=params_only, validate=False,
+                                    allow_topology_change=allow_topology_change)
         return state, epoch, name

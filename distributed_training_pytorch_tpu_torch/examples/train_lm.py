@@ -14,12 +14,15 @@ the expert-parallel slice), ``SAVE_DIR`` (``./runs/lm``), ``SNAPSHOT``, ``LM_SIZ
 ``DTYPE`` (``fp32`` | ``bf16``; unset keeps bf16 model compute under the f32 policy),
 ``PALLAS`` (1 | 0 | unset = auto), ``FUSED_CE`` (1; 0 = the plain logits criterion),
 ``CHAIN_STEPS`` (1), ``MESH`` (the mesh grammar of ``parallel/mesh.py``: ``dpN``,
-``spN``, ``dpNspM``, ``spNxM``; ``fsdp``/``tp``/``pp``/``ep`` raise until their slices)
+``spN``, ``dpNspM``, ``spNxM``, and sharded state with ``fsdpN``, ``tpN``, ``dpNfsdpM``,
+``fsdpNtpM``, ``fsdpNxM``, ``tpNxM``; ``pp``/``ep`` raise, ROADMAP.md Queue 1 item 6)
 ``TELEMETRY`` (1: the event log under ``SAVE_DIR/telemetry``, goodput, the on-device
 health stats, MFU, anomalies; ``telemetry/``) and ``PROFILE_DIR`` (a raw trace of the first
 epoch's steps 1 to 5, ``profiling/trace.py``). The port adds
 ``DEVICE`` (``cuda`` unless set to ``cpu``). Under ``torchrun`` each process is one rank
-of the mesh. As in the JAX entry, the model's attention does not switch to ring with a
+of the mesh. ``SNAPSHOT`` of a checkpoint written on another number of ranks, with
+``MESH`` unset, re-plans the mesh and the accumulation for this world (``parallel/
+elastic.py``). As in the JAX entry, the model's attention does not switch to ring with a
 seq axis: a subclass's ``build_model`` asks for ``attention_impl="ring"``,
 ``mesh=self.mesh``, as :class:`RingLMTrainer` does (``build_trainer(trainer_cls=
 RingLMTrainer)`` with ``MESH=spN``; no knob selects it).

@@ -10,13 +10,18 @@ names and report fields:
 * compare it with the card's capacity (``torch.cuda.mem_get_info``'s total, or
   ``Preflight.capacity_bytes``) less a ``headroom`` fraction;
 * on a predicted OOM, search for the largest batch that fits (a bisection over multiples
-  of the data shards) and the smallest accumulation factor that fits the full batch
-  (doubling), within ``max_trials`` traces, then raise :class:`PreflightOOMError` with
-  both in its message (``action="raise"``) or warn (``action="warn"``).
+  of the batch shards) and the smallest accumulation factor that fits the full batch
+  (doubling), within ``max_trials`` traces, and on a pure data mesh of more than one rank
+  the smallest fsdp split of the data extent that fits (JAX ``preflight.py:332-362``), then
+  raise :class:`PreflightOOMError` with them in its message (``action="raise"``) or warn
+  (``action="warn"``).
 
-``recommended_fsdp`` stays None: the port has no ``fsdp`` axis yet (``ROADMAP.md`` Queue 1
-item 4). Where the JAX package would try one (a pure data mesh of more than one rank), the
-message names that item instead.
+The fsdp search takes no trace: a split leaves the batch and the activations as they are
+and shards the state, so each divisor ``f`` of the data extent is tried as the predicted
+peak less the state the split takes off each device: the traced params, gradients and
+optimizer state times ``1 - shard/whole``, the parameters' per-device bytes under
+``fsdp=f`` (``parallel.sharding.tree_shard_bytes`` from axis sizes alone, with the
+engine's rules and ``fsdp_min_size``) over their whole bytes.
 
 ``Trainer(preflight=...)`` runs it once, before the first dispatch; ``preflight=None`` (the
 default) runs nothing of it. A trial is a trace of the step on the CPU (no compile): the
@@ -133,8 +138,8 @@ def _leading_dim(batch) -> int:
 
 
 def _batch_shard(engine) -> int:
-    """The global batch's granularity: the data shards (the Trainer's divisibility rule)."""
-    return 1 if engine.mesh is None else int(engine.mesh.shape[mesh_lib.DATA_AXIS])
+    """The global batch's granularity: the batch shards (the Trainer's divisibility rule)."""
+    return 1 if engine.mesh is None else mesh_lib.batch_shard_extent(engine.mesh)
 
 
 def _resize_batch(batch, new_leading: int) -> dict:
@@ -192,7 +197,7 @@ def run_preflight(engine, state, batch, config: Preflight, *, chain_length: "int
     if events is not None:
         events.emit("memory_preflight", **report.to_fields())
     if report.fits is False:
-        message = _failure_message(report, engine)
+        message = _failure_message(report)
         if config.action == "raise":
             raise PreflightOOMError(message, report=report)
         say(message, "warning")
@@ -240,6 +245,30 @@ def _recommend(engine, state, batch, config, report, chain_length, staged_units)
             report.recommended_accum = accum
             break
         factor *= 2
+    if _pure_data_mesh(engine):
+        report.recommended_fsdp = _smallest_fitting_fsdp(engine, state, report)
+
+
+def _smallest_fitting_fsdp(engine, state, report) -> "int | None":
+    """The smallest divisor ``f`` of the data extent whose split ``data // f x fsdp f``
+    (the same batch extent) brings the per-device state under the usable bytes (see the
+    module docstring)."""
+    from distributed_training_pytorch_tpu_torch.parallel import sharding
+    from distributed_training_pytorch_tpu_torch.train.state import unwrap
+
+    model = unwrap(state.model)
+    whole = sharding.tree_shard_bytes(model)
+    classes = report.profile.bytes_by_class if report.profile is not None else {}
+    state_bytes = sum(classes.get(c, 0) for c in ("params", "gradients", "optimizer_state"))
+    data = int(engine.mesh.shape[mesh_lib.DATA_AXIS])
+    for fsdp in sorted(f for f in range(2, data + 1) if data % f == 0):
+        axes = {mesh_lib.DATA_AXIS: data // fsdp, mesh_lib.FSDP_AXIS: fsdp}
+        specs = sharding.state_shardings(model, axes, engine.sharding_rules or (),
+                                         fsdp_min_size=engine.fsdp_min_size)
+        kept = sharding.tree_shard_bytes(model, specs, axes) / whole if whole else 1.0
+        if report.predicted_peak_bytes - state_bytes * (1.0 - kept) <= report.usable_bytes:
+            return fsdp
+    return None
 
 
 def _pure_data_mesh(engine) -> bool:
@@ -250,7 +279,7 @@ def _pure_data_mesh(engine) -> bool:
         int(extent) == 1 for axis, extent in mesh.shape.items() if axis != mesh_lib.DATA_AXIS)
 
 
-def _failure_message(report: PreflightReport, engine=None) -> str:
+def _failure_message(report: PreflightReport) -> str:
     lines = [
         "memory preflight: predicted OOM — "
         f"peak {_format_bytes(report.predicted_peak_bytes)} exceeds "
@@ -273,9 +302,11 @@ def _failure_message(report: PreflightReport, engine=None) -> str:
     if report.recommended_accum is not None:
         lines.append(f"  recommendation: accum_steps={report.recommended_accum} fits the full batch "
                      f"{report.batch_size} (microbatch {report.batch_size // report.recommended_accum})")
-    if engine is not None and _pure_data_mesh(engine):
-        lines.append("  sharding params and optimizer state over the data ranks (fsdp) is not in the port yet "
-                     "(ROADMAP.md Queue 1 item 4), so no fsdp split was tried")
-    if report.recommended_batch is None and report.recommended_accum is None:
-        lines.append("  no fitting configuration found (params + optimizer state may exceed the card outright)")
+    if report.recommended_fsdp is not None:
+        lines.append(f"  recommendation: enable fsdp={report.recommended_fsdp} — "
+                     f"Trainer(mesh=MeshConfig(fsdp={report.recommended_fsdp}).build()) shards params + optimizer "
+                     "state per-device at the same global batch (predicted to fit)")
+    if report.recommended_batch is None and report.recommended_accum is None and report.recommended_fsdp is None:
+        lines.append("  no fitting configuration found (params + optimizer state may exceed the card outright — "
+                     "shard the model over more cards: MeshConfig(fsdp=...))")
     return "\n".join(lines)

@@ -81,7 +81,14 @@ class _LayerNorm(nn.LayerNorm):
 
 
 class _Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=...)``: f32 params, input and params cast to ``dtype``."""
+    """flax ``nn.Dense(dtype=...)``: f32 params, input and params cast to ``dtype``.
+    Under a ``tensor`` axis, ``tensor_split`` (``parallel.layout.TensorSplit``) makes it
+    compute on its shard: column- or row-parallel. ``split_unit``: a tensor split of its
+    features keeps whole units of this width (an attention head's, for the fused qkv and
+    the attention's output projection)."""
+
+    tensor_split = None
+    split_unit = 1
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
         super().__init__(d_in, d_out, device=device)
@@ -89,6 +96,8 @@ class _Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.tensor_split is not None:
+            return self.tensor_split.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -114,6 +123,7 @@ class DecoderBlock(nn.Module):
         self.ln1 = _LayerNorm(hidden_dim, dtype, device)
         self.qkv = _Dense(hidden_dim, 3 * hidden_dim, dtype, device)
         self.attn_out = _Dense(hidden_dim, hidden_dim, dtype, device)
+        self.qkv.split_unit = self.attn_out.split_unit = self.head_dim  # a tensor split keeps whole heads
         self.ln2 = _LayerNorm(hidden_dim, dtype, device)
         self.mlp_in = _Dense(hidden_dim, mlp_dim, dtype, device)
         self.mlp_out = _Dense(mlp_dim, hidden_dim, dtype, device)
@@ -121,12 +131,13 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x):
         b, t, d = x.shape
-        # flax's qkv DenseGeneral emits (3, H, Dh) per token; split on the 3 axis.
-        qkv = self.qkv(self.ln1(x)).view(b, t, 3, self.num_heads, self.head_dim)
+        # flax's qkv DenseGeneral emits (3, H, Dh) per token; split on the 3 axis. Under a
+        # tensor axis the layer holds this rank's heads only: -1 is their count.
+        qkv = self.qkv(self.ln1(x)).view(b, t, 3, -1, self.head_dim)
         # Views, not copies: the flash kernel reads q/k/v through their strides.
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         y = self.attn(q, k, v)
-        x = x + self.attn_out(y.reshape(b, t, d))
+        x = x + self.attn_out(y.reshape(b, t, -1))
         return x + self._mlp(x)
 
     def _mlp(self, x):

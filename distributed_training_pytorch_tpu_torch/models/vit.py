@@ -118,20 +118,21 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.qkv = _Dense(dim, 3 * dim, dtype, device)
         self.out = _Dense(dim, dim, dtype, device)
+        self.qkv.split_unit = self.out.split_unit = self.head_dim  # a tensor split keeps whole heads
         self.attention_fn = attention_fn
         self.dropout_rate = dropout_rate
         self.generator = generator
 
     def forward(self, x, valid_len: "int | None" = None):
         b, t, d = x.shape
-        qkv = self.qkv(x).view(b, t, 3, self.num_heads, self.head_dim)
+        qkv = self.qkv(x).view(b, t, 3, -1, self.head_dim)  # -1: this rank's heads under a tensor axis
         # Views, not copies: the flash kernels read q, k, v through their strides.
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if self.attention_fn is not None:
             out = self.attention_fn(q, k, v, valid_len=valid_len)
         else:
             out = dot_product_attention(q, k, v, dtype=self.dtype, valid_len=valid_len)
-        out = self.out(out.reshape(b, t, d))
+        out = self.out(out.reshape(b, t, -1))
         return dropout(out, self.dropout_rate, self.training, self.generator)
 
 

@@ -1,12 +1,22 @@
-"""Parallelism over ``torch.distributed``: the data and seq mesh (``mesh``) and ring
-attention over the seq axis (``ring_attention``)."""
+"""Parallelism over ``torch.distributed``: the mesh (``mesh``: the data, fsdp, tensor and
+seq axes), ring attention over the seq axis (``ring_attention``), the sharding rules
+(``sharding``), the sharded layout that carries them out (``layout``) and the elastic
+re-plan (``elastic``)."""
 
 from distributed_training_pytorch_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ORDER,
     DATA_AXIS,
+    FSDP_AXIS,
     SEQ_AXIS,
+    TENSOR_AXIS,
     Mesh,
     MeshConfig,
+    batch_shard_extent,
     mesh_config_from_spec,
     mesh_from_env,
 )
 from distributed_training_pytorch_tpu_torch.parallel.ring_attention import ring_attention  # noqa: F401
+from distributed_training_pytorch_tpu_torch.parallel.sharding import (  # noqa: F401
+    default_sharding_rules,
+    transformer_tp_rules,
+)

@@ -1,10 +1,10 @@
-"""The distributed world: the data axis and the sequence axis.
+"""The distributed world: the data, fsdp, tensor and seq axes.
 
 Counterpart of ``distributed_training_pytorch_tpu/parallel/mesh.py`` over
-``torch.distributed``: the JAX package's ``data`` and ``seq`` mesh axes, its mesh-spec
-grammar (:func:`mesh_config_from_spec`) and :class:`MeshConfig`. The ``fsdp``,
-``tensor``, ``pipe`` and ``expert`` axes come with later slices of the port and raise
-``NotImplementedError`` naming theirs.
+``torch.distributed``: the JAX package's axis names and order (:data:`AXIS_ORDER`), its
+mesh-spec grammar (:func:`mesh_config_from_spec`), :class:`MeshConfig` and
+:func:`batch_shard_extent`. The ``pipe`` and ``expert`` axes raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 6.
 
 A built :class:`Mesh` says where the ``s`` sequence shards live. The JAX package is one
 controller over every device; its counterpart here is one process holding all ``s`` shards
@@ -15,6 +15,13 @@ carries the ``torch.distributed`` sub-groups of that grid: the data group (ranks
 the same sequence shard, over which gradients and metrics are averaged) and the seq group
 (ranks that hold the same rows, around which ring attention passes its blocks, and over
 which :func:`broadcast_over_seq` keeps the model's copies equal).
+
+With an ``fsdp`` or ``tensor`` axis each rank is one device of a ``data x fsdp x tensor``
+grid, built by ``torch.distributed.device_mesh.init_device_mesh`` with its dims in the JAX
+axis order (``tensor`` innermost: rank ``= (data_index * fsdp + fsdp_index) * tensor +
+tensor_index``). The batch is split over ``data x fsdp`` (the batch group, ranks with the
+same tensor index); the state is laid out by ``parallel/sharding.py`` and
+``parallel/layout.py``. The seq axis beside ``fsdp`` or ``tensor`` is not ported.
 
 ``setup_distributed`` reads torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) or takes an explicit ``init_method`` (for
@@ -31,11 +38,18 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "AXIS_ORDER",
     "DATA_AXIS",
+    "EXPERT_AXIS",
+    "FSDP_AXIS",
+    "PIPE_AXIS",
     "SEQ_AXIS",
+    "TENSOR_AXIS",
     "Mesh",
     "MeshConfig",
+    "batch_shard_extent",
     "broadcast_over_seq",
+    "mesh_axes",
     "local_batch_size",
     "mesh_config_from_spec",
     "mesh_from_env",
@@ -45,8 +59,16 @@ __all__ = [
     "shutdown_distributed",
 ]
 
+# The JAX package's axis names, in its mesh order (data outermost, tensor innermost).
 DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+TENSOR_AXIS = "tensor"
 SEQ_AXIS = "seq"
+AXIS_ORDER = (DATA_AXIS, FSDP_AXIS, PIPE_AXIS, EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
+_LATER_AXES = (PIPE_AXIS, EXPERT_AXIS)
+_LATER_AXES_ITEM = "ROADMAP.md Queue 1 item 6 (parallel/pipeline.py, parallel/moe.py)"
 
 
 def setup_distributed(
@@ -112,15 +134,17 @@ def local_batch_size(global_batch_size: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A built data x seq mesh, as this process sees it.
+    """A built mesh, as this process sees it.
 
-    ``shape`` maps ``"data"`` and ``"seq"`` to their extents. ``data_index`` is this
-    process's data shard. ``seq_shards`` are the sequence shards it holds: all of
-    ``range(seq)`` in the one-process placement, its one ``seq_index`` otherwise.
-    ``data_group`` and ``seq_group`` are the ``torch.distributed`` groups of the ranks
-    that share this process's sequence shard and its rows (``None`` where that group is
-    this process alone); ``seq_ranks`` are the global ranks of the seq group in ring
-    order."""
+    ``shape`` maps ``"data"`` and ``"seq"`` to their extents, and ``"fsdp"`` and
+    ``"tensor"`` too where they are above 1. ``data_index`` is this process's data shard.
+    ``seq_shards`` are the sequence shards it holds: all of ``range(seq)`` in the
+    one-process placement, its one ``seq_index`` otherwise. ``data_group`` and
+    ``seq_group`` are the ``torch.distributed`` groups of the ranks that share this
+    process's sequence shard (and fsdp and tensor index) and its rows (``None`` where that
+    group is this process alone); ``seq_ranks`` are the global ranks of the seq group in
+    ring order. ``fsdp_index``/``fsdp_group`` and ``tensor_index``/``tensor_group`` are the
+    same for those axes, ``device_mesh`` the ``DeviceMesh`` of a sharded grid."""
 
     shape: "dict[str, int]"
     data_index: int
@@ -128,28 +152,87 @@ class Mesh:
     data_group: object = None
     seq_group: object = None
     seq_ranks: "tuple[int, ...]" = ()
+    fsdp_index: int = 0
+    fsdp_group: object = None
+    tensor_index: int = 0
+    tensor_group: object = None
+    batch_group_: object = None
+    device_mesh: object = None
 
     @property
     def seq_local(self) -> bool:
         """True when this process holds every sequence shard."""
         return len(self.seq_shards) == self.shape[SEQ_AXIS]
 
+    @property
+    def sharded(self) -> bool:
+        """True with an ``fsdp`` or ``tensor`` axis above 1: the state is laid out by
+        ``parallel/layout.py`` instead of replicated under DDP."""
+        return self.shape.get(FSDP_AXIS, 1) > 1 or self.shape.get(TENSOR_AXIS, 1) > 1
+
+    @property
+    def batch_extent(self) -> int:
+        """The batch shards: ``data x fsdp`` (:func:`batch_shard_extent`)."""
+        return batch_shard_extent(self)
+
+    @property
+    def batch_index(self) -> int:
+        """This process's batch shard, ``data_index * fsdp + fsdp_index``."""
+        return self.data_index * self.shape.get(FSDP_AXIS, 1) + self.fsdp_index
+
+    @property
+    def batch_group(self):
+        """The ranks over which the batch is split and gradients and metrics are averaged
+        (``data x fsdp`` at this tensor index; the data group without an fsdp axis)."""
+        return self.batch_group_ if self.sharded else self.data_group
+
+
+def batch_shard_extent(mesh) -> int:
+    """How many ways the batch is split: the product of the ``data`` and ``fsdp`` extents
+    (a ``Mesh`` or an axis-size mapping), as in the JAX package (``mesh.py:197-209``)."""
+    shape = mesh.shape if hasattr(mesh, "shape") else mesh
+    extent = 1
+    for axis in (DATA_AXIS, FSDP_AXIS):
+        extent *= int(shape.get(axis, 1))
+    return max(1, extent)
+
+
+def mesh_axes(mesh) -> "dict[str, int]":
+    """The JAX mesh's ``shape`` of this mesh: ``data`` and every other axis above 1, in
+    :data:`AXIS_ORDER` (what a checkpoint's sharding record and the elastic re-plan read)."""
+    shape = mesh.shape if hasattr(mesh, "shape") else mesh
+    return {a: int(shape[a]) for a in AXIS_ORDER if a in shape and (a == DATA_AXIS or int(shape[a]) > 1)}
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Declarative mesh spec: the extents of the ``data`` and ``seq`` axes. ``data=-1``
-    takes the ranks left over, as the JAX package's ``-1`` takes the devices left over:
-    ``world // seq`` when the world spreads the sequence shards over ranks, else the
-    world."""
+    """Declarative mesh spec: the extents of the ``data``, ``fsdp``, ``pipe``, ``expert``,
+    ``seq`` and ``tensor`` axes (JAX ``mesh.py:309-331``). ``data=-1`` takes the ranks left
+    over, as the JAX package's ``-1`` takes the devices left over."""
 
     data: int = -1
+    fsdp: int = 1
+    pipe: int = 1
+    expert: int = 1
     seq: int = 1
+    tensor: int = 1
 
     def build(self) -> Mesh:
         """Place the shards on this world and make its sub-groups. Every rank must call it
-        (new groups are collective). One process holds all ``seq`` shards when the world
-        is ``data`` ranks; each rank holds one when it is ``data * seq``; any other split
-        raises."""
+        (new groups are collective). Without ``fsdp`` or ``tensor``: one process holds all
+        ``seq`` shards when the world is ``data`` ranks, each rank holds one when it is
+        ``data * seq``, and any other split raises. With them, the world is the ``data x
+        fsdp x tensor`` grid."""
+        for name in _LATER_AXES:
+            if getattr(self, name) != 1:
+                raise NotImplementedError(
+                    f"the {name!r} axis is not in the port yet: {_LATER_AXES_ITEM}"
+                )
+        fsdp, tensor = int(self.fsdp), int(self.tensor)
+        if fsdp < 1 or tensor < 1:
+            raise ValueError(f"fsdp and tensor extents must be >= 1, got {fsdp}, {tensor}")
+        if fsdp > 1 or tensor > 1:
+            return self._build_sharded(fsdp, tensor)
         world, rank = process_count(), process_index()
         seq = int(self.seq)
         if seq < 1:
@@ -185,6 +268,45 @@ class MeshConfig:
         return Mesh(shape, data_index=data_index, seq_shards=(seq_index,), data_group=data_group,
                     seq_group=seq_group, seq_ranks=seq_ranks)
 
+    def _build_sharded(self, fsdp: int, tensor: int) -> Mesh:
+        """The ``data x fsdp x tensor`` grid, one device a rank, through
+        ``init_device_mesh`` (dims in the JAX axis order, extents of 1 left out but data)."""
+        if int(self.seq) != 1:
+            raise NotImplementedError(
+                "the seq axis beside fsdp or tensor is not ported (ROADMAP.md Queue 1 item 4): use spN or dpNspM "
+                "for sequence parallelism, fsdpN/tpN/dpNfsdpM for sharded state"
+            )
+        world, rank = process_count(), process_index()
+        data = int(self.data)
+        if data == -1:
+            data = world // (fsdp * tensor) if world % (fsdp * tensor) == 0 else 0
+        if data < 1 or data * fsdp * tensor != world:
+            raise ValueError(
+                f"mesh data={self.data} x fsdp={fsdp} x tensor={tensor} does not fit a world of {world} ranks: "
+                "each rank holds one device of the data x fsdp x tensor grid"
+            )
+        from torch.distributed.device_mesh import init_device_mesh
+
+        sizes = {DATA_AXIS: data, FSDP_AXIS: fsdp, TENSOR_AXIS: tensor}
+        names = tuple(a for a in AXIS_ORDER if a in sizes and (a == DATA_AXIS or sizes[a] > 1))
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device_mesh = init_device_mesh(device_type, tuple(sizes[a] for a in names), mesh_dim_names=names)
+        data_index, rest = divmod(rank, fsdp * tensor)
+        fsdp_index, tensor_index = divmod(rest, tensor)
+        groups = {a: (device_mesh.get_group(a) if sizes[a] > 1 else None) for a in names}
+        # The batch group, data x fsdp at one tensor index (collective: every rank makes
+        # every group, in the same order).
+        batch_group = None
+        for t in range(tensor):
+            ranks = [(d * fsdp + f) * tensor + t for d in range(data) for f in range(fsdp)]
+            group = _sub_group(ranks, world)
+            if t == tensor_index:
+                batch_group = group
+        shape = {DATA_AXIS: data, SEQ_AXIS: 1, **{a: sizes[a] for a in (FSDP_AXIS, TENSOR_AXIS) if sizes[a] > 1}}
+        return Mesh(shape, data_index=data_index, seq_shards=(0,), data_group=groups[DATA_AXIS],
+                    fsdp_index=fsdp_index, fsdp_group=groups.get(FSDP_AXIS), tensor_index=tensor_index,
+                    tensor_group=groups.get(TENSOR_AXIS), batch_group_=batch_group, device_mesh=device_mesh)
+
 
 def broadcast_over_seq(tensors, mesh: "Mesh | None") -> None:
     """Overwrite ``tensors`` in place with those of the first rank of this rank's seq
@@ -216,25 +338,20 @@ def _sub_group(ranks, world):
     return dist.new_group(ranks)
 
 
-# The mesh-spec grammar of the JAX package (``MESH``): axis-size pairs ("dp2sp2" -> data=2,
-# seq=2) or the shorthand "<kind>KxD", K the kind's extent and D the data extent ("sp4x2"
-# -> seq=4, data=2). "dp8" is pure 8-way data parallelism.
+# The mesh-spec grammar of the JAX package (``MESH``): axis-size pairs ("dp2fsdp2tp2" ->
+# data=2, fsdp=2, tensor=2) or the shorthand "<kind>KxD", K the kind's extent and D the data
+# extent ("fsdp4x2" -> fsdp=4, data=2; "tp2x4" -> tensor=2, data=4). "dp8" is pure 8-way
+# data parallelism.
 _SPEC_KINDS = {"dp": "data", "fsdp": "fsdp", "tp": "tensor", "sp": "seq", "pp": "pipe", "ep": "expert"}
 _SPEC_SHORT_RE = re.compile(r"^(fsdp|tp|sp|pp|ep)(\d+)x(\d+)$")
 _SPEC_PAIRS_RE = re.compile(r"(fsdp|dp|tp|sp|pp|ep)(\d+)")
-_LATER_AXES = {
-    "fsdp": "the sharding slice",
-    "tensor": "the sharding slice",
-    "pipe": "the pipeline slice",
-    "expert": "the expert-parallel slice",
-}
 
 
 def mesh_config_from_spec(spec: str) -> MeshConfig:
-    """Parse a mesh spec (``"sp4"``, ``"dp2sp2"``, ``"sp4x2"``, ``"dp8"``) into a
-    :class:`MeshConfig`, as the JAX package's grammar does. An axis other than ``data``
-    and ``seq`` at an extent above 1 raises ``NotImplementedError`` naming the slice of
-    the port that brings it."""
+    """Parse a mesh spec (``"dp8"``, ``"fsdp4x2"``, ``"tp2x4"``, ``"dp2fsdp2tp2"``,
+    ``"sp4"``, ``"dp2sp2"``) into a :class:`MeshConfig`, as the JAX package's grammar does.
+    A ``pipe`` or ``expert`` axis above 1 raises ``NotImplementedError`` naming ROADMAP.md
+    Queue 1 item 6."""
     text = spec.strip().lower()
     if not text:
         raise ValueError("empty mesh spec")
@@ -245,8 +362,8 @@ def mesh_config_from_spec(spec: str) -> MeshConfig:
         pairs = _SPEC_PAIRS_RE.findall(text)
         if not pairs or "".join(k + n for k, n in pairs) != text:
             raise ValueError(
-                f"unparseable mesh spec {spec!r}: use axis-size pairs like 'dp8', 'dp2sp2', or "
-                "the shorthand 'sp4x2' (<kind><extent>x<data>)"
+                f"unparseable mesh spec {spec!r}: use axis-size pairs like 'dp8', 'dp2fsdp2tp2', or the "
+                "shorthand 'fsdp4x2' / 'tp2x4' (<kind><extent>x<data>)"
             )
         axes = {}
         for kind, n in pairs:
@@ -255,13 +372,11 @@ def mesh_config_from_spec(spec: str) -> MeshConfig:
                 raise ValueError(f"mesh spec {spec!r} names axis {name!r} twice")
             axes[name] = int(n)
         axes.setdefault("data", 1)
-    for name, slice_name in _LATER_AXES.items():
+    for name in _LATER_AXES:
         if axes.get(name, 1) != 1:
-            raise NotImplementedError(
-                f"mesh spec {spec!r}: the {name!r} axis comes with {slice_name} of the port; "
-                "it runs the data and seq axes (dpN, spN, dpNspM, spNxM)"
-            )
-    return MeshConfig(data=axes["data"], seq=axes.get("seq", 1))
+            raise NotImplementedError(f"mesh spec {spec!r}: the {name!r} axis is not in the port yet: "
+                                      f"{_LATER_AXES_ITEM}")
+    return MeshConfig(**axes)
 
 
 def mesh_from_env(var: str = "MESH") -> "Mesh | None":

@@ -16,7 +16,9 @@ with ``non_blocking=True`` on the current stream: after the step's writes, which
 issued on that stream, and before the next step's, which will be. An event recorded after
 the copies marks the snapshot complete, and the commit thread waits on it before it reads
 a byte (a pinned buffer read before its copy lands would be torn, the hazard of F9). Off
-the card each tensor is cloned: a copy, never a reference.
+the card each tensor is cloned: a copy, never a reference. The snapshot keeps the live
+state's sharding record (``TrainState.sharding``) for the checkpoint's meta, as the JAX
+saver takes it from the live arrays.
 
 The contract, as in JAX:
 
@@ -60,10 +62,11 @@ class HostSnapshot:
     the CUDA event after the device copies (None off the card), :meth:`wait` waits for
     it."""
 
-    def __init__(self, payload: dict, loss_scale_name: "str | None", ready):
+    def __init__(self, payload: dict, loss_scale_name: "str | None", ready, sharding: "dict | None" = None):
         self.payload = payload
         self.loss_scale_name = loss_scale_name
         self.ready = ready
+        self.sharding = sharding  # the live state's sharding record (JAX async_saver.py:317-343)
 
     def state_dict(self) -> dict:
         return self.payload
@@ -103,7 +106,7 @@ def snapshot_state(state) -> HostSnapshot:
             ready.record()
     scale = getattr(state, "loss_scale", None)
     name = type(scale).__name__ if "loss_scale" in payload else None
-    return HostSnapshot(payload, name, ready)
+    return HostSnapshot(payload, name, ready, sharding=getattr(state, "sharding", None))
 
 
 class SaveRequest:

@@ -20,9 +20,15 @@ the mesh: the port serves from one device.
   (``restore(..., params_only=True)`` / ``restore_latest_valid``), which validates the
   manifest first, so a torn commit is never served; then it swaps them in.
 
+* **Re-plan** (JAX ``engine.py::replan_onto``): the engine's mesh is ``{"data": 1}`` on its
+  one device; :meth:`InferEngine.replan_onto` rebinds it to another device of this process
+  (the server's ``drain_and_replan`` solves the plan with ``parallel.elastic.replan`` and
+  refuses a target one process cannot serve before anything stops). The params version
+  does not change, since the bytes do not: answers to the same inputs are bit-identical
+  across a re-plan onto the same kind of device.
+
 ``params`` is a mapping of parameter names to tensors (or numpy arrays), and ``apply_fn``
 runs the forward with them, e.g. ``lambda p, x: torch.func.functional_call(model, p, (x,))``.
-Re-planning onto other devices (``replan_onto``) comes with the elastic slice of the port.
 """
 
 from __future__ import annotations
@@ -38,12 +44,7 @@ import torch
 from distributed_training_pytorch_tpu_torch._device import resolve_device
 from distributed_training_pytorch_tpu_torch.serving.batcher import pick_bucket
 
-__all__ = ["InferEngine", "REPLAN_DEFERRED"]
-
-REPLAN_DEFERRED = (
-    "re-planning a served model onto another device set comes with the elastic slice of the port "
-    "(Queue 1 item 4, P12: parallel/sharding.py and parallel/elastic.py)"
-)
+__all__ = ["InferEngine"]
 
 
 def _snapshot(value, device: torch.device) -> torch.Tensor:
@@ -128,10 +129,46 @@ class InferEngine:
             self.swap_params(state.params, version=version)
             return version
 
-    def replan_onto(self, mesh) -> None:
-        """Rebind the engine to another device set: not in the port yet, so it raises and
-        leaves the engine serving as it was."""
-        raise NotImplementedError(REPLAN_DEFERRED)
+    @property
+    def mesh_axes(self) -> "dict[str, int]":
+        """The engine's mesh: one device, one batch shard."""
+        return {"data": 1}
+
+    @property
+    def device_ids(self) -> "list[int]":
+        """The devices it serves from: its card's index, or 0 on the CPU."""
+        return [self.device.index if self.device.index is not None else 0]
+
+    def visible_device_ids(self) -> "list[int]":
+        """The device ids a re-plan may name: this process's cards, or the CPU's one."""
+        if self.device.type == "cuda":
+            return list(range(torch.cuda.device_count()))
+        return [0]
+
+    def replan_onto(self, device) -> None:
+        """Rebind the engine to ``device`` (a card index's ``torch.device``, or the CPU):
+        the served params are copied there (the same bytes, the same version), the bucket
+        entries are forgotten (the next warmup counts them again), and ``replan_count``
+        goes up. A device of another kind raises ``ValueError`` before anything changes.
+        The caller must have quiesced dispatch first (the server's drain does); the swap
+        lock excludes a concurrent ``restore_params``."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", 0)
+        if device.type != self.device.type:
+            raise ValueError(f"cannot re-plan an engine on {self.device} onto {device}: another kind of device")
+        with self._swap_lock:
+            cur = self._current
+            placed = None
+            if cur is not None:
+                placed = {k: _snapshot(v, device) for k, v in cur[1].items()}
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            self.device = device
+            self._entries = set()
+            self.replan_count += 1
+            if placed is not None:
+                self._current = (cur[0], placed)
 
     def predict(self, inputs: np.ndarray) -> "tuple[np.ndarray, str]":
         """Run the forward on ``inputs`` (``[n, ...]`` host array): pads ``n`` up to the

@@ -13,9 +13,12 @@ Counterpart of ``distributed_training_pytorch_tpu/serving/server.py``: a stdlib
 * ``GET /metrics`` — the same snapshot as Prometheus text (``tpu_serve_`` prefix, the
   JAX server's names, so one scrape config reads both).
 * ``POST /admin/offer`` — the replica's half of the fleet controller's chip offer: accept
-  unless draining or under SLO pressure. ``POST /admin/replan`` answers 400
-  ``replan_failed`` and keeps serving: re-planning onto another device set comes with the
-  elastic slice (``engine.REPLAN_DEFERRED``).
+  unless draining or under SLO pressure.
+* ``POST /admin/replan`` — :meth:`InferenceServer.drain_and_replan` onto
+  ``{"device_ids": [...]}``: 200 with its summary; 409 while a drain is in progress; 400
+  ``replan_failed`` for a target the replica cannot hold (an unknown device id, more
+  devices than one process serves), refused before admission stops, the replica serving
+  on.
 
 Hot swap: with ``manager`` and ``target_state``, a watcher thread polls the checkpoint
 directory every ``swap_poll_s``; when the followed name (``serve_name``, else ``best`` when
@@ -32,8 +35,8 @@ state but ``serving``.
 
 The server claims an attempt id and writes ``serve_start``, ``request_batch`` (a ~1 Hz
 summary pulse that doubles as the liveness heartbeat, stamped with the admission state),
-``admission_reject``, ``hot_swap``, ``drain_start``, ``offer_accept``/``offer_decline``
-and ``run_end`` into ``<run_dir>/telemetry/events.jsonl``, with the JAX package's field
+``admission_reject``, ``hot_swap``, ``drain_start``, ``replan_done``,
+``offer_accept``/``offer_decline`` and ``run_end`` into ``<run_dir>/telemetry/events.jsonl``, with the JAX package's field
 names.
 """
 
@@ -50,7 +53,6 @@ import numpy as np
 
 from distributed_training_pytorch_tpu_torch.checkpoint.manager import MANIFEST_NAME
 from distributed_training_pytorch_tpu_torch.serving.batcher import MicroBatcher, OverloadRejected
-from distributed_training_pytorch_tpu_torch.serving.engine import REPLAN_DEFERRED
 from distributed_training_pytorch_tpu_torch.telemetry.events import (
     EventLog,
     _jsonable,
@@ -170,6 +172,7 @@ class InferenceServer:
         self.drain_count = 0
         self.shed_total = 0  # requests answered a drain-window 503
         self._swap_identity = None  # (name, manifest mtime) the engine serves
+        self._warm_row = None  # the first served row: the post-replan warmup's signature
         self.swap_polls = 0  # the watcher's completed reads of the checkpoint directory
         self._reject_debounce: dict = {}  # tenant -> (last_emit_t, count_since)
         self._pulse_state = {"t": 0.0, "requests": 0, "batches": 0}
@@ -461,10 +464,47 @@ class InferenceServer:
             self._drain_deadline = None
 
     def drain_and_replan(self, device_ids, *, deadline_s: float = 10.0) -> dict:
-        """Drain, re-plan the engine onto ``device_ids``, warm it and resume: the JAX
-        server's actuated offer. The port has no re-plan yet (``engine.REPLAN_DEFERRED``):
-        it raises before admission stops, with the replica still serving."""
-        raise NotImplementedError(REPLAN_DEFERRED)
+        """Solve the plan for ``device_ids`` (``parallel.elastic.replan``), drain under
+        ``deadline_s``, rebind the engine (``InferEngine.replan_onto``), warm the buckets,
+        resume and emit ``replan_done`` (JAX ``server.py:572-640``). Feasibility is
+        checked before admission stops: an unknown device id, or more devices than this one
+        process serves, raises ``ValueError`` with the replica serving its old plan
+        untouched. On a failure after the drain the replica resumes on the old plan."""
+        from distributed_training_pytorch_tpu_torch.parallel import elastic
+
+        ids = sorted({int(d) for d in device_ids})
+        if not ids:
+            raise ValueError("replan target names no devices")
+        visible = self.engine.visible_device_ids()
+        unknown = [d for d in ids if d not in visible]
+        if unknown:
+            raise ValueError(f"replan target names unknown device id(s) {unknown} (this process sees {visible})")
+        if len(ids) > 1:
+            raise ValueError(f"replan target names {len(ids)} devices {ids}: one process of the port serves one "
+                             "device (a replica a device)")
+        old_axes = dict(self.engine.mesh_axes)
+        plan = elastic.replan(old_axes, len(ids))  # {"data": 1} onto one device; its reason is JAX's plan_reason
+        import torch
+
+        kind = torch.device(self.engine.device).type
+        device = torch.device(kind, ids[0]) if kind == "cuda" else torch.device(kind)
+        t0 = self._clock()
+        summary = self.drain(deadline_s=deadline_s)
+        try:
+            self.engine.replan_onto(device)
+            if self._warm_row is not None:
+                self.engine.warmup(self._warm_row)  # the first request after it pays nothing
+        finally:
+            self.resume()  # success or failure: a failed rebind left the old plan serving
+        summary.update(state=self.state, device_ids=ids, mesh_axes=dict(plan.new_axes),
+                       params_version=self.engine.params_version,
+                       replan_ms=round((self._clock() - t0) * 1e3, 2), plan_reason=plan.reason)
+        if self.events is not None:
+            self.events.emit("replan_done", attempt=self.attempt, from_mesh=old_axes, to_mesh=summary["mesh_axes"],
+                             device_ids=ids, shed=summary["shed"], replan_ms=summary["replan_ms"],
+                             params_version=self.engine.params_version, replans=self.engine.replan_count,
+                             plan_reason=plan.reason)
+        return summary
 
     def handle_offer(self, body: dict) -> "tuple[int, str, dict | None]":
         """The replica's half of the chip-offer handshake: accept unless already draining
@@ -493,10 +533,9 @@ class InferenceServer:
         return 200, json.dumps({"decision": decision, "chip": chip, "reason": reason}) + "\n", None
 
     def handle_replan(self, body: dict) -> "tuple[int, str, dict | None]":
-        """``POST /admin/replan``: drain and re-plan onto ``body["device_ids"]``. 409 while
-        a drain is in progress; else 400 ``replan_failed`` (still serving the old plan): the
-        re-plan is refused every time until the elastic slice, whose success answer (200
-        with the re-plan's summary) comes with it."""
+        """``POST /admin/replan``: drain and re-plan onto ``body["device_ids"]``: 200 with
+        the summary; 409 while a drain is in progress; 400 ``replan_failed`` (still serving
+        the old plan) for an infeasible target."""
         device_ids = body.get("device_ids")
         if not isinstance(device_ids, (list, tuple)) or not device_ids:
             return 400, json.dumps({"error": "bad_request", "detail": "device_ids required"}) + "\n", None
@@ -506,11 +545,12 @@ class InferenceServer:
                 {"error": "busy", "state": self.state, "retry_after_s": ra}
             ) + "\n", {"Retry-After": str(ra)}
         try:
-            self.drain_and_replan(device_ids, deadline_s=float(body.get("deadline_s", 10.0)))
+            summary = self.drain_and_replan(device_ids, deadline_s=float(body.get("deadline_s", 10.0)))
         except Exception as e:  # noqa: BLE001 — a typed refusal, the old plan serving
             return 400, json.dumps(
                 {"error": "replan_failed", "detail": f"{type(e).__name__}: {e}", "state": self.state}
             ) + "\n", None
+        return 200, json.dumps(_jsonable(summary)) + "\n", None
 
     # -- dispatch loop -----------------------------------------------------
 
@@ -544,6 +584,8 @@ class InferenceServer:
             for req in batch.requests:
                 row = np.asarray(req.payload)
                 groups.setdefault((row.shape, str(row.dtype)), []).append(req)
+                if self._warm_row is None:
+                    self._warm_row = row
             n_done = 0
             try:
                 for reqs in groups.values():

@@ -25,7 +25,13 @@ graph's warm-up window and capture, each with its ``kind``, and the FLOP probe,
 ``kind="mfu_probe"``), ``window``, ``epoch_end``, ``heartbeat``, ``checkpoint_save``,
 ``checkpoint_commit``, ``checkpoint_restore``, ``preemption``, ``hung_step``,
 ``fault_injection``, ``anomaly``, ``loss_scale_backoff``, ``profile_capture`` and
-``run_end``; serving writes its own (``serving/server.py``).
+``run_end``, and on an elastic resume ``elastic_restore`` (a resume across a change of
+device count: ``from_mesh``, ``to_mesh``, ``from_devices``, ``to_devices``,
+``old_accum_steps``, ``accum_steps``, ``reason``, ``name``, ``replanned``) and, from the
+checkpoint manager, ``checkpoint_reshard`` (a restore whose sharding record differs from
+the target's: ``name``, ``from_mesh``, ``to_mesh``, ``from_sharded_leaves``,
+``to_sharded_leaves``), with the JAX package's fields (JAX ``events.py:21-25``); serving
+writes its own (``serving/server.py``).
 
 Readers: :class:`EventFollower` (incremental, torn-line tolerant: the one parser),
 :func:`load_run_events` (the follower run to the end, for post-mortems) and

@@ -68,9 +68,19 @@ they read no value back to the host and leave the params bit-equal to a stats-of
 The update's norm comes from one persistent snapshot of the params (``HealthStats``), as
 many bytes as the params.
 
-Metrics stay on the device as tensors; with more than one data shard they are averaged
-over the mesh's data group, weighted by each shard's real rows (the seq ranks of one data
-shard hold the same metrics, and take no part). With one sequence shard per rank, the
+Metrics stay on the device as tensors; with more than one batch shard they are averaged
+over the mesh's batch group (``data x fsdp``), weighted by each shard's real rows (the seq
+and tensor ranks of one batch shard hold the same metrics, and take no part).
+
+**Sharded state** (JAX ``engine.py:138-171``, ``:216-225``): ``sharding_rules`` and
+``fsdp_min_size`` are the ``parallel.sharding`` rules and the FSDP cutoff, and
+:meth:`TrainEngine.shard_model` lays a model out on a mesh with an ``fsdp`` or ``tensor``
+axis (``parallel.layout.ShardedLayout``; the trainer builds the optimizer over its
+shards). A step on such a state averages the gradients over the batch shards with the
+layout's reduction in place of DDP's, and the guard's finite flag is and-ed over the world,
+so every rank takes or skips the same step. Without an ``fsdp`` or ``tensor`` axis nothing
+of this runs: the step is DDP's, as before. The health stats and chained steps on the card
+refuse a sharded state. With one sequence shard per rank, the
 gradients and the loss are broadcast from the first rank of the seq group before the
 update (``parallel.mesh.broadcast_over_seq``), so every seq rank takes the same step.
 """
@@ -83,9 +93,10 @@ from typing import Callable, Mapping
 
 import torch
 import torch.distributed as dist
+from torch.nn.utils import parametrize
 
 from distributed_training_pytorch_tpu_torch.ops.dispatch import allocation_route_active
-from distributed_training_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, broadcast_over_seq, process_count
+from distributed_training_pytorch_tpu_torch.parallel.mesh import broadcast_over_seq, process_count
 from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic
 from distributed_training_pytorch_tpu_torch.train.state import TrainState, unwrap
 
@@ -139,6 +150,8 @@ class TrainEngine:
         precision=None,
         mesh=None,
         stats: bool = False,
+        sharding_rules=None,
+        fsdp_min_size: int = 2**18,
     ):
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -148,6 +161,8 @@ class TrainEngine:
         self.nan_guard = bool(nan_guard)
         self.precision = get_policy(precision)
         self.mesh = mesh
+        self.sharding_rules = sharding_rules
+        self.fsdp_min_size = int(fsdp_min_size)
         self._prepared = None  # (optimizer, generation) the fused form was set up for
         self._fused = False
         self._meta = False  # the params are meta tensors: the memory trace
@@ -176,7 +191,22 @@ class TrainEngine:
         return torch.tensor(float(first.shape[0]), device=first.device)
 
     def _data_shards(self) -> int:
-        return process_count() if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        return process_count() if self.mesh is None else self.mesh.batch_extent
+
+    def shard_model(self, model: torch.nn.Module):
+        """Lay ``model`` out on the engine's mesh by its rules (``parallel.layout.
+        ShardedLayout.apply``, in place) and return the layout; None, and the model as it
+        was, on a mesh without an ``fsdp`` or ``tensor`` axis."""
+        if self.mesh is None or not self.mesh.sharded:
+            return None
+        from distributed_training_pytorch_tpu_torch.parallel.layout import ShardedLayout
+
+        if self.stats:
+            raise NotImplementedError(
+                "the health stats (telemetry) on a sharded state are not ported: their norms would need a reduction "
+                "over the shards (ROADMAP.md Queue 1 item 4)"
+            )
+        return ShardedLayout.apply(model, self.mesh, self.sharding_rules, fsdp_min_size=self.fsdp_min_size)
 
     def _reduce(self, metrics: dict, batch, *, arrivals: bool = False) -> dict:
         """Across data shards: each metric's mean weighted by the shards' real rows (a no-op
@@ -192,10 +222,10 @@ class TrainEngine:
         slots = arrivals and self.arrival_ms is not None
         if slots:
             own = torch.zeros(shards, dtype=packed.dtype, device=packed.device)
-            own[dist.get_rank() if self.mesh is None else self.mesh.data_index] = float(self.arrival_ms)
+            own[dist.get_rank() if self.mesh is None else self.mesh.batch_index] = float(self.arrival_ms)
             packed = torch.cat([packed, own])
         if packed.device.type != "meta":  # the memory trace allocates, it sends nothing
-            dist.all_reduce(packed, group=None if self.mesh is None else self.mesh.data_group)
+            dist.all_reduce(packed, group=None if self.mesh is None else self.mesh.batch_group)
         total = torch.clamp(packed[len(keys)], min=1.0)
         out = {k: packed[i] / total for i, k in enumerate(keys)}
         if slots:
@@ -260,16 +290,19 @@ class TrainEngine:
 
     # -- steps ------------------------------------------------------------
 
-    def _loss(self, model, batch, train: bool):
-        loss, metrics = self.loss_fn(model, batch, train)
+    def _loss(self, model, batch, train: bool, laid_out: bool = False):
+        # A laid-out leaf (parallel.layout) is gathered once a forward, however often it is read.
+        with parametrize.cached() if laid_out else contextlib.nullcontext():
+            loss, metrics = self.loss_fn(model, batch, train)
         return self.precision.cast_output(loss), dict(metrics)
 
-    def _grads_and_metrics(self, model, batch, scale=None):
+    def _grads_and_metrics(self, model, batch, scale=None, laid_out: bool = False):
         """Forward and backward; with a dynamic ``scale`` the differentiated loss is
-        scaled, the gradients unscaled, and the returned loss is the unscaled one."""
+        scaled, the gradients unscaled, and the returned loss is the unscaled one.
+        ``laid_out``: the model is on a ``parallel.layout.ShardedLayout``."""
         objective = (lambda loss: loss) if scale is None else scale.scale_loss
         if self.accum_steps == 1:
-            loss, metrics = self._loss(model, batch, True)
+            loss, metrics = self._loss(model, batch, True, laid_out)
             objective(loss).backward()
             if scale is not None:
                 scale.unscale_grads([p.grad for p in unwrap(model).parameters()])
@@ -285,7 +318,7 @@ class TrainEngine:
             sync = getattr(model, "no_sync", None)
             ctx = sync() if (sync is not None and not last) else contextlib.nullcontext()
             with ctx:
-                loss, metrics = self._loss(model, micro, True)
+                loss, metrics = self._loss(model, micro, True, laid_out)
                 (objective(loss) / self.accum_steps).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             for k, v in metrics.items():
@@ -308,10 +341,14 @@ class TrainEngine:
         guard = self.nan_guard or dynamic  # one guard: an overflow and a NaN are one skip
         buffers = list(unwrap(model).buffers()) if guard else []
         saved = [b.detach().clone() for b in buffers]  # the forward updates BN statistics
-        loss, metrics = self._grads_and_metrics(model, batch, state.loss_scale if dynamic else None)
+        loss, metrics = self._grads_and_metrics(model, batch, state.loss_scale if dynamic else None,
+                                                state.layout is not None)
         # The seq ranks of a data shard step with the gradients (and the guard with the
         # loss) of the first of them, so their model copies stay bit-equal.
         broadcast_over_seq([p.grad for p in unwrap(model).parameters()] + [loss], self.mesh)
+        if state.layout is not None:
+            state.layout.reduce_gradients(unwrap(model))
+            state.layout.broadcast_buffers(unwrap(model))
         metrics.setdefault("loss", loss)
         metrics = self._reduce({**metrics, "_objective": loss}, batch, arrivals=True)
         loss = metrics.pop("_objective")  # the differentiated loss, as the guard reads it
@@ -322,6 +359,8 @@ class TrainEngine:
             for p in unwrap(model).parameters():
                 if p.grad is not None:
                     ok = ok & torch.isfinite(p.grad).all()
+            if state.layout is not None:  # each rank saw its shards of the gradients
+                ok = state.layout.all_finite(ok)
             if self._fused:
                 opt.found_inf = (~ok).float()  # the fused kernels skip on it
                 try:
@@ -384,10 +423,11 @@ class TrainEngine:
             return self._trace_window(state, stacked_batch, length)
         if first.device.type != "cuda":
             return self._loop(state, stacked_batch, length)
-        if self._data_shards() > 1:
+        if self._data_shards() > 1 or state.layout is not None:
             raise NotImplementedError(
-                "chained steps with more than one data rank on the card (DDP inside a CUDA graph) are not "
-                "checked yet: ROADMAP.md Queue 1 item 7, 'chained steps with DDP on 4 cards'"
+                "chained steps with more than one data rank or a sharded state on the card (DDP or the layout's "
+                "collectives inside a CUDA graph) are not checked yet: ROADMAP.md Queue 1 item 7, 'chained steps "
+                "with DDP on 4 cards'"
             )
         self._prepare(state)
         if not self._fused:
@@ -484,7 +524,8 @@ class TrainEngine:
         the twin leaves this engine's dispatch path as it was. The memory preflight's
         trials run these."""
         return TrainEngine(self.loss_fn, accum_steps=accum_steps, schedule=self.schedule, nan_guard=self.nan_guard,
-                           precision=self.precision, mesh=self.mesh, stats=self.stats)
+                           precision=self.precision, mesh=self.mesh, stats=self.stats,
+                           sharding_rules=self.sharding_rules, fsdp_min_size=self.fsdp_min_size)
 
     def drop_graphs(self) -> None:
         """Forget the captured window (the next window is warmed and captured again)."""
@@ -496,5 +537,5 @@ class TrainEngine:
         """Metrics of the model on this rank's rows, averaged across ranks by real rows."""
         model = unwrap(state.model)
         model.eval()
-        _, metrics = self._loss(model, batch, False)
+        _, metrics = self._loss(model, batch, False, state.layout is not None)
         return self._reduce(metrics, batch)

@@ -9,6 +9,11 @@ model with dropout, VGG16's classifier, draws from the generator of its device):
 checkpoint carries the CPU generator's state and, for a model on the card, the card's,
 and a restore sets them, so a resumed run draws what the uninterrupted run would have
 (the JAX state threads its ``rng`` the same way).
+
+``layout`` is the ``parallel.layout.ShardedLayout`` of a model sharded over an ``fsdp`` or
+``tensor`` axis (None otherwise): then ``state_dict`` gathers the global tensors (every rank
+calls it) and ``load_state_dict`` cuts a global checkpoint into this rank's shards, and
+``sharding`` is the layout's record for the checkpoint's meta.
 """
 
 from __future__ import annotations
@@ -33,27 +38,42 @@ class TrainState:
     wrapped in DDP), its optimizer and the loss scale (a ``DynamicScale``, a ``NoOpScale``
     or None; the engine updates a dynamic scale's tensors in place). ``generation`` counts
     the restores into this state: a restore replaces the optimizer's moment tensors, so
-    the engine captures its CUDA graph again when the count moves."""
+    the engine captures its CUDA graph again when the count moves. ``layout`` is the
+    model's sharded layout, or None."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     loss_scale: Any = None
     generation: int = 0
+    layout: Any = None
 
     @property
     def params(self) -> "dict[str, torch.Tensor]":
+        """The model's state dict, in the global layout (collective under a layout)."""
+        if self.layout is not None:
+            return self.layout.full_state_dict(unwrap(self.model))
         return unwrap(self.model).state_dict()
+
+    @property
+    def sharding(self) -> "dict | None":
+        """The sharding record of the state's layout (None when nothing is sharded)."""
+        return None if self.layout is None else self.layout.record()
+
+    def load_params(self, params: dict) -> None:
+        """Load a global state dict of the model (a checkpoint's ``params``)."""
+        if self.layout is not None:
+            self.layout.load_full_state_dict(unwrap(self.model), params)
+        else:
+            unwrap(self.model).load_state_dict(params)
 
     def state_dict(self) -> dict:
         """What a checkpoint holds: params, optimizer state and step, a dynamic loss
         scale's three tensors when there is one (as the JAX manager saves its ``scale``
         item only for a state with leaves), and the generators' states."""
-        payload = {
-            "params": unwrap(self.model).state_dict(),
-            "opt_state": self.optimizer.state_dict(),
-            "step": int(self.step),
-        }
+        opt_state = (self.optimizer.state_dict() if self.layout is None
+                     else self.layout.optimizer_state_dict(self.optimizer, unwrap(self.model)))
+        payload = {"params": self.params, "opt_state": opt_state, "step": int(self.step)}
         if hasattr(self.loss_scale, "state_dict"):
             payload["loss_scale"] = self.loss_scale.state_dict()
         payload["rng"] = {"cpu": torch.get_rng_state()}
@@ -66,8 +86,11 @@ class TrainState:
         """Restore a checkpoint's state. A checkpoint without a loss scale (fp32, bf16, or
         saved before loss scaling) keeps this state's fresh scale, and one without a
         random state leaves the generators as they are."""
-        unwrap(self.model).load_state_dict(payload["params"])
-        self.optimizer.load_state_dict(payload["opt_state"])
+        self.load_params(payload["params"])
+        if self.layout is not None:
+            self.layout.load_optimizer_state_dict(self.optimizer, unwrap(self.model), payload["opt_state"])
+        else:
+            self.optimizer.load_state_dict(payload["opt_state"])
         self.step = int(payload["step"])
         if "loss_scale" in payload and hasattr(self.loss_scale, "load_state_dict"):
             self.loss_scale = self.loss_scale.load_state_dict(payload["loss_scale"])

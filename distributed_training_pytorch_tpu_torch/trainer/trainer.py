@@ -34,11 +34,16 @@ contract for the arguments the entries pass, and the same epoch loop:
 
 In the port the model runs on ``device`` (the card unless the caller passes
 ``device="cpu"``). ``mesh`` is the world's layout: ``None`` (every rank a data shard), an
-integer (the same, checked against the world size), or a built ``parallel.mesh.Mesh`` with
-``data`` and ``seq`` axes, as the JAX ``Trainer(mesh=MeshConfig(...).build())`` takes it.
-The global batch divides by the data extent; each data shard feeds its rows of it (the
-ranks of one data shard, its seq shards, see the same rows), and a data axis of more than
-one rank wraps the model in ``DistributedDataParallel`` over the data group. With one
+integer (the same, checked against the world size), or a built ``parallel.mesh.Mesh``
+(``data``, ``fsdp``, ``tensor`` and ``seq`` axes), as the JAX
+``Trainer(mesh=MeshConfig(...).build())`` takes it. The global batch divides by the
+batch-shard extent (``data x fsdp``); each batch shard feeds its rows of it (its seq and
+tensor ranks see the same rows). Without an ``fsdp`` or ``tensor`` axis, a data axis of
+more than one rank wraps the model in ``DistributedDataParallel`` over the data group. With
+one, ``sharding_rules`` (``"auto"``: the ``build_sharding_rules`` hook, JAX ``trainer.py:
+126``, ``:470-483``, ``:2450-2468``) and ``fsdp_min_size`` lay the parameters and the
+optimizer state out in shards (``parallel/sharding.py``, ``parallel/layout.py``), and the
+construction logs what was sharded. With one
 sequence shard per rank, every seq rank holds the whole model: its copies are broadcast
 from the seq group's first rank at build, and the engine broadcasts the gradients each
 step, so they stay bit-equal (``parallel.mesh.broadcast_over_seq``). A model
@@ -109,7 +114,14 @@ accumulation factor that fit, before any step. A ``train_step`` override skips i
 warning (the engine's step is not the one dispatched). ``None`` (the default) runs none of
 it.
 
-What the JAX Trainer has and this one does not yet: elastic resume and ``TUNED``.
+Elastic resume (JAX ``trainer.py:995-1090``): before the mesh is built, the resume
+checkpoint's meta is read; a sharding record written on another device count re-plans the
+mesh and ``accum_steps`` for this world when ``mesh=None`` (``parallel.elastic.replan``: the
+same global batch), an explicit mesh is honoured, and the restore emits one
+``elastic_restore`` record (and the manager a ``checkpoint_reshard``). A tensor-sharded
+checkpoint that this world cannot hold raises ``ElasticReplanError`` before any restore.
+
+What the JAX Trainer has and this one does not yet: ``TUNED``.
 """
 
 from __future__ import annotations
@@ -137,6 +149,7 @@ from distributed_training_pytorch_tpu_torch.data.prefetch import device_prefetch
 from distributed_training_pytorch_tpu_torch.fault import StepWatchdog
 from distributed_training_pytorch_tpu_torch.memory import resolve_preflight, run_preflight, window_memory_fields
 from distributed_training_pytorch_tpu_torch.ops import _build
+from distributed_training_pytorch_tpu_torch.parallel import elastic as elastic_lib
 from distributed_training_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic, resolve_loss_scale
 from distributed_training_pytorch_tpu_torch.profiling import StepTraceCapture, resolve_profile
@@ -173,6 +186,8 @@ class Trainer:
         logger=None,
         *,
         mesh: "mesh_lib.Mesh | int | None" = None,
+        sharding_rules="auto",
+        fsdp_min_size: int = 2**18,
         seed: int = 0,
         accum_steps: int = 1,
         num_workers: int = 8,
@@ -273,25 +288,52 @@ class Trainer:
         self.world_size = mesh_lib.process_count()
         if mesh is not None and not isinstance(mesh, mesh_lib.Mesh) and int(mesh) != self.world_size:
             raise ValueError(f"mesh asks for {mesh} data-parallel ranks, the process group has {self.world_size}")
-        self.mesh = mesh if isinstance(mesh, mesh_lib.Mesh) else mesh_lib.MeshConfig().build()
-        # The batch divisor is the data extent (the JAX Trainer's batch_shard_extent), not
-        # the world: the seq ranks of one data shard share its rows.
-        self.batch_replicas = self.mesh.shape[mesh_lib.DATA_AXIS]
-        if batch_size % self.batch_replicas:
+        # Sharding rules (parallel.sharding): "auto" resolves through build_sharding_rules
+        # after build_model; a list or None passes through; any other string is refused.
+        if isinstance(sharding_rules, str) and sharding_rules != "auto":
             raise ValueError(
-                f"global batch_size {batch_size} is not divisible by the mesh's {self.batch_replicas} data shards"
+                f"sharding_rules={sharding_rules!r}: the only string value is 'auto' (resolve via "
+                "build_sharding_rules). Pass None for the replicated/FSDP-fallback default, or an explicit list of "
+                "(name_regex, PartitionSpec) rules."
             )
-        if self.chain_steps > 1 and self.device.type == "cuda" and self.batch_replicas > 1:
-            raise NotImplementedError(
-                "chained steps with more than one data rank on the card (DDP inside a CUDA graph) are not checked "
-                "yet: ROADMAP.md Queue 1 item 7, 'chained steps with DDP on 4 cards'"
-            )
+        self._sharding_rules_requested = sharding_rules
+        self.fsdp_min_size = int(fsdp_min_size)
         self.save_folder = save_folder
         self.save_weight_folder = os.path.join(save_folder, "weights")
         self.checkpoints = CheckpointManager(
             self.save_weight_folder, save_best_for=save_best_for, max_to_keep=max_checkpoints_to_keep,
             fault_plan=fault_plan,
         )
+        # Elastic resume: a checkpoint written on another device count re-plans the mesh
+        # and accum_steps for this world when mesh=None (read from its meta alone).
+        snapshot_path = self._peek_resume_checkpoint(
+            snapshot_path, mesh if isinstance(mesh, mesh_lib.Mesh) else None, batch_size)
+        if self._elastic_plan is not None:
+            mesh = self._elastic_plan.mesh_config.build()
+        self.mesh = mesh if isinstance(mesh, mesh_lib.Mesh) else mesh_lib.MeshConfig().build()
+        # The batch divisor is the batch-shard extent (data x fsdp, the JAX Trainer's
+        # batch_shard_extent), not the world: the seq and tensor ranks of one batch shard
+        # share its rows.
+        self.batch_replicas = self.mesh.batch_extent
+        if batch_size % self.batch_replicas:
+            raise ValueError(
+                f"global batch_size {batch_size} is not divisible by the mesh's batch-shard extent "
+                f"{self.batch_replicas} (= product of the data and fsdp axes): every batch shard must hold the same "
+                "number of rows. Round batch_size or re-plan the mesh."
+            )
+        if self._topology_changed and batch_size % (self.batch_replicas * self.accum_steps):
+            suggestion = elastic_lib.nearest_divisible_accum(batch_size, self.batch_replicas, self.accum_steps)
+            raise ValueError(
+                f"global batch_size {batch_size} does not tile into accum_steps={self.accum_steps} microbatches over "
+                f"the resumed mesh's batch-shard extent {self.batch_replicas}: every microbatch shard must hold the "
+                f"same number of rows (batch % (extent x accum) != 0). Nearest divisible accum_steps: {suggestion}."
+            )
+        if self.chain_steps > 1 and self.device.type == "cuda" and (self.batch_replicas > 1 or self.mesh.sharded):
+            raise NotImplementedError(
+                "chained steps with more than one data rank or a sharded state on the card (DDP or the layout's "
+                "collectives inside a CUDA graph) are not checked yet: ROADMAP.md Queue 1 item 7, 'chained steps "
+                "with DDP on 4 cards'"
+            )
         self._async_saves = bool(async_checkpoint) and self.world_size == 1
         if async_checkpoint and self.world_size > 1:
             self.log(f"async_checkpoint with {self.world_size} processes: saves commit synchronously (each ends at "
@@ -315,7 +357,24 @@ class Trainer:
         if schedule is None:
             schedule = 0.0
         self.schedule = schedule if callable(schedule) else (lambda step, lr=float(schedule): lr)
-        if self.batch_replicas > 1:
+        self.sharding_rules = (self.build_sharding_rules() if isinstance(self._sharding_rules_requested, str)
+                               else self._sharding_rules_requested)
+        self.engine = TrainEngine(
+            self.build_loss_fn(),
+            # self.accum_steps: an elastic re-plan may have re-solved it for this world
+            accum_steps=self.accum_steps,
+            schedule=self.schedule,
+            nan_guard=nan_policy in ("skip", "restore_last_good"),
+            precision=self.precision,
+            mesh=self.mesh,
+            stats=self.telemetry.stats if self.telemetry is not None else False,
+            sharding_rules=self.sharding_rules,
+            fsdp_min_size=self.fsdp_min_size,
+        )
+        # An fsdp or tensor axis lays the model out in shards (the optimizer is built over
+        # them); without one, a data axis of more than one rank is DDP, as before.
+        layout = self.engine.shard_model(self.model)
+        if layout is None and self.batch_replicas > 1:
             device_ids = None
             if self.device.type == "cuda":
                 device_ids = [self.device.index if self.device.index is not None else torch.cuda.current_device()]
@@ -323,15 +382,6 @@ class Trainer:
                 self.model, device_ids=device_ids, process_group=self.mesh.data_group
             )
         self.optimizer = self.build_optimizer(self.schedule)
-        self.engine = TrainEngine(
-            self.build_loss_fn(),
-            accum_steps=accum_steps,
-            schedule=self.schedule,
-            nan_guard=nan_policy in ("skip", "restore_last_good"),
-            precision=self.precision,
-            mesh=self.mesh,
-            stats=self.telemetry.stats if self.telemetry is not None else False,
-        )
         self._profile_capture = (
             StepTraceCapture(self.profile, device=self.device, log=self.log, events=self.events)
             if self.profile is not None else None
@@ -341,17 +391,15 @@ class Trainer:
         self.memory_report = None  # the last PreflightReport
         scale = self._initial_loss_scale
         self.state = TrainState(model=self.model, optimizer=self.optimizer,
-                                loss_scale=scale.to(self.device) if is_dynamic(scale) else scale)
+                                loss_scale=scale.to(self.device) if is_dynamic(scale) else scale, layout=layout)
+        self._log_sharded_layout()
+        self.checkpoints.event_log = self.events
 
         t_restore = time.perf_counter()
         if snapshot_path is not None:
-            if snapshot_path == "latest_valid" and not self.checkpoints.checkpoint_names():
-                snapshot_path = None  # the first launch of an automatic restart: nothing to resume
-                self.log("no checkpoint to resume (latest_valid) — starting fresh")
-            elif snapshot_path == "latest_valid":
-                self.state, self.cur_epoch, snapshot_path = self.checkpoints.restore_latest_valid(self.state)
-            else:
-                self.state, self.cur_epoch = self.checkpoints.restore(snapshot_path, self.state)
+            self.state, self.cur_epoch = self.checkpoints.restore(
+                snapshot_path, self.state, validate=not self._resume_prevalidated,
+                allow_topology_change=self._topology_changed)
         if snapshot_path is not None:
             meta = self.checkpoints.read_meta(snapshot_path)
             self._resume_step_in_epoch = int((meta.get("loop") or {}).get("step_in_epoch", 0))
@@ -364,6 +412,7 @@ class Trainer:
                 self.goodput.account("restart_rollback", time.perf_counter() - t_restore)
             self.events.emit("checkpoint_restore", name=os.path.basename(str(snapshot_path)), epoch=self.cur_epoch,
                              step_in_epoch=self._resume_step_in_epoch)
+            self._emit_elastic_restore(snapshot_path)
             self.log(
                 f"Resumed from {snapshot_path} at epoch {self.cur_epoch}, step {self.state.step}"
                 + (f", step {self._resume_step_in_epoch} of the epoch (mid-epoch)" if self._resume_step_in_epoch else "")
@@ -381,7 +430,7 @@ class Trainer:
         return ShardedLoader(
             dataset, self.batch_size, shuffle=train, seed=self.seed, num_workers=self.num_workers,
             prefetch_batches=self.prefetch_batches, drop_last=train, pad_final=not train,
-            process_index=self.mesh.data_index, process_count=self.batch_replicas,
+            process_index=self.mesh.batch_index, process_count=self.batch_replicas,
             skip_corrupt=self.skip_corrupt_records,
         )
 
@@ -925,6 +974,9 @@ class Trainer:
         finally:
             if watchdog is not None:
                 watchdog.stop()
+            # On a break or an exception too: the prefetch thread stops now and drops the
+            # batches it holds, not when the traceback that holds this frame goes (F10).
+            units.close()
         self._maybe_profile(step_in_epoch, end_of_epoch=True)
         if cap is not None:  # close a capture still open (a short epoch); an interrupted
             cap.maybe_stop(step_in_epoch, force=True, abort=self._epoch_interrupted)  # one skips the analysis
@@ -985,6 +1037,92 @@ class Trainer:
         self._last_scale_seen = None
         self._attempt_units = 0
         self._profile_session = None
+
+    def _log_sharded_layout(self) -> None:
+        """One line at construction on what the mesh did to the state: the parameters
+        sharded and the per-device against the global param bytes (JAX ``trainer.py:
+        969-993``). Silent without a sharded layout."""
+        layout = self.state.layout
+        if layout is not None and layout.record() is not None:
+            self.log(layout.describe())
+
+    # -- elastic resume (JAX trainer.py:995-1090) --------------------------
+
+    def _peek_resume_checkpoint(self, snapshot_path, mesh, batch_size):
+        """Resolve the resume checkpoint before the mesh is built: ``"latest_valid"`` to
+        the newest checkpoint that validates (None on a first launch), and read its meta.
+        When its sharding record covers another device count than this world: with
+        ``mesh=None`` re-plan (``parallel.elastic.replan``: the mesh and ``accum_steps``
+        for this world, the global batch unchanged); an explicit ``mesh`` is honoured and
+        only the topology change is noted. Same-topology resumes and cold starts set
+        nothing."""
+        self._elastic_plan = None
+        self._resume_meta = None
+        self._resume_prevalidated = False
+        self._topology_changed = False
+        if snapshot_path is None:
+            return None
+        if snapshot_path == "latest_valid":
+            if not self.checkpoints.checkpoint_names():
+                self.log("no checkpoint to resume (latest_valid) — starting fresh")
+                return None
+            name = self.checkpoints.latest_valid_name()
+            if name is None:
+                raise CheckpointError(
+                    f"no valid checkpoint under {self.checkpoints.directory} "
+                    f"(invalid/corrupt: {self.checkpoints.checkpoint_names()})"
+                )
+            self._resume_prevalidated = True
+            snapshot_path = name
+        try:
+            self._resume_meta = self.checkpoints.read_meta(snapshot_path)
+        except (OSError, ValueError):  # the restore raises the canonical missing/corrupt error
+            return snapshot_path
+        record = self._resume_meta.get("sharding")
+        if not record:
+            return snapshot_path  # a replicated state: nothing to re-plan
+        saved_axes = elastic_lib.record_axes(record)
+        saved_devices = elastic_lib.axes_device_product(saved_axes)
+        devices = self.world_size
+        if saved_devices == devices:
+            return snapshot_path
+        self._topology_changed = True
+        ckpt = os.path.basename(str(snapshot_path))
+        if mesh is not None:
+            self.log(f"resume checkpoint {ckpt!r} was written on {saved_devices} devices (mesh {saved_axes}); this "
+                     f"world has {devices} — honoring the explicitly passed mesh (no re-plan; accumulation unchanged).")
+            return snapshot_path
+        self._elastic_plan = elastic_lib.replan(saved_axes, devices, batch_size=batch_size,
+                                                accum_steps=self.accum_steps)
+        self.accum_steps = self._elastic_plan.accum_steps
+        self.log(f"elastic restore: checkpoint {ckpt!r} was written on {saved_devices} devices (mesh {saved_axes}); "
+                 f"re-planned for {devices} devices as mesh {self._elastic_plan.new_axes} with "
+                 f"accum_steps={self.accum_steps} (was {self._elastic_plan.old_accum_steps}) — same effective global "
+                 "batch.")
+        return snapshot_path
+
+    def _emit_elastic_restore(self, snapshot_path) -> None:
+        """One ``elastic_restore`` record per topology-changed resume, with the JAX
+        Trainer's fields: the old and new mesh axes and device counts, the old and new
+        accumulation factors, the reason, and whether the mesh was re-planned."""
+        if not self._topology_changed:
+            return
+        plan = self._elastic_plan
+        if plan is not None:
+            fields = plan.event_fields()
+        else:
+            old_axes = elastic_lib.record_axes((self._resume_meta or {}).get("sharding") or {})
+            fields = {
+                "from_mesh": old_axes,
+                "to_mesh": mesh_lib.mesh_axes(self.mesh),
+                "from_devices": elastic_lib.axes_device_product(old_axes),
+                "to_devices": self.world_size,
+                "old_accum_steps": self.accum_steps,
+                "accum_steps": self.accum_steps,
+                "reason": "explicit mesh (no re-plan)",
+            }
+        self.events.emit("elastic_restore", name=os.path.basename(str(snapshot_path)), replanned=plan is not None,
+                         **fields)
 
     def _emit_run_start(self) -> None:
         self._attempt = claim_attempt(self.save_folder)
@@ -1366,6 +1504,16 @@ class Trainer:
     def build_scheduler(self):
         """A ``schedule(step) -> lr`` function, or a constant lr."""
         raise NotImplementedError("Please implement the build_scheduler method")
+
+    def build_sharding_rules(self):
+        """The ``(name_regex, PartitionSpec)`` rules of ``parallel.sharding`` used when the
+        constructor's ``sharding_rules="auto"`` (the default): ``parallel.sharding.
+        default_sharding_rules(mesh)``, i.e. ``transformer_tp_rules()`` on a mesh with a
+        ``tensor`` axis, else None (the FSDP fallback, or replicated). Override to place
+        a custom model's parameters."""
+        from distributed_training_pytorch_tpu_torch.parallel.sharding import default_sharding_rules
+
+        return default_sharding_rules(self.mesh)
 
     def build_loss_fn(self):
         """The engine's ``LossFn``: by default the model, then ``build_criterion``'s

@@ -278,6 +278,9 @@ def test_the_entry_refuses_what_is_not_ported(sides, monkeypatch, tmp_path):
     telemetered = train_digits.build_trainer(sides["subset"], str(tmp_path), "cpu")
     assert telemetered.telemetry is not None and telemetered.engine.stats
     monkeypatch.delenv("TELEMETRY")
-    monkeypatch.setenv("MESH", "fsdp2x1")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    monkeypatch.setenv("MESH", "fsdp2x1")  # ported: two ranks, which a world of one is not
+    with pytest.raises(ValueError, match="does not fit a world of 1 ranks"):
+        train_digits.build_trainer(str(tmp_path), str(tmp_path), "cpu")
+    monkeypatch.setenv("MESH", "ep2x1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         train_digits.build_trainer(str(tmp_path), str(tmp_path), "cpu")

@@ -1,7 +1,7 @@
 """``distributed_training_pytorch_tpu_torch/data/prefetch.py::device_prefetch``: the same
 batches in the same order, a producer's error raised in the consumer, no thread left
-behind by an abandoned consumer, and, on the card, the compute stream waiting for the
-side stream's copy.
+behind by an abandoned consumer or by a trainer epoch whose step raised (F10), and, on the
+card, the compute stream waiting for the side stream's copy.
 
 The card cases carry the ``cuda`` marker and skip without a card. This file imports
 neither JAX nor the JAX package, so it runs where only the port is.
@@ -163,3 +163,56 @@ def test_cuda_batches_match_the_cpu_path(cuda_device):
     for c, h in zip(on_card, on_cpu, strict=True):
         for k in h:
             assert torch.equal(c[k].cpu(), h[k])
+
+
+@pytest.mark.parametrize("where", ["train_epoch", "validate"])
+def test_a_failed_epoch_leaves_no_prefetch_thread_without_the_collector(tmp_path, where):
+    """F10: a step that raises inside the trainer's epoch (or validation) must stop the
+    prefetch thread there, while the caller still holds the error: its traceback held the
+    suspended prefetcher, and its thread with its batches, until the traceback went (a
+    reference cycle: until the collector ran). The collector is off here, and only this
+    test's threads are counted."""
+    import gc
+
+    from distributed_training_pytorch_tpu_torch.data import ArrayDataSource
+    from distributed_training_pytorch_tpu_torch.trainer import Trainer
+
+    class Failing(Trainer):
+        def build_train_dataset(self):
+            return ArrayDataSource(image=np.zeros((32, 4), np.float32), label=np.zeros((32,), np.int64))
+
+        build_val_dataset = build_train_dataset
+
+        def build_model(self):
+            return torch.nn.Linear(4, 2)
+
+        def build_criterion(self):
+            return lambda logits, batch: (logits.float().mean(), {})
+
+        def build_optimizer(self, schedule):
+            return torch.optim.SGD(self.model.parameters(), lr=0.1)
+
+        def build_scheduler(self):
+            return 0.1
+
+        def train_step(self, state, batch):
+            raise RuntimeError("the step fails")
+
+        validate_step = train_step
+
+    before = set(_prefetch_threads())
+    trainer = Failing(max_epoch=1, batch_size=4, save_folder=str(tmp_path), device="cpu", have_validate=True,
+                      async_checkpoint=False)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with pytest.raises(RuntimeError, match="the step fails") as err:
+            trainer.train_epoch(0) if where == "train_epoch" else trainer.validate()
+        assert err.tb is not None  # held, with the failed frame
+        deadline = time.monotonic() + 3.0
+        while set(_prefetch_threads()) - before and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert set(_prefetch_threads()) - before == set()
+    finally:
+        if enabled:
+            gc.enable()

@@ -6,7 +6,8 @@ both can run the same sequence.
   swapped in leaves the answers and the version as they were, as in the JAX engine.
 * ``CheckpointManager.exists`` and ``restore_latest_valid(params_only=True)``;
   ``InferEngine.restore_params`` by name and newest-valid (a corrupt checkpoint skipped,
-  or refused by name with the old params serving); ``replan_onto`` names P12.
+  or refused by name with the old params serving); ``replan_onto`` keeps the version and
+  the answers, and refuses another kind of device.
 * The watcher (``swap_poll_s`` 0.02 to 0.05 s): a hot swap under concurrent ``/predict``
   (every body equals the forward of the version it is stamped with, within 1e-5: the same
   arithmetic in other batch sizes), the start-up adoption (no ``hot_swap`` for the params
@@ -147,8 +148,14 @@ def test_restore_params_by_name_and_newest_valid(tmp_path):
     with pytest.raises(CorruptCheckpointError):
         eng.restore_params(manager, target, name="best")
     assert eng.params_version == "last@e1" and eng.swap_count == 3
-    with pytest.raises(NotImplementedError, match="P12"):
-        eng.replan_onto(None)
+    before = eng.predict(rows)
+    eng.replan_onto("cpu")
+    after = eng.predict(rows)
+    assert eng.replan_count == 1 and after[1] == before[1] == "last@e1"
+    np.testing.assert_array_equal(after[0], before[0])  # the same bytes, bit-identical answers
+    with pytest.raises(ValueError, match="another kind of device"):
+        eng.replan_onto("meta")
+    assert eng.replan_count == 1 and eng.predict(rows)[1] == "last@e1"
 
 
 def _post(port, payload, route="/predict", timeout=30.0):
@@ -278,6 +285,11 @@ class StubEngine:
         shape = {"data": 1}
         devices = np.array([_Dev()], dtype=object)
 
+    mesh_axes = {"data": 1}  # the port server reads these
+
+    def visible_device_ids(self):
+        return [0]
+
     def __init__(self):
         self.trace_counts = {}
 
@@ -363,10 +375,11 @@ def test_drain_offer_and_replan_answer_as_the_jax_server(tmp_path):
         assert json.loads(port[key][1]).keys() == json.loads(ref[key][1]).keys()
     for key in ("offer", "no_chip", "offer_breached"):
         assert port[key][:2] == ref[key][:2]
-    assert port["replan"][1]["detail"].startswith("NotImplementedError") and "P12" in port["replan"][1]["detail"]
-    # The port refuses the re-plan before admission stops, as the JAX server refuses an
-    # infeasible target; the JAX server drained once more for the stub's failed rebuild.
-    for name, drains in (("port", 1), ("jax", 2)):
+    assert port["replan"][:2] == ref["replan"][:2]
+    assert port["replan"][1]["detail"] == "NotImplementedError: no re-plan in this stub"
+    # The target is feasible, so both servers drained once more for the stub's failed
+    # rebuild, and resumed on the old plan.
+    for name, drains in (("port", 2), ("jax", 2)):
         events = [json.loads(line)["event"] for line in open(resolve_events_path(str(tmp_path / name)))]
         assert events.count("drain_start") == drains
         assert [e for e in events if e.startswith("offer_")] == ["offer_accept", "offer_decline"]

@@ -316,10 +316,15 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
     q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="float16 on the flash-attention kernels"):
         fa._check_kernel_inputs((("q", q), ("k", q), ("v", q)))
+    # MESH=fsdp2x1 is ported: it asks for two ranks, so a world of one refuses it; the
+    # pipe and expert axes still raise naming their queue item
     monkeypatch.setenv("MESH", "fsdp2x1")
     from distributed_training_pytorch_tpu_torch.parallel.mesh import mesh_from_env
 
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(ValueError, match="does not fit a world of 1 ranks"):
+        mesh_from_env()
+    monkeypatch.setenv("MESH", "pp2x1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         mesh_from_env()
 
 
