@@ -28,8 +28,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
    the forward kernel's launch count over that run is 12 per forward, all on the wgmma
    variant;
 5. training: the port's LM entry (``examples/train_lm.py``) on byte-level GPT-2-small at
-   full width and depth, T=1024, global batch 64, bf16, on the synthetic byte stream: 2
-   epochs, then a resume from ``last`` for a third; every loss finite, the last epoch's
+   full width and depth, T=1024, global batch 64, bf16, on the synthetic byte stream: 1
+   epoch, then a resume from ``last`` for a second; every loss finite, the last epoch's
    train loss below the first's, ``best``/``last`` valid, the resume continuing the step
    and epoch, and exactly 12 launches of each kernel per step (plus 12 forward launches
    per validation forward), every launch on the wgmma variant; the step time
@@ -51,8 +51,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
    launched on ResNet's route only;
 8. (B) ResNet-50 training: the port's ImageNet entry (``examples/train_imagenet.py``) at
    224x224, 1000 classes, global batch 256, bf16 model with f32 params, ``PALLAS=1``, on a
-   synthetic set capped to 3 steps an epoch: 2 epochs, then a resume from ``last`` for a
-   third; every loss finite, the running statistics moved, the resume continuing the step
+   synthetic set capped to 3 steps an epoch: 1 epoch, then a resume from ``last`` for a
+   second; every loss finite, the running statistics moved, the resume continuing the step
    and epoch, exactly 9 kernel launches per train step and per val forward, all on the
    wgmma variant, and 9 launches of the backward's dz pass per train step, and the
    trained model's logits finite and close to the same weights through cuDNN's 1x1
@@ -76,7 +76,7 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 12. (ring training) byte-level GPT-2-small at T=4096, global batch 16, ``MESH=sp4``,
     through the LM entry's trainer with a ring ``build_model`` (``RingLMTrainer``): the
     first batch's loss and first layer's attention output against the same weights
-    through flash attention, then 2 epochs
+    through flash attention, then 1 epoch
     and a resume from ``last``; every loss finite, the train loss falling, the padded val
     batch run once a validation, exactly 120 launches of each kernel (12 layers x 10
     blocks) per train step and per val forward, every launch on the wgmma variant;
@@ -96,8 +96,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     crop/flip. The ResNet phase (8) runs the same in-turns comparison;
 14. (vit) ViT-B/16 through the ImageNet entry (``MODEL=vit_b16``, ``PALLAS`` unset: auto
     runs K1–K3 at T=197, non-causal): 224x224, 1000 classes, global batch 256, a bf16 model
-    with f32 params, AdamW, the synthetic set capped to 3 steps an epoch: 2 epochs, then a
-    resume from ``last`` for a third; every loss finite, the resume continuing the step and
+    with f32 params, AdamW, the synthetic set capped to 3 steps an epoch: 1 epoch, then a
+    resume from ``last`` for a second; every loss finite, the resume continuing the step and
     epoch, exactly 12 launches each of K1, K2, K3 a train step and 12 of K1 a val forward,
     all on the wgmma variant; the trained weights through ``PALLAS=0``
     (``dot_product_attention``) and through ``pad_seq_to=256`` (K1–K3 with 197 valid keys of
@@ -128,7 +128,7 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
 18. (records_resnet50) ResNet-50 through the ImageNet entry on record shards of seeded JPEG
     images (baseline 4:2:0, quality 90, from the port's encoder) of ImageNet's usual sizes
     (``IMAGENET_RECORDS``/``VAL_RECORDS``, ``PALLAS=1``,
-    batch 256, 3 steps an epoch, 2 epochs and a resumed third): 9 K4 launches a step and a
+    batch 256, 3 steps an epoch, 1 epoch and a resumed second): 9 K4 launches a step and a
     val forward, all wgmma, 9 dz a step; the resumed epoch on records and on the synthetic
     set in turns on one trainer;
 19. (fp16) the digits entry with ``DTYPE=fp16``: 2 epochs at a loss scale of 2^15, then a
@@ -211,10 +211,29 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     third, that step's update (params after it minus the restored ones) within a relative
     L2 error of 1e-2 of the ranks' (``after``), and K1–K3 48 launches each in it
     (``train_lm_elastic`` in the kernels line, by variant); the fsdp2tp2 checkpoint raises
-    ``ElasticReplanError`` naming both topologies before any restore.
+    ``ElasticReplanError`` naming both topologies before any restore;
+27. (moe, run after phase 21) Mixture-of-Experts LMs: GPT-2-small with ``MOE_EVERY=2`` (6
+    MoE blocks of 8 experts, top-2, capacity 1.25, one group, the einsum route), vocab 256,
+    bf16. (a) ``InferEngine`` + ``InferenceServer`` answer 8 ``/predict`` requests of one
+    row at T=256, each bit-equal to the eager forward (K1 12 a forward, all wgmma), and
+    answer on other weights after ``swap_params``; ``generate`` greedy for 32 tokens at B=1
+    and 8 on the decode graph, its tokens equal the eager loop's (ms a step, and the MoE
+    layer's capacity-free decode alone). (b) The LM entry at SEQ_LEN 256, BATCH 32: a run
+    preempted by a SIGTERM after 4 of its 8 steps, its state stepped through the rest by
+    hand (the uninterrupted run), then a resume from its ``last`` through the rest: the
+    first resumed step's loss bit-equal to the uninterrupted run's, the others within
+    5e-3; one validation pass; ``moe_load_balance`` and ``moe_router_z`` in the metrics;
+    K1-K3 12 a step each (K1 12 a val forward), all wgmma (``train_lm_moe``); MFU from
+    ``utils/flops.py``, peak memory; the preflight's predicted OOM at the entry's default
+    BATCH 256. (c) The sort route against the einsum route at group sizes 1024, 4096 and
+    16384 (16,384 tokens): the dispatch mask equal, output and gradients within 2e-2 of
+    their largest magnitude, fwd+bwd ms of each. (d) ``scripts/torch_expert_ranks.py``'s
+    2 gloo ranks on the CPU at ``MESH=ep2`` (LMTiny, started beside the soak) against one
+    unsharded step on the card from the same weights and batch (f32, TF32 off): the
+    update's relative L2 error within 1e-4 (``train_lm_moe_ep`` by variant).
 
-The chaos soak (phase 23) and phase 26's CPU ranks run in processes of their own beside
-the kernel checks (phases 2, 3, 10 and 7), which time nothing; phase 26 then runs while
+The chaos soak (phase 23) and the CPU ranks of phases 26 and 27 run in processes of their
+own beside the kernel checks (phases 2, 3, 10 and 7), which time nothing; phase 26 then runs while
 the soak does (it times nothing against a bound either), and the soak is read after it.
 
 The vit and convnext phases (14, 15) save in the background (the ``Trainer``'s default
@@ -226,8 +245,9 @@ ten-step train chain, a resume and ``eval.evaluate``) reads PNG, BMP and JPEG fi
 JPEG ones from the port's encoder (4:2:0 at qualities 90 and 60, 4:4:4, grey, and one with
 an EXIF orientation of 6) and decoded by the port's own decoder.
 
-``launches_by_path`` in the kernels line has one key a path, ``eval_lm``, ``decode`` and
-``train_lm_elastic`` included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
+``launches_by_path`` in the kernels line has one key a path, ``eval_lm``, ``decode``,
+``train_lm_elastic`` and phase 27's ``train_lm_moe``, ``serve_moe``, ``decode_moe`` and
+``train_lm_moe_ep`` included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
 the launches in the profile of one replay (4 and 2 steps): the Python counters count a
 graph's launches once, at its capture.
 
@@ -269,7 +289,7 @@ TRAIN_SHAPE = (64, 1024, 12, 64)  # byte-level GPT-2-small at global batch 64
 VOCAB, SEQ, DEPTH = 50257, 1024, 12
 N_CLIENTS, REQUESTS_PER_CLIENT = 4, 4
 TRAIN_ENV = {"LM_SIZE": "small", "SEQ_LEN": "1024", "BATCH": "64", "DTYPE": "bf16", "BASE_LR": "3e-4"}
-TRAIN_EPOCHS = 2  # then one resumed epoch
+TRAIN_EPOCHS = 1  # then one resumed epoch
 
 
 def log(msg: str) -> None:
@@ -329,13 +349,13 @@ RESNET_K4_SHAPES = [
 RESNET_ENV = {"MODEL": "resnet50", "IMAGE_SIZE": "224", "BATCH": str(RESNET_BATCH), "PALLAS": "1",
               "STEPS_PER_EPOCH": "3", "SHIP_UINT8": "1"}
 RESNET_RECORDS, RESNET_VAL_RECORDS = 3 * RESNET_BATCH, RESNET_BATCH  # 3 steps, 1 val batch
-RESNET_EPOCHS = 2  # then one resumed epoch
+RESNET_EPOCHS = 1  # then one resumed epoch
 
 # ViT-B/16 (BASELINE config 4) and ConvNeXt-L (config 5) through the ImageNet entry at
 # 224x224, global batch 256 (the entry's default is 1024), ENTRY_STEPS steps an epoch of
-# the synthetic set: 2 epochs, then a resume from last for a third.
+# the synthetic set: 1 epoch, then a resume from last for a second.
 ENTRY_STEPS = 3
-ENTRY_EPOCHS = 2  # then one resumed epoch
+ENTRY_EPOCHS = 1  # then one resumed epoch
 VIT_BATCH = 256
 VIT_ENV = {"MODEL": "vit_b16", "IMAGE_SIZE": "224", "BATCH": str(VIT_BATCH), "STEPS_PER_EPOCH": str(ENTRY_STEPS),
            "SHIP_UINT8": "1"}  # PALLAS unset: auto, the flash kernels on the card
@@ -996,7 +1016,7 @@ def _check_wgmma_launches(launches, by_variant, tag):
 
 
 def phase_train(run_dir: str):
-    """The LM entry at full size: 2 epochs, then a resumed epoch; returns the launch counts
+    """The LM entry at full size: 1 epoch, then a resumed epoch; returns the launch counts
     of the phase and the step-time figures."""
     import torch
 
@@ -1408,7 +1428,7 @@ def _images_per_s(batch, ms):
 
 
 def phase_resnet(run_dir: str):
-    """Phase B: ResNet-50 through the port's ImageNet entry with PALLAS=1: 2 epochs, then a
+    """Phase B: ResNet-50 through the port's ImageNet entry with PALLAS=1: 1 epoch, then a
     resumed epoch under the profiler; returns the kernel's launches and the figures."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1558,7 +1578,7 @@ VGG_BATCH = 1024
 # a VGG16 of a quarter of the widths turns non-finite on both sides in the same epoch. At
 # 0.005 (lr 0.02 at the end of these 3 warmup epochs) the train loss falls.
 VGG_ENV = {"BATCH": str(VGG_BATCH), "BASE_LR": "0.005"}
-VGG_EPOCHS = 2  # then one resumed epoch
+VGG_EPOCHS = 2  # then one resumed epoch (after one, VGG16's CE need not have fallen yet)
 VGG_PARENT_PYTHON_STEPS = 8  # the per-record Python path takes about 0.3 s a step
 # VGG16 on 32x32: 433 M multiply-adds per image forward (313 M in the convolutions, 120 M
 # in the classifier), three times that for forward and backward.
@@ -1877,7 +1897,7 @@ RING_SHAPE = (16, 4096, 12, 64)  # B, T, H, D of one attention layer
 RING_BLOCKS = RING_SHARDS * (RING_SHARDS + 1) // 2  # causal: 10 blocks a layer, each way
 RING_ENV = {"LM_SIZE": "small", "SEQ_LEN": "4096", "BATCH": "16", "DTYPE": "bf16", "BASE_LR": "3e-4",
             "MESH": f"sp{RING_SHARDS}"}
-RING_EPOCHS = 2  # then one resumed epoch
+RING_EPOCHS = 1  # then one resumed epoch
 # Ring against flash attention on the same weights, the first batch's loss (about 5.5):
 # both compute in bf16 with f32 softmax statistics; the ring merges its blocks in f32 and
 # rounds o once, as the kernel does, so each layer's attention may land one bf16 ulp away,
@@ -2091,7 +2111,7 @@ def phase_ring(card: str):
 
 def phase_ring_train(run_dir: str):
     """The ring-training configuration through the port's Trainer (the LM entry's trainer
-    with a ring ``build_model``): 2 epochs, then a resumed epoch; returns the launch counts
+    with a ring ``build_model``): 1 epoch, then a resumed epoch; returns the launch counts
     of the phase and the step-time figures."""
     import torch
 
@@ -2425,7 +2445,7 @@ VIT_PAD_REL = 5e-2
 
 def phase_vit(run_dir: str):
     """ViT-B/16 through the port's ImageNet entry (``MODEL=vit_b16``, PALLAS unset: the
-    flash kernels): 2 epochs and a resumed third; exactly 12 launches each of K1, K2, K3 a
+    flash kernels): 1 epoch and a resumed second; exactly 12 launches each of K1, K2, K3 a
     train step and 12 of K1 a val forward, all on the wgmma variant; the trained weights
     through PALLAS=0 and through ``pad_seq_to=256``; then the same steps with PALLAS unset
     and PALLAS=0 in turns. Returns the launches and the figures."""
@@ -2510,8 +2530,8 @@ CONVNEXT_PLAIN_REL = 5e-2
 
 def phase_convnext(run_dir: str):
     """ConvNeXt-L (stage 3 cut to :data:`CONVNEXT_STAGE3` blocks) through the port's ImageNet
-    entry (``MODEL=convnext_l``, PALLAS=1: K4's gelu epilogue; ACCUM=4, 21,841 classes): 2
-    epochs and a resumed third; exactly :data:`CONVNEXT_BLOCKS` K4 launches a micro-batch
+    entry (``MODEL=convnext_l``, PALLAS=1: K4's gelu epilogue; ACCUM=4, 21,841 classes): 1
+    epoch and a resumed one; exactly :data:`CONVNEXT_BLOCKS` K4 launches a micro-batch
     forward (6 wgmma, the rest on the CUDA cores), 4 times that a train step and once a val
     forward, and no dz pass; the trained weights through PALLAS=0; then the same steps with
     PALLAS=1 and PALLAS=0 in turns. Returns the launches and the figures."""
@@ -2564,7 +2584,7 @@ FOLDER_LABELS = ["cat", "dog", "snake"]
 FOLDER_COUNTS = {"train": 32, "val": 8, "test": 8}  # per label: 6 train steps an epoch at batch 16
 FOLDER_BATCH = 16
 FOLDER_SIZE = 224
-FOLDER_EPOCHS = 2  # then one resumed epoch
+FOLDER_EPOCHS = 1  # then one resumed epoch
 FOLDER_SHAPES = [(180, 240), (256, 256), (333, 200)]  # (height, width): the resize does work
 # VGG16 at 224x224: 15.47 G multiply-adds per image forward, three times that for forward
 # and backward.
@@ -2694,8 +2714,8 @@ def phase_folder(run_dir: str):
     PNG (color types 0, 2, 3, 6, every filter type), 24-bit BMP and JPEG files (the port's
     encoder: 4:2:0 at qualities 90 and 60, 4:4:4, grey, one with an EXIF orientation of 6;
     decoded by the port's own decoder) of three shapes,
-    through the ten-step train chain on 8 loader workers: 2 epochs, then a resume from
-    ``last`` for a third whose train epoch is profiled; then ``eval.evaluate`` on ``last``
+    through the ten-step train chain on 8 loader workers: 1 epoch, then a resume from
+    ``last`` for a second whose train epoch is profiled; then ``eval.evaluate`` on ``last``
     and the test folder. Raises unless every loss is finite, the JPEG re-encoding, CLAHE,
     blur and median blur each fired, no hand kernel launched, the resume continued the step
     and epoch, and top-1 and top-2 lie in [0, 1]."""
@@ -3120,7 +3140,7 @@ def phase_records_resnet50(run_dir: str):
     """ResNet-50 through the ImageNet entry on record shards (``MODEL=resnet50 PALLAS=1``,
     ``IMAGENET_RECORDS``/``VAL_RECORDS``): a seeded tree of smooth JPEG images (4:2:0,
     quality 90) of ImageNet's usual sizes packed into 8 + 2 shards, global batch 256, 3 steps
-    an epoch, 2 epochs and a resumed third (the port's own JPEG decoder + random-resized crop
+    an epoch, 1 epoch and a resumed second (the port's own JPEG decoder + random-resized crop
     + flip in one native call a batch on 8 loader workers, uint8 to the card). Raises unless
     the payloads are JPEG, every loss is finite and K4 launched exactly 9 times a train step
     and a val forward, all on the wgmma variant, and its dz pass 9 times a step; then the
@@ -3846,7 +3866,7 @@ def _preflight_windows(batch: int, steps: int) -> int:
 
 def _preflight_trainer(run_dir, tag, *, batch, steps, chain=1, accum=1, telemetry=True):
     """The LM entry's trainer (GPT-2-small, bf16, T=1024, AdamW) with ``preflight="on"``:
-    one epoch of ``steps`` steps of ``batch`` rows, no validation."""
+    one epoch of ``steps`` steps of ``batch`` rows, no validation, no checkpoint."""
     from distributed_training_pytorch_tpu_torch.examples import train_lm
 
     base = train_lm.load_windows(SEQ)
@@ -3859,9 +3879,9 @@ def _preflight_trainer(run_dir, tag, *, batch, steps, chain=1, accum=1, telemetr
     if telemetry:
         os.environ["TELEMETRY"] = "1"
 
-    class Preflighted(train_lm.LMTrainer):
+    class Preflighted(train_lm.LMTrainer):  # no validation and no checkpoint: the device peak is the figure
         def __init__(self, **kw):
-            super().__init__(**kw, preflight="on", accum_steps=accum, log_every=4)
+            super().__init__(**{**kw, "have_validate": False}, preflight="on", accum_steps=accum, log_every=4)
 
     real_load = train_lm.load_windows
     train_lm.load_windows = lambda seq_len, path=None: windows
@@ -3898,10 +3918,23 @@ def _fmt_gb(n) -> str:
     return "none" if n is None else f"{n / 1e9:.3f} GB"
 
 
-def _script_json(args, *, timeout=300):
-    """Run a port script (``python3 scripts/...``); its exit code and the JSON object it
-    printed after its header lines (None when it printed none)."""
-    done = subprocess.run([sys.executable, *args], capture_output=True, text=True, timeout=timeout, cwd=REPO)
+def _start_script(args):
+    """Start a port script (``python3 scripts/...``) in the background, for
+    :func:`_script_json`."""
+    return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=REPO)
+
+
+def _script_json(proc, *, timeout=300):
+    """Wait for a script :func:`_start_script` started; its exit code, the JSON object it
+    printed after its header lines (None when it printed none) and its run."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    done = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
     lines = done.stdout.splitlines()
     start = next((i for i, line in enumerate(lines) if line.startswith("{")), None)
     obj = None if start is None else json.loads("\n".join(lines[start:]))
@@ -3926,6 +3959,12 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
     free, total = torch.cuda.mem_get_info()
     log(f"[preflight] {card} | the card: {total} B total ({total / 2**30:.2f} GiB), {free} B free now")
     fits = {}
+    # The readers on the CPU run beside the card's work, which they do not time: the compare
+    # of phase 24's captures from here, the doctor once the live run below has ended.
+    captures = [os.path.join(run_dir, f"on{chain}", "profile") for chain in (1, CHAIN_WINDOW)]
+    compare = _start_script([os.path.join("scripts", "torch_run_compare.py"), *captures, "--steps",
+                             str(CHAIN_WINDOW), "--json"])
+    doctor = None
     try:
         # -- the prediction against the measured peak, eager and chained -----------------
         for chain, steps in ((1, PREFLIGHT_STEPS), (CHAIN_WINDOW, PREFLIGHT_CHAIN_STEPS)):
@@ -4060,22 +4099,14 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
         spans = span_bucket_seconds(build_timeline(events))
         span_total = sum(spans.values())
         gaps = {b: spans[b] / span_total - end["goodput_fractions"][b] for b in spans}
-        code, doc, _ = _script_json([os.path.join("scripts", "torch_run_doctor.py"), live.save_folder, "--timeline",
-                                     "--json"])
-        with open(os.path.join(live.save_folder, "telemetry", "timeline.json")) as f:
-            exported = span_bucket_seconds(json.load(f))
-        log(f"[readers] timeline of the live run: spans per bucket {({b: round(v, 6) for b, v in spans.items()})} s, "
-            f"fractions minus the meter's: largest {max(abs(g) for g in gaps.values()):.3e}; "
-            f"torch_run_doctor.py --timeline exit {code}, verdict {doc and doc.get('verdict')}")
-        if max(abs(g) for g in gaps.values()) > READERS_REL or code != 0 or exported != spans:
-            raise RuntimeError(f"[readers] timeline spans {spans} against the meter {end['goodput_fractions']}")
+        doctor = _start_script([os.path.join("scripts", "torch_run_doctor.py"), live.save_folder, "--timeline",
+                                "--json"])
+        live_folder = live.save_folder
         del live
         gc.collect()
         torch.cuda.empty_cache()
 
-        captures = [os.path.join(run_dir, f"on{chain}", "profile") for chain in (1, CHAIN_WINDOW)]
-        code, cmp, done = _script_json([os.path.join("scripts", "torch_run_compare.py"), *captures, "--steps",
-                                        str(CHAIN_WINDOW), "--json"])
+        code, cmp, done = _script_json(compare)
         if code != 0 or cmp is None:
             raise RuntimeError(f"[readers] torch_run_compare.py exit {code}: {done.stdout[-2000:]} {done.stderr[-2000:]}")
         slack = abs(cmp["rows_delta_sum_ms"] - cmp["step_delta_ms"])
@@ -4087,7 +4118,7 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
                                f"is {cmp['step_delta_ms']} ms")
 
         gate = {}
-        for label, extra in (("quick", ()), ("slowed x3", ("--inject-slowdown", "3"))):
+        for label, extra in (("quick", ()), ("slowed x3", ("--inject-slowdown", "3"))):  # timed: one at a time
             done = subprocess.run([sys.executable, os.path.join("scripts", "torch_perf_gate.py"), "--quick", *extra],
                                   capture_output=True, text=True, timeout=300, cwd=REPO)
             verdict = [line for line in done.stdout.splitlines() if "[PASS]" in line or "[FAIL]" in line]
@@ -4096,7 +4127,19 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
             gate[label] = {"rc": done.returncode, "verdict": verdict[-1] if verdict else None}
         if gate["quick"]["rc"] != 0 or gate["slowed x3"]["rc"] != 1:
             raise RuntimeError(f"[readers] the perf gate: {gate}")
+        code, doc, _ = _script_json(doctor)
+        with open(os.path.join(live_folder, "telemetry", "timeline.json")) as f:
+            exported = span_bucket_seconds(json.load(f))
+        log(f"[readers] timeline of the live run: spans per bucket {({b: round(v, 6) for b, v in spans.items()})} s, "
+            f"fractions minus the meter's: largest {max(abs(g) for g in gaps.values()):.3e}; "
+            f"torch_run_doctor.py --timeline exit {code}, verdict {doc and doc.get('verdict')}")
+        if max(abs(g) for g in gaps.values()) > READERS_REL or code != 0 or exported != spans:
+            raise RuntimeError(f"[readers] timeline spans {spans} against the meter {end['goodput_fractions']}")
     finally:
+        for proc in (compare, doctor):  # a failed phase leaves no reader running
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4147,8 +4190,9 @@ def start_sharded_ranks(run_dir: str):
         time.perf_counter()
 
 
-def _join_sharded_ranks(ranks) -> dict:
-    """Wait for :func:`start_sharded_ranks`' process; its JSON line, or an error."""
+def _join_sharded_ranks(ranks, tag: str = "[elastic] the sharded ranks") -> dict:
+    """Wait for the process of :func:`start_sharded_ranks` (or :func:`start_expert_ranks`);
+    its JSON line, or an error."""
     proc, t0 = ranks
     try:
         out, err = proc.communicate(timeout=900)
@@ -4158,7 +4202,7 @@ def _join_sharded_ranks(ranks) -> dict:
             proc.communicate()
     result = json.loads(out.strip().splitlines()[-1]) if out.strip() else {"ok": False}
     if proc.returncode != 0 or not result.get("ok"):
-        raise RuntimeError(f"[elastic] the sharded ranks failed (exit {proc.returncode}): {out[-3000:]} {err[-3000:]}")
+        raise RuntimeError(f"{tag} failed (exit {proc.returncode}): {out[-3000:]} {err[-3000:]}")
     result["joined_s"] = time.perf_counter() - t0
     return result
 
@@ -4390,7 +4434,7 @@ LM_EVAL_BATCH = 64  # EVAL_BATCH
 LM_EVAL_CORPUS_MB = 2.0
 LM_EVAL_SHAPE = (64, 256, 12, 64)  # K1 at eval_lm's defaults (SEQ_LEN=256, EVAL_BATCH=64)
 DECODE_BATCHES = (1, 8, 32, 128)
-DECODE_PROMPT, DECODE_GEN = 32, 128  # decode_benchmark's window: 159 single-token steps
+DECODE_PROMPT, DECODE_GEN = 32, 32  # decode_benchmark's window: 63 single-token steps
 SAMPLE_PROMPT, SAMPLE_STEPS = b"def ", 64
 F32_PROMPTS, F32_STEPS = 2, 64
 SWAP_ROWS = 4
@@ -4653,6 +4697,412 @@ def phase_lm_eval(run_dir: str, card: str) -> dict:
             "k1": {**k1_row, "max_abs_err": k1_err}, "corpus": corpus, "wall_s": wall}
 
 
+# Phase 27 (moe): GPT-2-small with every second block a Mixture-of-Experts block (6 MoE
+# blocks of 8 experts, top-2, capacity factor 1.25, one routing group, the einsum route),
+# vocab 256, bf16, through the LM entry at SEQ_LEN 256 and BATCH 32 (8,192 tokens a step,
+# a [8192, 8, 2560] dispatch): 8 steps, the run preempted after MOE_PREEMPT_AT of them.
+MOE_ENV = {"LM_SIZE": "small", "SEQ_LEN": "256", "BATCH": "32", "DTYPE": "bf16", "BASE_LR": "3e-4",
+           "MOE_EVERY": "2", "EPOCHS": "1", "SAVE_PERIOD": "0"}
+MOE_SEQ, MOE_BATCH, MOE_STEPS, MOE_PREEMPT_AT = 256, 32, 8, 4
+MOE_EXPERTS, MOE_BLOCKS = 8, 6
+MOE_SERVE_REQUESTS = 8
+MOE_PROMPT, MOE_GEN_STEPS, MOE_DECODE_BATCHES = 8, 32, (1, 8)
+MOE_ROUTE_TOKENS, MOE_GROUP_SIZES = 16384, (1024, 4096, 16384)
+# sort against einsum in bf16, each tensor within this share of its largest magnitude: the
+# two routes feed the experts the same bf16 rows, and differ in the combine's roundings (the
+# einsum route rounds each token's weighted sum once, the sort route each product too)
+MOE_ROUTE_REL = 2e-2
+# the resumed run's steps after its first against the uninterrupted run's (bf16; the
+# embedding backward's atomics reorder sums from the first resumed update on)
+MOE_LOSS_ATOL = 5e-3
+# the card's unsharded step against the 2 ep2 gloo ranks' (f32, TF32 off): the relative L2
+# error of the update (predicted about 1e-6: the same f32 arithmetic in other orders)
+MOE_EP_RTOL = 1e-4
+MOE_DEFAULT_BATCH = 256  # train_lm.py's default BATCH: the preflight's prediction at SEQ_LEN 256
+
+
+def start_expert_ranks(run_dir: str):
+    """Start ``scripts/torch_expert_ranks.py`` (2 gloo ranks on the CPU, ``MESH=ep2``):
+    ``(process, start time)`` for :func:`phase_moe`."""
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_expert_ranks.py"), "--workdir",
+           os.path.join(run_dir, "expert_ranks")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO), \
+        time.perf_counter()
+
+
+def _moe_model(seed: int):
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return GPTSmall(vocab_size=256, dtype=torch.bfloat16, moe_every=2, num_experts=MOE_EXPERTS, max_len=MOE_SEQ,
+                    device="cuda", generator=gen).eval()
+
+
+def _moe_serve(run_dir: str, card: str) -> dict:
+    """(a) The MoE LM behind ``InferEngine`` + ``InferenceServer``: MOE_SERVE_REQUESTS
+    ``/predict`` requests of one row at T=256 (each a batch of its own), each answer
+    bit-equal to the eager forward of that row; K1 12 a forward, all wgmma; a
+    ``swap_params`` to other weights (the experts halved) answered on them. Then ``generate``, greedy, on the
+    decode graph against the eager loop at B=1 and 8, and the MoE layer's decode alone."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models.transformer_lm import generate
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.serving import InferEngine, InferenceServer, MicroBatcher
+
+    model = _moe_model(0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[moe] GPTSmall with MOE_EVERY=2: {n_params} params ({MOE_BLOCKS} MoE blocks of {MOE_EXPERTS} experts, "
+        f"top-2, capacity 1.25, one group, einsum), vocab 256, bf16 compute, f32 params")
+
+    def next_token_logits(params, tokens):
+        hidden = torch.func.functional_call(model, params, (tokens,), {"return_hidden": True})
+        return hidden[:, -1].float() @ params["embed.weight"].float().T  # [n, 256] f32
+
+    engine = InferEngine(next_token_logits, device="cuda", buckets=(1, 2, 4, 8))
+    engine.swap_params(model.state_dict(), version="moe-seed0")
+    engine.warmup(np.zeros((MOE_SEQ,), np.int32))
+    rows = np.random.default_rng(27).integers(0, 256, size=(MOE_SERVE_REQUESTS + 1, MOE_SEQ)).astype(np.int32)
+    server = InferenceServer(engine, batcher=MicroBatcher(buckets=engine.buckets, max_delay_s=0.005),
+                             run_dir=os.path.join(run_dir, "serve"), input_dtype="int32", pulse_every_s=0.5,
+                             process_index=0)
+    server.start()
+    if not server.enabled:
+        raise RuntimeError("[moe] inference server did not start")
+    try:
+        batches_before = server.batcher.batches
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        answers = [_post_json(server.port, {"tenant": "moe", "inputs": [rows[i].tolist()]})
+                   for i in range(MOE_SERVE_REQUESTS)]
+        serve_s = time.perf_counter() - t0
+        launches, wgmma = fa.launches["fwd"], fa.launches_by_variant[("fwd", "wgmma")]
+        forwards = server.batcher.batches - batches_before
+        with torch.inference_mode():
+            refs = [model.logits(model(torch.from_numpy(rows[i:i + 1]).cuda(), return_hidden=True)[:, -1]).cpu().numpy()
+                    for i in range(MOE_SERVE_REQUESTS)]
+        other = {k: v * 0.5 if k.endswith(("w_in", "w_out")) else v for k, v in model.state_dict().items()}
+        engine.swap_params(other, version="moe-halved")  # the experts' weights halved
+        swapped = _post_json(server.port, {"tenant": "moe", "inputs": [rows[-1].tolist()]})
+    finally:
+        server.close()
+    seed_state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(other)
+    with torch.inference_mode():
+        swap_ref = model.logits(model(torch.from_numpy(rows[-1:]).cuda(), return_hidden=True)[:, -1]).cpu().numpy()
+    model.load_state_dict(seed_state)
+    del seed_state, other
+    served = np.stack([np.asarray(a["outputs"][0], np.float32) for a in answers])
+    diff = float(np.abs(served - np.concatenate(refs)).max())
+    swap_diff = float(np.abs(np.asarray(swapped["outputs"][0], np.float32) - swap_ref[0]).max())
+    log(f"[moe serve] {card} | {MOE_SERVE_REQUESTS} /predict of 1 x {MOE_SEQ} tokens in {serve_s:.2f} s over {forwards} "
+        f"forwards: max|served - eager forward| {diff!r}; K1 launches {launches} ({wgmma} wgmma); after swap_params "
+        f"to other weights: version {swapped['params_version']!r}, max|served - eager| {swap_diff!r}")
+    if not np.isfinite(served).all() or diff != 0.0:
+        raise RuntimeError("[moe] served answers differ from the eager forward")
+    if forwards != MOE_SERVE_REQUESTS or launches != DEPTH * forwards or wgmma != launches:
+        raise RuntimeError(f"[moe] expected {DEPTH} K1 launches a forward, all wgmma: {launches}, {wgmma}, {forwards}")
+    if swapped["params_version"] != "moe-halved" or swap_diff != 0.0:
+        raise RuntimeError("[moe] swap_params: the answer is not the swapped weights' eager forward")
+    del engine
+
+    decode, decode_launches = {}, dict.fromkeys(fa.launches, 0)
+    for b in MOE_DECODE_BATCHES:
+        prompt = torch.from_numpy(rows[:b, :MOE_PROMPT]).cuda()
+        fa.reset_launches()
+        graph_tokens = generate(model, prompt, MOE_GEN_STEPS)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_tokens = generate(model, prompt, MOE_GEN_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for k, v in fa.launches.items():
+            decode_launches[k] += v
+        eager_tokens = generate(model, prompt, MOE_GEN_STEPS, graph=False)
+        steps = MOE_PROMPT - 1 + MOE_GEN_STEPS
+        x = torch.randn(b, 1, 768, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            layer_ms = time_ms(lambda x=x: model.blocks[1].moe(x, decode=True), iters=20, warmup=3)
+        decode[b] = {"step_ms": dt / steps * 1e3, "layer_ms": layer_ms,
+                     "equal": bool(torch.equal(graph_tokens, eager_tokens))}
+        log(f"[moe decode] {card} | B={b}: greedy {MOE_GEN_STEPS} tokens after a {MOE_PROMPT}-token prompt on the "
+            f"decode graph, {decode[b]['step_ms']:.3f} ms a step ({steps} steps); tokens equal the eager loop's: "
+            f"{decode[b]['equal']}; the MoE layer's capacity-free decode alone {layer_ms:.4f} ms (its [B, 2, 768, 3072] "
+            f"expert gathers)")
+        if not decode[b]["equal"]:
+            raise RuntimeError(f"[moe] the decode graph's tokens differ from the eager loop's at B={b}")
+    if any(decode_launches.values()):
+        raise RuntimeError(f"[moe] the decode path launched hand kernels: {decode_launches}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "decode": decode, "decode_launches": decode_launches}
+
+
+def _moe_train(run_dir: str, card: str) -> dict:
+    """(b) The MoE LM through ``train_lm.py``'s ``LMTrainer``: a run preempted by a SIGTERM
+    after MOE_PREEMPT_AT steps (its ``last`` snapshot saved mid-epoch), its state stepped on
+    by hand through the rest of the epoch (the uninterrupted run, MOE_STEPS in all); then a
+    trainer resumed from the snapshot, whose next step (on the batch it resumes at) has the
+    uninterrupted run's loss bit for bit, and one validation pass. K1-K3 12 a step each (K1
+    12 a val forward), all wgmma; MFU from the port's FLOP count, peak memory; the
+    preflight's prediction at train_lm.py's default batch."""
+    import signal
+
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+    from distributed_training_pytorch_tpu_torch.memory import Preflight, run_preflight
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.telemetry.mfu import device_peak_flops
+    from distributed_training_pytorch_tpu_torch.utils.flops import step_flops
+
+    base = train_lm.load_windows(MOE_SEQ)
+    n = _preflight_windows(MOE_BATCH, MOE_STEPS)
+    windows = np.concatenate([base] * -(-n // len(base)))[:n]
+    step_ms, epoch_metrics, val_metrics, losses = [], [], [], []
+    counts = {"steps": 0, "evals": 0}
+
+    def build():
+        trainer = _instrument(train_lm.build_trainer("cuda"), step_ms, counts, epoch_metrics, val_metrics)
+        timed = trainer.train_step
+
+        def recorded(state, batch):
+            state, metrics = timed(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        trainer.train_step = recorded
+        return trainer
+
+    real_load = train_lm.load_windows
+    train_lm.load_windows = lambda seq_len, path=None: windows
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with _env(**MOE_ENV, SAVE_DIR=os.path.join(run_dir, "train"), SNAPSHOT=None, LM_CORPUS=None, MESH=None,
+                  TELEMETRY=None, CHAIN_STEPS=None):
+            first = build()
+            step = first.train_step
+
+            def preempting(state, batch):
+                out = step(state, batch)
+                if counts["steps"] == MOE_PREEMPT_AT:
+                    os.kill(os.getpid(), signal.SIGTERM)  # the trainer's handler: a flag read before the next step
+                return out
+
+            first.train_step = preempting
+            first.train()
+            if not first.preempted or first.state.step != MOE_PREEMPT_AT:
+                raise RuntimeError(f"[moe] the run was not preempted after {MOE_PREEMPT_AT} steps: "
+                                   f"step {first.state.step}, preempted {first.preempted}")
+            first.train_dataloader.set_epoch(0)
+            batches = list(first.device_batches(first.train_dataloader))
+            first.train_step = step  # the uninterrupted run: the rest of the epoch on the same state
+            for batch in batches[MOE_PREEMPT_AT:]:
+                first.state, _ = first.train_step(first.state, batch)
+            del first
+            gc.collect()
+            with _env(SNAPSHOT="last"):
+                resumed = build()
+            resumed_at = (resumed.state.step, resumed.cur_epoch, resumed._resume_step_in_epoch)
+            resumed.state, metrics = resumed.train_step(resumed.state, batches[resumed._resume_step_in_epoch])
+            val = resumed.validate()  # one validation pass
+            meta_batch = {k: torch.empty_like(v, device="meta") for k, v in batches[0].items()}
+            flops = step_flops(resumed.model, resumed.engine.loss_fn, meta_batch)
+            default = {k: torch.empty((MOE_DEFAULT_BATCH, MOE_SEQ), dtype=torch.int32, device="meta")
+                       for k in ("image", "label")}
+            t_pf = time.perf_counter()
+            report = run_preflight(resumed.engine, resumed.state, default,
+                                   Preflight(action="warn", max_trials=6), device=torch.device("cuda"))
+            pf_s = time.perf_counter() - t_pf
+            del resumed, batches
+    finally:
+        train_lm.load_windows = real_load
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, by_variant = dict(fa.launches), dict(fa.launches_by_variant)
+    times = sorted(s.elapsed_time(e) for s, e in step_ms[1:])
+    median_ms = times[len(times) // 2]
+    peak = device_peak_flops(torch.device("cuda"))
+    mfu = flops / (median_ms / 1e3) / peak
+    tokens = MOE_BATCH * MOE_SEQ
+    metrics = {k: float(v) for k, v in metrics.items()}
+    log(f"[moe train] {card} | {counts['steps']} steps ({MOE_PREEMPT_AT} then SIGTERM, {MOE_STEPS - MOE_PREEMPT_AT} "
+        f"uninterrupted by hand, 1 resumed), {counts['evals']} val forward(s) in {wall:.1f} s; losses {losses}; the "
+        f"resumed step's metrics {metrics}; val {({k: round(float(v), 5) for k, v in val.items()})}")
+    log(f"[moe train] {card} | step median {median_ms:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}), "
+        f"{tokens / median_ms * 1e3:.0f} tokens/s, {flops:.4e} FLOPs a step (utils/flops.py: the dispatch and combine "
+        f"einsums included), MFU {mfu:.4f} against {peak:.4e}; peak memory {peak_gb:.2f} GB; launches {launches}")
+    if report is not None:
+        log(f"[moe preflight] {card} | train_lm.py's default BATCH {MOE_DEFAULT_BATCH} at SEQ_LEN {MOE_SEQ} (one "
+            f"group, einsum: [{MOE_DEFAULT_BATCH * MOE_SEQ}, {MOE_EXPERTS}, "
+            f"{2 * MOE_DEFAULT_BATCH * MOE_SEQ * 125 // (100 * MOE_EXPERTS)}] dispatch tensors): predicted peak "
+            f"{report.predicted_peak_bytes} B against {report.usable_bytes} usable; fits {report.fits}; recommended "
+            f"batch {report.recommended_batch}, accumulation {report.recommended_accum} ({report.trials} traces, "
+            f"{pf_s:.1f} s)")
+    moe_keys = {"moe_load_balance", "moe_router_z"}
+    if not all(np.isfinite([*losses, val["nll"]])) or not moe_keys <= set(metrics) or not moe_keys <= set(val):
+        raise RuntimeError(f"[moe] non-finite losses or missing MoE metrics: {losses}, {metrics}, {val}")
+    if not losses[MOE_STEPS - 1] < losses[0]:
+        raise RuntimeError(f"[moe] the train loss did not fall: {losses}")
+    if resumed_at != (MOE_PREEMPT_AT, 0, MOE_PREEMPT_AT):
+        raise RuntimeError(f"[moe] resumed at (step, epoch, step in epoch) {resumed_at}")
+    if losses[MOE_STEPS] != losses[MOE_PREEMPT_AT]:
+        raise RuntimeError(f"[moe] the resumed step's loss {losses[MOE_STEPS]!r} is not the uninterrupted run's "
+                           f"{losses[MOE_PREEMPT_AT]!r}")
+    expected = {"fwd": DEPTH * (counts["steps"] + counts["evals"]), "bwd_dq": DEPTH * counts["steps"],
+                "bwd_dkv": DEPTH * counts["steps"]}
+    if launches != expected:
+        raise RuntimeError(f"[moe] expected launches {expected} (12 per layer pass), got {launches}")
+    _check_wgmma_launches(launches, by_variant, "[moe train]")
+    if report is None or report.fits is not False:
+        raise RuntimeError(f"[moe] the preflight did not predict the default batch's OOM: {report}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": median_ms, "tokens_per_s": tokens / median_ms * 1e3, "mfu": mfu,
+            "peak_gb": peak_gb}
+
+
+def _moe_routes(card: str) -> dict:
+    """(c) The sort route against the einsum route on the same weights and tokens
+    (MOE_ROUTE_TOKENS at GPT-2-small's width, bf16) at each group size: the dispatch mask
+    equal, the output and the gradients within MOE_ROUTE_REL; fwd+bwd ms of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_training_pytorch_tpu_torch.parallel import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(MOE_ROUTE_TOKENS, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    ct = torch.randn(MOE_ROUTE_TOKENS, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    seed_layer = moe.MoEMlp(768, MOE_EXPERTS, 3072, dtype=torch.bfloat16, device="cuda")
+    seed_layer.init_weights(gen)
+    state = seed_layer.state_dict()
+    rows = {}
+    for sg in MOE_GROUP_SIZES:
+        g = MOE_ROUTE_TOKENS // sg
+        layers = {}
+        for impl in ("einsum", "sort"):
+            layers[impl] = moe.MoEMlp(768, MOE_EXPERTS, 3072, num_groups=g, dispatch_impl=impl,
+                                      dtype=torch.bfloat16, device="cuda")
+            layers[impl].load_state_dict(state)
+        capacity = moe.capacity_for(sg, MOE_EXPERTS, 2, 1.25)
+        with torch.no_grad():
+            gates = torch.softmax(F.linear(x.float(), state["router.weight"], state["router.bias"]), -1)
+            gates = gates.view(g, sg, MOE_EXPERTS)
+            dispatch, _ = moe.route_groups(gates, capacity=capacity, top_k=2)
+            _, slot_rows, _ = moe.sort_dispatch(gates, x.view(g, sg, -1), capacity=capacity, top_k=2,
+                                                dtype=torch.bfloat16)
+            mask = torch.zeros(g, 2 * sg, MOE_EXPERTS * capacity + 1, dtype=torch.bool, device="cuda")
+            mask.scatter_(-1, slot_rows[..., None], True)
+            by_token = mask[..., :-1].view(g, 2, sg, MOE_EXPERTS, capacity).any(dim=1)
+            masks_equal = bool(torch.equal(by_token, dispatch))
+            kept, dropped = int(dispatch.sum()), g * sg * 2 - int(dispatch.sum())
+            del gates, dispatch, slot_rows, mask, by_token
+        got = {}
+        for impl, layer in layers.items():
+            xx = x.detach().requires_grad_(True)
+            out, _ = layer(xx)
+            out.backward(ct)
+            got[impl] = {"out": out.detach(), "x": xx.grad, **{n: p.grad for n, p in layer.named_parameters()}}
+            layer.zero_grad(set_to_none=True)
+        errs = {}
+        for name, ref in got["einsum"].items():
+            errs[name] = float((got["sort"][name].float() - ref.float()).abs().max() / ref.float().abs().max())
+        del got
+
+        def fwd_bwd(layer):
+            xx = x.detach().requires_grad_(True)
+            out, _ = layer(xx)
+            out.backward(ct)
+            layer.zero_grad(set_to_none=True)
+
+        ms = {impl: time_ms(lambda layer=layer: fwd_bwd(layer), iters=5, warmup=1) for impl, layer in layers.items()}
+        rows[sg] = {"groups": g, "capacity": capacity, "ms": ms, "masks_equal": masks_equal, "errs": errs,
+                    "kept": kept, "dropped": dropped}
+        log(f"[moe routes] {card} | {MOE_ROUTE_TOKENS} tokens in {g} group(s) of {sg} (capacity {capacity}; {kept} "
+            f"choices kept, {dropped} dropped): dispatch masks equal {masks_equal}; sort vs einsum, max |diff| over "
+            f"max |einsum| {({k: f'{v:.2e}' for k, v in errs.items()})} (bound {MOE_ROUTE_REL}); fwd+bwd ms einsum "
+            f"{ms['einsum']:.3f}, sort {ms['sort']:.3f}")
+        del layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not masks_equal or max(errs.values()) > MOE_ROUTE_REL:
+            raise RuntimeError(f"[moe] the sort route disagrees with the einsum route at group size {sg}")
+    return rows
+
+
+def _moe_expert_step(card: str, ranks: dict) -> dict:
+    """(d) The 2 gloo ranks' ``MESH=ep2`` step (``scripts/torch_expert_ranks.py``) against
+    one unsharded step on the card from the same initial weights and batch (f32, TF32 off):
+    the update's relative L2 error within MOE_EP_RTOL; K1-K3's launches by variant."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import LMTiny
+    from distributed_training_pytorch_tpu_torch.models.transformer_lm import make_fused_lm_loss
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+
+    workdir = ranks["workdir"]
+    before = torch.load(os.path.join(workdir, "before.pt"), map_location="cuda")
+    after = torch.load(os.path.join(workdir, "after.pt"), map_location="cuda")
+    batch = {k: v.cuda() for k, v in torch.load(os.path.join(workdir, "batch.pt")).items()}
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = LMTiny(vocab_size=256, moe_every=2, num_experts=MOE_EXPERTS, device="cuda")
+        model.load_state_dict(before)
+        lr = ranks["lr"]
+        engine = TrainEngine(make_fused_lm_loss(model), schedule=lambda step: lr)
+        fa.reset_launches()
+        state, metrics = engine.train_step(TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=lr)),
+                                           batch)
+        torch.cuda.synchronize()
+        launches, by_variant = dict(fa.launches), dict(fa.launches_by_variant)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    got = state.model.state_dict()
+    num = math.sqrt(sum(float(((got[k] - before[k]) - (after[k] - before[k])).double().norm()) ** 2 for k in got))
+    den = math.sqrt(sum(float((after[k] - before[k]).double().norm()) ** 2 for k in got))
+    rel = num / den
+    loss = float(metrics["loss"])
+    log(f"[moe ep] {card} | {ranks['ranks']} gloo ranks at {ranks['mesh']} (LMTiny, MOE_EVERY=2, {MOE_EXPERTS} experts, "
+        f"{ranks['local_w_in'][0]} a rank, f32, SGD lr {lr}) in {ranks['wall_s']:.1f} s, sharding record "
+        f"{ranks['record']}; the card's unsharded step: loss {loss!r} vs the ranks' {ranks['metrics']['loss']!r}, the "
+        f"update's relative L2 error {rel:.3e} (bound {MOE_EP_RTOL}); K1-K3 launches {launches}, by variant "
+        f"{({f'{n}/{v}': c for (n, v), c in by_variant.items() if c})}")
+    if not rel <= MOE_EP_RTOL or abs(loss - ranks["metrics"]["loss"]) > 1e-4:
+        raise RuntimeError("[moe] the card's step disagrees with the ep2 ranks'")
+    del model, state
+    return {"rel": rel, "launches": launches, "by_variant": by_variant}
+
+
+def phase_moe(run_dir: str, card: str, ranks=None) -> dict:
+    """Mixture-of-Experts LMs (phase 27): (a) serving and decode, (b) training through the
+    LM entry with a preemption and a resume, (c) the two dispatch routes, (d) the 2 ep2
+    gloo ranks against the card. ``ranks``: the ``(process, start time)`` of
+    :func:`start_expert_ranks` (None: start them now)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    if ranks is None:
+        ranks = start_expert_ranks(run_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = _moe_serve(run_dir, card)
+    train = _moe_train(run_dir, card)
+    routes = _moe_routes(card)
+    ep = _moe_expert_step(card, _join_sharded_ranks(ranks, tag="[moe] the expert ranks"))
+    wall = time.perf_counter() - t_phase
+    log(f"[moe] phase wall {wall:.1f} s")
+    return {"serve": serve, "train": train, "routes": routes, "ep": ep, "wall_s": wall}
+
+
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
     ``vgg``, ``chained``, ``resilience``, ...; ``lm`` is phase 5 then the lm_eval phase on its
@@ -4681,6 +5131,8 @@ def run_only(names) -> int:
                     phase_preflight(run_dir, card, phase_telemetry(run_dir, card))
                 elif name == "elastic":
                     phase_elastic(run_dir, card)
+                elif name == "moe":
+                    phase_moe(run_dir, card)
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -4711,6 +5163,7 @@ def main() -> int:
     os.makedirs(run_root, exist_ok=True)
     soak_dir, soak = tempfile.mkdtemp(dir=run_root), None
     elastic_dir, ranks = tempfile.mkdtemp(dir=run_root), None
+    expert_dir, expert_ranks = tempfile.mkdtemp(dir=run_root), None
     try:
         t_start = time.perf_counter()
 
@@ -4721,6 +5174,7 @@ def main() -> int:
         mark("device")
         soak = start_soak(soak_dir)  # beside the kernel checks, which time nothing
         ranks = start_sharded_ranks(elastic_dir)  # phase 26's CPU ranks, in the soak's wait too
+        expert_ranks = start_expert_ranks(expert_dir)  # phase 27's, beside them
         fwd_err, vit_fwd_err = phase_kernels()
         mark("kernels")
         bwd_err, vit_bwd_err = phase_bwd_kernels()
@@ -4745,6 +5199,8 @@ def main() -> int:
             mark("train")
             lm_eval = phase_lm_eval(run_dir, card)  # on phase 5's checkpoint
             mark("lm_eval")
+        moe_phase = phase_moe(expert_dir, card, expert_ranks)
+        mark("moe")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             ring_launches, ring_train = phase_ring_train(run_dir)
             mark("ring_train")
@@ -4882,17 +5338,25 @@ def main() -> int:
             f"re-plan {es['replan_ms']} ms under {es['answers']} concurrent answers ({es['retried']} retried a 503), "
             f"{es['quiet_replan_ms']} ms after the ranks' join; "
             f"phase wall {elastic['wall_s']:.1f} s")
+        mt, mr = moe_phase["train"], moe_phase["routes"]
+        log(f"[times] {card} | MoE GPT-2-small (MOE_EVERY=2, {MOE_EXPERTS} experts, top-2, B={MOE_BATCH}, "
+            f"T={MOE_SEQ}, bf16): step median {mt['step_ms']:.2f} ms, {mt['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{mt['mfu']:.4f}, peak memory {mt['peak_gb']:.2f} GB; decode ms a step " + ", ".join(
+                f"B={b} {r['step_ms']:.3f} (MoE layer {r['layer_ms']:.4f})" for b, r in moe_phase["serve"]["decode"].items())
+            + "; fwd+bwd ms einsum / sort by group size: " + ", ".join(
+                f"{sg} {r['ms']['einsum']:.3f} / {r['ms']['sort']:.3f}" for sg, r in mr.items())
+            + f"; ep2 update rel err {moe_phase['ep']['rel']:.3e}; phase wall {moe_phase['wall_s']:.1f} s")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
     finally:
-        for started in (soak, ranks):
+        for started in (soak, ranks, expert_ranks):
             if started is not None and started[0].poll() is None:
                 started[0].kill()
                 started[0].communicate()
-        shutil.rmtree(soak_dir, ignore_errors=True)
-        shutil.rmtree(elastic_dir, ignore_errors=True)
+        for folder in (soak_dir, elastic_dir, expert_dir):
+            shutil.rmtree(folder, ignore_errors=True)
     kernels = []
     for name, kind, launch_key, replaces, err, vit_err, source in (
         ("flash_fwd", "fwd", "fwd", ":81", fwd_err, vit_fwd_err, "flash_fwd_wgmma.cu"),
@@ -4918,7 +5382,14 @@ def main() -> int:
                                  "train_resnet50_chained": 0,
                                  "train_lm_telemetry": telemetry["launches"][launch_key],
                                  "train_lm_preflight": preflight["launches"][launch_key],
-                                 "train_lm_elastic": elastic["launches"][launch_key]},
+                                 "train_lm_elastic": elastic["launches"][launch_key],
+                                 "train_lm_moe": moe_phase["train"]["launches"][launch_key],
+                                 "serve_moe": moe_phase["serve"]["launches"] if kind == "fwd" else 0,
+                                 "decode_moe": moe_phase["serve"]["decode_launches"][launch_key],
+                                 "train_lm_moe_ep": moe_phase["ep"]["launches"][launch_key]},
+            # the MoE card step against the ep2 ranks (f32, D 8: the CUDA-core variant) by variant
+            "train_lm_moe_ep_by_variant": {v: moe_phase["ep"]["by_variant"][(launch_key, v)]
+                                           for v in ("wgmma", "cuda_core")},
             # the elastic resume's step (f32: the CUDA-core variant) by variant
             "train_lm_elastic_by_variant": {v: elastic["by_variant"][f"{launch_key}/{v}"]
                                             for v in ("wgmma", "cuda_core")},
@@ -4956,7 +5427,8 @@ def main() -> int:
                                  "train_records_resnet50": r50_launches[name], "train_digits_fp16": 0,
                                  "eval_lm": 0, "decode": lm_eval["decode_launches"][name],
                                  "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name],
-                                 "train_lm_telemetry": 0, "train_lm_preflight": 0, "train_lm_elastic": 0},
+                                 "train_lm_telemetry": 0, "train_lm_preflight": 0, "train_lm_elastic": 0,
+                                 "train_lm_moe": 0, "serve_moe": 0, "decode_moe": 0, "train_lm_moe_ep": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -4994,7 +5466,8 @@ def main() -> int:
                                  "train_records_resnet50": 0, "train_digits_fp16": 0, "eval_lm": 0,
                                  "decode": lm_eval["decode_launches"][launch_key],
                                  "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0,
-                                 "train_lm_preflight": 0, "train_lm_elastic": 0},
+                                 "train_lm_preflight": 0, "train_lm_elastic": 0, "train_lm_moe": 0, "serve_moe": 0,
+                                 "decode_moe": 0, "train_lm_moe_ep": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

@@ -11,8 +11,9 @@ step on the card), and times that decode. Run:
 Defaults ``./runs/lm/weights/last`` and ``LM_CORPUS`` (no corpus: no validation). Env
 knobs, as the JAX entry reads them: ``SEQ_LEN`` (256; must match training), ``LM_SIZE``
 (``tiny`` | ``small``), ``EVAL_BATCH`` (64), ``PROMPT`` (default ``"the "``), ``GEN_STEPS``
-(64), ``TEMPERATURE`` (0.8; 0 = greedy only), ``MOE_EVERY`` (0; above 0 raises until the
-expert-parallel slice), ``DECODE_BATCHES`` (e.g. ``1,8,32,128``: batched decode rates) and
+(64), ``TEMPERATURE`` (0.8; 0 = greedy only), ``MOE_EVERY`` (0; must match training: an MoE
+model evaluates with capacity routing and generates with the capacity-free decode, as in the
+JAX entry), ``DECODE_BATCHES`` (e.g. ``1,8,32,128``: batched decode rates) and
 ``DECODE_GEN_STEPS`` (128). The port adds ``DEVICE`` (``cuda`` unless set to ``cpu``).
 
 It prints the JAX entry's lines: ``VALIDATION:``, ``--- name ---`` before each text,

@@ -8,14 +8,16 @@ schedule. Run:
     python -m distributed_training_pytorch_tpu_torch.examples.train_lm
 
 Env knobs, as the JAX entry reads them: ``LM_CORPUS``, ``SEQ_LEN`` (256), ``EPOCHS``
-(10), ``BATCH`` (256, global), ``BASE_LR`` (3e-4), ``MOE_EVERY`` (0; above 0 raises until
-the expert-parallel slice), ``SAVE_DIR`` (``./runs/lm``), ``SNAPSHOT``, ``LM_SIZE``
+(10), ``BATCH`` (256, global), ``BASE_LR`` (3e-4), ``MOE_EVERY`` (0; ``k`` makes every k-th
+block a Mixture-of-Experts block with the JAX model's defaults: 8 experts, top-2, capacity
+factor 1.25, one routing group, the einsum dispatch), ``SAVE_DIR`` (``./runs/lm``), ``SNAPSHOT``, ``LM_SIZE``
 (``tiny`` | ``small`` = GPT-2-small), ``SAVE_PERIOD`` / ``LAST_SAVE_PERIOD`` (1),
 ``DTYPE`` (``fp32`` | ``bf16``; unset keeps bf16 model compute under the f32 policy),
 ``PALLAS`` (1 | 0 | unset = auto), ``FUSED_CE`` (1; 0 = the plain logits criterion),
 ``CHAIN_STEPS`` (1), ``MESH`` (the mesh grammar of ``parallel/mesh.py``: ``dpN``,
-``spN``, ``dpNspM``, ``spNxM``, and sharded state with ``fsdpN``, ``tpN``, ``dpNfsdpM``,
-``fsdpNtpM``, ``fsdpNxM``, ``tpNxM``; ``pp``/``ep`` raise, ROADMAP.md Queue 1 item 6)
+``spN``, ``dpNspM``, ``spNxM``, sharded state with ``fsdpN``, ``tpN``, ``dpNfsdpM``,
+``fsdpNtpM``, ``fsdpNxM``, ``tpNxM``, and the experts of ``MOE_EVERY``'s layers split over
+``epN`` or ``dpNepM``; ``pp`` raises, ROADMAP.md Queue 1 item 2)
 ``TELEMETRY`` (1: the event log under ``SAVE_DIR/telemetry``, goodput, the on-device
 health stats, MFU, anomalies; ``telemetry/``) and ``PROFILE_DIR`` (a raw trace of the first
 epoch's steps 1 to 5, ``profiling/trace.py``). The port adds
@@ -125,9 +127,14 @@ class LMTrainer(Trainer):
 
     def build_loss_fn(self):
         """The fused tied-embedding CE by default (``FUSED_CE=0``: the criterion on full
-        f32 logits)."""
+        f32 logits, except for an MoE model, whose routers' auxiliary losses ride the fused
+        loss: there the knob is ignored with the JAX entry's warning)."""
         if not self.fused_ce:
-            return super().build_loss_fn()
+            if self.moe_every > 0:
+                self.log("FUSED_CE=0 ignored: MoE models need the fused loss (router aux losses ride it)",
+                         "warning")
+            else:
+                return super().build_loss_fn()
         from distributed_training_pytorch_tpu_torch.models.transformer_lm import make_fused_lm_loss
 
         return make_fused_lm_loss(self.model)

@@ -6,7 +6,8 @@ array (``jax.tree.map(np.asarray, variables)``), so this module imports no JAX.
 * :func:`params_from_jax` — ``TransformerLM``. The layouts it maps are those
   ``models/transformer_lm.py`` lists: flax ``Dense`` kernels are ``[in, out]`` where
   ``nn.Linear`` holds ``[out, in]``; ``qkv/kernel`` is ``[d, 3, H, Dh]`` with bias
-  ``[3, H, Dh]``; ``attn_out/kernel`` is ``[H, Dh, d]``.
+  ``[3, H, Dh]``; ``attn_out/kernel`` is ``[H, Dh, d]``; an MoE block's ``moe`` sub-tree
+  through :func:`moe_params_from_jax`.
 * :func:`resnet_params_from_jax` — ``ResNet`` (optionally under ``InputNormalizer``), from
   ``params`` and ``batch_stats``: conv kernels HWIO -> OIHW, the head's ``[in, out]`` ->
   ``[out, in]``, BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
@@ -34,6 +35,7 @@ import torch
 
 __all__ = [
     "convnext_params_from_jax",
+    "moe_params_from_jax",
     "params_from_jax",
     "resnet_params_from_jax",
     "vgg_params_from_jax",
@@ -68,16 +70,29 @@ def params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
     }
     for i, name in enumerate(blocks):
         blk = params[name]
-        if "moe" in blk:
-            raise NotImplementedError("MoE blocks come with the expert-parallel slice of the port")
         prefix = f"blocks.{i}"
         out.update(_ln(blk["LayerNorm_0"], f"{prefix}.ln1"))
         out.update(_dense(blk["qkv"], f"{prefix}.qkv"))
         out.update(_dense(blk["attn_out"], f"{prefix}.attn_out"))
         out.update(_ln(blk["LayerNorm_1"], f"{prefix}.ln2"))
-        out.update(_dense(blk["mlp_in"], f"{prefix}.mlp_in"))
-        out.update(_dense(blk["mlp_out"], f"{prefix}.mlp_out"))
+        if "moe" in blk:
+            out.update(moe_params_from_jax(blk["moe"], f"{prefix}.moe"))
+        else:
+            out.update(_dense(blk["mlp_in"], f"{prefix}.mlp_in"))
+            out.update(_dense(blk["mlp_out"], f"{prefix}.mlp_out"))
     return out
+
+
+def moe_params_from_jax(p: Mapping, prefix: str = "") -> "dict[str, torch.Tensor]":
+    """``MoEMlp``'s params: the router ``Dense`` (``kernel`` ``[d, E]`` -> ``[E, d]``,
+    ``bias`` ``[E]``) and the experts' ``w_in`` ``[E, d, h]`` and ``w_out`` ``[E, h, d]``
+    as they are (no expert biases)."""
+    dot = f"{prefix}." if prefix else ""
+    return {
+        **_dense(p["router"], f"{dot}router"),
+        f"{dot}w_in": _t(p["w_in"]),
+        f"{dot}w_out": _t(p["w_out"]),
+    }
 
 
 def _bn(p: Mapping, stats: Mapping, prefix: str) -> dict:

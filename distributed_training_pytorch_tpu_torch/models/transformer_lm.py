@@ -4,8 +4,10 @@ Counterpart of ``distributed_training_pytorch_tpu/models/transformer_lm.py``: pr
 blocks, learned positions, causal attention through the kernel dispatch policy
 (``ops/dispatch.py``) or, with ``attention_impl="ring"`` and a ``mesh`` with a ``seq``
 axis, ring attention over that axis (``parallel/ring_attention.py``), and logits tied to
-the token embedding, in f32. MoE blocks raise ``NotImplementedError``: they come with the
-expert-parallel slice.
+the token embedding, in f32. With ``moe_every=k`` every k-th block's MLP is a
+Mixture-of-Experts layer (``parallel/moe.py::MoEMlp``): capacity routing in the forward,
+capacity-free in decode, and ``forward(return_aux=True)`` hands the routers' auxiliary
+losses to :func:`make_fused_lm_loss`, which adds them to the objective.
 
 ``forward(decode=True, cache=...)`` is the KV-cache step of the JAX model's
 ``decode=True`` (``[B, 1]`` tokens; a :class:`KVCache` of ``[B, max_len, H, Dh]`` k and v
@@ -43,6 +45,7 @@ from torch import nn
 from distributed_training_pytorch_tpu_torch._device import resolve_device
 from distributed_training_pytorch_tpu_torch.ops import dispatch
 from distributed_training_pytorch_tpu_torch.ops.flash_attention import causal_attention_plain
+from distributed_training_pytorch_tpu_torch.parallel.moe import MoEMlp
 
 __all__ = ["DecoderBlock", "GPTSmall", "KVCache", "LMTiny", "TransformerLM", "generate", "make_fused_lm_loss"]
 
@@ -102,7 +105,10 @@ class _Dense(nn.Linear):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-LN decoder block: ``x + attn(ln(x))``, then ``x + mlp(ln(x))``."""
+    """Pre-LN decoder block: ``x + attn(ln(x))``, then ``x + mlp(ln(x))``; with
+    ``use_moe`` the MLP is a :class:`MoEMlp` (``num_experts``, ``moe_num_groups``,
+    ``moe_capacity_factor``, ``moe_dispatch_impl``) of ``mlp_dim`` per expert. ``forward``
+    appends the MoE layer's auxiliary losses to ``aux`` when it is a list."""
 
     def __init__(
         self,
@@ -113,6 +119,11 @@ class DecoderBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
         attention_impl: str = "auto",
         mesh=None,
+        use_moe: bool = False,
+        num_experts: int = 8,
+        moe_num_groups: int = 1,
+        moe_capacity_factor: float = 1.25,
+        moe_dispatch_impl: str = "einsum",
         device="cuda",
     ):
         super().__init__()
@@ -125,11 +136,17 @@ class DecoderBlock(nn.Module):
         self.attn_out = _Dense(hidden_dim, hidden_dim, dtype, device)
         self.qkv.split_unit = self.attn_out.split_unit = self.head_dim  # a tensor split keeps whole heads
         self.ln2 = _LayerNorm(hidden_dim, dtype, device)
-        self.mlp_in = _Dense(hidden_dim, mlp_dim, dtype, device)
-        self.mlp_out = _Dense(mlp_dim, hidden_dim, dtype, device)
+        if use_moe:
+            self.moe = MoEMlp(hidden_dim, num_experts, mlp_dim, num_groups=moe_num_groups,
+                              capacity_factor=moe_capacity_factor, dispatch_impl=moe_dispatch_impl, dtype=dtype,
+                              device=device)
+        else:
+            self.mlp_in = _Dense(hidden_dim, mlp_dim, dtype, device)
+            self.mlp_out = _Dense(mlp_dim, hidden_dim, dtype, device)
+        self.use_moe = use_moe
         self.attn = _causal_attention_fn(attention_impl, mesh)
 
-    def forward(self, x):
+    def forward(self, x, aux: "list | None" = None):
         b, t, d = x.shape
         # flax's qkv DenseGeneral emits (3, H, Dh) per token; split on the 3 axis. Under a
         # tensor axis the layer holds this rank's heads only: -1 is their count.
@@ -138,11 +155,17 @@ class DecoderBlock(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         y = self.attn(q, k, v)
         x = x + self.attn_out(y.reshape(b, t, -1))
-        return x + self._mlp(x)
+        y, block_aux = self._mlp(x)
+        if aux is not None and block_aux is not None:
+            aux.append(block_aux)
+        return x + y
 
-    def _mlp(self, x):
+    def _mlp(self, x, decode: bool = False):
+        """The MLP's output and, for an MoE block's forward, its auxiliary losses."""
+        if self.use_moe:
+            return self.moe(self.ln2(x), decode=decode)
         # flax nn.gelu is the tanh approximation, not torch's exact default.
-        return self.mlp_out(F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh"))
+        return self.mlp_out(F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")), None
 
     def decode(self, x, cache_k, cache_v, position):
         """One token ``x`` ``[B, 1, d]`` against the cache: writes its k and v at
@@ -156,7 +179,7 @@ class DecoderBlock(nn.Module):
         cache_v.index_copy_(1, position.view(1), v)
         y = decode_attention(q, cache_k, cache_v, position)
         x = x + self.attn_out(y.reshape(b, 1, d))
-        return x + self._mlp(x)
+        return x + self._mlp(x, decode=True)[0]
 
 
 def decode_attention(q, cache_k, cache_v, position):
@@ -192,7 +215,11 @@ class KVCache:
 
 
 class TransformerLM(nn.Module):
-    """Token-in, next-token-logits-out causal LM (dense; tied f32 logits).
+    """Token-in, next-token-logits-out causal LM (tied f32 logits).
+
+    ``moe_every=k`` makes every k-th block (1-indexed) a MoE block, 0 none; ``num_experts``,
+    ``moe_num_groups``, ``moe_capacity_factor`` and ``moe_dispatch_impl`` configure them,
+    with the JAX model's defaults (8, 1, 1.25, ``"einsum"``).
 
     ``attention_impl``: ``"auto"``, ``"flash"``, ``"plain"`` or ``"ring"`` (over the seq
     axis of ``mesh``, a ``parallel.mesh.Mesh``); ``pallas=True`` / ``False`` takes
@@ -215,25 +242,29 @@ class TransformerLM(nn.Module):
         pallas: "bool | None" = None,
         mesh=None,
         moe_every: int = 0,
+        num_experts: int = 8,
+        moe_num_groups: int = 1,
+        moe_capacity_factor: float = 1.25,
+        moe_dispatch_impl: str = "einsum",
         device="cuda",
         generator: "torch.Generator | None" = None,
     ):
         super().__init__()
-        if moe_every > 0:
-            raise NotImplementedError(
-                "moe_every > 0 (Mixture-of-Experts blocks) comes with the expert-parallel slice of the port"
-            )
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.hidden_dim = hidden_dim
         self.max_len = max_len
         self.dtype = dtype
+        self.moe_every = moe_every
         impl = dispatch.lm_attention_impl(attention_impl, pallas)
         self.embed = nn.Embedding(vocab_size, hidden_dim, device=device)
         self.pos_embed = nn.Parameter(torch.empty(1, max_len, hidden_dim, device=device))
         self.blocks = nn.ModuleList(
-            DecoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype, attention_impl=impl, mesh=mesh, device=device)
-            for _ in range(depth)
+            DecoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype, attention_impl=impl, mesh=mesh,
+                         use_moe=moe_every > 0 and (i + 1) % moe_every == 0, num_experts=num_experts,
+                         moe_num_groups=moe_num_groups, moe_capacity_factor=moe_capacity_factor,
+                         moe_dispatch_impl=moe_dispatch_impl, device=device)
+            for i in range(depth)
         )
         self.ln_f = _LayerNorm(hidden_dim, dtype, device)
         self.init_weights(generator)
@@ -242,7 +273,8 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: "torch.Generator | None" = None) -> None:
         """flax's initialisers in distribution: N(0, 0.02) embeddings, LeCun-normal dense
-        kernels with zero bias, unit LayerNorm scales."""
+        kernels with zero bias, unit LayerNorm scales; the MoE layers' own
+        (``MoEMlp.init_weights``)."""
         if generator is None:
             dev = self.embed.weight.device
             generator = torch.Generator(device=dev if dev.type == "cuda" else "cpu").manual_seed(0)
@@ -255,6 +287,8 @@ class TransformerLM(nn.Module):
             elif isinstance(mod, _LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, MoEMlp):
+                mod.init_weights(generator)
 
     def init_cache(self, batch: int) -> KVCache:
         """A zeroed :class:`KVCache` for ``batch`` sequences, at full ``max_len``."""
@@ -269,11 +303,14 @@ class TransformerLM(nn.Module):
                 )
         return KVCache(k, v, torch.zeros((), dtype=torch.long, device=dev))
 
-    def forward(self, tokens, *, return_hidden: bool = False, decode: bool = False, cache: "KVCache | None" = None):
+    def forward(self, tokens, *, return_hidden: bool = False, return_aux: bool = False, decode: bool = False,
+                cache: "KVCache | None" = None):
         """``tokens`` ``[B, T]`` -> f32 logits ``[B, T, V]``; ``return_hidden=True`` returns
-        the final-LN hidden states ``[B, T, d]`` in ``dtype`` instead. ``decode=True`` takes
-        ``[B, 1]`` tokens at ``cache.position``, writes their keys and values into
-        ``cache`` and advances the position by one."""
+        the final-LN hidden states ``[B, T, d]`` in ``dtype`` instead. ``return_aux=True``
+        returns ``(out, aux)``, ``aux`` the list of the MoE blocks' auxiliary losses (one
+        ``{"load_balance_loss", "router_z_loss"}`` a MoE block, in block order; empty for a
+        dense model). ``decode=True`` takes ``[B, 1]`` tokens at ``cache.position``, writes
+        their keys and values into ``cache`` and advances the position by one."""
         if decode:
             if cache is None:
                 raise ValueError("decode=True needs cache= (TransformerLM.init_cache)")
@@ -283,18 +320,19 @@ class TransformerLM(nn.Module):
                 raise ValueError(f"the cache holds max_len {self.max_len} positions, all of them written")
             cache.steps += 1
             x = self._decode_hidden(tokens, cache)
-            return x if return_hidden else self.logits(x)
+            out = x if return_hidden else self.logits(x)
+            return (out, []) if return_aux else out
         t = tokens.shape[1]
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
         x = self.embed(tokens.long()).to(self.dtype)  # nn.Embedding takes int64 ids
         x = x + self.pos_embed[:, :t].to(self.dtype)  # [1, max_len, d] sliced to T
+        aux: list = []
         for block in self.blocks:
-            x = block(x)
+            x = block(x, aux)
         x = self.ln_f(x)
-        if return_hidden:
-            return x
-        return self.logits(x)
+        out = x if return_hidden else self.logits(x)
+        return (out, aux) if return_aux else out
 
     def _decode_hidden(self, tokens, cache: KVCache):
         """The decode step with no host-side check: what a CUDA graph captures."""
@@ -435,12 +473,15 @@ def LMTiny(vocab_size: int = 256, dtype: torch.dtype = torch.float32, **kw) -> T
     return TransformerLM(vocab_size, hidden_dim=32, depth=2, num_heads=4, mlp_dim=64, dtype=dtype, **kw)
 
 
-def make_fused_lm_loss(model: TransformerLM):
+def make_fused_lm_loss(model: TransformerLM, *, aux_loss_coef: float = 0.01, z_loss_coef: float = 1e-3):
     """Engine ``LossFn`` for next-token training through the fused tied-embedding CE
     (``ops.losses.tied_cross_entropy``): the ``[B, T, V]`` f32 logits never materialise.
-    Counterpart of ``transformer_lm.py::make_fused_lm_loss`` for dense models. Batch
-    contract: ``image`` = input tokens, ``label`` = next tokens, optional ``mask`` ``[B]``
-    pad weights. Metrics: ``loss``, ``nll`` (the same value) and ``ppl``.
+    Counterpart of ``transformer_lm.py::make_fused_lm_loss``. Batch contract: ``image`` =
+    input tokens, ``label`` = next tokens, optional ``mask`` ``[B]`` pad weights. Metrics:
+    ``loss``, ``nll`` and ``ppl``. For a model with MoE blocks (``moe_every > 0``) the
+    objective adds ``aux_loss_coef`` times the mean load-balance loss over the MoE blocks
+    and ``z_loss_coef`` times their mean router-z loss, reported as ``moe_load_balance``
+    and ``moe_router_z``; ``loss`` is then the objective and ``nll`` the CE alone.
 
     The loss function takes the model it is called with, which may be ``model`` wrapped in
     ``DistributedDataParallel``: the hidden states come through the wrapper, and the tied
@@ -448,10 +489,26 @@ def make_fused_lm_loss(model: TransformerLM):
     from distributed_training_pytorch_tpu_torch.ops.losses import tied_cross_entropy, weighted_mean
     from distributed_training_pytorch_tpu_torch.train.state import unwrap
 
+    has_moe = model.moe_every > 0
+
+    def mean_over_blocks(aux: list, name: str, like: torch.Tensor) -> torch.Tensor:
+        if not aux:
+            return torch.zeros((), dtype=torch.float32, device=like.device)
+        return torch.stack([a[name] for a in aux]).mean()
+
     def loss_fn(net, batch, train: bool):
-        hidden = net(batch["image"], return_hidden=True)
+        if has_moe:
+            hidden, aux = net(batch["image"], return_hidden=True, return_aux=True)
+        else:
+            hidden = net(batch["image"], return_hidden=True)
         nll = tied_cross_entropy(hidden, unwrap(net).embed.weight, batch["label"]).mean(dim=-1)
         loss = weighted_mean(nll, batch.get("mask"))
-        return loss, {"loss": loss, "nll": loss, "ppl": torch.exp(loss)}
+        metrics = {"loss": loss, "nll": loss, "ppl": torch.exp(loss)}
+        if has_moe:
+            lb = mean_over_blocks(aux, "load_balance_loss", loss)
+            zl = mean_over_blocks(aux, "router_z_loss", loss)
+            loss = loss + aux_loss_coef * lb + z_loss_coef * zl
+            metrics.update(loss=loss, moe_load_balance=lb, moe_router_z=zl)
+        return loss, metrics
 
     return loss_fn

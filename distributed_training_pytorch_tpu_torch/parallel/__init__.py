@@ -1,5 +1,6 @@
-"""Parallelism over ``torch.distributed``: the mesh (``mesh``: the data, fsdp, tensor and
-seq axes), ring attention over the seq axis (``ring_attention``), the sharding rules
+"""Parallelism over ``torch.distributed``: the mesh (``mesh``: the data, fsdp, expert,
+tensor and seq axes), ring attention over the seq axis (``ring_attention``), the
+Mixture-of-Experts layer and its expert exchanges (``moe``), the sharding rules
 (``sharding``), the sharded layout that carries them out (``layout``) and the elastic
 re-plan (``elastic``)."""
 

@@ -17,7 +17,11 @@ model by this rank's shard and installs what its use needs:
   over the tensor group; row-parallel ones (dim 1) all-reduce their output over the group,
   then add their replicated bias once. The attention between them runs on the rank's
   own heads (the qkv rows are split by heads, ``sharding.Strided``).
-* **tensor**, on any other leaf (the LM's vocab-parallel embedding): stored split,
+* **expert**, on an MoE layer's experts (``parallel.moe.MoEMlp``'s ``w_in``/``w_out``):
+  the layer computes on its rank's experts and sums the partial outputs over the expert
+  group (:attr:`MoEMlp.expert_split`, the ``psum`` form of ``parallel/moe.py``); each
+  rank's gradient of its experts is whole (every token routed to them passed through it).
+* **tensor** or **expert**, on any other leaf (the LM's vocab-parallel embedding): stored split,
   gathered over the tensor group where it is read (the lookup and the fused tied CE, which
   needs the whole table); every tensor rank computes the same gradient of the whole
   table, so the gather's backward keeps this rank's part without a sum.
@@ -40,6 +44,7 @@ trace) they are skipped.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Mapping
 
@@ -49,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import parametrize
 
-from distributed_training_pytorch_tpu_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS, mesh_axes
+from distributed_training_pytorch_tpu_torch.parallel.mesh import EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS, mesh_axes
 from distributed_training_pytorch_tpu_torch.parallel.sharding import (
     P,
     Strided,
@@ -58,7 +63,7 @@ from distributed_training_pytorch_tpu_torch.parallel.sharding import (
     tree_shard_bytes,
 )
 
-__all__ = ["ShardedLayout", "TensorSplit"]
+__all__ = ["ExpertSplit", "ShardedLayout", "TensorSplit"]
 
 
 def _canonical_name(name: str) -> str:
@@ -192,6 +197,16 @@ class TensorSplit:
         return out if bias is None else out + bias
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertSplit:
+    """Where an MoE layer's experts live: ``n`` ranks of the expert ``group``, this one
+    holding experts ``index * E / n`` to ``(index + 1) * E / n``."""
+
+    n: int
+    index: int
+    group: object = None
+
+
 def _leaf_split(name: str, spec, mesh) -> "_Split | None":
     """The one split dim of ``spec`` on ``mesh``, or None for a replicated leaf."""
     split = None
@@ -208,8 +223,11 @@ def _leaf_split(name: str, spec, mesh) -> "_Split | None":
             split = _Split(axis, dim, groups, mesh.shape[FSDP_AXIS], mesh.fsdp_index, mesh.fsdp_group)
         elif axis == TENSOR_AXIS:
             split = _Split(axis, dim, groups, mesh.shape[TENSOR_AXIS], mesh.tensor_index, mesh.tensor_group)
+        elif axis == EXPERT_AXIS:
+            split = _Split(axis, dim, groups, mesh.shape[EXPERT_AXIS], mesh.expert_index, mesh.expert_group)
         else:
-            raise NotImplementedError(f"{name}: spec {spec} names axis {axis!r}; the layout splits over fsdp/tensor")
+            raise NotImplementedError(
+                f"{name}: spec {spec} names axis {axis!r}; the layout splits over fsdp/tensor/expert")
     return split
 
 
@@ -249,6 +267,8 @@ class ShardedLayout:
                 setattr(owner, attr, nn.Parameter(split.part(whole.detach()).clone(), requires_grad=whole.requires_grad))
                 if split.axis == TENSOR_AXIS and hasattr(owner, "tensor_split"):
                     layout._split_linear(name, owner, attr, split)
+                elif split.axis == EXPERT_AXIS and hasattr(owner, "expert_split") and attr in ("w_in", "w_out"):
+                    layout._split_experts(name, owner, split)
                 else:  # read whole where it is used
                     parametrize.register_parametrization(
                         owner, attr, _Gathered(split, summed=split.axis == FSDP_AXIS), unsafe=True)
@@ -265,6 +285,16 @@ class ShardedLayout:
             raise ValueError(f"{name} is {kind}-parallel but its bias spec is {bias}: a column-parallel Linear splits "
                              "its bias with its output features, a row-parallel one keeps it whole")
         owner.tensor_split = TensorSplit(kind, split.group)
+
+    def _split_experts(self, name, owner, split) -> None:
+        """Make ``owner`` (an ``MoEMlp``) compute on its rank's experts: both expert leaves
+        must be split the same way, on dim 0."""
+        prefix = name.rpartition(".")[0]
+        specs = {self.specs.get(f"{prefix}.{a}" if prefix else a, P()) for a in ("w_in", "w_out")}
+        if len(specs) != 1 or split.dim != 0:
+            raise ValueError(f"{prefix or 'the MoE layer'}: w_in and w_out must both be split on dim 0 over the "
+                             f"expert axis, got specs {sorted(map(str, specs))}")
+        owner.expert_split = ExpertSplit(split.n, split.index, split.group)
 
     # -- what it holds -------------------------------------------------------
 

@@ -1,10 +1,10 @@
-"""The distributed world: the data, fsdp, tensor and seq axes.
+"""The distributed world: the data, fsdp, expert, tensor and seq axes.
 
 Counterpart of ``distributed_training_pytorch_tpu/parallel/mesh.py`` over
 ``torch.distributed``: the JAX package's axis names and order (:data:`AXIS_ORDER`), its
 mesh-spec grammar (:func:`mesh_config_from_spec`), :class:`MeshConfig` and
-:func:`batch_shard_extent`. The ``pipe`` and ``expert`` axes raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 6.
+:func:`batch_shard_extent`. The ``pipe`` axis raises ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 2.
 
 A built :class:`Mesh` says where the ``s`` sequence shards live. The JAX package is one
 controller over every device; its counterpart here is one process holding all ``s`` shards
@@ -16,12 +16,15 @@ the same sequence shard, over which gradients and metrics are averaged) and the 
 (ranks that hold the same rows, around which ring attention passes its blocks, and over
 which :func:`broadcast_over_seq` keeps the model's copies equal).
 
-With an ``fsdp`` or ``tensor`` axis each rank is one device of a ``data x fsdp x tensor``
-grid, built by ``torch.distributed.device_mesh.init_device_mesh`` with its dims in the JAX
-axis order (``tensor`` innermost: rank ``= (data_index * fsdp + fsdp_index) * tensor +
-tensor_index``). The batch is split over ``data x fsdp`` (the batch group, ranks with the
-same tensor index); the state is laid out by ``parallel/sharding.py`` and
-``parallel/layout.py``. The seq axis beside ``fsdp`` or ``tensor`` is not ported.
+With an ``fsdp``, ``expert`` or ``tensor`` axis each rank is one device of a ``data x fsdp x
+expert x tensor`` grid, built by ``torch.distributed.device_mesh.init_device_mesh`` with its
+dims in the JAX axis order (``tensor`` innermost: rank ``= ((data_index * fsdp +
+fsdp_index) * expert + expert_index) * tensor + tensor_index``). The batch is split over
+``data x fsdp`` (the batch group, ranks with the same expert and tensor index): the ranks
+of one expert group read the same batch shard, as in the JAX package; the state is laid
+out by ``parallel/sharding.py`` and ``parallel/layout.py`` (the experts of an MoE layer
+split over the expert group, ``parallel/moe.py``). The seq axis beside ``fsdp``, ``expert``
+or ``tensor``, and ``expert`` beside ``tensor``, are not ported (Queue 1 item 6).
 
 ``setup_distributed`` reads torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) or takes an explicit ``init_method`` (for
@@ -67,8 +70,9 @@ EXPERT_AXIS = "expert"
 TENSOR_AXIS = "tensor"
 SEQ_AXIS = "seq"
 AXIS_ORDER = (DATA_AXIS, FSDP_AXIS, PIPE_AXIS, EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
-_LATER_AXES = (PIPE_AXIS, EXPERT_AXIS)
-_LATER_AXES_ITEM = "ROADMAP.md Queue 1 item 6 (parallel/pipeline.py, parallel/moe.py)"
+_LATER_AXES = (PIPE_AXIS,)
+_LATER_AXES_ITEM = "ROADMAP.md Queue 1 item 2 (parallel/pipeline.py)"
+_SHARDED_ITEM = "ROADMAP.md Queue 1 item 6"
 
 
 def setup_distributed(
@@ -136,15 +140,16 @@ def local_batch_size(global_batch_size: int) -> int:
 class Mesh:
     """A built mesh, as this process sees it.
 
-    ``shape`` maps ``"data"`` and ``"seq"`` to their extents, and ``"fsdp"`` and
-    ``"tensor"`` too where they are above 1. ``data_index`` is this process's data shard.
+    ``shape`` maps ``"data"`` and ``"seq"`` to their extents, and ``"fsdp"``, ``"expert"``
+    and ``"tensor"`` too where they are above 1. ``data_index`` is this process's data shard.
     ``seq_shards`` are the sequence shards it holds: all of ``range(seq)`` in the
     one-process placement, its one ``seq_index`` otherwise. ``data_group`` and
     ``seq_group`` are the ``torch.distributed`` groups of the ranks that share this
     process's sequence shard (and fsdp and tensor index) and its rows (``None`` where that
     group is this process alone); ``seq_ranks`` are the global ranks of the seq group in
-    ring order. ``fsdp_index``/``fsdp_group`` and ``tensor_index``/``tensor_group`` are the
-    same for those axes, ``device_mesh`` the ``DeviceMesh`` of a sharded grid."""
+    ring order. ``fsdp_index``/``fsdp_group``, ``expert_index``/``expert_group`` and
+    ``tensor_index``/``tensor_group`` are the same for those axes, ``device_mesh`` the
+    ``DeviceMesh`` of a sharded grid."""
 
     shape: "dict[str, int]"
     data_index: int
@@ -156,6 +161,8 @@ class Mesh:
     fsdp_group: object = None
     tensor_index: int = 0
     tensor_group: object = None
+    expert_index: int = 0
+    expert_group: object = None
     batch_group_: object = None
     device_mesh: object = None
 
@@ -166,9 +173,9 @@ class Mesh:
 
     @property
     def sharded(self) -> bool:
-        """True with an ``fsdp`` or ``tensor`` axis above 1: the state is laid out by
-        ``parallel/layout.py`` instead of replicated under DDP."""
-        return self.shape.get(FSDP_AXIS, 1) > 1 or self.shape.get(TENSOR_AXIS, 1) > 1
+        """True with an ``fsdp``, ``expert`` or ``tensor`` axis above 1: the state is laid
+        out by ``parallel/layout.py`` instead of replicated under DDP."""
+        return any(self.shape.get(a, 1) > 1 for a in (FSDP_AXIS, EXPERT_AXIS, TENSOR_AXIS))
 
     @property
     def batch_extent(self) -> int:
@@ -183,7 +190,8 @@ class Mesh:
     @property
     def batch_group(self):
         """The ranks over which the batch is split and gradients and metrics are averaged
-        (``data x fsdp`` at this tensor index; the data group without an fsdp axis)."""
+        (``data x fsdp`` at this expert and tensor index; the data group without a sharded
+        axis)."""
         return self.batch_group_ if self.sharded else self.data_group
 
 
@@ -219,20 +227,20 @@ class MeshConfig:
 
     def build(self) -> Mesh:
         """Place the shards on this world and make its sub-groups. Every rank must call it
-        (new groups are collective). Without ``fsdp`` or ``tensor``: one process holds all
-        ``seq`` shards when the world is ``data`` ranks, each rank holds one when it is
-        ``data * seq``, and any other split raises. With them, the world is the ``data x
-        fsdp x tensor`` grid."""
+        (new groups are collective). Without ``fsdp``, ``expert`` or ``tensor``: one process
+        holds all ``seq`` shards when the world is ``data`` ranks, each rank holds one when
+        it is ``data * seq``, and any other split raises. With them, the world is the
+        ``data x fsdp x expert x tensor`` grid."""
         for name in _LATER_AXES:
             if getattr(self, name) != 1:
                 raise NotImplementedError(
                     f"the {name!r} axis is not in the port yet: {_LATER_AXES_ITEM}"
                 )
-        fsdp, tensor = int(self.fsdp), int(self.tensor)
-        if fsdp < 1 or tensor < 1:
-            raise ValueError(f"fsdp and tensor extents must be >= 1, got {fsdp}, {tensor}")
-        if fsdp > 1 or tensor > 1:
-            return self._build_sharded(fsdp, tensor)
+        fsdp, expert, tensor = int(self.fsdp), int(self.expert), int(self.tensor)
+        if min(fsdp, expert, tensor) < 1:
+            raise ValueError(f"fsdp, expert and tensor extents must be >= 1, got {fsdp}, {expert}, {tensor}")
+        if fsdp > 1 or expert > 1 or tensor > 1:
+            return self._build_sharded(fsdp, expert, tensor)
         world, rank = process_count(), process_index()
         seq = int(self.seq)
         if seq < 1:
@@ -268,44 +276,52 @@ class MeshConfig:
         return Mesh(shape, data_index=data_index, seq_shards=(seq_index,), data_group=data_group,
                     seq_group=seq_group, seq_ranks=seq_ranks)
 
-    def _build_sharded(self, fsdp: int, tensor: int) -> Mesh:
-        """The ``data x fsdp x tensor`` grid, one device a rank, through
+    def _build_sharded(self, fsdp: int, expert: int, tensor: int) -> Mesh:
+        """The ``data x fsdp x expert x tensor`` grid, one device a rank, through
         ``init_device_mesh`` (dims in the JAX axis order, extents of 1 left out but data)."""
         if int(self.seq) != 1:
             raise NotImplementedError(
-                "the seq axis beside fsdp or tensor is not ported (ROADMAP.md Queue 1 item 4): use spN or dpNspM "
-                "for sequence parallelism, fsdpN/tpN/dpNfsdpM for sharded state"
+                f"the seq axis beside fsdp, expert or tensor is not ported ({_SHARDED_ITEM}): use spN or dpNspM "
+                "for sequence parallelism, fsdpN/tpN/epN/dpNfsdpM for sharded state"
             )
+        if expert > 1 and tensor > 1:
+            raise NotImplementedError(f"the expert axis beside tensor is not ported ({_SHARDED_ITEM}): use epN or "
+                                      "dpNepM for expert parallelism")
         world, rank = process_count(), process_index()
+        inner = fsdp * expert * tensor
         data = int(self.data)
         if data == -1:
-            data = world // (fsdp * tensor) if world % (fsdp * tensor) == 0 else 0
-        if data < 1 or data * fsdp * tensor != world:
+            data = world // inner if world % inner == 0 else 0
+        if data < 1 or data * inner != world:
             raise ValueError(
-                f"mesh data={self.data} x fsdp={fsdp} x tensor={tensor} does not fit a world of {world} ranks: "
-                "each rank holds one device of the data x fsdp x tensor grid"
+                f"mesh data={self.data} x fsdp={fsdp} x expert={expert} x tensor={tensor} does not fit a world of "
+                f"{world} ranks: each rank holds one device of the data x fsdp x expert x tensor grid"
             )
         from torch.distributed.device_mesh import init_device_mesh
 
-        sizes = {DATA_AXIS: data, FSDP_AXIS: fsdp, TENSOR_AXIS: tensor}
+        sizes = {DATA_AXIS: data, FSDP_AXIS: fsdp, EXPERT_AXIS: expert, TENSOR_AXIS: tensor}
         names = tuple(a for a in AXIS_ORDER if a in sizes and (a == DATA_AXIS or sizes[a] > 1))
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
         device_mesh = init_device_mesh(device_type, tuple(sizes[a] for a in names), mesh_dim_names=names)
-        data_index, rest = divmod(rank, fsdp * tensor)
-        fsdp_index, tensor_index = divmod(rest, tensor)
+        data_index, rest = divmod(rank, inner)
+        fsdp_index, rest = divmod(rest, expert * tensor)
+        expert_index, tensor_index = divmod(rest, tensor)
         groups = {a: (device_mesh.get_group(a) if sizes[a] > 1 else None) for a in names}
-        # The batch group, data x fsdp at one tensor index (collective: every rank makes
-        # every group, in the same order).
+        # The batch group, data x fsdp at one expert and tensor index (collective: every
+        # rank makes every group, in the same order).
         batch_group = None
-        for t in range(tensor):
-            ranks = [(d * fsdp + f) * tensor + t for d in range(data) for f in range(fsdp)]
-            group = _sub_group(ranks, world)
-            if t == tensor_index:
-                batch_group = group
-        shape = {DATA_AXIS: data, SEQ_AXIS: 1, **{a: sizes[a] for a in (FSDP_AXIS, TENSOR_AXIS) if sizes[a] > 1}}
+        for e in range(expert):
+            for t in range(tensor):
+                ranks = [((d * fsdp + f) * expert + e) * tensor + t for d in range(data) for f in range(fsdp)]
+                group = _sub_group(ranks, world)
+                if (e, t) == (expert_index, tensor_index):
+                    batch_group = group
+        shape = {DATA_AXIS: data, SEQ_AXIS: 1,
+                 **{a: sizes[a] for a in (FSDP_AXIS, EXPERT_AXIS, TENSOR_AXIS) if sizes[a] > 1}}
         return Mesh(shape, data_index=data_index, seq_shards=(0,), data_group=groups[DATA_AXIS],
                     fsdp_index=fsdp_index, fsdp_group=groups.get(FSDP_AXIS), tensor_index=tensor_index,
-                    tensor_group=groups.get(TENSOR_AXIS), batch_group_=batch_group, device_mesh=device_mesh)
+                    tensor_group=groups.get(TENSOR_AXIS), expert_index=expert_index,
+                    expert_group=groups.get(EXPERT_AXIS), batch_group_=batch_group, device_mesh=device_mesh)
 
 
 def broadcast_over_seq(tensors, mesh: "Mesh | None") -> None:
@@ -349,9 +365,9 @@ _SPEC_PAIRS_RE = re.compile(r"(fsdp|dp|tp|sp|pp|ep)(\d+)")
 
 def mesh_config_from_spec(spec: str) -> MeshConfig:
     """Parse a mesh spec (``"dp8"``, ``"fsdp4x2"``, ``"tp2x4"``, ``"dp2fsdp2tp2"``,
-    ``"sp4"``, ``"dp2sp2"``) into a :class:`MeshConfig`, as the JAX package's grammar does.
-    A ``pipe`` or ``expert`` axis above 1 raises ``NotImplementedError`` naming ROADMAP.md
-    Queue 1 item 6."""
+    ``"sp4"``, ``"dp2sp2"``, ``"ep2"``, ``"dp2ep2"``) into a :class:`MeshConfig`, as the JAX
+    package's grammar does. A ``pipe`` axis above 1 raises ``NotImplementedError`` naming
+    ROADMAP.md Queue 1 item 2."""
     text = spec.strip().lower()
     if not text:
         raise ValueError("empty mesh spec")

@@ -1,4 +1,4 @@
-"""Parameter and optimizer-state sharding rules: FSDP and tensor parallelism.
+"""Parameter and optimizer-state sharding rules: FSDP, tensor and expert parallelism.
 
 Counterpart of ``distributed_training_pytorch_tpu/parallel/sharding.py``: the same rule
 grammar, leaf decisions, accounting and rule sets, over a module's ``named_parameters()``
@@ -28,6 +28,12 @@ of dim 0 would give the first tensor rank all of q and half of k. The rule split
 heads instead, ``Strided("tensor", 3)``, so each tensor rank holds q, k and v of its own
 heads, as the JAX rule's split of ``H`` in ``[D, 3, H, Dh]`` does (``sharding.py:270``).
 Checkpoints stay in the global layout.
+
+**The expert axis.** The JAX package has no rule for an MoE layer's experts: its forward
+constrains ``w_in``/``w_out`` to ``P("expert")`` (``moe.py:206-207``) and GSPMD splits them
+there. The port stores them split, so the split is a rule, :func:`moe_expert_rules` (dim 0,
+the experts, over ``expert``), in the default set of a mesh with an expert axis; the
+router and every other leaf stay replicated across the expert group.
 """
 
 from __future__ import annotations
@@ -39,13 +45,14 @@ from typing import Mapping, Sequence
 
 import torch
 
-from distributed_training_pytorch_tpu_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS, mesh_axes
+from distributed_training_pytorch_tpu_torch.parallel.mesh import EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS, mesh_axes
 
 __all__ = [
     "P",
     "Rule",
     "Strided",
     "default_sharding_rules",
+    "moe_expert_rules",
     "rule_for_leaf",
     "shard_shape",
     "sharding_record",
@@ -284,10 +291,22 @@ def default_sharding_rules(mesh) -> "list | None":
     """The one default rule policy (``Trainer(sharding_rules="auto")`` through its
     ``build_sharding_rules`` hook): a mesh with a ``tensor`` axis above 1 gets
     :func:`transformer_tp_rules` (other models match none of its patterns and take the
-    FSDP fallback); any other mesh gets None."""
-    if _axes(mesh).get(TENSOR_AXIS, 1) > 1:
-        return transformer_tp_rules()
-    return None
+    FSDP fallback), one with an ``expert`` axis above 1 :func:`moe_expert_rules`; any other
+    mesh gets None."""
+    axes = _axes(mesh)
+    rules = []
+    if axes.get(EXPERT_AXIS, 1) > 1:
+        rules += moe_expert_rules()
+    if axes.get(TENSOR_AXIS, 1) > 1:
+        rules += transformer_tp_rules()
+    return rules or None
+
+
+def moe_expert_rules(expert_axis: str = EXPERT_AXIS) -> list:
+    """An MoE layer's experts split over the expert axis: ``w_in`` ``[E, d, h]`` and
+    ``w_out`` ``[E, h, d]`` on dim 0 (``parallel/moe.py::MoEMlp``), where the JAX forward
+    constrains them (``moe.py:206-207``)."""
+    return [(r"(^|\.)w_(in|out)$", P(expert_axis))]
 
 
 def transformer_tp_rules(tensor_axis: str = TENSOR_AXIS) -> list:

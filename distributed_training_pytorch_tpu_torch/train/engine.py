@@ -204,7 +204,7 @@ class TrainEngine:
         if self.stats:
             raise NotImplementedError(
                 "the health stats (telemetry) on a sharded state are not ported: their norms would need a reduction "
-                "over the shards (ROADMAP.md Queue 1 item 4)"
+                "over the shards (ROADMAP.md Queue 1 item 6)"
             )
         return ShardedLayout.apply(model, self.mesh, self.sharding_rules, fsdp_min_size=self.fsdp_min_size)
 

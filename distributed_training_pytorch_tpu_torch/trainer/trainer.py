@@ -35,12 +35,12 @@ contract for the arguments the entries pass, and the same epoch loop:
 In the port the model runs on ``device`` (the card unless the caller passes
 ``device="cpu"``). ``mesh`` is the world's layout: ``None`` (every rank a data shard), an
 integer (the same, checked against the world size), or a built ``parallel.mesh.Mesh``
-(``data``, ``fsdp``, ``tensor`` and ``seq`` axes), as the JAX
+(``data``, ``fsdp``, ``expert``, ``tensor`` and ``seq`` axes), as the JAX
 ``Trainer(mesh=MeshConfig(...).build())`` takes it. The global batch divides by the
-batch-shard extent (``data x fsdp``); each batch shard feeds its rows of it (its seq and
-tensor ranks see the same rows). Without an ``fsdp`` or ``tensor`` axis, a data axis of
-more than one rank wraps the model in ``DistributedDataParallel`` over the data group. With
-one, ``sharding_rules`` (``"auto"``: the ``build_sharding_rules`` hook, JAX ``trainer.py:
+batch-shard extent (``data x fsdp``); each batch shard feeds its rows of it (its seq,
+expert and tensor ranks see the same rows: the loader shards by the batch-shard index, not
+the rank). Without an ``fsdp``, ``expert`` or ``tensor`` axis, a data axis of more than one
+rank wraps the model in ``DistributedDataParallel`` over the data group. With one, ``sharding_rules`` (``"auto"``: the ``build_sharding_rules`` hook, JAX ``trainer.py:
 126``, ``:470-483``, ``:2450-2468``) and ``fsdp_min_size`` lay the parameters and the
 optimizer state out in shards (``parallel/sharding.py``, ``parallel/layout.py``), and the
 construction logs what was sharded. With one
@@ -371,7 +371,7 @@ class Trainer:
             sharding_rules=self.sharding_rules,
             fsdp_min_size=self.fsdp_min_size,
         )
-        # An fsdp or tensor axis lays the model out in shards (the optimizer is built over
+        # An fsdp, expert or tensor axis lays the model out in shards (the optimizer is built over
         # them); without one, a data axis of more than one rank is DDP, as before.
         layout = self.engine.shard_model(self.model)
         if layout is None and self.batch_replicas > 1:
@@ -1237,7 +1237,8 @@ class Trainer:
         report = telemetry_mfu.window_report(executed, epoch_wall, flops_per_step=self._flops_per_step,
                                              peak_flops=self._peak_flops)
         self._last_step_ms = report["step_ms"]
-        health = {k: out[k] for k in ("loss", "ce_loss", "grad_norm", "update_ratio", "nonfinite") if k in out}
+        health = {k: out[k] for k in ("loss", "ce_loss", "grad_norm", "update_ratio", "nonfinite", "moe_load_balance",
+                                      "moe_router_z") if k in out}  # the routers' losses of an MoE LM
         mem = self._live_memory_fields()
         fields = {}
         if self.goodput is not None:

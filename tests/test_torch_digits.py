@@ -281,6 +281,6 @@ def test_the_entry_refuses_what_is_not_ported(sides, monkeypatch, tmp_path):
     monkeypatch.setenv("MESH", "fsdp2x1")  # ported: two ranks, which a world of one is not
     with pytest.raises(ValueError, match="does not fit a world of 1 ranks"):
         train_digits.build_trainer(str(tmp_path), str(tmp_path), "cpu")
-    monkeypatch.setenv("MESH", "ep2x1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    monkeypatch.setenv("MESH", "ep2x1")  # ported too: two ranks of an expert group
+    with pytest.raises(ValueError, match="does not fit a world of 1 ranks"):
         train_digits.build_trainer(str(tmp_path), str(tmp_path), "cpu")

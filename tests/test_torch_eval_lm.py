@@ -123,8 +123,8 @@ def test_load_params_restores_a_train_lm_checkpoint(tmp_path, corpus):
     (tmp_path / "orbax" / "params").mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         eval_lm.load_params(str(tmp_path / "orbax"), "tiny", SEQ, device="cpu")
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        eval_lm.build_model("tiny", SEQ, moe_every=2, device="cpu")
+    moe_model = eval_lm.build_model("tiny", SEQ, moe_every=2, device="cpu")  # MOE_EVERY is ported
+    assert [block.use_moe for block in moe_model.blocks] == [False, True]
 
 
 def test_short_corpus_raises(tmp_path, loaded):

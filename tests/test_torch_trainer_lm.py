@@ -288,11 +288,12 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
     chained.train()
     assert chained.state.step == len(chained.train_dataloader) == 23
     assert np.isfinite(chained.record["train"][0]["loss"])
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        _trainer(tmp_path).__class__(
-            seq_len=SEQ, base_lr=LR, size="tiny", moe_every=2, max_epoch=1, batch_size=BATCH,
-            save_folder=str(tmp_path), device="cpu",
-        )
+    # MOE_EVERY is ported: every second block of the entry's model is a MoE block
+    moe_trainer = _trainer(tmp_path).__class__(
+        seq_len=SEQ, base_lr=LR, size="tiny", moe_every=2, max_epoch=1, batch_size=BATCH,
+        save_folder=str(tmp_path / "moe"), device="cpu",
+    )
+    assert [block.use_moe for block in moe_trainer.model.blocks] == [False, True]
     # telemetry is ported (it runs: the engine computes the health stats), and so is the
     # memory preflight: it runs before the first step and records its prediction
     telemetered = train_lm.LMTrainer(seq_len=SEQ, base_lr=LR, size="tiny", moe_every=0, max_epoch=1,
@@ -324,7 +325,7 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="does not fit a world of 1 ranks"):
         mesh_from_env()
     monkeypatch.setenv("MESH", "pp2x1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         mesh_from_env()
 
 

@@ -76,8 +76,10 @@ def test_pallas_knob_maps_onto_attention_impl(jax_params):
 
 
 def test_unported_paths_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        LMTiny(moe_every=2, device="cpu")
+    # MoE blocks are ported: every second block's MLP is an MoEMlp; an unknown route raises
+    assert [block.use_moe for block in LMTiny(moe_every=2, device="cpu").blocks] == [False, True]
+    with pytest.raises(ValueError, match="dispatch_impl must be auto|einsum|sort"):
+        LMTiny(moe_every=2, moe_dispatch_impl="scatter", device="cpu")
     with pytest.raises(ValueError, match='attention_impl="ring" needs mesh='):
         LMTiny(attention_impl="ring", device="cpu")  # the ring runs over a mesh's seq axis
     with pytest.raises(ValueError, match="decode=True needs cache="):  # the decode step is ported
