@@ -159,7 +159,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     (``TrainEngine.train_steps_chained``): GPT-2-small (bf16, B=64, T=1024) 8 steps in
     windows of 4 against 8 eager steps from the same weights and batches, under
     deterministic algorithms (params and losses bit-equal), and the same in f32 with TF32
-    off at 2 blocks (bit-equal); ms a step chained and eager in turns; K1–K3
+    off at 2 blocks (bit-equal), both run in the soak's wait (they time nothing); ms a step
+    chained and eager in turns; K1–K3
     12 each a step in a profile of one replay; ResNet-50 with ``PALLAS=1`` chained, K4 and
     its dz pass 9 each a step in a profile of one replay; VGG16/CIFAR-10 through its entry
     (batch 1024) with ``chain_steps`` 2 and 1 in turns on one warm trainer: each epoch's
@@ -186,7 +187,8 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     ``torch.cuda.max_memory_allocated`` of the steps that follow, eager at batch 64 and
     with ``CHAIN_STEPS=4`` (within 15 %; K1–K3 12 a step each in the eager run, all wgmma:
     ``train_lm_preflight`` in the kernels line); batch 512 refused with ``PreflightOOMError`` before
-    any step, ``memory_allocated`` the same before and after the preflight, with a
+    any step, ``memory_allocated`` the same before and after the preflight (these fits time
+    nothing and run in phase 26's wait), with a
     recommended batch and accumulation factor, each then run for 2 steps at a measured
     peak at or under the usable bytes; then the port's readers on this machine, which has
     no JAX: ``scripts/torch_run_monitor.py`` following a live run from ``waiting`` through
@@ -230,11 +232,32 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     their largest magnitude, fwd+bwd ms of each. (d) ``scripts/torch_expert_ranks.py``'s
     2 gloo ranks on the CPU at ``MESH=ep2`` (LMTiny, started beside the soak) against one
     unsharded step on the card from the same weights and batch (f32, TF32 off): the
-    update's relative L2 error within 1e-4 (``train_lm_moe_ep`` by variant).
+    update's relative L2 error within 1e-4 (``train_lm_moe_ep`` by variant);
+28. (pipe, run after phase 27) pipeline parallelism and Ulysses. (a) One attention layer
+    at the ring configuration (16 x 4096, 12 heads, bf16) with all 4 sequence shards on the
+    card through ``ulysses_attention``, causal and not, against ``flash_attention`` over the
+    whole T with phase 11's tolerances: K1 exactly 4 launches a forward, K2 and K3 4 each a
+    backward, all wgmma (``ulysses``); ms of Ulysses, ``flash_attention`` and SDPA. (b)
+    Byte-level GPT-2-small (12 blocks, vocab 256, T=1024, batch 64 as 8 micro-batches of 8)
+    as ``models/pipelined_lm.py::PipelinedLM`` over ``MeshConfig(pipe=4)`` in one process:
+    4 stages of 3 blocks (``v=1``) and 12 virtual stages of one (``v=3``), the embedding as
+    ``first``, the final LayerNorm and tied head as ``last``. In f32 with TF32 off the first
+    step's loss and every parameter's gradient against the unpipelined model on the same
+    weights and batch (each gradient within 1e-4 of its norm), and ``remat=True`` within
+    1e-5 of ``remat=False`` (K1 192 launches); these and (a)'s checks run in phase 26's
+    wait (they time nothing). Then through ``TrainEngine`` in bf16 with f32 params, AdamW,
+    3 steps each of the unpipelined model and of both ``v`` with and without remat: every
+    loss finite and falling, K1–K3 each 96 launches a step (K1 192 under remat), all wgmma
+    (``train_lm_pipe``); then 4 more steps each: step ms (their median), tokens/s, peak
+    memory and ``bubble_fraction``. (c) ``scripts/torch_pipe_ranks.py``'s 4 gloo ranks on the CPU at
+    ``MESH=pp4`` (LMTiny's width, 4 blocks, f32, started beside the soak) against the same
+    step on the card in the one-process placement (f32, TF32 off): the update's relative L2
+    error within 1e-4.
 
-The chaos soak (phase 23) and the CPU ranks of phases 26 and 27 run in processes of their
-own beside the kernel checks (phases 2, 3, 10 and 7), which time nothing; phase 26 then runs while
-the soak does (it times nothing against a bound either), and the soak is read after it.
+The chaos soak (phase 23) and the CPU ranks of phases 26, 27 and 28 run in processes of
+their own beside the kernel checks (phases 2, 3, 10 and 7), phase 28's checks and phase
+25's memory fits, which time nothing; phase 26 then runs while the soak does (it times
+nothing against a bound either), then phase 22's parity, and the soak is read after it.
 
 The vit and convnext phases (14, 15) save in the background (the ``Trainer``'s default
 ``async_checkpoint``): they print each save's snapshot time and the flushes that wait for
@@ -246,8 +269,9 @@ JPEG ones from the port's encoder (4:2:0 at qualities 90 and 60, 4:4:4, grey, an
 an EXIF orientation of 6) and decoded by the port's own decoder.
 
 ``launches_by_path`` in the kernels line has one key a path, ``eval_lm``, ``decode``,
-``train_lm_elastic`` and phase 27's ``train_lm_moe``, ``serve_moe``, ``decode_moe`` and
-``train_lm_moe_ep`` included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
+``train_lm_elastic``, phase 27's ``train_lm_moe``, ``serve_moe``, ``decode_moe`` and
+``train_lm_moe_ep``, and phase 28's ``train_lm_pipe`` (one bf16 step at ``v=1``) and
+``ulysses`` (one layer's forward and backward) included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
 the launches in the profile of one replay (4 and 2 steps): the Python counters count a
 graph's launches once, at its capture.
 
@@ -259,6 +283,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import itertools
 import json
@@ -1585,6 +1610,16 @@ VGG_PARENT_PYTHON_STEPS = 8  # the per-record Python path takes about 0.3 s a st
 VGG_FLOP_PER_IMAGE = 3 * 2 * 433e6
 
 
+@functools.cache
+def _synthetic_cifar10():
+    """The CIFAR-10 entry's synthetic set (no pickles are in the repository: its loader
+    draws 50,000 + 10,000 images from a seed), drawn once a run for the vgg and chained
+    phases; the draw is set-up, not the host path."""
+    from distributed_training_pytorch_tpu_torch.examples import train_cifar10
+
+    return train_cifar10.load_cifar10(os.path.join(REPO, "build", "cifar10-pickles-absent"))
+
+
 def _profiled_epoch(trainer, epoch):
     """One train epoch of ``trainer`` under the profiler: its wall (ms), the device's busy
     time (ms: the union of its kernel, copy and set intervals, ``profiling/report.py``) and
@@ -1669,11 +1704,11 @@ def phase_vgg(run_dir: str):
     saved_env = {k: os.environ.get(k) for k in keys}
     for k in keys:
         os.environ.pop(k, None)
-    # No CIFAR pickles are in the repository: the entry's synthetic set, drawn once here
-    # and handed to each trainer of the phase (the draw is set-up, not the host path).
+    # No CIFAR pickles are in the repository: the entry's synthetic set, drawn once a run
+    # and handed to each trainer of the phase.
     os.environ.update(VGG_ENV, SAVE_DIR=run_dir, CIFAR10_DIR=os.path.join(run_dir, "no-pickles"))
     real_load = train_cifar10.load_cifar10
-    data = real_load(os.environ["CIFAR10_DIR"])
+    data = _synthetic_cifar10()
     train_cifar10.load_cifar10 = lambda data_dir: data
     step_ms, epoch_metrics, val_metrics = [], [], []
     counts = {"steps": 0, "evals": 0}
@@ -3439,33 +3474,27 @@ def _lm_chained_against_eager(make_model, batches, window, tag, eager_first=True
     return diff, loss_diff, engine, state
 
 
-def phase_chained(run_dir: str, card: str) -> dict:
-    """Chained steps on the card: GPT-2-small (bf16, B=64, T=1024) 8 steps in windows of 4
-    against 8 eager steps, and the same in f32 with TF32 off at 2 blocks (bit-equal); ms a
-    step chained against eager in turns; K1–K3's launches a step from a profile of one
-    replay; ResNet-50 with ``PALLAS=1`` chained (K4 and its dz pass from a profile of one
-    replay); VGG16/CIFAR-10 through its entry at batch 1024, the busy share of a train
-    epoch with ``chain_steps`` 2 and 1 in turns on one warm trainer."""
+def chained_parity() -> dict:
+    """Phase 22's parity, which times nothing: GPT-2-small (bf16, B=64, T=1024) 8 steps in
+    windows of 4 against 8 eager steps from the same weights and batches, and the same in
+    f32 with TF32 off at 2 blocks, under deterministic algorithms (two eager runs differ
+    without them): params and losses bit-equal, or it raises. :func:`main` runs it while
+    the soak runs, whose join the card would otherwise wait for idle."""
     import torch
 
-    from distributed_training_pytorch_tpu_torch.examples import train_cifar10
-    from distributed_training_pytorch_tpu_torch.models import GPTSmall, TransformerLM, create_model
-    from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
-    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall, TransformerLM
 
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
     b, t = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
-    batches = _lm_windows(CHAIN_STEPS_COMPARED, b, t, seed=1)
 
     def gpt2():
         return GPTSmall(vocab_size=256, dtype=torch.bfloat16, max_len=SEQ, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(0))
 
-    # Parity, under deterministic algorithms (two eager runs differ without them).
     with _deterministic_algorithms():
-        bf16_diff, bf16_loss_diff, engine, state = _lm_chained_against_eager(gpt2, batches, CHAIN_WINDOW,
-                                                                             "[chained]")
+        bf16_diff, bf16_loss_diff, engine, state = _lm_chained_against_eager(
+            gpt2, _lm_windows(CHAIN_STEPS_COMPARED, b, t, seed=1), CHAIN_WINDOW, "[chained]")
     log(f"[chained] GPT-2-small bf16, B={b}, T={t}, deterministic algorithms: {CHAIN_STEPS_COMPARED} steps in "
         f"windows of {CHAIN_WINDOW} (one capture) against {CHAIN_STEPS_COMPARED} eager steps from the same weights "
         f"and batches: params differ by at most {bf16_diff!r}, losses by {bf16_loss_diff!r} (must be 0)")
@@ -3498,6 +3527,33 @@ def phase_chained(run_dir: str, card: str) -> dict:
     del engine, state
     gc.collect()
     torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[chained] the parity's wall {wall:.1f} s")
+    return {"bf16_diff": bf16_diff, "f32_diff": f32_diff, "wall_s": wall}
+
+
+def phase_chained(run_dir: str, card: str, parity=None) -> dict:
+    """Chained steps on the card: :func:`chained_parity` (``parity``, its result; None: run
+    it now); ms a step chained against eager in turns; K1–K3's launches a step from a
+    profile of one replay; ResNet-50 with ``PALLAS=1`` chained (K4 and its dz pass from a
+    profile of one replay); VGG16/CIFAR-10 through its entry at batch 1024, the busy share
+    of a train epoch with ``chain_steps`` 2 and 1 in turns on one warm trainer."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_cifar10
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall, create_model
+    from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
+    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+
+    t_phase = time.perf_counter()
+    if parity is None:
+        parity = chained_parity()
+    torch.cuda.empty_cache()
+    b, t = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+
+    def gpt2():
+        return GPTSmall(vocab_size=256, dtype=torch.bfloat16, max_len=SEQ, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
 
     # Timing and the profile, as the trainer runs (no deterministic algorithms): a fresh
     # model, its first window real, then the capture.
@@ -3540,7 +3596,7 @@ def phase_chained(run_dir: str, card: str) -> dict:
         f"K1-K3 a step on the chained path: {lm_per_step}")
     if lm_per_step != {"fwd": DEPTH, "bwd_dq": DEPTH, "bwd_dkv": DEPTH}:
         raise RuntimeError(f"expected {DEPTH} launches of each of K1-K3 a step in the replay, got {replay}")
-    del engine, state, batches, turn_batches
+    del engine, state, turn_batches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3578,7 +3634,7 @@ def phase_chained(run_dir: str, card: str) -> dict:
                       EPOCHS="1", CHAIN_STEPS=str(CHAIN_VGG_STEPS))
     real_load = train_cifar10.load_cifar10
     try:
-        data = real_load(os.environ["CIFAR10_DIR"])
+        data = _synthetic_cifar10()
         train_cifar10.load_cifar10 = lambda data_dir: data
         trainer = train_cifar10.build_trainer("cuda")
     finally:
@@ -3609,8 +3665,8 @@ def phase_chained(run_dir: str, card: str) -> dict:
     if captures != 1 or not all(np.isfinite(r["ce_loss"]) for rs in vgg_turns.values() for r in rs):
         raise RuntimeError(f"VGG16 chained: {captures} captures, losses {vgg_turns}")
     wall = time.perf_counter() - t_phase
-    log(f"[chained] phase wall {wall:.1f} s")
-    return {"bf16_diff": bf16_diff, "f32_diff": f32_diff, "lm_turns": lm_turns, "lm_replay": replay,
+    log(f"[chained] phase wall {wall:.1f} s (the parity's {parity['wall_s']:.1f} s besides, when run apart)")
+    return {"bf16_diff": parity["bf16_diff"], "f32_diff": parity["f32_diff"], "lm_turns": lm_turns, "lm_replay": replay,
             "lm_per_step": lm_per_step, "resnet_replay": r_replay, "resnet_per_step": resnet_per_step,
             "vgg_turns": vgg_turns, "wall_s": wall}
 
@@ -3941,31 +3997,40 @@ def _script_json(proc, *, timeout=300):
     return done.returncode, obj, done
 
 
-def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
-    """The memory preflight on the main path, then the readers (see phase 25 in the module
-    docstring). ``telemetry`` is phase 24's result, whose run directories (in ``run_dir``)
-    hold the profile captures the compare reads."""
+_PREFLIGHT_KEYS = (*TRAIN_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "LM_CORPUS", "TELEMETRY", "PROFILE_DIR", "CHAIN_STEPS",
+                   "SAVE_PERIOD")
+
+
+@contextlib.contextmanager
+def _saved_env(keys):
+    """The environment's ``keys`` restored after the block."""
+    saved = {k: os.environ.get(k) for k in keys}
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def preflight_fits(run_dir: str, card: str) -> dict:
+    """Phase 25's predictions against the measured peaks (eager and chained at batch
+    PREFLIGHT_BATCH) and the oversized batch's refusal with its recommendations: memory
+    and counts, nothing timed. :func:`main` runs them while phase 26's CPU ranks run, whose
+    join the card would otherwise wait for idle."""
     import torch
 
     from distributed_training_pytorch_tpu_torch.memory import BUFFER_CLASSES, PreflightOOMError
     from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
     from distributed_training_pytorch_tpu_torch.telemetry import load_run_events
-    from distributed_training_pytorch_tpu_torch.telemetry.timeline import build_timeline, span_bucket_seconds
 
-    t_phase = time.perf_counter()
-    keys = (*TRAIN_ENV, "EPOCHS", "SAVE_DIR", "SNAPSHOT", "LM_CORPUS", "TELEMETRY", "PROFILE_DIR", "CHAIN_STEPS",
-            "SAVE_PERIOD")
-    saved_env = {k: os.environ.get(k) for k in keys}
+    t0 = time.perf_counter()
     free, total = torch.cuda.mem_get_info()
     log(f"[preflight] {card} | the card: {total} B total ({total / 2**30:.2f} GiB), {free} B free now")
     fits = {}
-    # The readers on the CPU run beside the card's work, which they do not time: the compare
-    # of phase 24's captures from here, the doctor once the live run below has ended.
-    captures = [os.path.join(run_dir, f"on{chain}", "profile") for chain in (1, CHAIN_WINDOW)]
-    compare = _start_script([os.path.join("scripts", "torch_run_compare.py"), *captures, "--steps",
-                             str(CHAIN_WINDOW), "--json"])
-    doctor = None
-    try:
+    with _saved_env(_PREFLIGHT_KEYS):
         # -- the prediction against the measured peak, eager and chained -----------------
         for chain, steps in ((1, PREFLIGHT_STEPS), (CHAIN_WINDOW, PREFLIGHT_CHAIN_STEPS)):
             fa.reset_launches()
@@ -4041,6 +4106,39 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
                                f"{alone.predicted_peak_bytes} alone and {oom.predicted_peak_bytes} in train()")
         if oom.recommended_batch is None or oom.recommended_accum is None:
             raise RuntimeError(f"[preflight oversize] no recommendation: {oom.to_fields()}")
+    wall = time.perf_counter() - t0
+    log(f"[preflight] the fits' wall {wall:.1f} s")
+    return {"fits": fits, "oom": oom, "launches": eager_launches, "wall_s": wall}
+
+
+def phase_preflight(run_dir: str, card: str, telemetry: dict, fitted=None) -> dict:
+    """The memory preflight on the main path, then the readers (see phase 25 in the module
+    docstring). ``telemetry`` is phase 24's result, whose run directories (in ``run_dir``)
+    hold the profile captures the compare reads; ``fitted`` is :func:`preflight_fits`'s
+    (None: run it now)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.telemetry import load_run_events
+    from distributed_training_pytorch_tpu_torch.telemetry.timeline import build_timeline, span_bucket_seconds
+
+    t_phase = time.perf_counter()
+    if fitted is None:
+        fitted = preflight_fits(run_dir, card)
+    fits, oom = dict(fitted["fits"]), fitted["oom"]
+    saved_env = {k: os.environ.get(k) for k in _PREFLIGHT_KEYS}
+    # The readers on the CPU run beside the card's work, which they do not time: the compare
+    # of phase 24's captures from here, the doctor once the live run below has ended.
+    captures = [os.path.join(run_dir, f"on{chain}", "profile") for chain in (1, CHAIN_WINDOW)]
+    compare = _start_script([os.path.join("scripts", "torch_run_compare.py"), *captures, "--steps",
+                             str(CHAIN_WINDOW), "--json"])
+    doctor = monitor = None
+    try:
+        # The monitor of the live run below starts now, so that its start-up overlaps the
+        # recommendations' runs: it reports ``waiting`` until that run's event log appears.
+        monitor = subprocess.Popen([sys.executable, os.path.join("scripts", "torch_run_monitor.py"),
+                                    os.path.join(run_dir, "monitored"), "--json", "--interval", "0.2",
+                                    "--exit-on-end"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   cwd=REPO)
         for tag, kw in (("rec_batch", dict(batch=oom.recommended_batch)),
                         ("rec_accum", dict(batch=PREFLIGHT_OVERSIZE, accum=oom.recommended_accum))):
             r = _measured_peak(run_dir, f"pf_{tag}", steps=PREFLIGHT_FIT_STEPS, **kw)
@@ -4058,14 +4156,14 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
                             "recommended_accum": oom.recommended_accum, "trials": oom.trials}
 
         # -- the readers on this machine: monitor, timeline, compare, perf gate ---------
-        live = _preflight_trainer(run_dir, "monitored", batch=PREFLIGHT_BATCH, steps=PREFLIGHT_MONITOR_STEPS)
-        monitor = subprocess.Popen([sys.executable, os.path.join("scripts", "torch_run_monitor.py"), live.save_folder,
-                                    "--json", "--interval", "0.2", "--exit-on-end"], stdout=subprocess.PIPE,
-                                   stderr=subprocess.PIPE, text=True, cwd=REPO)
         statuses = []
         try:
             first = monitor.stdout.readline()  # the monitor is up (waiting) before the run starts
             statuses.append(json.loads(first)["status"])
+            live = _preflight_trainer(run_dir, "monitored", batch=PREFLIGHT_BATCH, steps=PREFLIGHT_MONITOR_STEPS)
+            if live.save_folder != os.path.join(run_dir, "monitored"):
+                raise RuntimeError(f"[readers] the live run writes {live.save_folder}, the monitor follows "
+                                   f"{os.path.join(run_dir, 'monitored')}")
             done = threading.Event()
             errors = []
 
@@ -4136,7 +4234,7 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
         if max(abs(g) for g in gaps.values()) > READERS_REL or code != 0 or exported != spans:
             raise RuntimeError(f"[readers] timeline spans {spans} against the meter {end['goodput_fractions']}")
     finally:
-        for proc in (compare, doctor):  # a failed phase leaves no reader running
+        for proc in (compare, doctor, monitor):  # a failed phase leaves no reader running
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.communicate()
@@ -4146,8 +4244,9 @@ def phase_preflight(run_dir: str, card: str, telemetry: dict) -> dict:
             else:
                 os.environ[k] = v
     wall = time.perf_counter() - t_phase
-    log(f"[preflight] phase wall {wall:.1f} s")
-    return {"fits": fits, "gate": gate, "monitor": seen, "launches": eager_launches, "wall_s": wall}
+    log(f"[preflight] phase wall {wall:.1f} s (the fits' {fitted['wall_s']:.1f} s besides, when run apart)")
+    return {"fits": fits, "gate": gate, "monitor": seen, "launches": fitted["launches"], "wall_s": wall,
+            "fits_wall_s": fitted["wall_s"]}
 
 
 # The elastic phase (26): sharded ranks on the card machine's CPU, their checkpoint
@@ -5103,6 +5202,435 @@ def phase_moe(run_dir: str, card: str, ranks=None) -> dict:
     return {"serve": serve, "train": train, "routes": routes, "ep": ep, "wall_s": wall}
 
 
+# Phase 28 (pipe): Ulysses attention at the ring configuration, GPT-2-small's twelve blocks
+# pipelined over PIPE_STAGES stages on the card (the one-process placement) through the
+# engine, and scripts/torch_pipe_ranks.py's 4 gloo ranks (MESH=pp4) against the card.
+PIPE_STAGES, PIPE_VIRTUAL = 4, (1, 3)  # 4 stages of 3 blocks; 12 virtual stages of one block
+PIPE_BATCH, PIPE_MICRO = 64, 8  # the global batch of 64 as 8 micro-batches of 8
+PIPE_STEPS = 3
+PIPE_TIMED_STEPS = 4  # then these, timed: the first steps of a pipelined model run 2.5x slower
+PIPE_LR = 1e-3  # AdamW at a constant rate, 3 steps on one batch: the loss must fall
+# Pipelined against unpipelined on the same weights and batch, f32 with TF32 off: the same
+# arithmetic, but each weight gradient is summed over 8 micro-batches instead of once over
+# the batch, so the sums part in their last bits. Each parameter's gradient within this
+# share of its norm, elementwise within BWD_ATOL_F32; the loss within PIPE_LOSS_ATOL.
+PIPE_GRAD_REL = 1e-4
+PIPE_LOSS_ATOL = 1e-5
+PIPE_REMAT_ATOL = 1e-5  # remat against no remat: the same stages recomputed, f32
+PIPE_RANKS_RTOL = 1e-4  # the card's one-process step against the 4 pp4 gloo ranks' update, f32
+
+
+def start_pipe_ranks(run_dir: str):
+    """Start ``scripts/torch_pipe_ranks.py`` (4 gloo ranks on the CPU, ``MESH=pp4``):
+    ``(process, start time)`` for :func:`phase_pipe`."""
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_pipe_ranks.py"), "--workdir",
+           os.path.join(run_dir, "pipe_ranks")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO), \
+        time.perf_counter()
+
+
+def _ulysses_inputs():
+    """Ulysses' mesh (RING_SHARDS sequence shards, all in this process) and its q, k, v and
+    output gradient at RING_SHAPE, bf16, from a seed."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.parallel import MeshConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(2828)
+    b, t, h, d = RING_SHAPE
+    return MeshConfig(seq=RING_SHARDS).build(), [
+        torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4)]
+
+
+ULYSSES_PLAIN_ROWS = 4  # batch rows of the plain reference at a time: [4, 3, 4096, 4096] f32 scores
+
+
+def _ulysses_group_vs_plain(q, k, v, do, got, causal: bool) -> dict:
+    """The last head group of RING_SHAPE's q, k, v and output gradient as the Ulysses path
+    hands it to K1-K3: views ``[B, T, H/s, D]`` with the full tensors' strides. K1 on those
+    views (o, lse) against ``flash_attention_plain`` with phase 1's bf16 tolerances; K2 and
+    K3 on them, given the plain forward's o and lse, against ``flash_attention_bwd_plain``
+    with phase 2's; and the group's slice of Ulysses' own output and gradients (``got``)
+    against the same plain forward and backward. The plain versions run ULYSSES_PLAIN_ROWS
+    batch rows at a time (they are exact per row)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = RING_SHAPE
+    g = slice(h - h // RING_SHARDS, h)
+    qg, kg, vg, dog = (x[:, :, g] for x in (q, k, v, do))
+    in_place = all(fa.tma_operand(x) is x for x in (qg, kg, vg, dog))
+    o_ref = torch.empty(qg.shape, dtype=q.dtype, device=q.device)
+    lse_ref = torch.empty(b, qg.shape[2], t, device=q.device)
+    refs = [torch.empty(qg.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
+    for i in range(0, b, ULYSSES_PLAIN_ROWS):
+        r = slice(i, i + ULYSSES_PLAIN_ROWS)
+        o_ref[r], lse_ref[r] = fa.flash_attention_plain(qg[r], kg[r], vg[r], causal=causal)
+        for ref, x in zip(refs, fa.flash_attention_bwd_plain(qg[r], kg[r], vg[r], o_ref[r], lse_ref[r], dog[r],
+                                                               causal=causal), strict=True):
+            ref[r] = x
+    before = dict(fa.launches_by_variant)
+    o, lse = fa.flash_attention_fwd(qg, kg, vg, causal=causal)
+    grads = fa.flash_attention_bwd(qg, kg, vg, o_ref, lse_ref, dog, causal=causal)
+    torch.cuda.synchronize()
+    ran = all(fa.launches_by_variant[(n, "wgmma")] == before[(n, "wgmma")] + 1 for n in ("fwd", "bwd_dq", "bwd_dkv"))
+    atol, rtol = TOL["bfloat16"]
+    o_err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    ok_fwd = (torch.allclose(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+              and torch.allclose(lse, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1]))
+    kernel = [_grad_err(x, ref) for x, ref in zip(grads, refs, strict=True)]
+    path_o = got[0][:, :, g]
+    path_o_err = (path_o.float() - o_ref.float()).abs().max().item()
+    ok_path_o = torch.allclose(path_o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    path = [_grad_err(x[:, :, g], ref) for x, ref in zip(got[1:], refs, strict=True)]
+    ok = in_place and ran and ok_fwd and ok_path_o and all(e[2] for e in kernel + path)
+    log(f"[ulysses] head group {g.start}:{g.stop} of B={b} T={t} H={h} D={d} bf16 causal={causal} (views [B, T, "
+        f"{h // RING_SHARDS}, D] of the full tensors, read in place by TMA: {in_place}; wgmma: {ran}) against the "
+        f"plain versions: K1 max|o-plain| {o_err:.3e} (atol {atol}, rtol {rtol}), max|lse-plain| {lse_err:.3e} "
+        f"(atol {LSE_TOL[0]}, rtol {LSE_TOL[1]}); K2/K3 max|grad-plain|/bound "
+        + " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", kernel, strict=True))
+        + f"; Ulysses' own slice: max|o-plain| {path_o_err:.3e}, "
+        + " ".join(f"d{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip("qkv", path, strict=True))
+        + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"[ulysses] causal={causal}: K1-K3 on the head-group views disagree with their plain "
+                           "versions, or copied or skipped them")
+    return {"in_place": in_place, "o": max(o_err, path_o_err), "lse": lse_err,
+            "grads": max(e[0] for e in kernel + path)}
+
+
+def _ulysses_checks() -> dict:
+    """(a) One attention layer at the ring configuration (RING_SHAPE, bf16), all
+    RING_SHARDS sequence shards on the card: Ulysses against ``flash_attention`` over the
+    whole T, causal and not, forward and gradients, with phase 11's tolerances; K1 exactly
+    RING_SHARDS launches a forward and K2, K3 RING_SHARDS each a backward, all wgmma; then
+    one head group's launches on its strided views against the plain versions
+    (:func:`_ulysses_group_vs_plain`)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.parallel import ulysses_attention
+
+    mesh, (q, k, v, do) = _ulysses_inputs()
+    b, t, h, d = RING_SHAPE
+    s = RING_SHARDS
+    # A head group is a view with the full tensor's strides: does the wgmma kernels' TMA read
+    # it where it is (tma_operand returns the view itself), or is it copied?
+    groups = [q[:, :, j * (h // s):(j + 1) * (h // s)] for j in range(s)]
+    in_place = all(fa.tma_operand(g) is g for g in groups)
+    errs, launches, plain = {}, {}, {}
+    for causal in (False, True):
+        def run(attention):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            fa.reset_launches()
+            o = attention(*leaves)
+            torch.cuda.synchronize()
+            fwd = dict(fa.launches)
+            o.backward(do)
+            torch.cuda.synchronize()
+            return [o.detach()] + [x.grad for x in leaves], fwd, dict(fa.launches), dict(fa.launches_by_variant)
+
+        got, fwd, total, by_variant = run(lambda q, k, v: ulysses_attention(q, k, v, mesh, causal=causal))
+        want, _, dense, _ = run(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal))
+        if fwd != {"fwd": s, "bwd_dq": 0, "bwd_dkv": 0} or total != {"fwd": s, "bwd_dq": s, "bwd_dkv": s}:
+            raise RuntimeError(f"[ulysses] causal={causal}: launches forward {fwd}, in all {total}; want {s} of each")
+        _check_wgmma_launches(total, by_variant, f"[ulysses causal={causal}]")
+        if dense != {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}:
+            raise RuntimeError(f"[ulysses] flash_attention over the whole T launched {dense}")
+        results = [_grad_err(g, r) for g, r in zip(got, want, strict=True)]
+        rels = [_rel_err(g, r) for g, r in zip(got, want, strict=True)]
+        names = ("o", "dq", "dk", "dv")
+        ok = all(r[2] for r in results) and all(x <= RING_REL for x in rels)
+        log(f"[ulysses] one layer B={b} T={t} H={h} D={d} bf16 causal={causal}, {s} shards on one card (head groups "
+            f"[B, T, {h // s}, D] read in place by TMA: {in_place}): vs flash_attention max|diff|/bound "
+            + " ".join(f"{n}={e:.3e}/{bd:.1e}" for n, (e, bd, _) in zip(names, results, strict=True))
+            + "; ||diff||/||ref|| " + " ".join(f"{n}={x:.3e}" for n, x in zip(names, rels, strict=True))
+            + f" (bound {RING_REL}); launches {total} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("[ulysses] Ulysses disagrees with flash attention over the whole sequence")
+        errs[causal] = max(r[0] for r in results)
+        launches = {"launches": total, "by_variant": by_variant}
+        plain[causal] = _ulysses_group_vs_plain(q, k, v, do, got, causal)
+        del got, want
+    fa.reset_launches()
+    del q, k, v, do, groups
+    torch.cuda.empty_cache()
+    return {"err": max(errs.values()), "in_place": in_place and all(p["in_place"] for p in plain.values()),
+            "plain": plain, **launches}
+
+
+def _ulysses_times(card: str) -> dict:
+    """(a) The times, causal, with CUDA events: Ulysses, ``flash_attention`` over the whole
+    T, and SDPA (the yardstick; the port never calls it), forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.parallel import ulysses_attention
+
+    mesh, (q, k, v, do) = _ulysses_inputs()
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def timed(attention):
+        fwd = time_ms(lambda: attention(*leaves), iters=10)
+        both = time_ms(lambda: torch.autograd.grad(attention(*leaves), leaves, do), iters=10)
+        return {"fwd": fwd, "bwd": both - fwd}
+
+    times = {"ulysses": timed(lambda q, k, v: ulysses_attention(q, k, v, mesh, causal=True)),
+             "flash": timed(lambda q, k, v: fa.flash_attention(q, k, v, causal=True))}
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=10)
+    sdpa_both = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                                                    (qt, kt, vt), dot), iters=10)
+    times["sdpa"] = {"fwd": sdpa_fwd, "bwd": sdpa_both - sdpa_fwd}
+    b, t, h, d = RING_SHAPE
+    log(f"[times] {card} | one attention layer B={b} T={t} H={h} D={d} bf16 causal: Ulysses over {RING_SHARDS} head "
+        "groups, " + ", ".join(f"{n} fwd {x['fwd']:.4f} ms, bwd {x['bwd']:.4f} ms" for n, x in times.items())
+        + " (SDPA's bwd is fwd+bwd minus fwd)")
+    fa.reset_launches()  # the timing launches are not a path's
+    del q, k, v, do, leaves, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return times
+
+
+def _pipe_batch(rows: int, seed: int = 0) -> dict:
+    """The LM entry's first ``rows`` windows of its synthetic byte stream at T=SEQ, on the
+    card."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.examples import train_lm
+
+    w = train_lm.load_windows(SEQ)[seed * rows:(seed + 1) * rows]
+    return {"image": torch.from_numpy(np.ascontiguousarray(w[:, :-1])).cuda(),
+            "label": torch.from_numpy(np.ascontiguousarray(w[:, 1:])).cuda()}
+
+
+def _pipe_f32_check(batch) -> dict:
+    """(b) In f32 with TF32 off: the first step's loss and every parameter's gradient of
+    GPT-2-small pipelined (each of PIPE_VIRTUAL) against the unpipelined model on the same
+    weights and batch; remat against no remat; the launches of each (CUDA-core variant)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+    from distributed_training_pytorch_tpu_torch.models.pipelined_lm import PipelinedLM, lm_logits_loss
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.parallel import MeshConfig
+
+    mesh = MeshConfig(pipe=PIPE_STAGES).build()
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        lm = GPTSmall(vocab_size=256, dtype=torch.float32, max_len=SEQ, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(28))
+
+        def loss_and_grads(model):
+            fa.reset_launches()
+            loss, _ = lm_logits_loss(model, batch, True)
+            names, params = zip(*model.named_parameters())
+            grads = dict(zip(names, torch.autograd.grad(loss, params), strict=True))
+            torch.cuda.synchronize()
+            return float(loss.detach()), grads, dict(fa.launches)
+
+        ref_loss, ref, _ = loss_and_grads(lm)
+        out, remat_grads = {}, None
+        for v, remat in [(v, False) for v in PIPE_VIRTUAL] + [(1, True)]:
+            piped = PipelinedLM(lm, mesh, n_micro=PIPE_MICRO, n_virtual=v, remat=remat)
+            loss, grads, launches = loss_and_grads(piped)
+            grads = piped.lm_state_dict(grads)
+            del piped
+            if remat:
+                err = max((grads[k] - out[1]["grads"][k]).abs().max().item() for k in grads)
+                want = {"fwd": 2 * DEPTH * PIPE_MICRO, "bwd_dq": DEPTH * PIPE_MICRO, "bwd_dkv": DEPTH * PIPE_MICRO}
+                log(f"[pipe f32] remat=True (v=1): loss {loss!r}, max|grad - no remat's| {err:.3e} (bound "
+                    f"{PIPE_REMAT_ATOL}); launches {launches}, want {want}")
+                if err > PIPE_REMAT_ATOL or launches != want or abs(loss - out[1]["loss"]) > PIPE_REMAT_ATOL:
+                    raise RuntimeError("[pipe f32] remat disagrees with no remat")
+                remat_grads = {"err": err, "launches": launches}
+                continue
+            rels = {k: _rel_err(grads[k], ref[k]) for k in ref}
+            maxs = {k: (grads[k] - ref[k]).abs().max().item() for k in ref}
+            worst = max(rels, key=rels.get)
+            want = {k: DEPTH * PIPE_MICRO for k in ("fwd", "bwd_dq", "bwd_dkv")}
+            log(f"[pipe f32] S={PIPE_STAGES} v={v}, GPT-2-small B={PIPE_BATCH} in {PIPE_MICRO} micro-batches T={SEQ} "
+                f"f32 TF32 off: loss {loss!r} vs unpipelined {ref_loss!r} ({abs(loss - ref_loss):.3e}, bound "
+                f"{PIPE_LOSS_ATOL}); gradients of {len(ref)} parameters: largest ||diff||/||ref|| {rels[worst]:.3e} "
+                f"({worst}; bound {PIPE_GRAD_REL}), largest max|diff| {max(maxs.values()):.3e} (bound {BWD_ATOL_F32}); "
+                f"launches {launches}")
+            if (set(grads) != set(ref) or abs(loss - ref_loss) > PIPE_LOSS_ATOL or rels[worst] > PIPE_GRAD_REL
+                    or max(maxs.values()) > BWD_ATOL_F32 or launches != want):
+                raise RuntimeError(f"[pipe f32] v={v}: the pipelined step disagrees with the unpipelined one")
+            out[v] = {"loss": loss, "grads": grads, "rel": rels[worst], "max": max(maxs.values())}
+        del lm, ref
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    result = {v: {"rel": r["rel"], "max": r["max"], "loss_err": abs(r["loss"] - ref_loss)} for v, r in out.items()}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"by_v": result, "remat": remat_grads}
+
+
+def _pipe_train(card: str, batch) -> dict:
+    """(b) bf16 compute with f32 params, AdamW, PIPE_STEPS steps on one batch through
+    ``TrainEngine``: unpipelined, then pipelined at each of PIPE_VIRTUAL without and with
+    remat. Every loss finite and falling; K1-K3 each DEPTH x PIPE_MICRO launches a step
+    (K1 twice that under remat), all wgmma; then PIPE_TIMED_STEPS more steps: step ms
+    (their median, CUDA events), tokens/s; peak memory over all of them."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+    from distributed_training_pytorch_tpu_torch.models.pipelined_lm import PipelinedLM, lm_logits_loss
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.parallel import MeshConfig, bubble_fraction
+    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+
+    mesh = MeshConfig(pipe=PIPE_STAGES).build()
+    runs, launches_v1 = {}, None
+    for label, v, remat in [("unpipelined", None, False)] + [(f"v={v}", v, False) for v in PIPE_VIRTUAL] + [
+            (f"v={v} remat", v, True) for v in PIPE_VIRTUAL]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = GPTSmall(vocab_size=256, dtype=torch.bfloat16, max_len=SEQ, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(28))
+        model = lm if v is None else PipelinedLM(lm, mesh, n_micro=PIPE_MICRO, n_virtual=v, remat=remat)
+        del lm
+        opt = torch.optim.AdamW(model.parameters(), lr=PIPE_LR, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
+        engine = TrainEngine(lm_logits_loss, schedule=lambda step: PIPE_LR)
+        state = TrainState(model=model, optimizer=opt)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, counts = [], [], []
+        for _ in range(PIPE_STEPS + PIPE_TIMED_STEPS):
+            fa.reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = engine.train_step(state, batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(metrics["loss"]))
+            counts.append((dict(fa.launches), dict(fa.launches_by_variant)))
+        peak = torch.cuda.max_memory_allocated() - base
+        n = DEPTH * PIPE_MICRO
+        want = {"fwd": 2 * n if remat else n, "bwd_dq": n, "bwd_dkv": n}
+        if v is not None:
+            for launches, by_variant in counts:
+                if launches != want or any(by_variant[(k, "wgmma")] != launches[k] for k in launches):
+                    raise RuntimeError(f"[pipe {label}] launches a step {launches} ({by_variant}), want {want} on wgmma")
+            if label == "v=1":
+                launches_v1 = counts[0]
+        checked = losses[:PIPE_STEPS]
+        if not all(math.isfinite(x) for x in losses) or not checked[-1] < checked[0]:
+            raise RuntimeError(f"[pipe {label}] losses {losses}: not finite, or not falling over the first "
+                               f"{PIPE_STEPS}")
+        timed = sorted(ms[PIPE_STEPS:])
+        step = timed[len(timed) // 2]
+        runs[label] = {"step_ms": step, "ms": ms, "losses": losses, "peak_gb": peak / 1e9,
+                       "tokens_per_s": PIPE_BATCH * SEQ / (step / 1e3),
+                       "bubble": None if v is None else bubble_fraction(PIPE_MICRO, PIPE_STAGES, v)}
+        r = runs[label]
+        log(f"[pipe] {card} | GPT-2-small {label} (S={PIPE_STAGES}, M={PIPE_MICRO} of {PIPE_BATCH // PIPE_MICRO}, T={SEQ}, "
+            f"bf16, AdamW): losses {', '.join(f'{x:.4f}' for x in losses)}; step ms {', '.join(f'{x:.2f}' for x in ms)} "
+            f"(the median of the last {PIPE_TIMED_STEPS} {step:.2f}), {r['tokens_per_s']:.0f} tokens/s, peak "
+            f"{r['peak_gb']:.2f} GB over the {base / 1e9:.2f} allocated before; bubble_fraction {r['bubble']}; "
+            f"launches each step {counts[-1][0]}" + ("" if v is None else ", all on the wgmma variant"))
+        del model, opt, engine, state
+    return {"runs": runs, "launches": launches_v1[0], "by_variant": launches_v1[1]}
+
+
+def _pipe_ranks_step(card: str, ranks: dict) -> dict:
+    """(c) The 4 gloo ranks' ``MESH=pp4`` step (``scripts/torch_pipe_ranks.py``) against the
+    same step on the card in the one-process placement, from the same weights and batch
+    (f32, TF32 off): the update's relative L2 error within PIPE_RANKS_RTOL."""
+    import importlib.util
+
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models.pipelined_lm import lm_logits_loss
+    from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_training_pytorch_tpu_torch.parallel import MeshConfig
+    from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+
+    spec = importlib.util.spec_from_file_location("torch_pipe_ranks", os.path.join(REPO, "scripts",
+                                                                                  "torch_pipe_ranks.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    workdir = ranks["workdir"]
+    before = torch.load(os.path.join(workdir, "before.pt"), map_location="cuda")
+    after = torch.load(os.path.join(workdir, "after.pt"), map_location="cuda")
+    batch = {k: v.cuda() for k, v in torch.load(os.path.join(workdir, "batch.pt")).items()}
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = script.pipelined_lm(MeshConfig(pipe=ranks["mesh"]["pipe"]).build(), "cuda")
+        model.load_state_dict(before)
+        lr = ranks["lr"]
+        engine = TrainEngine(lm_logits_loss, schedule=lambda step: lr)
+        fa.reset_launches()
+        state, metrics = engine.train_step(TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=lr)),
+                                           batch)
+        torch.cuda.synchronize()
+        launches, by_variant = dict(fa.launches), dict(fa.launches_by_variant)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    got = state.model.state_dict()
+    num = math.sqrt(sum(float(((got[k] - before[k]) - (after[k] - before[k])).double().norm()) ** 2 for k in got))
+    den = math.sqrt(sum(float((after[k] - before[k]).double().norm()) ** 2 for k in got))
+    rel, loss = num / den, float(metrics["loss"])
+    log(f"[pipe ranks] {card} | {ranks['ranks']} gloo ranks at {ranks['mesh']} (LMTiny's width, {ranks['depth']} blocks, "
+        f"{ranks['n_micro']} micro-batches, f32, SGD lr {lr}) in {ranks['wall_s']:.1f} s; the card's one-process step: "
+        f"loss {loss!r} vs the ranks' {ranks['metrics']['loss']!r}, the update's relative L2 error {rel:.3e} (bound "
+        f"{PIPE_RANKS_RTOL}); K1-K3 launches {launches}, by variant "
+        f"{({f'{n}/{v}': c for (n, v), c in by_variant.items() if c})}")
+    if not rel <= PIPE_RANKS_RTOL or abs(loss - ranks["metrics"]["loss"]) > 1e-4:
+        raise RuntimeError("[pipe] the card's step disagrees with the pp4 ranks'")
+    del model, state
+    return {"rel": rel, "launches": launches, "by_variant": by_variant}
+
+
+def phase_pipe_checks() -> dict:
+    """Phase 28's checks that time nothing: Ulysses against ``flash_attention`` (a), and the
+    pipelined GPT-2-small's f32 gradients and remat (b). :func:`main` runs them while the
+    CPU ranks of phase 26 run, whose join the card would otherwise wait for idle."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ulysses = _ulysses_checks()
+    f32 = _pipe_f32_check(_pipe_batch(PIPE_BATCH))
+    wall = time.perf_counter() - t0
+    log(f"[pipe] the checks' wall {wall:.1f} s")
+    return {"ulysses": ulysses, "f32": f32, "wall_s": wall}
+
+
+def phase_pipe(run_dir: str, card: str, ranks=None, checks=None) -> dict:
+    """Pipeline parallelism and Ulysses (phase 28): :func:`phase_pipe_checks` (``checks``,
+    its result; None: run them now), then (a) Ulysses' times, (b) GPT-2-small pipelined
+    through the engine in bf16, (c) the 4 pp4 gloo ranks against the card. ``ranks``: the
+    ``(process, start time)`` of :func:`start_pipe_ranks` (None: start them now)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    if ranks is None:
+        ranks = start_pipe_ranks(run_dir)
+    if checks is None:
+        checks = phase_pipe_checks()
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = _ulysses_times(card)
+    train = _pipe_train(card, _pipe_batch(PIPE_BATCH))
+    ranked = _pipe_ranks_step(card, _join_sharded_ranks(ranks, tag="[pipe] the pipe ranks"))
+    wall = time.perf_counter() - t_phase
+    log(f"[pipe] phase wall {wall:.1f} s (the checks' {checks['wall_s']:.1f} s besides, when run apart)")
+    return {"ulysses": {**checks["ulysses"], "times": times}, "f32": checks["f32"], "train": train, "ranks": ranked,
+            "wall_s": wall, "checks_wall_s": checks["wall_s"]}
+
+
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
     ``vgg``, ``chained``, ``resilience``, ...; ``lm`` is phase 5 then the lm_eval phase on its
@@ -5133,6 +5661,8 @@ def run_only(names) -> int:
                     phase_elastic(run_dir, card)
                 elif name == "moe":
                     phase_moe(run_dir, card)
+                elif name == "pipe":
+                    phase_pipe(run_dir, card)
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -5164,6 +5694,8 @@ def main() -> int:
     soak_dir, soak = tempfile.mkdtemp(dir=run_root), None
     elastic_dir, ranks = tempfile.mkdtemp(dir=run_root), None
     expert_dir, expert_ranks = tempfile.mkdtemp(dir=run_root), None
+    pipe_dir, pipe_ranks = tempfile.mkdtemp(dir=run_root), None
+    telemetry_dir = None
     try:
         t_start = time.perf_counter()
 
@@ -5175,6 +5707,7 @@ def main() -> int:
         soak = start_soak(soak_dir)  # beside the kernel checks, which time nothing
         ranks = start_sharded_ranks(elastic_dir)  # phase 26's CPU ranks, in the soak's wait too
         expert_ranks = start_expert_ranks(expert_dir)  # phase 27's, beside them
+        pipe_ranks = start_pipe_ranks(pipe_dir)  # phase 28's, beside them
         fwd_err, vit_fwd_err = phase_kernels()
         mark("kernels")
         bwd_err, vit_bwd_err = phase_bwd_kernels()
@@ -5183,8 +5716,17 @@ def main() -> int:
         mark("k5")
         conv_err, dz_err, convnext_err = phase_conv1x1()
         mark("conv1x1")
+        # Card work that times nothing, in the sharded ranks' wait: phase 28's checks and
+        # phase 25's memory fits (in the telemetry phase's directory, which it reads later).
+        pipe_checks = phase_pipe_checks()
+        mark("pipe_checks")
+        telemetry_dir = tempfile.mkdtemp(dir=run_root)
+        fitted = preflight_fits(telemetry_dir, card)
+        mark("preflight_fits")
         elastic = phase_elastic(elastic_dir, card, ranks)  # while the soak runs: nothing here is timed
         mark("elastic")
+        parity = chained_parity()  # in the soak's wait
+        mark("chained_parity")
         resilience = phase_resilience(soak_dir, soak)
         mark("resilience")
         ring = phase_ring(card)
@@ -5201,6 +5743,8 @@ def main() -> int:
             mark("lm_eval")
         moe_phase = phase_moe(expert_dir, card, expert_ranks)
         mark("moe")
+        pipe = phase_pipe(pipe_dir, card, pipe_ranks, pipe_checks)
+        mark("pipe")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
             ring_launches, ring_train = phase_ring_train(run_dir)
             mark("ring_train")
@@ -5235,13 +5779,12 @@ def main() -> int:
             fp16 = phase_fp16(run_dir)
             mark("fp16")
         with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
-            chained = phase_chained(run_dir, card)
+            chained = phase_chained(run_dir, card, parity)
             mark("chained")
-        with tempfile.TemporaryDirectory(dir=run_root) as run_dir:
-            telemetry = phase_telemetry(run_dir, card)
-            mark("telemetry")
-            preflight = phase_preflight(run_dir, card, telemetry)  # on phase 24's captures
-            mark("preflight")
+        telemetry = phase_telemetry(telemetry_dir, card)
+        mark("telemetry")
+        preflight = phase_preflight(telemetry_dir, card, telemetry, fitted)  # on phase 24's captures
+        mark("preflight")
         times, vit_times = phase_times(card)
         conv_times, conv_total, dz_times, dz_total = phase_conv1x1_times(card)
         convnext_times, convnext_total = phase_convnext_times(card)
@@ -5346,17 +5889,28 @@ def main() -> int:
             + "; fwd+bwd ms einsum / sort by group size: " + ", ".join(
                 f"{sg} {r['ms']['einsum']:.3f} / {r['ms']['sort']:.3f}" for sg, r in mr.items())
             + f"; ep2 update rel err {moe_phase['ep']['rel']:.3e}; phase wall {moe_phase['wall_s']:.1f} s")
+        pt, ut = pipe["train"]["runs"], pipe["ulysses"]["times"]
+        log(f"[times] {card} | pipelined GPT-2-small (S={PIPE_STAGES}, M={PIPE_MICRO}, B={PIPE_BATCH}, T={SEQ}, bf16, one "
+            f"card): step median " + ", ".join(
+                f"{k} {r['step_ms']:.2f} ms ({r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} GB"
+                + ("" if r["bubble"] is None else f", bubble {r['bubble']:.4f}") + ")" for k, r in pt.items())
+            + f"; Ulysses (B={RING_SHAPE[0]}, T={RING_SHAPE[1]}, causal) fwd {ut['ulysses']['fwd']:.4f} / bwd "
+            f"{ut['ulysses']['bwd']:.4f} ms, flash_attention {ut['flash']['fwd']:.4f} / {ut['flash']['bwd']:.4f}, SDPA "
+            f"{ut['sdpa']['fwd']:.4f} / {ut['sdpa']['bwd']:.4f}, the ring (phase 11) {ring['times']['ring']['fwd']:.4f} / "
+            f"{ring['times']['ring']['bwd']:.4f}; pp4 ranks update rel err {pipe['ranks']['rel']:.3e}; phase wall "
+            f"{pipe['wall_s']:.1f} s")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
     finally:
-        for started in (soak, ranks, expert_ranks):
+        for started in (soak, ranks, expert_ranks, pipe_ranks):
             if started is not None and started[0].poll() is None:
                 started[0].kill()
                 started[0].communicate()
-        for folder in (soak_dir, elastic_dir, expert_dir):
-            shutil.rmtree(folder, ignore_errors=True)
+        for folder in (soak_dir, elastic_dir, expert_dir, pipe_dir, telemetry_dir):
+            if folder is not None:
+                shutil.rmtree(folder, ignore_errors=True)
     kernels = []
     for name, kind, launch_key, replaces, err, vit_err, source in (
         ("flash_fwd", "fwd", "fwd", ":81", fwd_err, vit_fwd_err, "flash_fwd_wgmma.cu"),
@@ -5386,7 +5940,15 @@ def main() -> int:
                                  "train_lm_moe": moe_phase["train"]["launches"][launch_key],
                                  "serve_moe": moe_phase["serve"]["launches"] if kind == "fwd" else 0,
                                  "decode_moe": moe_phase["serve"]["decode_launches"][launch_key],
-                                 "train_lm_moe_ep": moe_phase["ep"]["launches"][launch_key]},
+                                 "train_lm_moe_ep": moe_phase["ep"]["launches"][launch_key],
+                                 "train_lm_pipe": pipe["train"]["launches"][launch_key],
+                                 "ulysses": pipe["ulysses"]["launches"][launch_key]},
+            # the pipelined GPT-2-small's bf16 step (v=1) and one Ulysses layer's fwd + bwd, by variant
+            "train_lm_pipe_by_variant": {v: pipe["train"]["by_variant"][(launch_key, v)] for v in ("wgmma", "cuda_core")},
+            "ulysses_by_variant": {v: pipe["ulysses"]["by_variant"][(launch_key, v)] for v in ("wgmma", "cuda_core")},
+            # the card's one-process step against the pp4 gloo ranks (f32, D 8: the CUDA-core variant)
+            "train_lm_pipe_ranks_by_variant": {v: pipe["ranks"]["by_variant"][(launch_key, v)]
+                                               for v in ("wgmma", "cuda_core")},
             # the MoE card step against the ep2 ranks (f32, D 8: the CUDA-core variant) by variant
             "train_lm_moe_ep_by_variant": {v: moe_phase["ep"]["by_variant"][(launch_key, v)]
                                            for v in ("wgmma", "cuda_core")},
@@ -5428,7 +5990,8 @@ def main() -> int:
                                  "eval_lm": 0, "decode": lm_eval["decode_launches"][name],
                                  "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name],
                                  "train_lm_telemetry": 0, "train_lm_preflight": 0, "train_lm_elastic": 0,
-                                 "train_lm_moe": 0, "serve_moe": 0, "decode_moe": 0, "train_lm_moe_ep": 0},
+                                 "train_lm_moe": 0, "serve_moe": 0, "decode_moe": 0, "train_lm_moe_ep": 0,
+                                 "train_lm_pipe": 0, "ulysses": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -5467,7 +6030,7 @@ def main() -> int:
                                  "decode": lm_eval["decode_launches"][launch_key],
                                  "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0,
                                  "train_lm_preflight": 0, "train_lm_elastic": 0, "train_lm_moe": 0, "serve_moe": 0,
-                                 "decode_moe": 0, "train_lm_moe_ep": 0},
+                                 "decode_moe": 0, "train_lm_moe_ep": 0, "train_lm_pipe": 0, "ulysses": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

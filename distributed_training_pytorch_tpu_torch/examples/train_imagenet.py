@@ -34,7 +34,8 @@ instead. ``STEPS_PER_EPOCH`` caps an epoch of either. Env knobs, as the JAX entr
 kernel with 1, cuDNN/cuBLAS with 0 or unset; ViT's attention takes the flash kernels
 unset or with 1, the plain softmax with 0), ``CHAIN_STEPS`` (1), ``MESH`` (the grammar of
 ``parallel/mesh.py``: ``dpN``; ``fsdpN`` and ``dpNfsdpM`` shard the state of any of these
-models; ``tpN`` splits ViT's blocks by heads and features).
+models; ``tpN`` splits ViT's blocks by heads and features; ``ppN`` builds the pipe axis,
+module-managed as in the JAX entry: the model trains unpipelined over it).
 ``IMAGENET_RECORDS``, ``VAL_RECORDS``, ``RECORDS_NATIVE`` (1), ``TELEMETRY`` (1: the
 telemetry of ``telemetry/``) and ``PROFILE_DIR`` (a raw trace of the first epoch's steps 1
 to 5). The port adds ``DEVICE`` (``cuda`` unless set to

@@ -17,7 +17,13 @@ factor 1.25, one routing group, the einsum dispatch), ``SAVE_DIR`` (``./runs/lm`
 ``CHAIN_STEPS`` (1), ``MESH`` (the mesh grammar of ``parallel/mesh.py``: ``dpN``,
 ``spN``, ``dpNspM``, ``spNxM``, sharded state with ``fsdpN``, ``tpN``, ``dpNfsdpM``,
 ``fsdpNtpM``, ``fsdpNxM``, ``tpNxM``, and the experts of ``MOE_EVERY``'s layers split over
-``epN`` or ``dpNepM``; ``pp`` raises, ROADMAP.md Queue 1 item 2)
+``epN`` or ``dpNepM``; ``ppN``, ``dpNppM`` and ``ppNxM`` build the pipe axis, which, as in
+the JAX entry, is module-managed: the model trains unpipelined, replicated over the pipe
+stages, with the batch split over the data axis alone; a loss that runs
+``parallel.pipeline_apply`` over ``trainer.mesh`` reaches it, as the trainer of
+``scripts/torch_pipe_ranks.py::entry_step`` does (its tests run ``pp4`` and ``dp2pp2``,
+one stage a rank, against one process); ``pp`` beside ``fsdp``,
+``tp``, ``sp`` or ``ep`` raises, ROADMAP.md Queue 1 item 6)
 ``TELEMETRY`` (1: the event log under ``SAVE_DIR/telemetry``, goodput, the on-device
 health stats, MFU, anomalies; ``telemetry/``) and ``PROFILE_DIR`` (a raw trace of the first
 epoch's steps 1 to 5, ``profiling/trace.py``). The port adds

@@ -7,7 +7,11 @@ array (``jax.tree.map(np.asarray, variables)``), so this module imports no JAX.
   ``models/transformer_lm.py`` lists: flax ``Dense`` kernels are ``[in, out]`` where
   ``nn.Linear`` holds ``[out, in]``; ``qkv/kernel`` is ``[d, 3, H, Dh]`` with bias
   ``[3, H, Dh]``; ``attn_out/kernel`` is ``[H, Dh, d]``; an MoE block's ``moe`` sub-tree
-  through :func:`moe_params_from_jax`.
+  through :func:`moe_params_from_jax`. :func:`block_params_from_jax` maps one
+  ``DecoderBlock``.
+* :func:`stage_params_from_jax` — the stacked stage parameters of ``pipeline_apply``:
+  a JAX stacked pytree unstacked along dimension 0, each stage converted (by
+  :func:`block_params_from_jax` for a ``DecoderBlock`` stage, or as it is), and restacked.
 * :func:`resnet_params_from_jax` — ``ResNet`` (optionally under ``InputNormalizer``), from
   ``params`` and ``batch_stats``: conv kernels HWIO -> OIHW, the head's ``[in, out]`` ->
   ``[out, in]``, BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
@@ -34,10 +38,12 @@ import numpy as np
 import torch
 
 __all__ = [
+    "block_params_from_jax",
     "convnext_params_from_jax",
     "moe_params_from_jax",
     "params_from_jax",
     "resnet_params_from_jax",
+    "stage_params_from_jax",
     "vgg_params_from_jax",
     "vit_params_from_jax",
 ]
@@ -69,18 +75,47 @@ def params_from_jax(params: Mapping) -> "dict[str, torch.Tensor]":
         **_ln(params["LayerNorm_0"], "ln_f"),
     }
     for i, name in enumerate(blocks):
-        blk = params[name]
-        prefix = f"blocks.{i}"
-        out.update(_ln(blk["LayerNorm_0"], f"{prefix}.ln1"))
-        out.update(_dense(blk["qkv"], f"{prefix}.qkv"))
-        out.update(_dense(blk["attn_out"], f"{prefix}.attn_out"))
-        out.update(_ln(blk["LayerNorm_1"], f"{prefix}.ln2"))
-        if "moe" in blk:
-            out.update(moe_params_from_jax(blk["moe"], f"{prefix}.moe"))
-        else:
-            out.update(_dense(blk["mlp_in"], f"{prefix}.mlp_in"))
-            out.update(_dense(blk["mlp_out"], f"{prefix}.mlp_out"))
+        out.update(block_params_from_jax(params[name], f"blocks.{i}"))
     return out
+
+
+def block_params_from_jax(blk: Mapping, prefix: str = "") -> "dict[str, torch.Tensor]":
+    """One ``DecoderBlock``'s params (its ``state_dict`` names under ``prefix``)."""
+    dot = f"{prefix}." if prefix else ""
+    out = {}
+    out.update(_ln(blk["LayerNorm_0"], f"{dot}ln1"))
+    out.update(_dense(blk["qkv"], f"{dot}qkv"))
+    out.update(_dense(blk["attn_out"], f"{dot}attn_out"))
+    out.update(_ln(blk["LayerNorm_1"], f"{dot}ln2"))
+    if "moe" in blk:
+        out.update(moe_params_from_jax(blk["moe"], f"{dot}moe"))
+    else:
+        out.update(_dense(blk["mlp_in"], f"{dot}mlp_in"))
+        out.update(_dense(blk["mlp_out"], f"{dot}mlp_out"))
+    return out
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def stage_params_from_jax(stacked: Mapping, convert=None) -> "dict[str, torch.Tensor]":
+    """``pipeline_apply``'s stacked ``{name: [S * v, ...]}`` from a JAX stacked pytree (as
+    numpy, every leaf leading with ``[S * v, ...]``): unstacked along dimension 0, each
+    stage's tree converted by ``convert`` (``block_params_from_jax`` for a ``DecoderBlock``
+    stage; None keeps a flat ``{name: leaf}`` stage such as ``{w1, w2}`` as it is), and
+    restacked."""
+    leaf = stacked
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    stages = []
+    for i in range(len(leaf)):
+        tree = _unstack(stacked, i)
+        stages.append(convert(tree) if convert is not None else {k: _t(v) for k, v in tree.items()})
+    return {name: torch.stack([st[name] for st in stages]) for name in stages[0]}
+
 
 
 def moe_params_from_jax(p: Mapping, prefix: str = "") -> "dict[str, torch.Tensor]":

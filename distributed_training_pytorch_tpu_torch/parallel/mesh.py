@@ -1,20 +1,23 @@
-"""The distributed world: the data, fsdp, expert, tensor and seq axes.
+"""The distributed world: the data, fsdp, pipe, expert, tensor and seq axes.
 
 Counterpart of ``distributed_training_pytorch_tpu/parallel/mesh.py`` over
 ``torch.distributed``: the JAX package's axis names and order (:data:`AXIS_ORDER`), its
 mesh-spec grammar (:func:`mesh_config_from_spec`), :class:`MeshConfig` and
-:func:`batch_shard_extent`. The ``pipe`` axis raises ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 2.
+:func:`batch_shard_extent`.
 
-A built :class:`Mesh` says where the ``s`` sequence shards live. The JAX package is one
-controller over every device; its counterpart here is one process holding all ``s`` shards
-(on one card, or on the CPU), each rank of the world then being one data shard. The other
-placement is one shard per rank, the world a ``data x seq`` grid of ranks (rank ``=
-data_index * seq + seq_index``, ``seq`` innermost as in the JAX axis order). The mesh
-carries the ``torch.distributed`` sub-groups of that grid: the data group (ranks that hold
-the same sequence shard, over which gradients and metrics are averaged) and the seq group
-(ranks that hold the same rows, around which ring attention passes its blocks, and over
-which :func:`broadcast_over_seq` keeps the model's copies equal).
+A built :class:`Mesh` says where the ``s`` sequence shards, or the ``p`` pipeline stages,
+live. The JAX package is one controller over every device; its counterpart here is one
+process holding all ``s`` shards (or all ``p`` stages: on one card, or on the CPU), each
+rank of the world then being one data shard. The other placement is one shard (or stage)
+per rank, the world a ``data x seq`` (``data x pipe``) grid of ranks (rank ``= data_index
+* seq + seq_index``, the inner axis innermost as in the JAX axis order). The mesh carries
+the ``torch.distributed`` sub-groups of that grid: the data group (ranks that hold the same
+shard or stage, over which gradients and metrics are averaged) and the seq or pipe group
+(ranks that hold the same rows: around which ring attention passes its blocks and Ulysses
+exchanges its heads, or through which the pipeline passes its activations; over it
+:func:`broadcast_over_copies` keeps the model's copies equal). The ``pipe`` axis is
+module-managed, as in the JAX package: no rule shards the state over it and the batch is
+not split over it; a model reaches it through ``parallel/pipeline.py::pipeline_apply``.
 
 With an ``fsdp``, ``expert`` or ``tensor`` axis each rank is one device of a ``data x fsdp x
 expert x tensor`` grid, built by ``torch.distributed.device_mesh.init_device_mesh`` with its
@@ -24,7 +27,8 @@ fsdp_index) * expert + expert_index) * tensor + tensor_index``). The batch is sp
 of one expert group read the same batch shard, as in the JAX package; the state is laid
 out by ``parallel/sharding.py`` and ``parallel/layout.py`` (the experts of an MoE layer
 split over the expert group, ``parallel/moe.py``). The seq axis beside ``fsdp``, ``expert``
-or ``tensor``, and ``expert`` beside ``tensor``, are not ported (Queue 1 item 6).
+or ``tensor``, ``expert`` beside ``tensor``, and the pipe axis beside any axis but ``data``
+are not ported (Queue 1 item 6).
 
 ``setup_distributed`` reads torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) or takes an explicit ``init_method`` (for
@@ -42,6 +46,7 @@ import torch.distributed as dist
 
 __all__ = [
     "AXIS_ORDER",
+    "AxisRing",
     "DATA_AXIS",
     "EXPERT_AXIS",
     "FSDP_AXIS",
@@ -51,7 +56,7 @@ __all__ = [
     "Mesh",
     "MeshConfig",
     "batch_shard_extent",
-    "broadcast_over_seq",
+    "broadcast_over_copies",
     "mesh_axes",
     "local_batch_size",
     "mesh_config_from_spec",
@@ -70,8 +75,6 @@ EXPERT_AXIS = "expert"
 TENSOR_AXIS = "tensor"
 SEQ_AXIS = "seq"
 AXIS_ORDER = (DATA_AXIS, FSDP_AXIS, PIPE_AXIS, EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
-_LATER_AXES = (PIPE_AXIS,)
-_LATER_AXES_ITEM = "ROADMAP.md Queue 1 item 2 (parallel/pipeline.py)"
 _SHARDED_ITEM = "ROADMAP.md Queue 1 item 6"
 
 
@@ -140,16 +143,17 @@ def local_batch_size(global_batch_size: int) -> int:
 class Mesh:
     """A built mesh, as this process sees it.
 
-    ``shape`` maps ``"data"`` and ``"seq"`` to their extents, and ``"fsdp"``, ``"expert"``
-    and ``"tensor"`` too where they are above 1. ``data_index`` is this process's data shard.
-    ``seq_shards`` are the sequence shards it holds: all of ``range(seq)`` in the
-    one-process placement, its one ``seq_index`` otherwise. ``data_group`` and
-    ``seq_group`` are the ``torch.distributed`` groups of the ranks that share this
-    process's sequence shard (and fsdp and tensor index) and its rows (``None`` where that
-    group is this process alone); ``seq_ranks`` are the global ranks of the seq group in
-    ring order. ``fsdp_index``/``fsdp_group``, ``expert_index``/``expert_group`` and
-    ``tensor_index``/``tensor_group`` are the same for those axes, ``device_mesh`` the
-    ``DeviceMesh`` of a sharded grid."""
+    ``shape`` maps ``"data"`` and ``"seq"`` to their extents, and ``"fsdp"``, ``"pipe"``,
+    ``"expert"`` and ``"tensor"`` too where they are above 1. ``data_index`` is this
+    process's data shard. ``seq_shards`` are the sequence shards it holds: all of
+    ``range(seq)`` in the one-process placement, its one ``seq_index`` otherwise;
+    ``pipe_shards`` the same for the pipeline stages. ``data_group``, ``seq_group`` and
+    ``pipe_group`` are the ``torch.distributed`` groups of the ranks that share this
+    process's shard or stage (and fsdp and tensor index) and its rows (``None`` where that
+    group is this process alone); ``seq_ranks`` and ``pipe_ranks`` are the global ranks of
+    the seq and pipe groups in ring order. ``fsdp_index``/``fsdp_group``,
+    ``expert_index``/``expert_group`` and ``tensor_index``/``tensor_group`` are the same for
+    those axes, ``device_mesh`` the ``DeviceMesh`` of a sharded grid."""
 
     shape: "dict[str, int]"
     data_index: int
@@ -157,6 +161,9 @@ class Mesh:
     data_group: object = None
     seq_group: object = None
     seq_ranks: "tuple[int, ...]" = ()
+    pipe_shards: "tuple[int, ...]" = (0,)
+    pipe_group: object = None
+    pipe_ranks: "tuple[int, ...]" = ()
     fsdp_index: int = 0
     fsdp_group: object = None
     tensor_index: int = 0
@@ -170,6 +177,23 @@ class Mesh:
     def seq_local(self) -> bool:
         """True when this process holds every sequence shard."""
         return len(self.seq_shards) == self.shape[SEQ_AXIS]
+
+    @property
+    def pipe_index(self) -> int:
+        """This process's pipeline stage when it holds one (the first it holds otherwise)."""
+        return self.pipe_shards[0]
+
+    def axis_shards(self, axis: str) -> "tuple[int, ...]":
+        """The shards of the ``seq`` or ``pipe`` axis that this process holds."""
+        return {SEQ_AXIS: self.seq_shards, PIPE_AXIS: self.pipe_shards}[axis]
+
+    def axis_group(self, axis: str):
+        """The group of the ``seq`` or ``pipe`` axis (None: this process alone)."""
+        return {SEQ_AXIS: self.seq_group, PIPE_AXIS: self.pipe_group}[axis]
+
+    def axis_ranks(self, axis: str) -> "tuple[int, ...]":
+        """The global ranks of the ``seq`` or ``pipe`` group, in ring order."""
+        return {SEQ_AXIS: self.seq_ranks, PIPE_AXIS: self.pipe_ranks}[axis]
 
     @property
     def sharded(self) -> bool:
@@ -228,58 +252,66 @@ class MeshConfig:
     def build(self) -> Mesh:
         """Place the shards on this world and make its sub-groups. Every rank must call it
         (new groups are collective). Without ``fsdp``, ``expert`` or ``tensor``: one process
-        holds all ``seq`` shards when the world is ``data`` ranks, each rank holds one when
-        it is ``data * seq``, and any other split raises. With them, the world is the
-        ``data x fsdp x expert x tensor`` grid."""
-        for name in _LATER_AXES:
-            if getattr(self, name) != 1:
-                raise NotImplementedError(
-                    f"the {name!r} axis is not in the port yet: {_LATER_AXES_ITEM}"
-                )
+        holds all ``seq`` shards (or all ``pipe`` stages) when the world is ``data`` ranks,
+        each rank holds one when it is ``data * seq`` (``data * pipe``), and any other split
+        raises. With them, the world is the ``data x fsdp x expert x tensor`` grid."""
         fsdp, expert, tensor = int(self.fsdp), int(self.expert), int(self.tensor)
+        seq, pipe = int(self.seq), int(self.pipe)
         if min(fsdp, expert, tensor) < 1:
             raise ValueError(f"fsdp, expert and tensor extents must be >= 1, got {fsdp}, {expert}, {tensor}")
+        if seq < 1 or pipe < 1:
+            raise ValueError(f"seq and pipe extents must be >= 1, got {seq}, {pipe}")
+        if pipe > 1:
+            beside = [a for a, n in ((FSDP_AXIS, fsdp), (EXPERT_AXIS, expert), (SEQ_AXIS, seq), (TENSOR_AXIS, tensor))
+                      if n > 1]
+            if beside:
+                raise NotImplementedError(
+                    f"the pipe axis beside {', '.join(beside)} is not ported ({_SHARDED_ITEM}): use ppN or dpNppM for "
+                    "pipeline parallelism"
+                )
         if fsdp > 1 or expert > 1 or tensor > 1:
             return self._build_sharded(fsdp, expert, tensor)
+        inner_axis, inner = (PIPE_AXIS, pipe) if pipe > 1 else (SEQ_AXIS, seq)
         world, rank = process_count(), process_index()
-        seq = int(self.seq)
-        if seq < 1:
-            raise ValueError(f"seq extent must be >= 1, got {seq}")
         data = int(self.data)
         if data == -1:
-            data = world // seq if world % seq == 0 else world
+            data = world // inner if world % inner == 0 else world
         if data < 1:
             raise ValueError(f"data extent must be >= 1 (or -1), got {self.data}")
-        shape = {DATA_AXIS: data, SEQ_AXIS: seq}
-        if world == data:  # every process holds all the sequence shards of its rows
+        shape = {DATA_AXIS: data, SEQ_AXIS: seq, **({PIPE_AXIS: pipe} if pipe > 1 else {})}
+        if world == data:  # every process holds all the shards (stages) of its rows
             group = dist.group.WORLD if world > 1 else None
-            return Mesh(shape, data_index=rank, seq_shards=tuple(range(seq)), data_group=group)
-        if world != data * seq:
+            return Mesh(shape, data_index=rank, seq_shards=tuple(range(seq)), data_group=group,
+                        pipe_shards=tuple(range(pipe)))
+        if world != data * inner:
             raise ValueError(
-                f"mesh data={data} x seq={seq} does not fit a world of {world} ranks: one process "
-                f"holds every seq shard ({data} ranks) or each rank holds one ({data * seq} ranks)"
+                f"mesh data={data} x {inner_axis}={inner} does not fit a world of {world} ranks: one process holds "
+                f"every {inner_axis} shard ({data} ranks) or each rank holds one ({data * inner} ranks)"
             )
-        data_index, seq_index = divmod(rank, seq)
-        data_group = seq_group = None
-        seq_ranks = ()
+        data_index, inner_index = divmod(rank, inner)
+        data_group = inner_group = None
+        inner_ranks = ()
         # new_group is collective: every rank makes every group, in the same order.
-        for j in range(seq):
-            ranks = [i * seq + j for i in range(data)]
+        for j in range(inner):
+            ranks = [i * inner + j for i in range(data)]
             group = _sub_group(ranks, world)
-            if j == seq_index:
+            if j == inner_index:
                 data_group = group
         for i in range(data):
-            ranks = [i * seq + j for j in range(seq)]
+            ranks = [i * inner + j for j in range(inner)]
             group = _sub_group(ranks, world)
             if i == data_index:
-                seq_group, seq_ranks = group, tuple(ranks)
-        return Mesh(shape, data_index=data_index, seq_shards=(seq_index,), data_group=data_group,
-                    seq_group=seq_group, seq_ranks=seq_ranks)
+                inner_group, inner_ranks = group, tuple(ranks)
+        if inner_axis == PIPE_AXIS:
+            return Mesh(shape, data_index=data_index, seq_shards=(0,), data_group=data_group,
+                        pipe_shards=(inner_index,), pipe_group=inner_group, pipe_ranks=inner_ranks)
+        return Mesh(shape, data_index=data_index, seq_shards=(inner_index,), data_group=data_group,
+                    seq_group=inner_group, seq_ranks=inner_ranks)
 
     def _build_sharded(self, fsdp: int, expert: int, tensor: int) -> Mesh:
         """The ``data x fsdp x expert x tensor`` grid, one device a rank, through
         ``init_device_mesh`` (dims in the JAX axis order, extents of 1 left out but data)."""
-        if int(self.seq) != 1:
+        if int(self.seq) != 1:  # (pipe beside these axes raised in build)
             raise NotImplementedError(
                 f"the seq axis beside fsdp, expert or tensor is not ported ({_SHARDED_ITEM}): use spN or dpNspM "
                 "for sequence parallelism, fsdpN/tpN/epN/dpNfsdpM for sharded state"
@@ -324,26 +356,61 @@ class MeshConfig:
                     expert_group=groups.get(EXPERT_AXIS), batch_group_=batch_group, device_mesh=device_mesh)
 
 
-def broadcast_over_seq(tensors, mesh: "Mesh | None") -> None:
-    """Overwrite ``tensors`` in place with those of the first rank of this rank's seq
-    group. With one sequence shard per rank, every seq rank of a data shard holds the whole
-    model and computes the same gradients; broadcasting the parameters once and the
-    gradients every step keeps those copies bit-equal by construction (a nondeterministic
-    kernel on one rank cannot make them drift, which would feed the ring k/v projected
-    with other weights). A no-op when this process holds every sequence shard."""
-    if mesh is None or mesh.seq_group is None:
+def broadcast_over_copies(tensors, mesh: "Mesh | None") -> None:
+    """Overwrite ``tensors`` in place with those of the first rank of this rank's seq or
+    pipe group. With one sequence shard (or pipeline stage) per rank, every rank of the
+    group holds the whole model for the same rows and computes the same gradients;
+    broadcasting the parameters once and the gradients every step keeps those copies
+    bit-equal by construction (a nondeterministic kernel on one rank cannot make them
+    drift, which would feed the ring k/v projected with other weights, or the next stage
+    activations of other weights). A no-op when this process holds every shard."""
+    if mesh is None:
+        return
+    group, ranks = (mesh.seq_group, mesh.seq_ranks) if mesh.seq_group is not None else (mesh.pipe_group,
+                                                                                        mesh.pipe_ranks)
+    if group is None:
         return
     by_dtype: "dict[torch.dtype, list[torch.Tensor]]" = {}
     for t in tensors:
         if t is not None:
             by_dtype.setdefault(t.dtype, []).append(t)
     with torch.no_grad():
-        for group in by_dtype.values():
-            flat = torch.cat([t.reshape(-1) for t in group])
+        for same in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in same])
             if flat.device.type != "meta":  # the memory trace allocates, it sends nothing
-                dist.broadcast(flat, src=mesh.seq_ranks[0], group=mesh.seq_group)
-            for t, part in zip(group, flat.split([t.numel() for t in group]), strict=True):
+                dist.broadcast(flat, src=ranks[0], group=group)
+            for t, part in zip(same, flat.split([t.numel() for t in same]), strict=True):
                 t.copy_(part.view_as(t))
+
+
+class AxisRing:
+    """The ``s`` shards of a mesh's ``seq`` or ``pipe`` axis as a ring: the shards this
+    process holds (``shards``; every one when ``local``), the axis's group, and between
+    ranks the global ranks of the group (``ranks``, in ring order) and of this shard's two
+    neighbours. What the ring attention and the pipeline pass around it."""
+
+    def __init__(self, mesh: Mesh, axis: str):
+        if axis not in (SEQ_AXIS, PIPE_AXIS):
+            raise ValueError(f"mesh has no axis {axis!r}")
+        self.s = int(mesh.shape.get(axis, 1))
+        self.shards = tuple(mesh.axis_shards(axis))
+        self.local = len(self.shards) == self.s
+        self.group = mesh.axis_group(axis)
+        if not self.local:
+            self.ranks = mesh.axis_ranks(axis)
+            me = self.shards[0]
+            self.next_rank, self.prev_rank = self.ranks[(me + 1) % self.s], self.ranks[(me - 1) % self.s]
+
+    def p2p(self, x: torch.Tensor, direction: int) -> torch.Tensor:
+        """Send ``x`` one rank along the ring (``+1``: to the next) and take the tensor of
+        its shape that the rank on the other side sends, in one ``batch_isend_irecv``."""
+        dst, src = (self.next_rank, self.prev_rank) if direction > 0 else (self.prev_rank, self.next_rank)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, dst, self.group), dist.P2POp(dist.irecv, out, src, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
 
 
 def _sub_group(ranks, world):
@@ -365,9 +432,8 @@ _SPEC_PAIRS_RE = re.compile(r"(fsdp|dp|tp|sp|pp|ep)(\d+)")
 
 def mesh_config_from_spec(spec: str) -> MeshConfig:
     """Parse a mesh spec (``"dp8"``, ``"fsdp4x2"``, ``"tp2x4"``, ``"dp2fsdp2tp2"``,
-    ``"sp4"``, ``"dp2sp2"``, ``"ep2"``, ``"dp2ep2"``) into a :class:`MeshConfig`, as the JAX
-    package's grammar does. A ``pipe`` axis above 1 raises ``NotImplementedError`` naming
-    ROADMAP.md Queue 1 item 2."""
+    ``"sp4"``, ``"dp2sp2"``, ``"pp4"``, ``"dp2pp2"``, ``"pp2x4"``, ``"ep2"``, ``"dp2ep2"``)
+    into a :class:`MeshConfig`, as the JAX package's grammar does."""
     text = spec.strip().lower()
     if not text:
         raise ValueError("empty mesh spec")
@@ -388,10 +454,6 @@ def mesh_config_from_spec(spec: str) -> MeshConfig:
                 raise ValueError(f"mesh spec {spec!r} names axis {name!r} twice")
             axes[name] = int(n)
         axes.setdefault("data", 1)
-    for name in _LATER_AXES:
-        if axes.get(name, 1) != 1:
-            raise NotImplementedError(f"mesh spec {spec!r}: the {name!r} axis is not in the port yet: "
-                                      f"{_LATER_AXES_ITEM}")
     return MeshConfig(**axes)
 
 

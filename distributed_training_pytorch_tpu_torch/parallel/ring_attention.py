@@ -1,8 +1,9 @@
-"""Sequence parallelism: exact ring attention over the ``seq`` axis of a mesh.
+"""Sequence parallelism: exact ring attention and Ulysses attention over the ``seq`` axis
+of a mesh.
 
 Counterpart of ``distributed_training_pytorch_tpu/parallel/ring_attention.py``
 (``ring_attention``, ``_block_attn``, the dense ring and the flash ring with its
-ring-level custom VJP). Each of the ``s`` sequence shards keeps its q rows while the k/v
+ring-level custom VJP, ``ulysses_attention``). Each of the ``s`` sequence shards keeps its q rows while the k/v
 blocks travel one hop around the ring per step, and the per-block results merge by the
 online softmax; the sequence is ``[B, T, H, D]`` with ``T`` divisible by ``s``.
 
@@ -29,6 +30,15 @@ its shard, and the outputs are gathered. The gradient crosses that boundary the 
 each rank takes its slice of the incoming (replicated) gradient, and the shards' dq, dk
 and dv are gathered back, so every rank holds the whole, once-counted gradient of the
 replicated inputs.
+
+:func:`ulysses_attention` (DeepSpeed-Ulysses) trades the sequence shards for head groups:
+shard ``j`` gets the whole sequence of heads ``j * H/s`` to ``(j + 1) * H/s``, attends
+over it densely, and trades back. In the one-process placement a head group is a view of
+the full tensors (``[B, T, H/s, D]`` with the full tensor's strides, which the wgmma
+kernels' TMA reads in place for ``D`` a multiple of 8); between ranks the trade is
+``all_to_all_single`` over the seq group, whose gradient is the reverse trade. Each head
+group's attention is ``ops.flash_attention.flash_attention`` (K1 forward, K2 and K3
+backward: ``s`` launches of each a call) or the plain block of the dense ring.
 """
 
 from __future__ import annotations
@@ -38,9 +48,9 @@ import torch.distributed as dist
 
 from distributed_training_pytorch_tpu_torch.ops import dispatch
 from distributed_training_pytorch_tpu_torch.ops import flash_attention as fa
-from distributed_training_pytorch_tpu_torch.parallel.mesh import SEQ_AXIS, Mesh
+from distributed_training_pytorch_tpu_torch.parallel.mesh import SEQ_AXIS, AxisRing, Mesh
 
-__all__ = ["ring_attention"]
+__all__ = ["ring_attention", "ulysses_attention"]
 
 _NEG_INF = -1e30
 _SKIP, _DIAGONAL, _VISIBLE = 0, 1, 2
@@ -110,39 +120,21 @@ class _Gather(torch.autograd.Function):
         return ctx.ring.local_slice(g), None
 
 
-class _Ring:
+class _Ring(AxisRing):
     """The ``s`` shards of a sequence over a mesh's seq axis, and the shards this process
     holds (``shards``). ``split``, ``hop`` and ``gather`` act on the list of this
     process's shards, in the order of ``shards``; they are differentiable."""
 
-    def __init__(self, mesh: Mesh, t: int):
-        self.s = mesh.shape[SEQ_AXIS]
+    def __init__(self, mesh: Mesh, t: int, axis: str = SEQ_AXIS):
+        super().__init__(mesh, axis)
         if t % self.s:
-            raise ValueError(f"sequence length {t} is not divisible by the {self.s} shards of the seq axis")
+            raise ValueError(f"sequence length {t} is not divisible by the {self.s} shards of the {axis} axis")
         self.t_local = t // self.s
-        self.shards = tuple(mesh.seq_shards)
-        self.local = mesh.seq_local
-        self.group = mesh.seq_group
-        if not self.local:
-            me = self.shards[0]
-            self.next_rank = mesh.seq_ranks[(me + 1) % self.s]
-            self.prev_rank = mesh.seq_ranks[(me - 1) % self.s]
 
     def rows(self, shard: int) -> slice:
         return slice(shard * self.t_local, (shard + 1) * self.t_local)
 
     # -- between ranks ------------------------------------------------------
-
-    def p2p(self, x, direction: int):
-        """Send ``x`` one rank along the ring (``+1``: to the next) and take what the rank
-        on the other side sends."""
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dst, src = (self.next_rank, self.prev_rank) if direction > 0 else (self.prev_rank, self.next_rank)
-        ops = [dist.P2POp(dist.isend, x, dst, self.group), dist.P2POp(dist.irecv, out, src, self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return out
 
     def local_slice(self, x):
         return x[:, self.rows(self.shards[0])].contiguous()
@@ -301,3 +293,100 @@ def ring_attention(q, k, v, mesh: Mesh, *, causal: bool = False, impl: str = "au
     if impl == "flash":
         return _FlashRing.apply(q, k, v, ring, causal)
     return _dense_ring(q, k, v, ring, causal)
+
+
+# -- Ulysses -------------------------------------------------------------------------
+
+
+def _seq_to_heads(x, ring: _Ring):
+    """``[B, T/s, H, D]`` (this rank's sequence shard, every head) -> ``[B, T, H/s, D]``
+    (the whole sequence of this rank's head group): one ``all_to_all_single``."""
+    b, tl, h, d = x.shape
+    s = ring.s
+    send = x.reshape(b, tl, s, h // s, d).permute(2, 0, 1, 3, 4).contiguous()  # [s, B, T/s, H/s, D]
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ring.group)  # recv[i]: shard i's rows of my heads
+    return recv.permute(1, 0, 2, 3, 4).reshape(b, s * tl, h // s, d)
+
+
+def _heads_to_seq(x, ring: _Ring):
+    """The reverse trade: ``[B, T, H/s, D]`` -> ``[B, T/s, H, D]``."""
+    b, t, hs, d = x.shape
+    s = ring.s
+    send = x.reshape(b, s, t // s, hs, d).permute(1, 0, 2, 3, 4).contiguous()  # [s, B, T/s, H/s, D]
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ring.group)  # recv[i]: head group i of my rows
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, t // s, s * hs, d)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    """The trade of sequence shards for head groups between ranks; its gradient is the
+    reverse trade (the transpose of ``lax.all_to_all``)."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return _seq_to_heads(x, ring)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_to_seq(g, ctx.ring), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    """The trade back of head groups for sequence shards; its gradient is the forward
+    trade."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return _heads_to_seq(x, ring)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_heads(g, ctx.ring), None
+
+
+def ulysses_attention(q, k, v, mesh: Mesh, *, axis: str = SEQ_AXIS, causal: bool = False,
+                      use_flash: "bool | None" = None):
+    """DeepSpeed-Ulysses sequence parallelism: ``[B, T, H, D]`` in and out (scale
+    ``D**-0.5``), ``T`` split on ``axis``, ``H`` divisible by its extent; each head group
+    attends over the whole sequence (see the module docstring). ``use_flash``: True runs
+    each head group through ``flash_attention`` (the kernels on CUDA tensors, their plain
+    versions on CPU tensors), False through the plain block, None picks by device: flash
+    for CUDA tensors, plain for CPU tensors, recorded as a ``kernel_dispatch`` decision (the
+    JAX package picks flash on a TPU above a sequence length tuned there).
+    Differentiable."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}")
+    s = mesh.shape[axis]
+    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"expected matching [B,T,H,D] q/k/v, got {q.shape}/{k.shape}/{v.shape}")
+    if q.shape[2] % s:
+        raise ValueError(f"num_heads {q.shape[2]} not divisible by seq devices {s}")
+    ring = _Ring(mesh, q.shape[1], axis)
+    flash = use_flash
+    if flash is None:
+        flash = q.device.type == "cuda"
+        reason = f"auto: {q.device.type} tensors -> {'the flash kernels' if flash else 'the plain block'}"
+    else:
+        reason = f"use_flash={flash}"
+    dispatch.record("ulysses_attention", "attention", "flash" if flash else "plain", reason=reason, seq_shards=s)
+    scale = q.shape[-1] ** -0.5
+
+    def attend(qh, kh, vh):
+        if flash:
+            return fa.flash_attention(qh, kh, vh, causal=causal)
+        bias = None
+        if causal:
+            pos = torch.arange(qh.shape[1], device=qh.device)
+            bias = torch.where(pos[:, None] >= pos[None, :], 0.0, _NEG_INF)[None, None]
+        o, _, l = _block_attn(qh, kh, vh, scale, bias)
+        return (o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+
+    if ring.local:  # every head group here: a view of the full tensors, whole sequence
+        hs = q.shape[2] // s
+        groups = [slice(j * hs, (j + 1) * hs) for j in range(s)]
+        return torch.cat([attend(q[:, :, g], k[:, :, g], v[:, :, g]) for g in groups], dim=2)
+    qh, kh, vh = (_SeqToHeads.apply(ring.split(x)[0], ring) for x in (q, k, v))
+    return ring.gather([_HeadsToSeq.apply(attend(qh, kh, vh), ring)])

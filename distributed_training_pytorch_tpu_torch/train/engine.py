@@ -80,9 +80,10 @@ shards). A step on such a state averages the gradients over the batch shards wit
 layout's reduction in place of DDP's, and the guard's finite flag is and-ed over the world,
 so every rank takes or skips the same step. Without an ``fsdp`` or ``tensor`` axis nothing
 of this runs: the step is DDP's, as before. The health stats and chained steps on the card
-refuse a sharded state. With one sequence shard per rank, the
-gradients and the loss are broadcast from the first rank of the seq group before the
-update (``parallel.mesh.broadcast_over_seq``), so every seq rank takes the same step.
+refuse a sharded state. With one sequence shard (or pipeline stage) per rank, the
+gradients and the loss are broadcast from the first rank of the seq (or pipe) group before
+the update (``parallel.mesh.broadcast_over_copies``), so every rank of it takes the same
+step.
 """
 
 from __future__ import annotations
@@ -96,7 +97,7 @@ import torch.distributed as dist
 from torch.nn.utils import parametrize
 
 from distributed_training_pytorch_tpu_torch.ops.dispatch import allocation_route_active
-from distributed_training_pytorch_tpu_torch.parallel.mesh import broadcast_over_seq, process_count
+from distributed_training_pytorch_tpu_torch.parallel.mesh import broadcast_over_copies, process_count
 from distributed_training_pytorch_tpu_torch.precision import get_policy, is_dynamic
 from distributed_training_pytorch_tpu_torch.train.state import TrainState, unwrap
 
@@ -343,9 +344,9 @@ class TrainEngine:
         saved = [b.detach().clone() for b in buffers]  # the forward updates BN statistics
         loss, metrics = self._grads_and_metrics(model, batch, state.loss_scale if dynamic else None,
                                                 state.layout is not None)
-        # The seq ranks of a data shard step with the gradients (and the guard with the
-        # loss) of the first of them, so their model copies stay bit-equal.
-        broadcast_over_seq([p.grad for p in unwrap(model).parameters()] + [loss], self.mesh)
+        # The seq (or pipe) ranks of a data shard step with the gradients (and the guard
+        # with the loss) of the first of them, so their model copies stay bit-equal.
+        broadcast_over_copies([p.grad for p in unwrap(model).parameters()] + [loss], self.mesh)
         if state.layout is not None:
             state.layout.reduce_gradients(unwrap(model))
             state.layout.broadcast_buffers(unwrap(model))

@@ -35,20 +35,22 @@ contract for the arguments the entries pass, and the same epoch loop:
 In the port the model runs on ``device`` (the card unless the caller passes
 ``device="cpu"``). ``mesh`` is the world's layout: ``None`` (every rank a data shard), an
 integer (the same, checked against the world size), or a built ``parallel.mesh.Mesh``
-(``data``, ``fsdp``, ``expert``, ``tensor`` and ``seq`` axes), as the JAX
+(``data``, ``fsdp``, ``pipe``, ``expert``, ``tensor`` and ``seq`` axes), as the JAX
 ``Trainer(mesh=MeshConfig(...).build())`` takes it. The global batch divides by the
 batch-shard extent (``data x fsdp``); each batch shard feeds its rows of it (its seq,
-expert and tensor ranks see the same rows: the loader shards by the batch-shard index, not
+pipe, expert and tensor ranks see the same rows: the loader shards by the batch-shard index, not
 the rank). Without an ``fsdp``, ``expert`` or ``tensor`` axis, a data axis of more than one
 rank wraps the model in ``DistributedDataParallel`` over the data group. With one, ``sharding_rules`` (``"auto"``: the ``build_sharding_rules`` hook, JAX ``trainer.py:
 126``, ``:470-483``, ``:2450-2468``) and ``fsdp_min_size`` lay the parameters and the
 optimizer state out in shards (``parallel/sharding.py``, ``parallel/layout.py``), and the
 construction logs what was sharded. With one
-sequence shard per rank, every seq rank holds the whole model: its copies are broadcast
-from the seq group's first rank at build, and the engine broadcasts the gradients each
-step, so they stay bit-equal (``parallel.mesh.broadcast_over_seq``). A model
-reaches the seq axis through ``self.mesh`` in ``build_model``, for example
-``GPTSmall(..., attention_impl="ring", mesh=self.mesh)``. Rank 0 saves.
+sequence shard (or pipeline stage) per rank, every seq (or pipe) rank holds the whole
+model: its copies are broadcast from the group's first rank at build, and the engine
+broadcasts the gradients each step, so they stay bit-equal
+(``parallel.mesh.broadcast_over_copies``). A model reaches the seq axis through
+``self.mesh`` in ``build_model``, for example ``GPTSmall(..., attention_impl="ring",
+mesh=self.mesh)``; the pipe axis through a loss that runs ``parallel.pipeline_apply``
+over ``self.mesh``. Rank 0 saves.
 
 Resilience (``trainer.py:2197-2345``, the JAX Trainer's, with its defaults):
 
@@ -343,8 +345,8 @@ class Trainer:
 
         torch.manual_seed(seed)
         self.model = self.build_model().to(self.device)
-        # One sequence shard per rank: the seq ranks' copies start from the first one's.
-        mesh_lib.broadcast_over_seq([*self.model.parameters(), *self.model.buffers()], self.mesh)
+        # One sequence shard (pipeline stage) per rank: the copies start from the first one's.
+        mesh_lib.broadcast_over_copies([*self.model.parameters(), *self.model.buffers()], self.mesh)
         self.criterion = self.build_criterion()
         self.train_dataset = self.build_train_dataset()
         self.train_dataloader = self.build_dataloader(self.train_dataset, phase="train")

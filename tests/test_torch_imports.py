@@ -45,6 +45,8 @@ PORT_MODULES = [
     # the memory preflight and observability's readers
     "memory.analysis", "memory.preflight", "profiling.diff", "profiling.gate", "telemetry.timeline",
     "telemetry.monitor", "telemetry.history",
+    # pipeline parallelism over the pipe axis, Ulysses attention (in parallel.ring_attention)
+    "parallel.pipeline", "models.pipelined_lm",
 ]
 # The card's machine has neither OpenCV nor PIL, nor scikit-learn: the port decodes and
 # transforms images without them, and ships the digits corpus as an array of its own.

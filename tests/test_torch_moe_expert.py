@@ -263,10 +263,13 @@ def test_mesh_grammar_takes_the_expert_axis(spec):
 
 
 def test_mesh_refusals_and_default_rules():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        mesh_config_from_spec("pp2x2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        MeshConfig(pipe=2).build()
+    # the pipe axis builds in one process (both stages held here); beside the expert axis
+    # it raises naming the queue item of the compositions still open
+    assert mesh_config_from_spec("pp2x2") == MeshConfig(data=2, pipe=2)
+    piped = MeshConfig(pipe=2).build()
+    assert piped.shape["pipe"] == 2 and piped.pipe_shards == (0, 1) and piped.pipe_group is None
+    with pytest.raises(NotImplementedError, match="pipe axis beside expert.*Queue 1 item 6"):
+        MeshConfig(data=1, pipe=2, expert=2).build()
     with pytest.raises(NotImplementedError, match="expert axis beside tensor.*Queue 1 item 6"):
         MeshConfig(data=1, expert=2, tensor=2).build()
     with pytest.raises(NotImplementedError, match="seq axis beside .*Queue 1 item 6"):

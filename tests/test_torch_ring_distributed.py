@@ -10,9 +10,11 @@ shards' dq/dk/dv gathered back (not partial, not counted once per rank). Then on
 the data shard, DDP over the data group, metrics averaged over it) must give every rank the
 one-process loss and updated parameters. Last, with each seq rank given its own initial
 weights and its own loss scale, the seq ranks' model copies must stay bit-equal over a few
-steps: nothing but the broadcasts over the seq group keeps them so.
+steps: nothing but the broadcasts over the seq group keeps them so. Ulysses attention
+rides the same launches: each rank trades its sequence shard for a head group by
+``all_to_all_single`` and back, and must get the one-process output and q/k/v gradients.
 
-Tolerances, f32: the ring op 1e-6 (the same block arithmetic in the same order; only the
+Tolerances, f32: the ring and Ulysses ops 1e-6 (the same block arithmetic in the same order; only the
 transport differs); the training step 1e-6 on the loss and the params (with two data
 shards, DDP averages the halves' gradients in another order than the full batch's mean).
 The step is plain SGD, whose update is the gradient times the learning rate: AdamW would
@@ -31,6 +33,8 @@ import pytest
 import torch
 
 from distributed_training_pytorch_tpu_torch.parallel import MeshConfig
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (2, 32, 4, 8)  # B, T, H, D
@@ -51,7 +55,7 @@ _COMMON = textwrap.dedent(
     from distributed_training_pytorch_tpu_torch.data import ArrayDataSource
     from distributed_training_pytorch_tpu_torch.models import LMTiny
     from distributed_training_pytorch_tpu_torch.models.transformer_lm import make_fused_lm_loss
-    from distributed_training_pytorch_tpu_torch.parallel import ring_attention
+    from distributed_training_pytorch_tpu_torch.parallel import ring_attention, ulysses_attention
     from distributed_training_pytorch_tpu_torch.trainer import Trainer
 
 
@@ -60,6 +64,15 @@ _COMMON = textwrap.dedent(
         q, k, v, w = (torch.tensor(rng.randn(*shape), dtype=torch.float32) for _ in range(4))
         q, k, v = (x.requires_grad_() for x in (q, k, v))
         o = ring_attention(q, k, v, mesh, causal=causal, impl=impl)
+        grads = torch.autograd.grad((o * w).sum(), (q, k, v))
+        return [o.detach(), *grads]
+
+
+    def ulysses_case(mesh, shape, use_flash, causal):
+        rng = np.random.RandomState(13)
+        q, k, v, w = (torch.tensor(rng.randn(*shape), dtype=torch.float32) for _ in range(4))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o = ulysses_attention(q, k, v, mesh, causal=causal, use_flash=use_flash)
         grads = torch.autograd.grad((o * w).sum(), (q, k, v))
         return [o.detach(), *grads]
 
@@ -133,6 +146,9 @@ _RANK_SIDE = _COMMON + textwrap.dedent(
     for impl in ("dense", "flash"):
         for causal in (False, True):
             result[(impl, causal)] = ring_case(mesh, shape, impl, causal)
+    for use_flash in (False, True):
+        for causal in (False, True):
+            result[("ulysses", use_flash, causal)] = ulysses_case(mesh, shape, use_flash, causal)
     trainer, loss, params = train_case(mesh, seq, batch, lr, folder)
     assert trainer.train_dataloader.local_batch_size == batch // mesh.shape["data"]
     assert isinstance(trainer.model, torch.nn.parallel.DistributedDataParallel) == (mesh.shape["data"] > 1)
@@ -202,6 +218,17 @@ def test_one_shard_per_rank_equals_all_shards_in_one_process(tmp_path, rank_resu
                     np.testing.assert_allclose(
                         got.numpy(), want.numpy(), atol=ATOL, err_msg=f"{spec} rank {rank} {impl} causal={causal} {name}"
                     )
+    # Ulysses between ranks (the all-to-all trades over the seq group) against the head
+    # groups of one process, both routes (the flash route runs the plain wrappers here)
+    for use_flash in (False, True):
+        for causal in (False, True):
+            ref = namespace["ulysses_case"](local, SHAPE, use_flash, causal)
+            for rank, result in enumerate(ranks):
+                for name, got, want in zip(("o", "dq", "dk", "dv"), result[("ulysses", use_flash, causal)], ref,
+                                           strict=True):
+                    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                               err_msg=f"{spec} rank {rank} ulysses flash={use_flash} causal={causal} "
+                                                       f"{name}")
 
     _, loss, params = namespace["train_case"](local, SEQ, BATCH, LR, str(tmp_path / "one"))
     for rank, result in enumerate(ranks):

@@ -40,6 +40,8 @@ import torch
 from distributed_training_pytorch_tpu_torch.data import native
 from distributed_training_pytorch_tpu_torch.examples import train_cifar10
 from distributed_training_pytorch_tpu_torch.models import InputNormalizer, create_model, vgg_params_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, EPOCHS, PER_FILE, N_TEST = 32, 2, 64, 100

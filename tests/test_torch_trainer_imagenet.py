@@ -38,6 +38,8 @@ from distributed_training_pytorch_tpu_torch.examples import train_imagenet
 from distributed_training_pytorch_tpu_torch.models import ResNet18Slim, resnet_params_from_jax
 from distributed_training_pytorch_tpu_torch.ops.losses import cross_entropy_loss
 from distributed_training_pytorch_tpu_torch.train import TrainEngine, TrainState
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {"IMAGE_SIZE": "32", "NUM_CLASSES": "5", "STEPS_PER_EPOCH": "2", "DTYPE": "fp32", "SHIP_UINT8": "1"}

@@ -32,6 +32,8 @@ from distributed_training_pytorch_tpu_torch.checkpoint import CheckpointManager
 from distributed_training_pytorch_tpu_torch.data import ArrayDataSource, ShardedLoader
 from distributed_training_pytorch_tpu_torch.examples import train_lm
 from distributed_training_pytorch_tpu_torch.models import params_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ, BATCH, WINDOWS, LR, EPOCHS = 64, 8, 200, 1e-3, 2
@@ -317,15 +319,20 @@ def test_unported_knobs_raise(lm_env, tmp_path, monkeypatch):
     q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="float16 on the flash-attention kernels"):
         fa._check_kernel_inputs((("q", q), ("k", q), ("v", q)))
-    # MESH=fsdp2x1 is ported: it asks for two ranks, so a world of one refuses it; the
-    # pipe and expert axes still raise naming their queue item
+    # MESH=fsdp2x1 is ported: it asks for two ranks, so a world of one refuses it; MESH=pp2x1
+    # builds in one process, which holds both stages (the pipe axis is module-managed, as in
+    # the JAX entry); the pipe axis beside tensor raises naming its queue item
     monkeypatch.setenv("MESH", "fsdp2x1")
     from distributed_training_pytorch_tpu_torch.parallel.mesh import mesh_from_env
 
     with pytest.raises(ValueError, match="does not fit a world of 1 ranks"):
         mesh_from_env()
     monkeypatch.setenv("MESH", "pp2x1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    piped = mesh_from_env()
+    assert piped.shape == {"data": 1, "seq": 1, "pipe": 2} and piped.pipe_shards == (0, 1)
+    assert piped.batch_extent == 1
+    monkeypatch.setenv("MESH", "pp2tp2")
+    with pytest.raises(NotImplementedError, match="pipe axis beside tensor.*Queue 1 item 6"):
         mesh_from_env()
 
 
