@@ -252,10 +252,30 @@ Phases, each of which fails the run (exit code 1, no final line) when it fails:
     memory and ``bubble_fraction``. (c) ``scripts/torch_pipe_ranks.py``'s 4 gloo ranks on the CPU at
     ``MESH=pp4`` (LMTiny's width, 4 blocks, f32, started beside the soak) against the same
     step on the card in the one-process placement (f32, TF32 off): the update's relative L2
-    error within 1e-4.
+    error within 1e-4;
+29. (fleet) the closed-loop fleet controller (``scripts/torch_fleet_controller.py``), in
+    processes of their own at a lower CPU priority (nice 10), started beside the kernel checks
+    (the LM leg once they have built the kernels) and read after phase 23.
+    (a) ``--soak --quick``: the digits MLP fleet (its legs on the card, the straggler's two
+    fsdp2 gloo ranks on this machine's CPU) SIGKILL'd and loader-starved (restart, then the
+    prefetch tune, kept or reverted by the A/B judge), hung past its watchdog (restart) and
+    with rank 1 slowed by 60 ms a sync (``restart_excluding`` chip 1, the survivor resuming
+    alone with accum 2); every leg back to its end, every action recorded with its evidence,
+    each run's final params within 1e-4 of its uninterrupted twin's. (b) The same soak with
+    ``--max-restarts 0``: one ``refuse``, no respawn, exit 1. (c) ``--lm``: the LM entry
+    (GPT-2-small, vocab 256, T=256, batch 32, bf16, 2 epochs, deterministic algorithms)
+    under the controller, SIGKILL'd once a checkpoint past its first epoch has committed,
+    restarted (resuming from it) and run to its end, against an uninterrupted twin: final
+    params within 1e-4; K1–K3 counted in the resumed attempt and the twin, all wgmma
+    (``fleet_lm``). (d) The chip the straggler leg frees is offered
+    to a GPT-2-small replica served on ``cuda:0`` by this process: offer -> accept ->
+    ``/admin/replan {"device_ids": [0, 1]}`` -> 400 -> a recorded ``revert`` with the
+    replica's reason, re-armed, and the replica still serving (``/predict`` 200). Each leg's
+    time from the fault to the next attempt's first window, the controller's poll cost, the
+    soak's wall and the LM leg's restart to its first window are printed.
 
-The chaos soak (phase 23) and the CPU ranks of phases 26, 27 and 28 run in processes of
-their own beside the kernel checks (phases 2, 3, 10 and 7), phase 28's checks and phase
+The chaos soak (phase 23), phase 29's processes and the CPU ranks of phases 26, 27 and 28
+run in processes of their own beside the kernel checks (phases 2, 3, 10 and 7), phase 28's checks and phase
 25's memory fits, which time nothing; phase 26 then runs while the soak does (it times
 nothing against a bound either), then phase 22's parity, and the soak is read after it.
 
@@ -270,8 +290,9 @@ an EXIF orientation of 6) and decoded by the port's own decoder.
 
 ``launches_by_path`` in the kernels line has one key a path, ``eval_lm``, ``decode``,
 ``train_lm_elastic``, phase 27's ``train_lm_moe``, ``serve_moe``, ``decode_moe`` and
-``train_lm_moe_ep``, and phase 28's ``train_lm_pipe`` (one bf16 step at ``v=1``) and
-``ulysses`` (one layer's forward and backward) included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
+``train_lm_moe_ep``, phase 28's ``train_lm_pipe`` (one bf16 step at ``v=1``) and
+``ulysses`` (one layer's forward and backward), and phase 29's ``fleet_lm`` (the LM leg's
+resumed attempt) included, for every kernel entry; ``train_lm_chained`` and ``train_resnet50_chained`` are
 the launches in the profile of one replay (4 and 2 steps): the Python counters count a
 graph's launches once, at its capture.
 
@@ -5631,6 +5652,185 @@ def phase_pipe(run_dir: str, card: str, ranks=None, checks=None) -> dict:
             "wall_s": wall, "checks_wall_s": checks["wall_s"]}
 
 
+FLEET_TIMEOUT_S = 900.0
+FLEET_TOL = 1e-4  # the soak's ELASTIC_TOL: each run's final params against its twin's
+FLEET_NICE = 10
+
+
+def _fleet_replica(run_dir: str):
+    """GPT-2-small (bf16, seeded random weights) served on ``cuda:0`` in this process, with
+    its event log under ``run_dir``: the replica the fleet soak offers the freed chip to. It
+    answers no request until phase 29 reads it, so it launches nothing before."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.models import GPTSmall
+    from distributed_training_pytorch_tpu_torch.serving import InferEngine, InferenceServer, MicroBatcher
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    model = GPTSmall(vocab_size=256, dtype=torch.bfloat16, device="cuda", generator=gen).eval()
+
+    def next_token_logits(params, tokens):
+        hidden = torch.func.functional_call(model, params, (tokens,), {"return_hidden": True})
+        return hidden[:, -1].float() @ params["embed.weight"].float().T
+
+    engine = InferEngine(next_token_logits, device="cuda:0", buckets=(1,))
+    engine.swap_params(model.state_dict(), version="seed29")
+    server = InferenceServer(engine, batcher=MicroBatcher(buckets=(1,), max_delay_s=0.002), run_dir=run_dir,
+                             input_dtype="int32", process_index=0)
+    server.start()
+    return server
+
+
+def _start_fleet_process(run_dir: str, tag: str, *args):
+    """One of phase 29's processes, at nice 10 (its children too): it yields the cores to the
+    CPU ranks, the chaos soak and this process's checks, which it runs beside."""
+    cmd = ["nice", "-n", str(FLEET_NICE), sys.executable, os.path.join(REPO, "scripts", "torch_fleet_controller.py"),
+           *args, "--workdir", os.path.join(run_dir, tag)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO), \
+        time.perf_counter()
+
+
+def start_fleet_lm(run_dir: str):
+    """Phase 29's LM leg (the LM entry's GPT-2-small under the controller, and its twin), in
+    a process of its own; after the kernels' build, which its children load."""
+    return _start_fleet_process(run_dir, "lm", "--lm", "--device", "cuda", "--timeout", str(FLEET_TIMEOUT_S))
+
+
+def start_fleet(run_dir: str) -> dict:
+    """Phase 29's processes but the LM leg (:func:`start_fleet_lm`, once the kernels are
+    built): a GPT-2-small replica on ``cuda:0`` (this process), the fleet soak
+    (``scripts/torch_fleet_controller.py --soak --quick``) offering it the chip its straggler
+    leg frees, and the zero-budget soak."""
+    replica_dir = os.path.join(run_dir, "replica")
+    server = _fleet_replica(replica_dir)
+    return {"server": server, "replica_dir": replica_dir,
+            "soak": _start_fleet_process(run_dir, "soak", "--soak", "--quick", "--device", "cuda", "--serve-port",
+                                         str(server.port), "--serve-run-dir", replica_dir),
+            "zero": _start_fleet_process(run_dir, "zero", "--soak", "--quick", "--device", "cuda", "--max-restarts",
+                                         "0"),
+            "lm": None}
+
+
+def stop_fleet(fleet: dict) -> None:
+    for key in ("soak", "zero", "lm"):
+        if fleet.get(key) is not None and fleet[key][0].poll() is None:
+            fleet[key][0].kill()
+            fleet[key][0].communicate()
+    if fleet.get("server") is not None:
+        fleet["server"].close()
+
+
+def _join_fleet(started, tag: str) -> "tuple[int, dict, float]":
+    """Wait for one of phase 29's processes: its exit code, its last line's JSON and its
+    wall from its start; its other lines are logged."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=FLEET_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[fleet {tag}] {line}")
+    try:
+        result = json.loads(lines[-1]) if lines else {}
+    except ValueError:
+        result = {}
+    if not result:
+        log(f"[fleet {tag}] stderr: {err[-3000:]}")
+    return proc.returncode, result, time.perf_counter() - t0
+
+
+def phase_fleet(run_dir: str, card: str, fleet: "dict | None" = None) -> dict:
+    """The closed-loop fleet controller (phase 29). ``fleet``: what :func:`start_fleet` and
+    :func:`start_fleet_lm` started (None: start them now)."""
+    import torch
+
+    from distributed_training_pytorch_tpu_torch.telemetry import load_run_events
+
+    if fleet is None:
+        fleet = start_fleet(run_dir)
+        fleet["lm"] = start_fleet_lm(run_dir)
+    import resource
+
+    t0 = time.perf_counter()
+    server = fleet["server"]
+    joined, cpu = [], []  # each process's result; its reaped tree's CPU seconds
+    try:
+        for key in ("soak", "zero", "lm"):
+            ru = resource.getrusage(resource.RUSAGE_CHILDREN)
+            joined.append(_join_fleet(fleet[key], key))
+            after = resource.getrusage(resource.RUSAGE_CHILDREN)
+            cpu.append(after.ru_utime + after.ru_stime - ru.ru_utime - ru.ru_stime)
+        (soak_rc, soak, soak_wall), (zero_rc, zero, zero_wall), (lm_rc, lm, lm_wall) = joined
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(base + "/status", timeout=30) as resp:
+            status = json.loads(resp.read())
+        req = urllib.request.Request(base + "/predict", data=json.dumps({"inputs": [[7] * 64]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            code, answer = resp.status, json.loads(resp.read())
+    finally:
+        server.close()
+    replica_events = [e["event"] for e in load_run_events(fleet["replica_dir"])
+                      if e["event"].startswith(("offer_", "replan_", "drain_"))]
+    failures = []
+    if soak_rc != 0 or not soak.get("ok"):
+        failures.append(f"the soak failed (exit {soak_rc}): {soak.get('failures')}")
+    finals = soak.get("finals") or {}
+    if sorted(finals) != ["hung", "killed", "straggler"] or any(
+            not f or not f["max_abs_diff"] <= FLEET_TOL for f in finals.values()):
+        failures.append(f"final params against the twins: {finals}")
+    kinds = {name: row["actions"] for name, row in (soak.get("runs") or {}).items()}
+    if "restart" not in kinds.get("killed", []) or "tune" not in kinds.get("killed", []) or \
+            not {"keep", "revert"} & set(kinds.get("killed", [])) or "restart" not in kinds.get("hung", []) or \
+            "restart_excluding" not in kinds.get("straggler", []):
+        failures.append(f"the legs' actions: {kinds}")
+    offer = soak.get("offer") or []
+    refused = offer[1] if len(offer) > 1 else {}
+    if ([a["action"] for a in offer] != ["offer_chip", "revert"] or refused.get("reason") != "replan_failed"
+            or refused["params"].get("rearmed") is not True or (refused.get("evidence") or [{}])[0].get("value") != 400):
+        failures.append(f"the offer did not end in a recorded revert with the replica's 400: {offer}")
+    if replica_events != ["offer_accept"] or status.get("state") != "serving" or status.get("replans") != 0 \
+            or code != 200 or not all(math.isfinite(x) for x in answer["outputs"][0]):
+        failures.append(f"the replica after the offer: events {replica_events}, status {status.get('state')}, "
+                        f"replans {status.get('replans')}, /predict {code}")
+    if zero_rc != 1 or not zero.get("refused"):
+        failures.append(f"the zero-budget soak: exit {zero_rc}, refused {zero.get('refused')}, {zero.get('failures')}")
+    launches = lm.get("launches") or {}
+    if lm_rc != 0 or not lm.get("ok"):
+        failures.append(f"the LM leg failed (exit {lm_rc}): {lm.get('failures')}")
+    for tag in ("resumed", "twin"):
+        got = launches.get(tag) or {}
+        if not got or any(got[f"{k}/cuda_core"] for k in ("fwd", "bwd_dq", "bwd_dkv")) or not got["fwd/wgmma"] \
+                or not got["bwd_dq/wgmma"] or got["bwd_dq/wgmma"] != got["bwd_dkv/wgmma"]:
+            failures.append(f"the LM leg's {tag} launches: {got}")
+    rec, lm_rec = soak.get("recovery") or {}, (lm.get("recovery") or {})
+    log(f"[fleet] {card} | soak {soak_wall:.1f} s (its own wall {soak.get('wall_s', float('nan')):.1f} s): actions "
+        f"{kinds}; time to recover, fault to the next attempt's run_start / first window: "
+        + ", ".join(f"{k} {r.get('to_run_start_s', float('nan')):.2f} / {r.get('to_first_window_s', float('nan')):.2f} s"
+                    for k, r in rec.items())
+        + f"; straggler detected {rec.get('straggler', {}).get('detect_s', float('nan')):.2f} s after the first slowed "
+        f"sync; the controller's poll {soak.get('poll')}; tune {soak.get('tune')}; finals {finals}")
+    log(f"[fleet] {card} | CPU seconds of the process trees (user + system): soak {cpu[0]:.1f}, zero budget "
+        f"{cpu[1]:.1f}, LM leg {cpu[2]:.1f}")
+    log(f"[fleet] {card} | offer of chip 1 to the GPT-2-small replica: {[(a['action'], a['reason']) for a in offer]}; "
+        f"the replica's records {replica_events}, /status {status.get('state')} after, /predict {code}")
+    log(f"[fleet] {card} | zero budget: exit {zero_rc}, refused {zero.get('refused')}, actions "
+        f"{[a['action'] for a in zero.get('actions') or []]}, {zero_wall:.1f} s")
+    log(f"[fleet] {card} | LM leg ({lm.get('lm')}): {lm.get('run')}; "
+        f"SIGKILL to run_start / first window {lm_rec.get('from_kill')}; restart to run_start / first window "
+        f"{lm_rec.get('from_restart')}; final params vs the twin {lm.get('finals')}; launches {launches}; poll "
+        f"{lm.get('poll')}; {lm_wall:.1f} s")
+    if failures:
+        raise RuntimeError(f"[fleet] {failures}")
+    resumed = launches["resumed"]
+    return {"soak": soak, "zero": zero, "lm": lm, "soak_wall_s": soak_wall, "lm_wall_s": lm_wall, "cpu_s": cpu,
+            "launches": {k: resumed[f"{k}/wgmma"] + resumed[f"{k}/cuda_core"] for k in ("fwd", "bwd_dq", "bwd_dkv")},
+            "by_variant": launches, "wall_s": time.perf_counter() - t0}
+
+
 def run_only(names) -> int:
     """Development runs: the device phase, then only the named phases (``jpeg``, ``folder``,
     ``vgg``, ``chained``, ``resilience``, ...; ``lm`` is phase 5 then the lm_eval phase on its
@@ -5663,6 +5863,8 @@ def run_only(names) -> int:
                     phase_moe(run_dir, card)
                 elif name == "pipe":
                     phase_pipe(run_dir, card)
+                elif name == "fleet":
+                    phase_fleet(run_dir, card)
                 else:
                     phases[name](run_dir)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
@@ -5695,6 +5897,7 @@ def main() -> int:
     elastic_dir, ranks = tempfile.mkdtemp(dir=run_root), None
     expert_dir, expert_ranks = tempfile.mkdtemp(dir=run_root), None
     pipe_dir, pipe_ranks = tempfile.mkdtemp(dir=run_root), None
+    fleet_dir, fleet = tempfile.mkdtemp(dir=run_root), None
     telemetry_dir = None
     try:
         t_start = time.perf_counter()
@@ -5708,8 +5911,10 @@ def main() -> int:
         ranks = start_sharded_ranks(elastic_dir)  # phase 26's CPU ranks, in the soak's wait too
         expert_ranks = start_expert_ranks(expert_dir)  # phase 27's, beside them
         pipe_ranks = start_pipe_ranks(pipe_dir)  # phase 28's, beside them
+        fleet = start_fleet(fleet_dir)  # phase 29's soaks, beside them
         fwd_err, vit_fwd_err = phase_kernels()
         mark("kernels")
+        fleet["lm"] = start_fleet_lm(fleet_dir)  # phase 29's LM leg loads the kernels just built
         bwd_err, vit_bwd_err = phase_bwd_kernels()
         mark("bwd_kernels")
         k5_err = phase_k5()
@@ -5729,6 +5934,8 @@ def main() -> int:
         mark("chained_parity")
         resilience = phase_resilience(soak_dir, soak)
         mark("resilience")
+        fleet_phase = phase_fleet(fleet_dir, card, fleet)
+        mark("fleet")
         ring = phase_ring(card)
         mark("ring")
         jpeg = phase_jpeg(card)
@@ -5899,6 +6106,16 @@ def main() -> int:
             f"{ut['sdpa']['fwd']:.4f} / {ut['sdpa']['bwd']:.4f}, the ring (phase 11) {ring['times']['ring']['fwd']:.4f} / "
             f"{ring['times']['ring']['bwd']:.4f}; pp4 ranks update rel err {pipe['ranks']['rel']:.3e}; phase wall "
             f"{pipe['wall_s']:.1f} s")
+        fs, fl = fleet_phase["soak"], fleet_phase["lm"]
+        log(f"[times] {card} | fleet controller: soak of 3 legs and twins {fs['wall_s']:.1f} s (actions "
+            f"{ {k: r['actions'] for k, r in fs['runs'].items()} }), fault to the next attempt's first window "
+            + ", ".join(f"{k} {r.get('to_first_window_s', float('nan')):.2f} s" for k, r in fs["recovery"].items())
+            + f"; poll median {fs['poll']['median_ms']:.3f} ms (max {fs['poll']['max_ms']:.3f}) over "
+            f"{fs['poll']['sweeps']} sweeps of {fs['poll']['runs']} runs; LM leg (GPT-2-small) restart to run_start "
+            f"{fl['recovery']['from_restart'].get('to_run_start_s', float('nan')):.2f} s, to its first window "
+            f"{fl['recovery']['from_restart'].get('to_first_window_s', float('nan')):.2f} s "
+            f"({fl['recovery']['from_restart'].get('window_steps')} steps in); final params vs twin: soak "
+            f"{ {k: v['max_abs_diff'] for k, v in fs['finals'].items()} }, LM {fl['finals']['max_abs_diff']!r}")
         log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
@@ -5908,7 +6125,9 @@ def main() -> int:
             if started is not None and started[0].poll() is None:
                 started[0].kill()
                 started[0].communicate()
-        for folder in (soak_dir, elastic_dir, expert_dir, pipe_dir, telemetry_dir):
+        if fleet is not None:
+            stop_fleet(fleet)
+        for folder in (soak_dir, elastic_dir, expert_dir, pipe_dir, fleet_dir, telemetry_dir):
             if folder is not None:
                 shutil.rmtree(folder, ignore_errors=True)
     kernels = []
@@ -5942,7 +6161,11 @@ def main() -> int:
                                  "decode_moe": moe_phase["serve"]["decode_launches"][launch_key],
                                  "train_lm_moe_ep": moe_phase["ep"]["launches"][launch_key],
                                  "train_lm_pipe": pipe["train"]["launches"][launch_key],
-                                 "ulysses": pipe["ulysses"]["launches"][launch_key]},
+                                 "ulysses": pipe["ulysses"]["launches"][launch_key],
+                                 "fleet_lm": fleet_phase["launches"][launch_key]},
+            # the LM leg under the fleet controller: its resumed attempt and its twin, by variant
+            "fleet_lm_by_variant": {tag: {v: fleet_phase["by_variant"][tag][f"{launch_key}/{v}"]
+                                          for v in ("wgmma", "cuda_core")} for tag in ("resumed", "twin")},
             # the pipelined GPT-2-small's bf16 step (v=1) and one Ulysses layer's fwd + bwd, by variant
             "train_lm_pipe_by_variant": {v: pipe["train"]["by_variant"][(launch_key, v)] for v in ("wgmma", "cuda_core")},
             "ulysses_by_variant": {v: pipe["ulysses"]["by_variant"][(launch_key, v)] for v in ("wgmma", "cuda_core")},
@@ -5991,7 +6214,7 @@ def main() -> int:
                                  "train_lm_chained": 0, "train_resnet50_chained": chained["resnet_replay"][name],
                                  "train_lm_telemetry": 0, "train_lm_preflight": 0, "train_lm_elastic": 0,
                                  "train_lm_moe": 0, "serve_moe": 0, "decode_moe": 0, "train_lm_moe_ep": 0,
-                                 "train_lm_pipe": 0, "ulysses": 0},
+                                 "train_lm_pipe": 0, "ulysses": 0, "fleet_lm": 0},
             # conv1x1_bn_act: the largest error against plain over the nine bf16 shapes;
             # conv1x1_bwd_dz: over its phase A cases, where it must be bit-equal.
             "max_abs_err": err,
@@ -6030,7 +6253,8 @@ def main() -> int:
                                  "decode": lm_eval["decode_launches"][launch_key],
                                  "train_lm_chained": 0, "train_resnet50_chained": 0, "train_lm_telemetry": 0,
                                  "train_lm_preflight": 0, "train_lm_elastic": 0, "train_lm_moe": 0, "serve_moe": 0,
-                                 "decode_moe": 0, "train_lm_moe_ep": 0, "train_lm_pipe": 0, "ulysses": 0},
+                                 "decode_moe": 0, "train_lm_moe_ep": 0, "train_lm_pipe": 0, "ulysses": 0,
+                                 "fleet_lm": 0},
             "max_abs_err": k5_err[kind],
             # The 10 block launches of one causal ring layer (16 x 4096, 12 heads, 4 shards), summed.
             "ms": r["ms"],

@@ -24,8 +24,11 @@ Injection points:
 * ``"corrupt_record"``: :class:`CorruptingSource` raises ``data.records.CorruptRecordError``
   for matching record indices (the loader's skip-and-count);
 * ``"slow_chip"``: :meth:`FaultPlan.slow_chip`, a query at a sync point, not a step kind
-  (it must not send chained windows to single steps). The port's trainer does not ask it
-  yet: it belongs to the straggler telemetry of the observability slice.
+  (it must not send chained windows to single steps). The trainer asks it at each
+  ``log_every`` sync with telemetry's straggler fields on and more than one batch rank:
+  the rank named by ``payload["device"]`` (a batch rank's index, ``mesh.batch_index``,
+  since a port rank drives one device) sleeps ``payload["delay_ms"]`` before it stamps
+  its arrival, so the straggler fields name it; timing only, the numbers are untouched.
 
 Events match on exact (epoch, step) when given, fire at most ``count`` times, and the plan
 records every firing in ``fired``.

@@ -729,6 +729,7 @@ class InferenceServer:
             "drains": self.drain_count,
             "shed_total": self.shed_total,
             "chips": chips,
+            "device_ids": list(self.engine.device_ids),
             "device": str(self.engine.device),
             "requests_total": self.requests_total,
             "pending": stats["pending"],

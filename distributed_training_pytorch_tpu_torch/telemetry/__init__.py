@@ -17,7 +17,8 @@
 
 ``Trainer(telemetry="on")`` (or a :class:`Telemetry`) wires them; the entries honour
 ``TELEMETRY=1``. Off (the default) is the program without telemetry: no work is added to
-the step and no sync to the loop. The JAX package's controller comes with a later slice.
+the step and no sync to the loop. :mod:`~.controller` is the fleet controller's policy
+(pure, clock-injected); ``scripts/torch_fleet_controller.py`` is its mechanism.
 """
 
 from __future__ import annotations

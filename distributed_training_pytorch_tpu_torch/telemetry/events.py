@@ -33,6 +33,22 @@ the target's: ``name``, ``from_mesh``, ``to_mesh``, ``from_sharded_leaves``,
 ``to_sharded_leaves``), with the JAX package's fields (JAX ``events.py:21-25``); serving
 writes its own (``serving/server.py``).
 
+The ``fault_injection`` kinds include ``slow_chip``: the trainer's degraded-chip seam
+(``fault.FaultPlan.slow_chip``) fired at a ``log_every`` sync, with ``epoch``,
+``step_in_epoch``, ``device`` (the slowed batch rank's index) and ``delay_ms``.
+
+The fleet controller (``scripts/torch_fleet_controller.py`` over
+``telemetry/controller.py``) writes its own log, beside the runs it supervises: one
+``controller_action`` record per remediation, with the JAX fields (JAX ``events.py:51-60``):
+``run``, ``run_dir``, ``attempt`` and ``status``/``verdict`` of the run acted on,
+``action`` (one of ``controller.ACTION_KINDS``: ``restart``, ``restart_excluding``,
+``tune``, ``keep``, ``revert``, ``give_up``, ``refuse``, ``offer_chip``), ``reason`` (the
+triggering verdict or rule), ``message``, ``params`` (the mechanism's input and what it
+did: the knob's ``from``/``to``, the excluded chip and the re-plan, the checkpoints valid
+at a restart), ``evidence`` (the verdict or alert rows that justified it) and the budget
+state ``restarts_used``/``max_restarts``; and the ``monitor_alert`` records of the
+monitors it polls.
+
 Readers: :class:`EventFollower` (incremental, torn-line tolerant: the one parser),
 :func:`load_run_events` (the follower run to the end, for post-mortems) and
 :func:`read_events` (strict by default, for tests and gates).

@@ -734,6 +734,25 @@ class Trainer:
                 self.events.emit("fault_injection", kind=kind, **ctx)
         return batch
 
+    def _slow_chip_seam(self, epoch: int, step_in_epoch: int) -> float:
+        """The degraded-chip seam (JAX ``trainer.py:1755-1770``): a scheduled ``slow_chip``
+        fault names a "chip", which in the port is a batch rank's index (``mesh.batch_index``;
+        a rank drives one device), not a CUDA ordinal. Every rank asks the plan with every
+        batch rank's index, so the plans' budgets stay equal; the named rank sleeps the delay
+        before it stamps its arrival, and rank 0 writes the ``fault_injection`` record
+        (``kind="slow_chip"``). Timing only: the numbers are untouched. Returns the seconds
+        this rank slept."""
+        slow = self.fault_plan.slow_chip(range(self.mesh.batch_extent), epoch=epoch)
+        if slow is None:
+            return 0.0
+        chip, delay_s = slow
+        self.events.emit("fault_injection", kind="slow_chip", epoch=epoch, step_in_epoch=step_in_epoch, device=chip,
+                         delay_ms=delay_s * 1e3)
+        if chip != self.mesh.batch_index or delay_s <= 0.0:
+            return 0.0
+        time.sleep(delay_s)
+        return delay_s
+
     def _on_hung_step(self) -> None:
         """The watchdog's callback, on its thread: first a SIGTERM (the preemption save at
         the next boundary), then, if the loop is still stuck, exit 75 for a restart from
@@ -832,6 +851,7 @@ class Trainer:
             tm.tick("other")  # the epoch's preamble (validation, logging)
         rollback_fetch = skip > 0  # the first fetch after a mid-epoch resume skips trained batches
         tele_sync = [t0, 0]  # (perf_counter, executed) at the last sync point
+        arrival_start = [t0]  # where this rank's next window wall starts (telemetry/straggler.py)
         sync_compiles = [self._compile_count()]
         epoch_compiles = sync_compiles[0]
         arrivals = [None]  # the last step's per-rank window walls (telemetry/straggler.py)
@@ -856,6 +876,8 @@ class Trainer:
 
         def sync_log_point():
             nonlocal synced_entries, synced_steps
+            straggler = self._straggler_on and self.world_size > 1
+            slept = self._slow_chip_seam(epoch, step_in_epoch) if straggler and self.fault_plan is not None else 0.0
             arrive = time.perf_counter()  # this rank reaches the sync: its window's host wall ends
             n_last, last = collected[-1]
             m = {k: float(v[-1]) if n_last > 1 else float(v) for k, v in last.items()}
@@ -871,10 +893,13 @@ class Trainer:
             now = time.perf_counter()
             window_steps, window_s = executed - tele_sync[1], now - tele_sync[0]
             strag = {}
-            if self._straggler_on and self.world_size > 1:
+            if straggler:
                 if arrivals[0] is not None:
                     strag = straggler_lib.arrival_fields(arrivals[0].tolist())
-                self.engine.arrival_ms = (arrive - tele_sync[0]) * 1e3  # rides the next steps' all-reduce
+                self.engine.arrival_ms = (arrive - arrival_start[0]) * 1e3  # rides the next steps' all-reduce
+                # An injected delay stays the slowed rank's own in the next window too: the
+                # other ranks wait it out at that window's first collective.
+                arrival_start[0] = now - slept
             tele_sync[0], tele_sync[1] = now, executed
             compiles = self._compile_count()
             compiled, sync_compiles[0] = compiles > sync_compiles[0], compiles

@@ -29,7 +29,8 @@ then a fifth child runs to the end. An uninterrupted child runs the same configu
 beside them. The checks:
 
 * after every kill at least one checkpoint is valid against its manifest (a stdlib
-  re-hash of ``manifest.dtp.json``, sharing no code with the manager), and the graceful
+  re-hash of ``manifest.dtp.json``, sharing no code with the manager:
+  ``scripts/torch_ckpt_validate.py``), and the graceful
   and watchdog saves of ``last`` record the step they stopped at;
 * every resume succeeds, and the soaked run's final params are bit-exact against the
   uninterrupted run's (SHA-256 over every parameter's bytes). Both runs' children set
@@ -60,10 +61,12 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_ckpt_validate import valid_checkpoints  # noqa: E402  (the soaks' shared check)
+
 MARK = "CHAOS "
 EXIT_PREEMPTED = 3
 CHILD_TIMEOUT_S = 300.0
-MANIFEST = "manifest.dtp.json"
 DIGITS_TRAIN = 1438  # the digits entry's train split
 SIGTERM_AFTER = 4  # the graceful SIGTERM comes after the window that reaches this step
 STEP_TIMEOUT_S = 2.0  # the hung child's step_timeout (the watchdog waits it x chain_steps)
@@ -196,38 +199,6 @@ def child_stall(args) -> int:
 
 # ---------------------------------------------------------------------------
 # The parent (standard library only).
-
-
-def valid_checkpoints(weights: str) -> "list[str]":
-    """Committed checkpoints whose every manifest entry exists with its size and SHA-256."""
-    good = []
-    if not os.path.isdir(weights):
-        return good
-    for name in sorted(os.listdir(weights)):
-        path = os.path.join(weights, name)
-        if name.startswith(".") or name.endswith(".old") or not os.path.isdir(path):
-            continue
-        try:
-            with open(os.path.join(path, MANIFEST), encoding="utf-8") as f:
-                files = json.load(f)["files"]
-            ok = bool(files)
-            for rel, want in files.items():
-                fp = os.path.join(path, rel)
-                if not os.path.isfile(fp) or os.path.getsize(fp) != want["size"]:
-                    ok = False
-                    break
-                digest = hashlib.sha256()
-                with open(fp, "rb") as fh:
-                    for chunk in iter(lambda: fh.read(1 << 22), b""):
-                        digest.update(chunk)
-                if digest.hexdigest() != want["sha256"]:
-                    ok = False
-                    break
-        except (OSError, ValueError, KeyError):
-            ok = False
-        if ok:
-            good.append(name)
-    return good
 
 
 def read_meta(weights: str, name: str) -> dict:

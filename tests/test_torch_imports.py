@@ -3,9 +3,9 @@ JAX package ``distributed_training_pytorch_tpu`` (whose name is a prefix of the 
 so module names are matched exactly or by ``name + "."``), and importing it initialises
 no CUDA context and builds nothing (neither the kernels nor the native data runtime).
 ``chip_smoke.py`` and every ``scripts/torch_*.py`` (the profiles, the chaos soak, the
-readers, the perf gate, the memory probe) run where the card is, beside the port, and are
-held to the same rule; each reader script also runs there in a process that imports it
-(``--help``)."""
+readers, the perf gate, the memory probe, the fleet controller) run where the card is,
+beside the port, and are held to the same rule; each reader script and the soaks also run
+there in a process that imports them (``--help``)."""
 
 import ast
 import os
@@ -47,6 +47,8 @@ PORT_MODULES = [
     "telemetry.monitor", "telemetry.history",
     # pipeline parallelism over the pipe axis, Ulysses attention (in parallel.ring_attention)
     "parallel.pipeline", "models.pipelined_lm",
+    # the fleet controller (its mechanism is scripts/torch_fleet_controller.py)
+    "telemetry.controller",
 ]
 # The card's machine has neither OpenCV nor PIL, nor scikit-learn: the port decodes and
 # transforms images without them, and ships the digits corpus as an array of its own.
@@ -138,7 +140,7 @@ def test_no_source_of_the_port_imports_jax():
 
 
 READER_SCRIPTS = ("torch_run_doctor.py", "torch_run_monitor.py", "torch_run_compare.py", "torch_bench_history.py",
-                  "torch_perf_gate.py", "torch_memory_probe.py")
+                  "torch_perf_gate.py", "torch_memory_probe.py", "torch_chaos_soak.py", "torch_fleet_controller.py")
 
 _SCRIPT_PROBE = """
 import json, runpy, sys
